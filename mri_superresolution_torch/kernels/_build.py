@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process per
+source, all started together) and linked into one shared library under
+``build/torch_kernels/`` at the root of the checkout. The library's name
+carries a hash of the sources and flags, so an edited source is rebuilt at
+its first use and an unchanged one is loaded as it is. The library has a
+plain C interface and is loaded with ``ctypes``: pointers and the stream
+pass as ``c_void_p``, and every entry returns the launch's
+``cudaGetLastError()``, which :func:`check` turns into an exception. A
+build or launch failure raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
+# argtypes of every C entry point in csrc/
+SIGNATURES = {
+    "msr_gn_leaky_fwd": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _F, _P],
+    "msr_conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "msr_ssim_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card (CUDA toolkit required)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    cus, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cus + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libmsr_kernels_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile every source (in parallel) and link the library, unless a
+    library of the same sources exists. Returns its path; the compiler's
+    output, ptxas's register and spill report included, is kept in
+    ``build.log`` beside it."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus, _ = _sources()
+    tag = f"{lib.stem}.{os.getpid()}"
+
+    def compile_one(src: Path):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                           capture_output=True, text=True)
+        return src, obj, r
+
+    with ThreadPoolExecutor(max_workers=len(cus)) as pool:
+        results = list(pool.map(compile_one, cus))
+    log = []
+    for src, _, r in results:
+        log.append(f"== {src.name} (rc {r.returncode})\n{r.stdout}{r.stderr}")
+    failed = [src.name for src, _, r in results if r.returncode != 0]
+    if not failed:
+        tmp = BUILD_DIR / f"{tag}.so"
+        r = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                            *[str(o) for _, o, _ in results]],
+                           capture_output=True, text=True)
+        log.append(f"== link (rc {r.returncode})\n{r.stdout}{r.stderr}")
+        if r.returncode != 0:
+            failed.append("link")
+        else:
+            os.replace(tmp, lib)
+    for _, obj, _ in results:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    (BUILD_DIR / "build.log").write_text(text)
+    if failed:
+        raise RuntimeError(f"CUDA kernel build failed ({', '.join(failed)}):"
+                           f"\n{text[-6000:]}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built library, loaded once per process, with every entry's
+    argtypes and restype declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.msr_error_string.argtypes = [ctypes.c_int]
+    lib.msr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = library().msr_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
