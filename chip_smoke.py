@@ -8,16 +8,26 @@ the last line is printed:
 
 1. build: compile the CUDA kernels from ``mri_superresolution_torch/csrc``.
 2. kernels: each kernel (B1 GroupNorm+LeakyReLU, B2 SSIM, B3 narrow 3x3
-   conv) at the unet's serving shapes (16 slices of 256^2, base_filters 32,
-   bf16) against its plain PyTorch version, with the tolerance stated;
-   kernel, plain and library times by CUDA events.
+   conv, B4 leaky+int8 quantize) at the unet's serving shapes (16 slices of
+   256^2, base_filters 32, bf16) against its plain PyTorch version, with
+   the tolerance stated (B4: code for code at its 20 int8 sites); kernel,
+   plain and library times by CUDA events.
 3. main path: ``InferenceEngine`` (full-width unet, seeded random weights,
    bf16) upscales 16 synthetic 256^2 slices to 512^2 and reports metrics
    for one of them; the launch counters must show every kernel ran (B1 20
    and B3 2 per forward, B2 1 per metrics call). Then slices/s, and a
    2-slice batch on the CPU port held to the bf16 budget (|dPSNR| <= 0.1 dB,
    |dSSIM| <= 1e-3 against the same ground truth).
-4. the ``kernels`` JSON line, the card's name and power limit, and the
+4. int8 path: ``InferenceEngine(quant="int8", quant_calib_slices=16)``
+   calibrates on the 16 slices, freezes (writing its scales sidecar) and
+   serves them int8; an int8 forward must launch B4 20, B1 20 and B3 0
+   times. int8 and bf16 slices/s from this call, PSNR/SSIM of both against
+   the same ground truth, and the CPU port's int8 forward with the same
+   frozen scales on 2 slices held to |dPSNR| <= 0.1 dB.
+5. roll probe: the B5 probe's entry point (``tools/roll_probe.run``) at
+   (512, 16384): its three kernels exact against their plain versions, and
+   their times beside ``x.clone()`` and ``torch.roll``.
+6. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last.
 
 Needs one CUDA card; without one it exits 1 and prints no result.
@@ -30,6 +40,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,11 +55,17 @@ from mri_superresolution_torch.kernels import _build
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
     group_norm_leaky, group_norm_leaky_plain)
+from mri_superresolution_torch.kernels.leaky_quantize import (
+    leaky_quantize, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.ssim import (ssim_per_sample,
                                                     ssim_per_sample_plain)
 from mri_superresolution_torch.models import build_model, param_count
+from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.ops.metrics import psnr
 from mri_superresolution_torch.ops.ssim import ssim
+from mri_superresolution_torch.tools import roll_probe
+from mri_superresolution_torch.utils.phantom import phantom_batch
+from mri_superresolution_torch.utils.timing import cuda_ms
 
 # H100 SXM published peaks (dense): memory 3.35 TB/s, bf16 tensor cores
 # 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s.
@@ -56,25 +73,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
 BATCH, LR, BASE_FILTERS = 16, 256, 32
+PROBE_ROWS, PROBE_LANES = 512, 16384
+# written by the int8 engine when its scales freeze; build/ is not
+# committed
+SCALES_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+    "int8_scales.json"
 
 
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, by CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -186,28 +193,66 @@ def check_b2(dev, gen) -> dict:
             "max_abs_err": err, "bound_by": bound_by}
 
 
-def phantom_batch(rng: np.random.Generator, n: int, size: int) -> np.ndarray:
-    """Smooth synthetic slices in [0, 1]: a few random ellipses."""
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size - 0.5
-    out = np.zeros((n, size, size), np.float32)
-    for i in range(n):
-        for _ in range(6):
-            cy, cx = rng.uniform(-0.3, 0.3, 2)
-            ry, rx = rng.uniform(0.05, 0.35, 2)
-            out[i] += rng.uniform(0.1, 0.5) * (
-                ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0)
-    return np.clip(out, 0.0, 1.0)
+def b4_sites(b: int, lr: int, f: int):
+    """(site, (B, C, H, W), slope) of the int8 unet's 20 quantize sites:
+    slope 0.2 where B4 applies the LeakyReLU a DoubleConv's first
+    GroupNorm left owing, 1.0 elsewhere."""
+    sites = []
+
+    def dc(name, cin, cout, hw):
+        sites.append((f"{name}.conv1", (b, cin, hw, hw), 1.0))
+        sites.append((f"{name}.conv2", (b, cout, hw, hw), 0.2))
+
+    dc("inc", 1, f, lr)
+    for i in (1, 2, 3):
+        dc(f"down{i}", f << (i - 1), f << i, lr >> i)
+    for i in (1, 2, 3):
+        cin, hw = f << (4 - i), lr >> (3 - i)
+        sites.append((f"up{i}.up_conv", (b, cin, hw // 2, hw // 2), 1.0))
+        dc(f"up{i}.conv", cin, cin // 2, hw)      # skip + cin/2 in
+    sites.append(("final_up_conv", (b, f, 2 * lr, 2 * lr), 1.0))
+    sites.append(("final_up_pixelshuffle.conv", (b, f, lr, lr), 1.0))
+    sites.append(("final_conv1", (b, f // 2, 2 * lr, 2 * lr), 1.0))
+    return sites
 
 
-def main_path(dev) -> dict:
+def check_b4(dev, gen) -> dict:
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    bound_by, elems = "bytes", 0
+    for site, shape, slope in b4_sites(BATCH, LR, BASE_FILTERS):
+        x = torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        c = shape[1]
+        # calibration-like scales (amax / 127), a little short so that
+        # some codes saturate
+        scale = (x.float().abs().amax(dim=(0, 2, 3)) / 140.0).contiguous()
+        got = leaky_quantize(x, scale, slope)
+        ok = torch.equal(got, leaky_quantize_plain(x, scale, slope))
+        log("kernel_check", kernel="B4", site=site, shape=list(shape),
+            slope=slope, dtype="bf16->s8", exact=ok,
+            saturated=int((got.abs() == 127).sum()))
+        if not ok:
+            raise AssertionError(f"B4 disagrees with its plain version at "
+                                 f"{site} {shape}")
+        k = cuda_ms(lambda: leaky_quantize(x, scale, slope))
+        p = cuda_ms(lambda: leaky_quantize_plain(x, scale, slope))
+        # one read of x (bf16) and the scales, one write of the codes; ~6
+        # fp32 operations an element (compare, mul, div, round, 2 clamps)
+        bnd, bound_by = bound_ms(3 * x.numel() + 4 * c, 6.0 * x.numel(),
+                                 torch.float32)
+        log("kernel_time", kernel="B4", site=site, shape=list(shape),
+            kernel_ms=k, plain_ms=p, library_ms=None, bound_ms=bnd)
+        for key, v in (("ms", k), ("plain_ms", p), ("bound_ms", bnd)):
+            tot[key] += v
+        elems += x.numel()
+        del x, got
+    log("kernel_total", kernel="B4", sites=20, elements=elems, **tot)
+    return {**tot, "library_ms": None, "max_abs_err": 0.0,
+            "bound_by": bound_by}
 
-    cfg = ModelConfig(base_filters=BASE_FILTERS)
-    params = build_model(cfg, generator=torch.Generator().manual_seed(0)
-                         ).state_dict()
+
+def main_path(dev, cfg, params, lr, hr):
     engine = InferenceEngine(cfg, params, bf16=True, device=dev)
-    rng = np.random.default_rng(0)
-    lr = phantom_batch(rng, BATCH, LR)
-    hr = phantom_batch(np.random.default_rng(0), BATCH, 2 * LR)
     engine.upscale_batch(lr[:2])                    # load the library, warm
 
     kernels.reset_launch_counts()
@@ -220,7 +265,8 @@ def main_path(dev) -> dict:
             or out.min() < 0.0 or out.max() > 1.0:
         raise AssertionError(f"bad output: shape {out.shape}, range "
                              f"[{out.min()}, {out.max()}]")
-    want = {"group_norm_leaky": 20, "conv3x3": 2, "ssim_per_sample": 1}
+    want = dict.fromkeys(counts, 0)
+    want.update(group_norm_leaky=20, conv3x3=2, ssim_per_sample=1)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
 
@@ -249,7 +295,93 @@ def main_path(dev) -> dict:
     if not ok:
         raise AssertionError("GPU and CPU ports differ beyond the bf16 "
                              "budget")
+    return counts, engine
+
+
+def _quality(out: np.ndarray, gt: np.ndarray) -> dict:
+    o = torch.from_numpy(np.ascontiguousarray(out)[..., None])
+    g = torch.from_numpy(np.ascontiguousarray(gt)[..., None])
+    return {"psnr_db": float(psnr(o, g)), "ssim": float(ssim(o, g))}
+
+
+def int8_path(dev, cfg, params, lr, hr, bf16_engine) -> dict:
+    SCALES_PATH.parent.mkdir(parents=True, exist_ok=True)
+    SCALES_PATH.unlink(missing_ok=True)
+    engine = InferenceEngine(cfg, params, bf16=True, device=dev,
+                             quant="int8", quant_calib_slices=BATCH,
+                             quant_calib_path=str(SCALES_PATH))
+    first = engine.upscale_batch(lr)     # calibrates, freezes, serves int8
+    log("int8_calibrate", batches=dict(engine._quant_batches),
+        calib_slices=engine._calib_seen, frozen=not engine.quant_calibrating,
+        sidecar=SCALES_PATH.exists(), summary=engine.quant_summary())
+    if engine._quant_batches != {"int8": 1, "bf16": 0} or \
+            engine.quant_calibrating or not SCALES_PATH.exists():
+        raise AssertionError("the int8 engine did not calibrate, freeze and "
+                             "re-serve the batch int8")
+    names = [s for s, _ in quant_forward.quant_sites(engine._params)]
+    if names != [s for s, _, _ in b4_sites(BATCH, LR, BASE_FILTERS)]:
+        raise AssertionError("b4_sites does not list the int8 sites")
+
+    kernels.reset_launch_counts()
+    out = engine.upscale_batch(lr)
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(group_norm_leaky=20, leaky_quantize=20)
+    bf16_out = bf16_engine.upscale_batch(lr)
+    q_int8, q_bf16 = _quality(out, hr), _quality(bf16_out, hr)
+    log("int8_path", slices=BATCH, launches=counts,
+        output=list(out.shape[1:]), int8_vs_gt=q_int8, bf16_vs_gt=q_bf16,
+        mean_abs_int8_vs_bf16=float(np.abs(out - bf16_out).mean()),
+        same_as_first=bool(np.array_equal(out, first)))
+    if counts != want:
+        raise AssertionError(f"int8 launch counts {counts}, expected {want}")
+    if out.shape != (BATCH, 2 * LR, 2 * LR) or not np.isfinite(out).all() \
+            or out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError(f"bad int8 output: shape {out.shape}")
+
+    # serving rates of both engines in this call, in turns
+    iters = 10
+    t = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        eng = bf16_engine if name == "bf16" else engine
+        t[name].append(cuda_ms(lambda: eng.upscale_batch(lr), iters=iters,
+                               warmup=2))
+    fwd = {name: cuda_ms(lambda: eng._dispatch_once(lr), iters=iters,
+                         warmup=2)
+           for name, eng in (("bf16", bf16_engine), ("int8", engine))}
+    rates = {name: BATCH / (sum(v) / len(v)) * 1e3 for name, v in t.items()}
+    log("int8_throughput", batch=BATCH, ms_per_batch=t,
+        slices_per_s=rates, forward_ms_per_batch=fwd,
+        forward_slices_per_s={k: BATCH / v * 1e3 for k, v in fwd.items()},
+        int8_over_bf16=rates["int8"] / rates["bf16"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # the CPU port's int8 forward with the card's frozen scales
+    cpu = InferenceEngine(cfg, params, bf16=True, device="cpu",
+                          quant="int8", quant_calib_path=str(SCALES_PATH))
+    out_cpu = cpu.upscale_batch(lr[:2])
+    g, c = _quality(out[:2], hr[:2]), _quality(out_cpu, hr[:2])
+    d_psnr = abs(g["psnr_db"] - c["psnr_db"])
+    ok = d_psnr <= 0.1 and cpu._quant_batches == {"int8": 1, "bf16": 0}
+    log("int8_cpu_vs_gpu", slices=2, d_psnr_db=d_psnr,
+        d_ssim=abs(g["ssim"] - c["ssim"]),
+        mean_abs_diff=float(np.abs(out[:2] - out_cpu).mean()),
+        max_abs_diff=float(np.abs(out[:2] - out_cpu).max()), ok=ok)
+    if not ok:
+        raise AssertionError("GPU and CPU int8 ports differ beyond the bf16 "
+                             "budget")
     return counts
+
+
+def probe_path(dev) -> tuple:
+    kernels.reset_launch_counts()
+    res = roll_probe.run(PROBE_ROWS, PROBE_LANES, dev)
+    counts = kernels.launch_counts()
+    log("roll_probe", rows=PROBE_ROWS, lanes=PROBE_LANES, results=res,
+        launches={k: counts[k] for k in ("roll_copy", "roll32", "taps3")})
+    if not all(counts[k] > 0 for k in ("roll_copy", "roll32", "taps3")):
+        raise AssertionError(f"the probe launched no kernel: {counts}")
+    return res, counts
 
 
 def main() -> int:
@@ -276,30 +408,51 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {"B1": check_b1(dev, gen), "B3": check_b3(dev, gen),
-               "B2": check_b2(dev, gen)}
-    counts = main_path(dev)
+               "B2": check_b2(dev, gen), "B4": check_b4(dev, gen)}
+    cfg = ModelConfig(base_filters=BASE_FILTERS)
+    params = build_model(cfg, generator=torch.Generator().manual_seed(0)
+                         ).state_dict()
+    lr = phantom_batch(np.random.default_rng(0), BATCH, LR)
+    hr = phantom_batch(np.random.default_rng(0), BATCH, 2 * LR)
+    counts, bf16_engine = main_path(dev, cfg, params, lr, hr)
+    counts_int8 = int8_path(dev, cfg, params, lr, hr, bf16_engine)
+    probe, counts_probe = probe_path(dev)
 
+    torch_root = "mri_superresolution_torch/csrc/"
+    tpu_root = "mri_superresolution_tpu/experiments/"
     meta = {
-        "B1": ("group_norm_leaky", "mri_superresolution_torch/csrc/"
-               "groupnorm_leaky.cu", "mri_superresolution_tpu/experiments/"
-               "groupnorm_pallas.py:167"),
-        "B2": ("ssim_per_sample", "mri_superresolution_torch/csrc/"
-               "ssim_fused.cu", "mri_superresolution_tpu/experiments/"
-               "ssim_pallas.py:75"),
-        "B3": ("conv3x3", "mri_superresolution_torch/csrc/"
-               "conv3x3_narrow.cu", "mri_superresolution_tpu/experiments/"
-               "conv_pallas.py:107"),
+        "B1": ("group_norm_leaky", torch_root + "groupnorm_leaky.cu",
+               tpu_root + "groupnorm_pallas.py:167", counts),
+        "B2": ("ssim_per_sample", torch_root + "ssim_fused.cu",
+               tpu_root + "ssim_pallas.py:75", counts),
+        "B3": ("conv3x3", torch_root + "conv3x3_narrow.cu",
+               tpu_root + "conv_pallas.py:107", counts),
+        "B4": ("leaky_quantize", torch_root + "leaky_quantize.cu",
+               "tools/bench_int8_probe4.py:57", counts_int8),
     }
     rows = []
-    for key in ("B1", "B2", "B3"):
-        name, source, replaces = meta[key]
+    for key in ("B1", "B2", "B3", "B4"):
+        name, source, replaces, launches = meta[key]
         r = results[key]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
+                     "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+    probe_bound, _ = bound_ms(2 * PROBE_ROWS * PROBE_LANES * 2, 0.0,
+                              torch.bfloat16)
+    for name, wrapper in (("copy", "roll_copy"), ("roll32", "roll32"),
+                          ("taps3", "taps3")):
+        r = probe[name]
+        rows.append({"name": wrapper, "route": "cuda",
+                     "source": torch_root + "roll_probe.cu",
+                     "replaces": "tools/bench_roll_probe.py:98",
+                     "launches": counts_probe[wrapper], "max_abs_err": 0.0,
+                     "ms": r["us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
+                     "bound_ms": probe_bound, "bound_by": "bytes",
+                     "library_ms": None if r["library_us"] is None
+                     else r["library_us"] / 1e3})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

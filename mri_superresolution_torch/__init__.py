@@ -2,11 +2,14 @@
 super-resolution framework, for one NVIDIA H100.
 
 It serves the parity ``unet`` (``UNetSuperRes``, bf16 compute on fp32
-params) through ``infer.InferenceEngine``. The three hot operations of that
-path run as hand-written CUDA kernels (``kernels/``, sources in ``csrc/``):
-fused GroupNorm+LeakyReLU, the narrow-Cout 3x3 conv and the fused SSIM.
-Each kernel keeps a plain PyTorch version beside it, which the wrapper uses
-for CPU tensors only.
+params) through ``infer.InferenceEngine``, in bf16 or, with
+``quant="int8"``, as the int8 post-training-quantized forward of
+``models/quant_forward.py``. The hot operations of those paths run as
+hand-written CUDA kernels (``kernels/``, sources in ``csrc/``): fused
+GroupNorm+LeakyReLU, the narrow-Cout 3x3 conv, the fused SSIM and the
+fused LeakyReLU+int8 quantize; the roll/stencil probe of
+``tools/roll_probe.py`` has three more. Each kernel keeps a plain PyTorch
+version beside it, which the wrapper uses for CPU tensors only.
 
 The package imports torch and nothing of JAX. Importing a module neither
 initialises CUDA nor imports triton; kernels are built at first use.

@@ -2,6 +2,7 @@
 
     python -m mri_superresolution_torch.cli.infer --input lr.png \
         --output sr.png [--target hr.png] [--checkpoint_dir ./checkpoints]
+        [--quant int8 [--quant_calib scales.json]]
 
 Takes the flags of the JAX package's ``scripts/infer.py`` (reference
 scripts/infer.py:452-486). Runs on the card; ``--cpu`` runs on the CPU.
@@ -42,10 +43,19 @@ def parse_args(argv=None):
                         help='Pad inputs to a multiple of this (1 = native '
                              'size, GroupNorm-exact)')
     parser.add_argument('--quant', type=str, choices=['none', 'int8'],
-                        default='none')
-    parser.add_argument('--quant_calib_slices', type=int, default=1)
+                        default='none',
+                        help='int8 PTQ serving: per-channel scales self-'
+                             'calibrated on this image, then the int8 '
+                             'forward produces the output')
+    parser.add_argument('--quant_calib_slices', type=int, default=1,
+                        help='slices of streaming calibration before int8 '
+                             'serving starts (single-image default: 1, so '
+                             'the output IS int8-served)')
     parser.add_argument('--quant_calib', type=str, default=None,
-                        metavar='PATH')
+                        metavar='PATH',
+                        help='JSON sidecar of frozen int8 scales: loaded if '
+                             'it exists (int8 from the first batch), '
+                             'otherwise written after self-calibration')
     parser.add_argument('--tta', action='store_true')
     parser.add_argument('--artifact', type=str, default=None)
     return parser.parse_args(argv)
@@ -54,8 +64,6 @@ def parse_args(argv=None):
 def unsupported(args) -> list:
     """Messages for the flags this port does not serve yet."""
     msgs = []
-    if args.quant != 'none':
-        msgs.append(f"--quant {args.quant} is not ported yet (ROADMAP A11)")
     if args.tta:
         msgs.append("--tta is not ported yet (ROADMAP A9)")
     if args.artifact:
@@ -85,7 +93,9 @@ def main(argv=None) -> int:
                               base_filters=args.base_filters),
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_path=args.checkpoint_path,
-            bf16=not args.no_bf16, bucket=args.bucket)
+            bf16=not args.no_bf16, bucket=args.bucket, quant=args.quant,
+            quant_calib_slices=args.quant_calib_slices,
+            quant_calib_path=args.quant_calib)
         engine = load_engine(cfg, device="cpu" if args.cpu else None)
         fig_path = args.save_figure
         if (args.show_comparison or args.show_diff) and not fig_path:
@@ -97,6 +107,8 @@ def main(argv=None) -> int:
             show_comparison=args.show_comparison,
             show_diff=args.show_diff,
             save_figures_to=fig_path)
+        if args.quant != 'none':
+            logger.info(engine.quant_summary())
         logger.info("Inference completed successfully!")
         return 0
     except Exception as e:  # the CLI boundary: report and exit 1

@@ -32,6 +32,14 @@ class InferConfig:
     # Spatial shape bucket: inputs are zero-padded to a multiple of this
     # before the forward. 1 = native sizes (GroupNorm-exact, default).
     bucket: int = 1
+    # "int8": post-training-quantized serving (models/quant_forward.py),
+    # self-calibrated on the first content-rich slices; "none": bf16.
+    quant: str = "none"
+    # streaming self-calibration length in real slices
+    quant_calib_slices: int = 8
+    # JSON sidecar of frozen int8 scales: loaded if it exists, else
+    # written when calibration freezes
+    quant_calib_path: Optional[str] = None
 
 
 def model_config_from_dict(data: dict) -> ModelConfig:

@@ -10,6 +10,12 @@ Each batch is zero-padded to the shape bucket on the host, uploaded,
 run through the bf16 (or fp32) unet, clamped, cropped to exactly 2x the
 input and, for uint8/int16 ``out_dtype``, packed on the card before the
 fetch. The engine runs on the card unless ``device="cpu"`` is passed.
+
+``quant="int8"`` serves the int8 post-training-quantized unet
+(``models/quant_forward.py``) with the JAX engine's state machine
+(``infer/engine.py:371-467`` there): streaming self-calibration on
+content-rich batches, then frozen scales (saved to ``quant_calib_path`` if
+given, or loaded from it), and near-empty batches on the bf16 model.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ from mri_superresolution_torch.config import (InferConfig, ModelConfig,
                                               model_config_from_dict)
 from mri_superresolution_torch.kernels import ssim_per_sample
 from mri_superresolution_torch.models import build_model
+from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.ops.functional import pack_unit
 from mri_superresolution_torch.ops.metrics import mae, match_histograms_np, mse
+from mri_superresolution_torch.ops.quant import FOREGROUND_INTENSITY
 from mri_superresolution_torch.ops.resize import Interp, resize
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.utils.device import resolve_device
@@ -56,7 +64,7 @@ def _round_up(n: int, m: int) -> int:
 
 # Serving options of the JAX engine that later slices port, with the
 # ROADMAP item that carries each.
-_LATER = {"tta": "A9", "quant": "A11", "spatial_shards": "A14",
+_LATER = {"tta": "A9", "spatial_shards": "A14",
           "normalize_inputs": "A4", "transpose_io": "A4"}
 
 
@@ -67,16 +75,34 @@ class InferenceEngine:
     def __init__(self, model_cfg: ModelConfig, params: Dict[str, torch.Tensor],
                  bf16: bool = True, bucket: int = 1, out_dtype=None,
                  device=None, tta: bool = False, quant: str = "none",
+                 quant_calib_slices: int = 8,
+                 quant_min_foreground: float = 0.05,
+                 quant_calib_path: Optional[str] = None,
                  spatial_shards: int = 1, normalize_inputs: bool = False,
                  transpose_io: bool = False):
-        asked = {"tta": tta, "quant": quant != "none",
-                 "spatial_shards": spatial_shards != 1,
+        if normalize_inputs and quant == "int8":
+            raise ValueError(
+                "normalize_inputs is incompatible with --quant int8: the "
+                "engine's content-aware routing reads normalized [0,1] "
+                "pixels on the host; normalize on the host for int8 "
+                "serving")
+        asked = {"tta": tta, "spatial_shards": spatial_shards != 1,
                  "normalize_inputs": normalize_inputs,
                  "transpose_io": transpose_io}
         for name, on in asked.items():
             if on:
                 raise NotImplementedError(
                     f"{name} is not ported yet (ROADMAP {_LATER[name]})")
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant mode {quant!r}")
+        if quant == "int8":
+            if not quant_forward.supported(model_cfg.model_type):
+                raise ValueError(
+                    f"--quant int8 supports model types "
+                    f"{quant_forward.supported_types()}, not "
+                    f"{model_cfg.model_type!r}")
+            if quant_calib_slices < 1:
+                raise ValueError("quant_calib_slices must be >= 1")
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.out_dtype = np.dtype(out_dtype if out_dtype is not None
@@ -90,6 +116,106 @@ class InferenceEngine:
         self.model.to(self.device).eval()
         self.bucket = bucket
 
+        self.quant = quant
+        self.quant_calib_path = quant_calib_path
+        self.quant_calib_slices = quant_calib_slices
+        self.quant_min_foreground = quant_min_foreground
+        # views of the model's params, for the functional forwards
+        self._params = self.model.state_dict()
+        self._quant_scales = None    # frozen per-site scales; None while
+        #                              calibrating
+        self._quant_fwd = None       # int8 forward, built on freeze
+        self._calib_amax: Dict[str, np.ndarray] = {}
+        self._calib_seen = 0         # real (unpadded) slices calibrated on
+        self._quant_batches = {"int8": 0, "bf16": 0}
+        if (quant == "int8" and quant_calib_path
+                and os.path.exists(quant_calib_path)):
+            # deterministic serving: reuse frozen scales instead of
+            # re-calibrating on whatever data arrives first
+            scales, saved_type = quant_forward.load_scales(quant_calib_path)
+            if saved_type != model_cfg.model_type:
+                raise ValueError(
+                    f"{quant_calib_path} holds scales for model type "
+                    f"{saved_type!r}, not {model_cfg.model_type!r}")
+            self._build_int8(scales)
+            logger.info(f"int8 PTQ: loaded {len(scales)} frozen activation "
+                        f"scales from {quant_calib_path}; serving int8 from "
+                        "the first batch")
+
+    def _build_int8(self, scales) -> None:
+        """Freeze ``scales`` into the int8 forward (validates that they
+        cover every site)."""
+        self._quant_fwd = quant_forward.build_int8_forward(
+            self._params, scales, self.model_cfg.model_type,
+            dtype=self._dtype)
+        self._quant_scales = scales
+
+    def _quant_upscale(self, x: torch.Tensor, n_real_slices: int,
+                       foreground_frac: float) -> torch.Tensor:
+        """int8 PTQ serving with streaming self-calibration. Content-rich
+        batches run the bf16 calib forward, which records each conv site's
+        per-input-channel max |x|, until ``quant_calib_slices`` real slices
+        have been seen; then the scales freeze and later batches run int8.
+        A batch that completes calibration by itself is re-served int8 (so
+        a one-image ``--quant int8`` run gives int8 output).
+
+        ``foreground_frac`` is taken on the real pixels, before zero
+        padding. Batches below ``quant_min_foreground`` neither calibrate
+        nor run int8: they serve on the bf16 model, where int8 noise would
+        dominate their small error."""
+        if foreground_frac < self.quant_min_foreground:
+            self._quant_batches["bf16"] += 1
+            return self.model(x)
+        if self._quant_scales is None:
+            first = self._calib_seen == 0
+            y, amax = quant_forward.build_calib_forward(
+                self.model_cfg.model_type, dtype=self._dtype)(self._params, x)
+            for k, v in amax.items():
+                v = v.cpu().numpy()
+                self._calib_amax[k] = (np.maximum(self._calib_amax[k], v)
+                                       if k in self._calib_amax else v)
+            self._calib_seen += max(n_real_slices, 1)
+            if self._calib_seen < self.quant_calib_slices:
+                logger.info(f"int8 PTQ: calibrating "
+                            f"({self._calib_seen}/{self.quant_calib_slices} "
+                            "slices seen); serving bf16 meanwhile")
+                self._quant_batches["bf16"] += 1
+                return y
+            scales = quant_forward.scales_from_amax(self._calib_amax)
+            logger.info(f"int8 PTQ: froze {len(scales)} activation scales "
+                        f"after {self._calib_seen} calibration slice(s)")
+            self._build_int8(scales)
+            if self.quant_calib_path:
+                quant_forward.save_scales(self.quant_calib_path, scales,
+                                          self.model_cfg.model_type)
+                logger.info(f"int8 PTQ: saved frozen scales to "
+                            f"{self.quant_calib_path}; later runs serve "
+                            "int8 from the first batch")
+            if not first:
+                # this batch has its bf16 result already; int8 starts
+                # with the next one
+                self._quant_batches["bf16"] += 1
+                return y
+        self._quant_batches["int8"] += 1
+        return self._quant_fwd(self._params, x)
+
+    @property
+    def quant_calibrating(self) -> bool:
+        """True while int8 self-calibration still counts slices (scales
+        not frozen yet)."""
+        return self.quant == "int8" and self._quant_scales is None
+
+    def quant_summary(self) -> str:
+        """One-line serving account for a CLI to log after a --quant run."""
+        c = self._quant_batches
+        state = ("scales frozen" if self._quant_scales is not None else
+                 f"calibration INCOMPLETE "
+                 f"({self._calib_seen}/{self.quant_calib_slices} slices — "
+                 "all batches were served bf16; lower --quant_calib_slices "
+                 "or serve more data)")
+        return (f"int8 PTQ summary: {c['int8']} batch(es) served int8, "
+                f"{c['bf16']} bf16 (calibration/near-empty routing); {state}")
+
     def _bucket_hw(self, h: int, w: int) -> Tuple[int, int]:
         return (_round_up(max(h, 8), self.bucket),
                 _round_up(max(w, 8), self.bucket))
@@ -102,7 +228,13 @@ class InferenceEngine:
         x = np.zeros((max(n, 1), bh, bw, 1), np.float32)
         x[:n, :h, :w, 0] = batch
         with torch.inference_mode():
-            y = self.model(torch.from_numpy(x).to(self.device))
+            xd = torch.from_numpy(x).to(self.device)
+            if self.quant == "int8":
+                y = self._quant_upscale(
+                    xd, n, float((np.abs(batch) > FOREGROUND_INTENSITY)
+                                 .mean()))
+            else:
+                y = self.model(xd)
             y = y.clamp(0.0, 1.0)[:n, :2 * h, :2 * w, 0]
             return pack_unit(y, self.out_dtype)
 
@@ -261,5 +393,16 @@ def load_engine(cfg: InferConfig, device=None) -> InferenceEngine:
         model_cfg = model_config_from_dict(mc)
         logger.info(f"Model hyperparams from checkpoint: "
                     f"base_filters={model_cfg.base_filters}")
+    quant_calib_path = cfg.quant_calib_path
+    if cfg.quant == "int8" and not quant_calib_path:
+        # a QAT checkpoint carries its frozen scales beside it: serve with
+        # the scales it trained against instead of re-calibrating
+        sidecar = ckpt.calib_sidecar_path(path)
+        if os.path.exists(sidecar):
+            quant_calib_path = sidecar
+            logger.info(f"Found QAT calibration sidecar {sidecar}; "
+                        f"serving with the trained activation scales")
     return InferenceEngine(model_cfg, params, bf16=cfg.bf16,
-                           bucket=cfg.bucket, device=device)
+                           bucket=cfg.bucket, device=device, quant=cfg.quant,
+                           quant_calib_slices=cfg.quant_calib_slices,
+                           quant_calib_path=quant_calib_path)

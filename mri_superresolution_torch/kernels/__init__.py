@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the serving path (sources in ``csrc/``).
+"""Hand-written CUDA kernels of the port (sources in ``csrc/``).
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version in the same module, and counts its kernel launches in
@@ -9,9 +9,14 @@ time: ``_build.library()`` compiles at first use.
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3  # noqa: F401
 from mri_superresolution_torch.kernels.groupnorm import (  # noqa: F401
     group_norm_leaky)
+from mri_superresolution_torch.kernels.leaky_quantize import (  # noqa: F401
+    leaky_quantize)
+from mri_superresolution_torch.kernels.roll_probe import (  # noqa: F401
+    roll32, roll_copy, taps3)
 from mri_superresolution_torch.kernels.ssim import ssim_per_sample  # noqa: F401
 
-WRAPPERS = (group_norm_leaky, conv3x3, ssim_per_sample)
+WRAPPERS = (group_norm_leaky, conv3x3, ssim_per_sample, leaky_quantize,
+            roll_copy, roll32, taps3)
 
 
 def reset_launch_counts() -> None:

@@ -38,6 +38,10 @@ SIGNATURES = {
                          _I, _I, _F, _F, _P],
     "msr_conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "msr_ssim_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "msr_leaky_quantize": [_P, _P, _P, _LL, _I, _I, _I, _F, _P],
+    "msr_probe_copy": [_P, _P, _I, _I, _P],
+    "msr_probe_roll32": [_P, _P, _I, _I, _P],
+    "msr_probe_taps3": [_P, _P, _I, _I, _P],
 }
 
 

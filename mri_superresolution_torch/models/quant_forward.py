@@ -1,0 +1,284 @@
+"""Functional unet forward with int8 post-training quantization.
+
+An own port of the JAX package's ``models/quant_forward.py`` for the
+``unet`` family (the other families come with ROADMAP A8; ``supported()``
+says so). It takes the port's state_dict (``UNetSuperRes.state_dict()``,
+fp32 tensors on the serving device) and runs every conv site in one of
+three modes that share one code path:
+
+- ``ref``   the bf16 forward, bit-identical to ``UNetSuperRes.forward``
+            (the same functions and kernels in the same order;
+            tests/test_torch_quant.py asserts it);
+- ``calib`` ``ref`` plus each conv input's per-channel max |x|, from which
+            the static activation scales come;
+- ``int8``  s8 x s8 -> s32 convs (``ops/quant.int8_conv``) with the
+            per-input-channel activation scales folded into per-Cout weight
+            scales.
+
+In ``int8`` mode every quantized site's input goes through kernel B4
+(``kernels.leaky_quantize``), 20 per forward. At the seven DoubleConv
+``conv2`` sites the GroupNorm before it runs through B1 with slope 1.0 (the
+affine and one cast to bf16) and B4 applies the LeakyReLU in bf16 and
+quantizes, which is the JAX dataflow (GroupNorm cast to bf16, bf16
+leaky_relu, quantize). The other 13 sites quantize with slope 1.0. The
+output head (``final_conv.3``, site ``__out__``) stays bf16, as in JAX; so
+``final_up_conv`` and ``final_conv1`` run int8 there and not on kernel B3.
+Launches per forward: ``ref``/``calib`` B1 20 and B3 2; ``int8`` B1 20 and
+B4 20.
+
+Calibration sidecars (``save_scales``/``load_scales``, format
+``int8-ptq-scales-v1``) are byte-compatible with the JAX package's, so each
+package reads the other's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mri_superresolution_torch.kernels import (conv3x3, group_norm_leaky,
+                                               leaky_quantize)
+from mri_superresolution_torch.models.unet import CL, _conv, _upsample2
+from mri_superresolution_torch.ops.functional import (GN_EPS, max_pool2,
+                                                      pixel_shuffle)
+from mri_superresolution_torch.ops.quant import int8_conv, weight_qparams
+
+SCALES_FORMAT = "int8-ptq-scales-v1"
+_SLOPE = 0.2
+_GROUPS = 8
+OUT_SITE = "__out__"
+
+
+class _Ctx:
+    """Per-forward context: mode, frozen scales and int8 weights, and the
+    calibration maxima this forward records."""
+
+    def __init__(self, mode: str = "ref", scales=None, qweights=None):
+        if mode not in ("ref", "calib", "int8"):
+            raise ValueError(f"unknown mode {mode!r}")
+        self.mode = mode
+        self.scales = scales or {}
+        self.qweights = qweights or {}
+        self.amax: Dict[str, torch.Tensor] = {}
+
+
+def _gn(sd, prefix, x, residual=None, slope=_SLOPE):
+    return group_norm_leaky(x, sd[f"{prefix}.weight"], sd[f"{prefix}.bias"],
+                            residual=residual, n_groups=_GROUPS,
+                            negative_slope=slope, eps=GN_EPS)
+
+
+def _gn_into_site(ctx, sd, prefix, x):
+    """GroupNorm + LeakyReLU whose output feeds a conv site directly.
+    Returns (y, slope the site's quantize still has to apply): in int8 mode
+    the LeakyReLU is left to B4, so that it runs in bf16 after the cast."""
+    if ctx.mode == "int8":
+        return _gn(sd, prefix, x, slope=1.0), _SLOPE
+    return _gn(sd, prefix, x), 1.0
+
+
+def _site(ctx, site, x, weight, dtype, bias=None, padding=1, slope=1.0,
+          narrow=False):
+    """The conv at ``site`` on its input ``x``. ``slope`` is the LeakyReLU
+    still owed on ``x`` (int8 mode only); ``narrow`` sites run kernel B3
+    in bf16 (padding 1, no bias)."""
+    if ctx.mode == "int8" and site != OUT_SITE:
+        qk, sk = ctx.qweights[site]
+        q = leaky_quantize(x.contiguous(memory_format=CL), ctx.scales[site],
+                           slope)
+        return int8_conv(q, qk, sk, bias=bias, padding=padding,
+                         out_dtype=x.dtype)
+    if ctx.mode == "calib" and site != OUT_SITE:
+        ctx.amax[site] = x.abs().amax(dim=(0, 2, 3)).float()
+    if narrow:
+        return conv3x3(x, weight.to(dtype))
+    return _conv(x, weight, dtype, bias, padding=padding)
+
+
+def _double_conv(ctx, sd, site, prefix, x, dtype):
+    """DoubleConv (models/unet.py): conv -> GN+leaky -> conv -> GN+leaky,
+    the residual added inside the second GN kernel when channels match."""
+    p = f"{prefix}.double_conv"
+    y = _site(ctx, f"{site}.conv1", x, sd[f"{p}.0.weight"], dtype)
+    y, owed = _gn_into_site(ctx, sd, f"{p}.1", y)
+    y = _site(ctx, f"{site}.conv2", y, sd[f"{p}.3.weight"], dtype,
+              slope=owed)
+    res = x if x.shape[1] == y.shape[1] else None
+    return _gn(sd, f"{p}.4", y, residual=res)
+
+
+def _up_block(ctx, sd, i, x1, x2, dtype):
+    """Up (models/unet.py): 1x1 conv before the bilinear 2x upsample,
+    GN+leaky, pad-to-match, skip concat, DoubleConv."""
+    y = _site(ctx, f"up{i}.up_conv", x1, sd[f"up{i}.up.1.weight"], dtype,
+              padding=0)
+    y = _gn(sd, f"up{i}.up.2", _upsample2(y))
+    dy = x2.shape[2] - y.shape[2]
+    dx = x2.shape[3] - y.shape[3]
+    if dy or dx:
+        y = F.pad(y, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
+    x = torch.cat([x2, y], dim=1).contiguous(memory_format=CL)
+    return _double_conv(ctx, sd, f"up{i}.conv", f"up{i}.conv", x, dtype)
+
+
+def _forward_unet(ctx, sd, x, dtype):
+    """Mirrors UNetSuperRes.forward (models/unet.py). x: (B, H, W, 1)."""
+    x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=CL)
+    x1 = _double_conv(ctx, sd, "inc", "inc", x, dtype)
+    x2 = _double_conv(ctx, sd, "down1", "down1.maxpool_conv.1",
+                      max_pool2(x1).contiguous(memory_format=CL), dtype)
+    x3 = _double_conv(ctx, sd, "down2", "down2.maxpool_conv.1",
+                      max_pool2(x2).contiguous(memory_format=CL), dtype)
+    x4 = _double_conv(ctx, sd, "down3", "down3.maxpool_conv.1",
+                      max_pool2(x3).contiguous(memory_format=CL), dtype)
+    y = _up_block(ctx, sd, 1, x4, x3, dtype)
+    y = _up_block(ctx, sd, 2, y, x2, dtype)
+    y = _up_block(ctx, sd, 3, y, x1, dtype)
+
+    # dual-branch final 2x upsample
+    yb = _site(ctx, "final_up_conv", _upsample2(y),
+               sd["final_up_bilinear.1.weight"], dtype, narrow=True)
+    yb = _gn(sd, "final_up_bilinear.2", yb)
+    yp = _site(ctx, "final_up_pixelshuffle.conv", y,
+               sd["final_up_pixelshuffle.conv.weight"], dtype,
+               bias=sd["final_up_pixelshuffle.conv.bias"])
+    yp = _gn(sd, "final_up_pixelshuffle.norm",
+             pixel_shuffle(yp, 2).contiguous(memory_format=CL))
+    w = torch.sigmoid(sd["alpha"]).to(dtype).reshape(())
+    y = w * yb + (1.0 - w) * yp
+
+    y = _site(ctx, "final_conv1", y.contiguous(memory_format=CL),
+              sd["final_conv.0.weight"], dtype, narrow=True)
+    y = _gn(sd, "final_conv.1", y)
+    # the output head stays bf16 (never quantized), as in the JAX package
+    y = _site(ctx, OUT_SITE, y, sd["final_conv.3.weight"], dtype,
+              bias=sd["final_conv.3.bias"], padding=0)
+    return torch.sigmoid(y.float()).permute(0, 2, 3, 1)
+
+
+_FORWARDS = {"unet": _forward_unet}
+
+
+def supported(model_type: str) -> bool:
+    return model_type in _FORWARDS
+
+
+def supported_types():
+    """Model types with a quantizable forward in this port (the others
+    come with ROADMAP A8)."""
+    return sorted(_FORWARDS)
+
+
+def reference_forward(params, x, model_type: str = "unet",
+                      dtype=torch.bfloat16) -> torch.Tensor:
+    """The bf16 forward, bit-identical to ``UNetSuperRes.forward``."""
+    return _FORWARDS[model_type](_Ctx("ref"), params, x, dtype)
+
+
+def build_calib_forward(model_type: str = "unet", dtype=torch.bfloat16):
+    """``fn(params, x) -> (y, amax)``: the exact bf16 forward plus each
+    quantizable site's per-input-channel max |x| (fp32 tensors on x's
+    device), so a server can calibrate while it serves bf16."""
+    fwd = _FORWARDS[model_type]
+
+    def run(params, x):
+        ctx = _Ctx("calib")
+        y = fwd(ctx, params, x, dtype)
+        return y, ctx.amax
+
+    return run
+
+
+def scales_from_amax(amax: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Per-site, per-input-channel scales amax/127; zero-range channels
+    get 1. Sites in sorted order, the order of the JAX package's jitted
+    dicts, so the two packages write the same sidecar bytes."""
+    return {k: np.where(np.asarray(v) > 0, np.asarray(v) / 127.0,
+                        1.0).astype(np.float32)
+            for k, v in sorted(amax.items()) if k != OUT_SITE}
+
+
+def save_scales(path: str, scales: Dict[str, np.ndarray],
+                model_type: str) -> None:
+    """Write frozen calibration scales as a JSON sidecar (atomic), in the
+    JAX package's ``int8-ptq-scales-v1`` format, byte for byte."""
+    blob = {"format": SCALES_FORMAT, "model_type": model_type,
+            "scales": {k: np.asarray(v, np.float32).tolist()
+                       for k, v in scales.items()}}
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(blob, f)
+    os.replace(tmp, path)
+
+
+def load_scales(path: str) -> Tuple[Dict[str, np.ndarray], str]:
+    """Read a sidecar written by :func:`save_scales` (either package's) ->
+    (scales, model_type)."""
+    with open(path) as f:
+        blob = json.load(f)
+    if blob.get("format") != SCALES_FORMAT:
+        raise ValueError(f"{path} is not an int8 PTQ scales file")
+    scales = {k: np.asarray(v, np.float32) for k, v in blob["scales"].items()}
+    return scales, blob.get("model_type", "unet")
+
+
+def quant_sites(params, model_type: str = "unet"):
+    """``[(site, OIHW weight)]`` for every quantizable conv site (all but
+    the output head), in the JAX package's order and names: 20 for the
+    unet."""
+    if not supported(model_type):
+        raise ValueError(f"no quantized forward for {model_type!r}")
+    sites = []
+
+    def dc(site, prefix):
+        sites.append((f"{site}.conv1", params[f"{prefix}.double_conv.0.weight"]))
+        sites.append((f"{site}.conv2", params[f"{prefix}.double_conv.3.weight"]))
+
+    dc("inc", "inc")
+    for i in (1, 2, 3):
+        dc(f"down{i}", f"down{i}.maxpool_conv.1")
+    for i in (1, 2, 3):
+        sites.append((f"up{i}.up_conv", params[f"up{i}.up.1.weight"]))
+        dc(f"up{i}.conv", f"up{i}.conv")
+    sites.append(("final_up_conv", params["final_up_bilinear.1.weight"]))
+    sites.append(("final_up_pixelshuffle.conv",
+                  params["final_up_pixelshuffle.conv.weight"]))
+    sites.append(("final_conv1", params["final_conv.0.weight"]))
+    return sites
+
+
+def int8_qweights(params, scales, model_type: str = "unet"
+                  ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Every quantizable site's ``(q_kernel HWIO int8, k_scale)`` with its
+    per-input-channel activation scale folded in, on the params' device.
+    Raises if ``scales`` misses a site."""
+    sites = quant_sites(params, model_type)
+    missing = [s for s, _ in sites if s not in scales]
+    if missing:
+        raise ValueError(f"calibration scales missing for sites: {missing}")
+    return {site: weight_qparams(w, act_scale=torch.as_tensor(
+                np.asarray(scales[site], np.float32), device=w.device))
+            for site, w in sites}
+
+
+def build_int8_forward(params, scales, model_type: str = "unet",
+                       dtype=torch.bfloat16):
+    """``fn(params, x) -> y`` running every quantizable site in int8 with
+    the frozen ``scales`` ({site: (Cin,)}). The int8 weights and the
+    device copies of the scales are made here, once."""
+    fwd = _FORWARDS[model_type]
+    qweights = int8_qweights(params, scales, model_type)
+    dev = params["alpha"].device
+    act = {site: torch.as_tensor(np.asarray(scales[site], np.float32),
+                                 device=dev).contiguous()
+           for site in qweights}
+
+    def run(p, x):
+        return fwd(_Ctx("int8", scales=act, qweights=qweights), p, x, dtype)
+
+    return run

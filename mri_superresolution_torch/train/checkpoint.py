@@ -113,6 +113,13 @@ def resolve_checkpoint(checkpoint_dir: str, model_type: str,
     return find_best_checkpoint(checkpoint_dir, model_type)
 
 
+def calib_sidecar_path(path: str) -> str:
+    """The QAT calibration sidecar written next to a checkpoint
+    (``<base>.calib.json``), which ``load_engine`` serves int8 with."""
+    return (path[:-len(".ckpt")] if path.endswith(".ckpt") else path
+            ) + ".calib.json"
+
+
 def load_params_any(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """Load unet params as this port's state_dict, with the checkpoint's
     meta: a ``.ckpt`` (params + sidecar), a bare ``.msgpack`` param tree,

@@ -18,6 +18,10 @@ from mri_superresolution_torch.infer import InferenceEngine
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
     group_norm_leaky, group_norm_leaky_plain)
+from mri_superresolution_torch.kernels.leaky_quantize import (
+    leaky_quantize, leaky_quantize_plain)
+from mri_superresolution_torch.kernels.roll_probe import (
+    roll32, roll32_plain, roll_copy, roll_copy_plain, taps3, taps3_plain)
 from mri_superresolution_torch.kernels.ssim import (ssim_per_sample,
                                                     ssim_per_sample_plain)
 from mri_superresolution_torch.models import build_model
@@ -132,8 +136,9 @@ def test_unet_on_card_matches_cpu(dev):
     cpu = InferenceEngine(cfg, params, bf16=False, device="cpu")
     kernels.reset_launch_counts()
     got = gpu.upscale_batch(x)
-    assert kernels.launch_counts() == {"group_norm_leaky": 20, "conv3x3": 2,
-                                       "ssim_per_sample": 0}
+    assert kernels.launch_counts() == {
+        "group_norm_leaky": 20, "conv3x3": 2, "ssim_per_sample": 0,
+        "leaky_quantize": 0, "roll_copy": 0, "roll32": 0, "taps3": 0}
     np.testing.assert_allclose(got, cpu.upscale_batch(x), rtol=1e-4,
                                atol=1e-4)
     m = InferenceEngine.calculate_metrics(got[0], got[1], dev)
@@ -152,3 +157,80 @@ def test_engine_packs_on_card(dev):
                           out_dtype="uint8", device=dev)
     y = eng.upscale_batch(x)
     assert y.shape == (3, 64, 48) and y.dtype == np.uint8
+
+
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((2, 16, 9, 7), torch.bfloat16, 0),        # 16-byte loads
+    ((2, 3, 5, 7), torch.bfloat16, 0),         # odd C, odd size: scalar
+    ((1, 12, 8, 6), torch.bfloat16, 0),        # C not a multiple of 8
+    ((2, 1, 32, 32), torch.bfloat16, 0),       # inc.conv1's C = 1
+    ((2, 16, 8, 8), torch.bfloat16, 3),        # unaligned x: scalar
+    ((2, 12, 8, 8), torch.float32, 0),         # fp32, 4-wide loads
+    ((1, 5, 7, 3), torch.float32, 1),
+    ((16, 32, 256, 256), torch.bfloat16, 0),   # a full-width site
+])
+@pytest.mark.parametrize("slope", [0.2, 1.0])
+def test_leaky_quantize_kernel(dev, shape, dtype, offset, slope):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = _cl(shape, dtype, dev, gen, offset)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    s = (torch.rand(c, generator=gen, device=dev) + 0.1) / 60
+    before = leaky_quantize.launches
+    got = leaky_quantize(x, s, slope)
+    assert leaky_quantize.launches == before + 1
+    assert got.dtype == torch.int8
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = leaky_quantize_plain(x, s, slope)
+    # code for code, saturated codes included
+    assert torch.equal(got, want)
+    assert int((want.abs() == 127).sum()) > 0
+
+
+@pytest.mark.parametrize("rows,lanes", [(128, 256), (512, 16384), (64, 40)])
+def test_roll_probe_kernels(dev, rows, lanes):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((rows, lanes), generator=gen, device=dev).to(
+        torch.bfloat16)
+    for fn, plain in ((roll_copy, roll_copy_plain), (roll32, roll32_plain),
+                      (taps3, taps3_plain)):
+        before = fn.launches
+        got = fn(x)
+        assert fn.launches == before + 1
+        assert torch.equal(got, plain(x)), fn.__name__
+
+
+def test_int8_engine_on_card_follows_the_cpu_state_machine(dev, tmp_path):
+    params = build_model(ModelConfig(base_filters=16),
+                         generator=torch.Generator().manual_seed(0)
+                         ).state_dict()
+    cfg = ModelConfig(base_filters=16)
+    rng = np.random.default_rng(2)
+    batch = rng.random((3, 40, 40), np.float32)
+    empty = np.zeros((2, 40, 40), np.float32)
+    empty[:, 18:20, 18:20] = 1.0
+    path = str(tmp_path / "scales.json")
+    gpu = InferenceEngine(cfg, params, device=dev, quant="int8",
+                          quant_calib_slices=4, quant_calib_path=path)
+    cpu = InferenceEngine(cfg, params, device="cpu", quant="int8",
+                          quant_calib_slices=4)
+    for b in (batch, batch, empty):
+        gpu.upscale_batch(b)
+        cpu.upscale_batch(b)
+        assert gpu._quant_batches == cpu._quant_batches
+        assert gpu._calib_seen == cpu._calib_seen
+    assert gpu._quant_batches == {"int8": 0, "bf16": 3}
+    kernels.reset_launch_counts()
+    got = gpu.upscale_batch(batch)
+    counts = kernels.launch_counts()
+    assert (counts["leaky_quantize"], counts["group_norm_leaky"],
+            counts["conv3x3"]) == (20, 20, 0)
+    assert gpu._quant_batches["int8"] == 1
+    # the CPU port with the card's frozen scales: the bf16 budget
+    ref = InferenceEngine(cfg, params, device="cpu", quant="int8",
+                          quant_calib_path=path)
+    want = ref.upscale_batch(batch)
+    assert np.isfinite(got).all() and got.shape == want.shape
+    # the JAX package's int8 bound (tests/test_quant.py): bf16 rounds
+    # differently in cuDNN and on the CPU, so a few codes move
+    assert np.abs(got - want).mean() < 0.05

@@ -91,7 +91,8 @@ def test_preprocess_matches_jax():
 
 def test_unported_options_raise(jax_params):
     sd = state_dict_from_jax(jax_params)
-    for kw, item in (({"tta": True}, "A9"), ({"quant": "int8"}, "A11"),
+    for kw, item in (({"tta": True}, "A9"),
+                     ({"quant": "int8", "tta": True}, "A9"),
                      ({"spatial_shards": 2}, "A14"),
                      ({"normalize_inputs": True}, "A4"),
                      ({"transpose_io": True}, "A4")):
@@ -139,7 +140,7 @@ def test_process_single_image_matches_jax(tmp_path, jax_params):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--quant", "int8"], "A11"), (["--tta"], "A9"),
+    (["--model_type", "simple"], "A8"), (["--tta"], "A9"),
     (["--artifact", "model.mrisrx"], "A12"),
     (["--model_type", "edsr"], "A8")])
 def test_cli_refuses_unported_flags(tmp_path, flags, item):

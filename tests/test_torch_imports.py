@@ -1,5 +1,6 @@
-"""Importing any module of the port must pull in nothing of JAX, initialise
-no CUDA context and import no triton (kernels build at first use)."""
+"""Importing any module of the port, or ``chip_smoke.py``, must pull in
+nothing of JAX or of the repo's ``tools/``, initialise no CUDA context and
+import no triton (kernels build at first use)."""
 
 import os
 import subprocess
@@ -13,8 +14,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tools",
                                     "mri_superresolution_tpu", "triton"))
 assert not bad, bad
 assert not torch.cuda.is_initialized()
