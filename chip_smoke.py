@@ -26,9 +26,12 @@ the last line is printed:
    frozen scales on 2 slices held to |dPSNR| <= 0.1 dB.
 5. roll probe: the B5 probe's entry point (``tools/roll_probe.run``) at
    (512, 16384): its three kernels exact against their plain versions, and
-   their times beside ``x.clone()`` and ``torch.roll``.
+   their L2-cold device times (replayed from a CUDA graph) beside
+   ``x.clone()`` and ``torch.roll``.
 6. the ``kernels`` JSON line, the card's name and power limit, and the
-   device JSON line last.
+   device JSON line last. No kernel's time (and no B5 time, library calls
+   included) may fall below its bound: that would mean a broken yardstick.
+   The B3 times are bf16, the tensor-core kernel.
 
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -163,7 +167,8 @@ def check_b3(dev, gen) -> dict:
             (x.numel() + w.numel() + out_numel) * 2,
             2.0 * out_numel * 9 * ci, torch.bfloat16)
         log("kernel_time", kernel="B3", shape=list(x.shape), cout=co,
-            kernel_ms=k, plain_ms=p, library_ms=lib, bound_ms=bnd)
+            kernel_ms=k, plain_ms=p, library_ms=lib, bound_ms=bnd,
+            bound_share=bnd / k, library_over_kernel=lib / k)
         for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
                        ("bound_ms", bnd)):
             tot[key] += v
@@ -373,6 +378,10 @@ def int8_path(dev, cfg, params, lr, hr, bf16_engine) -> dict:
     return counts
 
 
+def probe_bound_ms() -> float:
+    return bound_ms(2 * PROBE_ROWS * PROBE_LANES * 2, 0.0, torch.bfloat16)[0]
+
+
 def probe_path(dev) -> tuple:
     kernels.reset_launch_counts()
     res = roll_probe.run(PROBE_ROWS, PROBE_LANES, dev)
@@ -381,6 +390,13 @@ def probe_path(dev) -> tuple:
         launches={k: counts[k] for k in ("roll_copy", "roll32", "taps3")})
     if not all(counts[k] > 0 for k in ("roll_copy", "roll32", "taps3")):
         raise AssertionError(f"the probe launched no kernel: {counts}")
+    bound_us = probe_bound_ms() * 1e3
+    below = {f"{name}.{key}": r[key] for name, r in res.items()
+             for key in ("us", "plain_us", "library_us")
+             if r[key] is not None and r[key] < bound_us}
+    if below:
+        raise AssertionError(f"B5 times below their {bound_us} us bound: "
+                             f"{below}")
     return res, counts
 
 
@@ -401,10 +417,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = _build.build()
-    regs = [ln.strip() for ln in (_build.BUILD_DIR / "build.log").read_text()
-            .splitlines() if "registers" in ln or "spill" in ln]
+    lines = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+    # kernels whose registers spill: ptxas names the function, then reports
+    spills, func = [], None
+    for ln in lines:
+        if "Function properties for" in ln:
+            func = ln.split("Function properties for")[-1].strip()
+        elif re.search(r"[1-9]\d* bytes spill stores", ln):
+            spills.append(f"{func}: {ln.strip()}")
     log("build", seconds=time.perf_counter() - t0, library=str(lib),
-        ptxas=regs[:24])
+        ptxas=regs[:24], spills=spills)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {"B1": check_b1(dev, gen), "B3": check_b3(dev, gen),
@@ -425,7 +448,7 @@ def main() -> int:
                tpu_root + "groupnorm_pallas.py:167", counts),
         "B2": ("ssim_per_sample", torch_root + "ssim_fused.cu",
                tpu_root + "ssim_pallas.py:75", counts),
-        "B3": ("conv3x3", torch_root + "conv3x3_narrow.cu",
+        "B3": ("conv3x3", torch_root + "conv3x3_mma.cu",
                tpu_root + "conv_pallas.py:107", counts),
         "B4": ("leaky_quantize", torch_root + "leaky_quantize.cu",
                "tools/bench_int8_probe4.py:57", counts_int8),
@@ -440,8 +463,6 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
-    probe_bound, _ = bound_ms(2 * PROBE_ROWS * PROBE_LANES * 2, 0.0,
-                              torch.bfloat16)
     for name, wrapper in (("copy", "roll_copy"), ("roll32", "roll32"),
                           ("taps3", "taps3")):
         r = probe[name]
@@ -450,9 +471,12 @@ def main() -> int:
                      "replaces": "tools/bench_roll_probe.py:98",
                      "launches": counts_probe[wrapper], "max_abs_err": 0.0,
                      "ms": r["us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
-                     "bound_ms": probe_bound, "bound_by": "bytes",
+                     "bound_ms": probe_bound_ms(), "bound_by": "bytes",
                      "library_ms": None if r["library_us"] is None
                      else r["library_us"] / 1e3})
+    below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
+    if below:
+        raise AssertionError(f"kernel times below their bound: {below}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,18 @@
-// Direct 3x3 convolution for narrow output widths, channels-last.
+// Direct 3x3 convolution for narrow output widths, channels-last, fp32.
 //
 // Replaces the TPU kernel mri_superresolution_tpu/experiments/conv_pallas.py
-// (conv3x3_packed_fwd, body _kernel_body, weights pack_weights): a 3x3 conv,
-// stride 1, zero padding 1, no bias, on (B, H, W, Ci) with a (3, 3, Ci, Co)
-// kernel; inputs bf16 or fp32, fp32 accumulation, one cast of the result.
-// In the unet it runs final_up_conv (32 -> 16) and final_conv1 (16 -> 16),
-// both at 2H x 2W.
+// (conv3x3_packed_fwd) for fp32: a 3x3 conv, stride 1, zero padding 1, no
+// bias, on (B, H, W, Ci) with the weights as (Co, 3, 3, Ci), fp32
+// throughout. bf16, the unet's serving type, runs on the tensor cores
+// (conv3x3_mma.cu); fp32 stays on the CUDA cores here, since TF32 would
+// change the numbers.
 //
-// Bound on the H100: bytes, by the card's rates. At Co = 16 a pixel is
-// 9 * Ci * 16 MACs against Ci + 16 elements moved, about 96 flops a byte at
-// Ci = 32 in bf16, under the ~295 the tensor cores need. The TPU kernel packed
-// output columns into the 128-lane matrix unit's width; that trick is for
-// the TPU and is not used. This kernel is the simple first version: each
-// block stages an 8 x 16 output tile's input, with a one-pixel halo, and
-// all of its taps' weights in shared memory as fp32, 16 input channels at a
-// time (any Ci), and each thread accumulates one output pixel's Co values
-// in registers with CUDA-core FMAs. Its FMA rate, not the memory, limits it
-// for now; the tensor-core version (wgmma) is later work. Ragged edges are
-// masked, so any H and W work (the TPU kernel needed W % 8 == 0 and
-// H % h_tile == 0).
+// Bound on the H100: the fp32 FMA rate (67 TFLOP/s outside the tensor
+// cores): at Co = 16 a pixel is 9 * Ci * 16 MACs against (Ci + 16) * 4
+// bytes. Each block stages an 8 x 16 output tile's input, with a one-pixel
+// halo, and all of its taps' weights in shared memory, 16 input channels at
+// a time (any Ci), and each thread accumulates one output pixel's Co values
+// in registers. Ragged edges are masked, so any H and W work.
 
 #include "common.cuh"
 
@@ -32,10 +26,10 @@ constexpr int kHaloW = kTileW + 2;
 // +1 float per pixel: neighbouring pixels fall in different banks
 constexpr int kPixStride = kCiChunk + 1;
 
-template <typename T, int CO>
+template <int CO>
 __global__ void __launch_bounds__(kTileH * kTileW)
-    conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   T* __restrict__ y, int h, int wd, int ci) {
+    conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   float* __restrict__ y, int h, int wd, int ci) {
   __shared__ float tile[kHaloH * kHaloW * kPixStride];
   __shared__ __align__(16) float wsm[9 * kCiChunk * CO];
 
@@ -45,7 +39,7 @@ __global__ void __launch_bounds__(kTileH * kTileW)
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kTileH;
   const int b = blockIdx.z;
-  const T* xb = x + static_cast<long long>(b) * h * wd * ci;
+  const float* xb = x + static_cast<long long>(b) * h * wd * ci;
 
   float acc[CO];
 #pragma unroll
@@ -60,8 +54,7 @@ __global__ void __launch_bounds__(kTileH * kTileW)
       const int gx = x0 - 1 + pix % kHaloW;
       float v = 0.f;
       if (gy >= 0 && gy < h && gx >= 0 && gx < wd && c0 + cl < ci)
-        v = msr::to_float(
-            xb[(static_cast<long long>(gy) * wd + gx) * ci + c0 + cl]);
+        v = xb[(static_cast<long long>(gy) * wd + gx) * ci + c0 + cl];
       tile[pix * kPixStride + cl] = v;
     }
     // weights of this channel chunk: wsm[(tap * kCiChunk + cl) * CO + co]
@@ -71,7 +64,7 @@ __global__ void __launch_bounds__(kTileH * kTileW)
       const int tap = i / (CO * kCiChunk);
       float v = 0.f;
       if (c0 + cl < ci)
-        v = msr::to_float(w[(static_cast<long long>(tap) * ci + c0 + cl) * CO + co]);
+        v = w[(static_cast<long long>(co) * 9 + tap) * ci + c0 + cl];
       wsm[i] = v;
     }
     __syncthreads();
@@ -101,53 +94,41 @@ __global__ void __launch_bounds__(kTileH * kTileW)
   const int oy = y0 + ty;
   const int ox = x0 + tx;
   if (oy < h && ox < wd) {
-    constexpr int VO = 16 / sizeof(T);  // CO is a multiple of 8 >= VO
-    msr::Vec<T, VO>* out = reinterpret_cast<msr::Vec<T, VO>*>(
+    float4* out = reinterpret_cast<float4*>(
         y + ((static_cast<long long>(b) * h + oy) * wd + ox) * CO);
 #pragma unroll
-    for (int j = 0; j < CO / VO; ++j) {
-      msr::Vec<T, VO> o;
-#pragma unroll
-      for (int k = 0; k < VO; ++k) o.v[k] = msr::from_float<T>(acc[j * VO + k]);
-      out[j] = o;
-    }
+    for (int j = 0; j < CO / 4; ++j)
+      out[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                           acc[4 * j + 3]);
   }
 }
 
-template <typename T, int CO>
+template <int CO>
 int launch(const void* x, const void* w, void* y, int b, int h, int wd, int ci,
            cudaStream_t stream) {
   const dim3 grid((wd + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, b);
-  conv3x3_kernel<T, CO><<<grid, kTileH * kTileW, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      h, wd, ci);
+  conv3x3_kernel<CO><<<grid, kTileH * kTileW, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), h, wd, ci);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* x, const void* w, void* y, int b, int h, int wd,
-             int ci, int co, cudaStream_t s) {
-  switch (co) {
-    case 8: return launch<T, 8>(x, w, y, b, h, wd, ci, s);
-    case 16: return launch<T, 16>(x, w, y, b, h, wd, ci, s);
-    case 24: return launch<T, 24>(x, w, y, b, h, wd, ci, s);
-    case 32: return launch<T, 32>(x, w, y, b, h, wd, ci, s);
-    case 40: return launch<T, 40>(x, w, y, b, h, wd, ci, s);
-    case 48: return launch<T, 48>(x, w, y, b, h, wd, ci, s);
-    case 56: return launch<T, 56>(x, w, y, b, h, wd, ci, s);
-    case 64: return launch<T, 64>(x, w, y, b, h, wd, ci, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// x: (B, H, W, Ci), w: (3, 3, Ci, Co), y: (B, H, W, Co), all contiguous and
-// of one type (bf16 when is_bf16, else fp32). Co is a multiple of 8, <= 64.
-extern "C" int msr_conv3x3_fwd(const void* x, const void* w, void* y, int b,
-                               int h, int wd, int ci, int co, int is_bf16,
-                               void* stream) {
+// x: (B, H, W, Ci), w: (Co, 3, 3, Ci), y: (B, H, W, Co), all contiguous fp32.
+// Co is a multiple of 8, <= 64.
+extern "C" int msr_conv3x3_f32(const void* x, const void* w, void* y, int b,
+                               int h, int wd, int ci, int co, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch<__nv_bfloat16>(x, w, y, b, h, wd, ci, co, s);
-  return dispatch<float>(x, w, y, b, h, wd, ci, co, s);
+  switch (co) {
+    case 8: return launch<8>(x, w, y, b, h, wd, ci, s);
+    case 16: return launch<16>(x, w, y, b, h, wd, ci, s);
+    case 24: return launch<24>(x, w, y, b, h, wd, ci, s);
+    case 32: return launch<32>(x, w, y, b, h, wd, ci, s);
+    case 40: return launch<40>(x, w, y, b, h, wd, ci, s);
+    case 48: return launch<48>(x, w, y, b, h, wd, ci, s);
+    case 56: return launch<56>(x, w, y, b, h, wd, ci, s);
+    case 64: return launch<64>(x, w, y, b, h, wd, ci, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -36,7 +36,8 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "msr_gn_leaky_fwd": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
                          _I, _I, _F, _F, _P],
-    "msr_conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "msr_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "msr_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "msr_ssim_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "msr_leaky_quantize": [_P, _P, _P, _LL, _I, _I, _I, _F, _P],
     "msr_probe_copy": [_P, _P, _I, _I, _P],

@@ -1,11 +1,16 @@
 """Narrow-Cout 3x3 convolution: kernel B3.
 
 Replaces the TPU kernel ``experiments/conv_pallas.py``
-(``conv3x3_packed_fwd``). The CUDA source is ``csrc/conv3x3_narrow.cu``;
-its note says what bounds it on the H100 and how it is built. Stride 1,
-zero padding 1, no bias; inputs and weights of one dtype, fp32
-accumulation. The plain version is ``F.conv2d`` with fp32 accumulation
-made explicit: inputs cast to fp32, the result cast back.
+(``conv3x3_packed_fwd``). Stride 1, zero padding 1, no bias; inputs and
+weights of one dtype, fp32 accumulation. On a CUDA tensor bf16 runs the
+tensor-core implicit GEMM of ``csrc/conv3x3_mma.cu`` and fp32 the
+CUDA-core kernel of ``csrc/conv3x3_narrow.cu``; their notes say what
+bounds them on the H100. Both read the weights packed as (Co, 9, Ci)
+(:func:`pack_weight`), a view with no copy when the weight is
+channels_last, as the unet casts it. The bf16 kernel sums over K chunk by
+chunk of :func:`k_chunk` input channels (zero-padded past Ci), within a
+chunk over dw, then over dh. The plain version is ``F.conv2d`` with fp32
+accumulation made explicit: inputs cast to fp32, the result cast back.
 """
 
 from __future__ import annotations
@@ -21,6 +26,17 @@ MAX_COUT = 64
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x.float(), weight.float(), padding=1).to(x.dtype)
+
+
+def pack_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3) -> the kernels' (Co, 9, Ci), tap = 3 * dh + dw."""
+    co, ci = weight.shape[:2]
+    return weight.permute(0, 2, 3, 1).reshape(co, 9, ci).contiguous()
+
+
+def k_chunk(ci: int) -> int:
+    """Input channels the bf16 kernel stages and sums at a time."""
+    return 16 if ci <= 16 else 32
 
 
 def _check(x, weight):
@@ -47,8 +63,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
     x: (B, Ci, H, W) float32 or bfloat16 in channels_last memory; weight:
     (Co, Ci, 3, 3), Co a multiple of 8 up to 64. Returns (B, Co, H, W) in
-    x's dtype, channels_last. The kernel on a CUDA tensor, the plain version
-    on a CPU tensor.
+    x's dtype, channels_last. A kernel on a CUDA tensor (tensor cores for
+    bf16, CUDA cores for fp32), the plain version on a CPU tensor.
     """
     _check(x, weight)
     if x.device.type == "cpu":
@@ -57,12 +73,16 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {x.device}")
     b, ci, h, w = x.shape
     co = weight.shape[0]
-    w_hwio = weight.permute(2, 3, 1, 0).contiguous()        # (3, 3, Ci, Co)
+    wp = pack_weight(weight)
     y = torch.empty((b, co, h, w), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
-    code = _build.library().msr_conv3x3_fwd(
-        x.data_ptr(), w_hwio.data_ptr(), y.data_ptr(), b, h, w, ci, co,
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
+    lib, stream = _build.library(), _build.stream_ptr(x.device)
+    if x.dtype == torch.bfloat16:
+        code = lib.msr_conv3x3_bf16(x.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                                    b, h, w, ci, co, k_chunk(ci), stream)
+    else:
+        code = lib.msr_conv3x3_f32(x.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                                   b, h, w, ci, co, stream)
     conv3x3.launches += 1
     _build.check(code, "conv3x3")
     return y

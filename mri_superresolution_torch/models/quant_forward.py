@@ -96,7 +96,7 @@ def _site(ctx, site, x, weight, dtype, bias=None, padding=1, slope=1.0,
     if ctx.mode == "calib" and site != OUT_SITE:
         ctx.amax[site] = x.abs().amax(dim=(0, 2, 3)).float()
     if narrow:
-        return conv3x3(x, weight.to(dtype))
+        return conv3x3(x, weight.to(dtype, memory_format=CL))
     return _conv(x, weight, dtype, bias, padding=padding)
 
 

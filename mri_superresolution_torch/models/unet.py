@@ -220,14 +220,15 @@ class UNetSuperRes(nn.Module):
 
         # dual-branch final 2x upsample
         _, up_conv, up_norm, _ = self.final_up_bilinear
-        yb = _gn_leaky(conv3x3(_upsample2(y), up_conv.weight.to(dt)), up_norm)
+        up_w = up_conv.weight.to(dt, memory_format=CL)
+        yb = _gn_leaky(conv3x3(_upsample2(y), up_w), up_norm)
         yp = self.final_up_pixelshuffle(y, dt)
         w = torch.sigmoid(self.alpha).to(dt).reshape(())
         y = w * yb + (1.0 - w) * yp
 
         conv1, norm, _, conv2 = self.final_conv
         y = _gn_leaky(conv3x3(y.contiguous(memory_format=CL),
-                              conv1.weight.to(dt)), norm)
+                              conv1.weight.to(dt, memory_format=CL)), norm)
         y = _conv(y, conv2.weight, dt, conv2.bias)
         return torch.sigmoid(y.float()).permute(0, 2, 3, 1)
 

@@ -95,6 +95,14 @@ def test_group_norm_leaky_kernel_refuses_nchw(dev):
     (1, 3, 8, 17, 9, torch.float32),           # Ci below one chunk
     (1, 40, 64, 20, 33, torch.float32),        # ragged Ci chunk, widest Co
     (1, 16, 24, 8, 8, torch.bfloat16),
+    # the bf16 tensor-core kernel
+    (1, 3, 16, 17, 9, torch.bfloat16),         # Ci % 8 != 0: element loads
+    (1, 40, 16, 20, 33, torch.bfloat16),       # two chunks, second ragged
+    (2, 16, 8, 27, 35, torch.bfloat16),        # one n8 fragment
+    (1, 32, 24, 33, 70, torch.bfloat16),       # odd n8 count, ragged 33x70
+    (1, 40, 64, 20, 33, torch.bfloat16),       # widest Co: 8-row tiles
+    (1, 16, 16, 33, 70, torch.bfloat16),       # ragged 33x70
+    (1, 32, 16, 512, 512, torch.bfloat16),     # a full-width unet image
 ])
 def test_conv3x3_kernel(dev, b, ci, co, h, w, dtype):
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -109,6 +117,29 @@ def test_conv3x3_kernel(dev, b, ci, co, h, w, dtype):
         _close(got, want, dtype)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_conv3x3_kernel_unaligned_input(dev):
+    """x one element off 16-byte alignment: the bf16 kernel's element
+    loads."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = _cl((2, 32, 19, 21), torch.bfloat16, dev, gen, offset=1)
+    assert x.data_ptr() % 16 != 0
+    wt = (torch.randn((16, 32, 3, 3), generator=gen, device=dev)
+          / 17.0).to(torch.bfloat16)
+    _close(conv3x3(x, wt), conv3x3_plain(x, wt), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3x3_counts_each_launch(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = _cl((1, 16, 8, 8), dtype, dev, gen)
+    wt = torch.randn((16, 16, 3, 3), generator=gen, device=dev).to(dtype)
+    before = conv3x3.launches
+    conv3x3(x, wt)
+    assert conv3x3.launches == before + 1
+    conv3x3(x, wt)
+    assert conv3x3.launches == before + 2
 
 
 @pytest.mark.parametrize("shape,window", [((3, 27, 35), 11),
