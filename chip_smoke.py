@@ -11,19 +11,24 @@ the last line is printed:
    conv, B4 leaky+int8 quantize) at the unet's serving shapes (16 slices of
    256^2, base_filters 32, bf16) against its plain PyTorch version, with
    the tolerance stated (B4: code for code at its 20 int8 sites); kernel,
-   plain and library times by CUDA events.
+   plain and library times by CUDA events. B1 checks both of its routes
+   (the one-pass kernel the wrapper takes at these shapes, and the
+   two-pass kernel) within one bf16 ulp and run to run, and times both,
+   the plain version and the library's GroupNorm + LeakyReLU L2-cold from
+   CUDA graph replays (``utils/timing.cuda_ms_cold``).
 3. main path: ``InferenceEngine`` (full-width unet, seeded random weights,
    bf16) upscales 16 synthetic 256^2 slices to 512^2 and reports metrics
    for one of them; the launch counters must show every kernel ran (B1 20
-   and B3 2 per forward, B2 1 per metrics call). Then slices/s, and a
-   2-slice batch on the CPU port held to the bf16 budget (|dPSNR| <= 0.1 dB,
-   |dSSIM| <= 1e-3 against the same ground truth).
+   and B3 2 per forward, B2 1 per metrics call; all 20 B1 launches on the
+   one-pass route). Then slices/s, and a 2-slice batch on the CPU port
+   held to the bf16 budget (|dPSNR| <= 0.1 dB, |dSSIM| <= 1e-3 against the
+   same ground truth).
 4. int8 path: ``InferenceEngine(quant="int8", quant_calib_slices=16)``
    calibrates on the 16 slices, freezes (writing its scales sidecar) and
-   serves them int8; an int8 forward must launch B4 20, B1 20 and B3 0
-   times. int8 and bf16 slices/s from this call, PSNR/SSIM of both against
-   the same ground truth, and the CPU port's int8 forward with the same
-   frozen scales on 2 slices held to |dPSNR| <= 0.1 dB.
+   serves them int8; an int8 forward must launch B4 20, B1 20 (one-pass)
+   and B3 0 times. int8 and bf16 slices/s from this call, PSNR/SSIM of
+   both against the same ground truth, and the CPU port's int8 forward
+   with the same frozen scales on 2 slices held to |dPSNR| <= 0.1 dB.
 5. roll probe: the B5 probe's entry point (``tools/roll_probe.run``) at
    (512, 16384): its three kernels exact against their plain versions, and
    their L2-cold device times (replayed from a CUDA graph) beside
@@ -31,7 +36,8 @@ the last line is printed:
 6. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
-   The B3 times are bf16, the tensor-core kernel.
+   The B3 times are bf16, the tensor-core kernel. B1's row gives the
+   one-pass route's time, and the two-pass route's as ``earlier_ms``.
 
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
@@ -58,7 +64,8 @@ from mri_superresolution_torch.infer import InferenceEngine
 from mri_superresolution_torch.kernels import _build
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
-    group_norm_leaky, group_norm_leaky_plain)
+    group_norm_leaky, group_norm_leaky_plain, group_norm_leaky_twopass,
+    onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.ssim import (ssim_per_sample,
@@ -69,7 +76,8 @@ from mri_superresolution_torch.ops.metrics import psnr
 from mri_superresolution_torch.ops.ssim import ssim
 from mri_superresolution_torch.tools import roll_probe
 from mri_superresolution_torch.utils.phantom import phantom_batch
-from mri_superresolution_torch.utils.timing import cuda_ms
+from mri_superresolution_torch.utils.timing import (cuda_ms, cuda_ms_cold,
+                                                    l2_cold_copies)
 
 # H100 SXM published peaks (dense): memory 3.35 TB/s, bf16 tensor cores
 # 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s.
@@ -113,7 +121,12 @@ def gn_sites(b: int, lr: int, f: int):
 
 
 def check_b1(dev, gen) -> dict:
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    """B1 at the unet's five GroupNorm shapes: both routes (the one-pass
+    kernel the wrapper takes there, and the two-pass kernel) against the
+    plain version and run to run, then every time L2-cold from CUDA graph
+    replays, the library's GroupNorm + LeakyReLU timed the same way."""
+    keys = ("ms", "earlier_ms", "plain_ms", "library_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
     worst, bound_by = 0.0, "bytes"
     for shape, count in gn_sites(BATCH, LR, BASE_FILTERS):
         x = torch.randn(shape, generator=gen, device=dev).to(
@@ -121,25 +134,48 @@ def check_b1(dev, gen) -> dict:
         c = shape[1]
         g = torch.randn(c, generator=gen, device=dev)
         b = torch.randn(c, generator=gen, device=dev)
-        ok, err = within(group_norm_leaky(x, g, b),
-                         group_norm_leaky_plain(x, g, b), BF16_RTOL, 1e-5)
-        log("kernel_check", kernel="B1", shape=list(shape), dtype="bf16",
-            max_abs_err=err, rtol=BF16_RTOL, atol=1e-5, ok=ok)
-        if not ok:
-            raise AssertionError(f"B1 disagrees with its plain version at "
-                                 f"{shape}: max abs err {err}")
-        worst = max(worst, err)
+        plan = onepass_plan(x, torch.empty_like(x))
+        if plan is None:
+            raise AssertionError(f"B1's one-pass route does not take {shape}")
+        want = group_norm_leaky_plain(x, g, b)
+        for route, fn in (("onepass", group_norm_leaky),
+                          ("twopass", group_norm_leaky_twopass)):
+            got = fn(x, g, b)
+            ok, err = within(got, want, BF16_RTOL, 1e-5)
+            same = torch.equal(got, fn(x, g, b))
+            log("kernel_check", kernel="B1", route=route, shape=list(shape),
+                dtype="bf16", plan=plan._asdict(), max_abs_err=err,
+                rtol=BF16_RTOL, atol=1e-5, run_to_run_equal=same, ok=ok)
+            if not (ok and same):
+                raise AssertionError(f"B1 ({route}) disagrees with its plain "
+                                     f"version at {shape} (max abs err "
+                                     f"{err}) or from run to run ({same})")
+            if route == "onepass":
+                worst = max(worst, err)
         gb, bb = g.to(torch.bfloat16), b.to(torch.bfloat16)
-        k = cuda_ms(lambda: group_norm_leaky(x, g, b))
-        p = cuda_ms(lambda: group_norm_leaky_plain(x, g, b))
-        lib = cuda_ms(lambda: F.leaky_relu(F.group_norm(x, 8, gb, bb), 0.2))
+        xs = l2_cold_copies(x)
+        k = cuda_ms_cold(lambda t: group_norm_leaky(t, g, b), xs)
+        two = cuda_ms_cold(lambda t: group_norm_leaky_twopass(t, g, b), xs)
+        p = cuda_ms_cold(lambda t: group_norm_leaky_plain(t, g, b), xs)
+        lib = cuda_ms_cold(
+            lambda t: F.leaky_relu(F.group_norm(t, 8, gb, bb), 0.2), xs)
+        del xs
         bnd, bound_by = bound_ms(2 * x.numel() * x.element_size(),
                                  10 * x.numel(), torch.bfloat16)
         log("kernel_time", kernel="B1", shape=list(shape), sites=count,
-            kernel_ms=k, plain_ms=p, library_ms=lib, bound_ms=bnd)
-        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
-                       ("bound_ms", bnd)):
+            kernel_ms=k, twopass_ms=two, plain_ms=p, library_ms=lib,
+            bound_ms=bnd, bound_share=bnd / k, twopass_bound_share=bnd / two,
+            timing="L2-cold, CUDA graph replays")
+        below = {name: v for name, v in (("onepass", k), ("twopass", two),
+                                         ("plain", p), ("library", lib))
+                 if v < bnd}
+        if below:
+            raise AssertionError(f"B1 times below their {bnd} ms bound at "
+                                 f"{shape}: {below}")
+        for key, v in zip(keys, (k, two, p, lib, bnd)):
             tot[key] += count * v
+    log("kernel_total", kernel="B1", sites=20, **tot,
+        bound_share=tot["bound_ms"] / tot["ms"])
     return {**tot, "max_abs_err": worst, "bound_by": bound_by}
 
 
@@ -257,6 +293,8 @@ def check_b4(dev, gen) -> dict:
 
 
 def main_path(dev, cfg, params, lr, hr):
+    # the serving path's peak, not the kernel phases' timing buffers
+    torch.cuda.reset_peak_memory_stats()
     engine = InferenceEngine(cfg, params, bf16=True, device=dev)
     engine.upscale_batch(lr[:2])                    # load the library, warm
 
@@ -264,16 +302,19 @@ def main_path(dev, cfg, params, lr, hr):
     out = engine.upscale_batch(lr)
     metrics = engine.calculate_metrics(out[0], hr[0], dev)
     counts = kernels.launch_counts()
+    onepass = group_norm_leaky.onepass_launches
     log("main_path", slices=BATCH, input=[LR, LR], output=list(out.shape[1:]),
-        params=param_count(engine.model), launches=counts, metrics=metrics)
+        params=param_count(engine.model), launches=counts,
+        onepass_launches=onepass, metrics=metrics)
     if out.shape != (BATCH, 2 * LR, 2 * LR) or not np.isfinite(out).all() \
             or out.min() < 0.0 or out.max() > 1.0:
         raise AssertionError(f"bad output: shape {out.shape}, range "
                              f"[{out.min()}, {out.max()}]")
     want = dict.fromkeys(counts, 0)
     want.update(group_norm_leaky=20, conv3x3=2, ssim_per_sample=1)
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
+    if counts != want or onepass != 20:
+        raise AssertionError(f"launch counts {counts} (B1 one-pass "
+                             f"{onepass}), expected {want} (20)")
 
     # end-to-end serving rate: host batch in, host batch out
     iters = 10
@@ -330,16 +371,18 @@ def int8_path(dev, cfg, params, lr, hr, bf16_engine) -> dict:
     kernels.reset_launch_counts()
     out = engine.upscale_batch(lr)
     counts = kernels.launch_counts()
+    onepass = group_norm_leaky.onepass_launches
     want = dict.fromkeys(counts, 0)
     want.update(group_norm_leaky=20, leaky_quantize=20)
     bf16_out = bf16_engine.upscale_batch(lr)
     q_int8, q_bf16 = _quality(out, hr), _quality(bf16_out, hr)
-    log("int8_path", slices=BATCH, launches=counts,
+    log("int8_path", slices=BATCH, launches=counts, onepass_launches=onepass,
         output=list(out.shape[1:]), int8_vs_gt=q_int8, bf16_vs_gt=q_bf16,
         mean_abs_int8_vs_bf16=float(np.abs(out - bf16_out).mean()),
         same_as_first=bool(np.array_equal(out, first)))
-    if counts != want:
-        raise AssertionError(f"int8 launch counts {counts}, expected {want}")
+    if counts != want or onepass != 20:
+        raise AssertionError(f"int8 launch counts {counts} (B1 one-pass "
+                             f"{onepass}), expected {want} (20)")
     if out.shape != (BATCH, 2 * LR, 2 * LR) or not np.isfinite(out).all() \
             or out.min() < 0.0 or out.max() > 1.0:
         raise AssertionError(f"bad int8 output: shape {out.shape}")
@@ -444,7 +487,7 @@ def main() -> int:
     torch_root = "mri_superresolution_torch/csrc/"
     tpu_root = "mri_superresolution_tpu/experiments/"
     meta = {
-        "B1": ("group_norm_leaky", torch_root + "groupnorm_leaky.cu",
+        "B1": ("group_norm_leaky", torch_root + "groupnorm_onepass.cu",
                tpu_root + "groupnorm_pallas.py:167", counts),
         "B2": ("ssim_per_sample", torch_root + "ssim_fused.cu",
                tpu_root + "ssim_pallas.py:75", counts),
@@ -463,6 +506,8 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+        if "earlier_ms" in r:
+            rows[-1]["earlier_ms"] = r["earlier_ms"]
     for name, wrapper in (("copy", "roll_copy"), ("roll32", "roll32"),
                           ("taps3", "taps3")):
         r = probe[name]

@@ -2,7 +2,8 @@
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version in the same module, and counts its kernel launches in
-``<wrapper>.launches``. Nothing here builds or imports anything at import
+``<wrapper>.launches`` (``group_norm_leaky.onepass_launches`` counts its
+one-pass route apart). Nothing here builds or imports anything at import
 time: ``_build.library()`` compiles at first use.
 """
 
@@ -22,6 +23,7 @@ WRAPPERS = (group_norm_leaky, conv3x3, ssim_per_sample, leaky_quantize,
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    group_norm_leaky.onepass_launches = 0
 
 
 def launch_counts() -> dict:

@@ -32,10 +32,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
 # argtypes of every C entry point in csrc/
 SIGNATURES = {
     "msr_gn_leaky_fwd": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
                          _I, _I, _F, _F, _P],
+    "msr_gn_onepass_capacity": [_PI, _PI],
+    "msr_gn_onepass_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _F, _F, _P],
     "msr_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "msr_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "msr_ssim_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],

@@ -1,17 +1,31 @@
 """Fused GroupNorm + LeakyReLU (+ residual): kernel B1.
 
 Replaces the TPU kernel ``experiments/groupnorm_pallas.py``
-(``fused_group_norm_leaky``, forward ``_pallas_forward``). The CUDA source
-is ``csrc/groupnorm_leaky.cu``; its note says what bounds it on the H100
-(bytes) and how the two-pass design answers the TPU kernel's sequential
-grid. The plain version below is the reference formula: fp32 statistics
-(mean, then E[x^2] - mean^2), fp32 affine, LeakyReLU and residual in fp32,
-one cast back to x's dtype.
+(``fused_group_norm_leaky``, forward ``_pallas_forward``). On a CUDA tensor
+two kernels serve it, chosen by shape:
+
+- ``csrc/groupnorm_onepass.cu``, the one-pass route: whole images staged in
+  the SMs' shared memory, wave by wave (:func:`_plan_onepass`), so x is read
+  from HBM once. It takes x when x, y and the residual are 16-byte aligned,
+  the channels split into 16-byte vectors in a power-of-two count, and one
+  image fits on chip (:func:`_onepass_layout_ok`, :func:`_plan_onepass`).
+- ``csrc/groupnorm_leaky.cu``, the two-pass route, for every other shape
+  (an offset view, an odd channel count, an image larger than the card's
+  shared memory): a stats pass, then an apply pass, so x is read twice.
+
+A failed launch of either raises; neither is chosen by catching an error.
+The notes in both sources say what bounds them on the H100 (bytes). The
+plain version below is the reference formula: fp32 statistics (mean, then
+E[x^2] - mean^2), fp32 affine, LeakyReLU and residual in fp32, one cast
+back to x's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,11 +33,20 @@ import torch.nn.functional as F
 from mri_superresolution_torch.kernels import _build
 from mri_superresolution_torch.ops.functional import GN_EPS, group_norm_fp32
 
-# Elements each block of the kernel streams (its pixel chunk): enough work
-# per block to hide the block's set-up, and many blocks per image so that
-# batch-1 serving still fills the card.
+# Elements each block of the two-pass kernel streams (its pixel chunk):
+# enough work per block to hide the block's set-up, and many blocks per
+# image so that batch-1 serving still fills the card.
 _CHUNK_ELEMS = 16384
 _DTYPES = (torch.float32, torch.bfloat16)
+# the one-pass kernel's threads a block, largest group count and float2
+# partial entries, as in csrc/groupnorm_onepass.cu
+_ONEPASS_THREADS = 512
+_ONEPASS_MAX_GROUPS = 256
+_ONEPASS_PART_ENTRIES = 1024
+# the one-pass kernel's arrival counters, device index -> int32 tensor;
+# each launch leaves them at zero
+_COUNTERS: dict = {}
+_MIN_COUNTERS = 1024
 
 
 def group_norm_leaky_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -63,8 +86,9 @@ def _check(x, scale, bias, residual, n_groups):
 
 
 def _launch_geometry(hw: int, c: int, itemsize: int, aligned: bool):
-    """(vec, rows, chunk_px, nchunks) of a launch: vec elements per load,
-    a power-of-two `rows` of pixels walked together by vpp * rows threads."""
+    """(vec, rows, chunk_px, nchunks) of a two-pass launch: vec elements per
+    load, a power-of-two `rows` of pixels walked together by vpp * rows
+    threads."""
     vec = 16 // itemsize
     if c % vec or not aligned:
         vec = 1
@@ -81,24 +105,135 @@ def _launch_geometry(hw: int, c: int, itemsize: int, aligned: bool):
     return vec, rows, chunk_px, nchunks
 
 
-def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     residual: Optional[torch.Tensor] = None,
-                     n_groups: int = 8, negative_slope: float = 0.2,
-                     eps: float = GN_EPS) -> torch.Tensor:
-    """``leaky_relu(group_norm(x) * scale + bias) [+ residual]``.
+class OnePassPlan(NamedTuple):
+    """Waves of the one-pass kernel. Its grid is ``ranges *
+    images_per_wave`` blocks; in wave w, block j stages pixels ``[r *
+    chunk_px, min((r + 1) * chunk_px, H * W))`` with ``r = j % ranges`` of
+    image ``w * images_per_wave + j // ranges``, and stops at the first
+    wave with no image for it."""
+    chunk_px: int
+    ranges: int
+    images_per_wave: int
+    waves: int
 
-    x: (B, C, H, W) float32 or bfloat16 in channels_last memory; scale,
-    bias: (C,) float32; residual: like x. Returns x's dtype and layout.
-    The kernel on a CUDA tensor, the plain version on a CPU tensor.
-    """
-    _check(x, scale, bias, residual, n_groups)
-    if x.device.type == "cpu":
-        return group_norm_leaky_plain(x, scale, bias, residual, n_groups,
-                                      negative_slope, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+
+def _plan_onepass(b: int, hw: int, c: int, itemsize: int, n_blocks: int,
+                  smem_bytes: int) -> Optional[OnePassPlan]:
+    """The one-pass kernel's waves for ``b`` images of ``hw`` pixels of
+    ``c`` channels, with ``n_blocks`` co-resident blocks that can each stage
+    ``smem_bytes``; None when one image does not fit on chip.
+
+    The fewest waves of whole images, the images spread evenly over them
+    (``ceil(b / waves)`` a wave, the last wave the rest), and each image
+    spread over all the blocks of its share of the grid, so that every
+    block stages about the same bytes. Ranges are whole 16-byte units."""
+    px_bytes = c * itemsize
+    align_px = 16 // math.gcd(px_bytes, 16)
+    max_px = smem_bytes // px_bytes // align_px * align_px
+    if b < 1 or hw < 1 or max_px < 1:
+        return None
+    need = -(-hw // max_px)                      # blocks one image needs
+    if need > n_blocks:
+        return None
+    per_wave = min(b, n_blocks // need)
+    waves = -(-b // per_wave)
+    per_wave = -(-b // waves)
+    share = n_blocks // per_wave
+    chunk = -(-hw // share)
+    chunk = -(-chunk // align_px) * align_px
+    return OnePassPlan(chunk, -(-hw // chunk), per_wave, waves)
+
+
+def _onepass_layout_ok(c: int, itemsize: int, n_groups: int) -> bool:
+    """Whether the one-pass kernel's thread layout takes ``c`` channels in
+    ``n_groups`` groups: 16-byte vectors of V channels, a power-of-two count
+    of them a pixel, each vector within one group or a whole number of
+    groups, and the block's partials within its shared memory (as
+    ``msr_gn_onepass_fwd`` checks)."""
+    vec = 16 // itemsize
+    if c % vec or n_groups > _ONEPASS_MAX_GROUPS:
+        return False
+    vpp, cg = c // vec, c // n_groups
+    if vpp & (vpp - 1) or vpp > _ONEPASS_THREADS or (cg % vec and vec % cg):
+        return False
+    ent = vpp if cg >= vec else c
+    prow = _ONEPASS_THREADS // max(vpp, 32)
+    return prow * ent <= _ONEPASS_PART_ENTRIES
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(index: int) -> tuple:
+    """(co-resident blocks, bytes each can stage) of the one-pass kernel
+    on CUDA device ``index``, asked once per device."""
+    n, stage = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        code = _build.library().msr_gn_onepass_capacity(
+            ctypes.byref(n), ctypes.byref(stage))
+    _build.check(code, "group_norm_leaky (one-pass capacity)")
+    return n.value, stage.value
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The one-pass kernel's counters on ``device``, at least ``n`` of
+    them, zero between launches. One buffer a device, so two one-pass
+    launches must not run at once on two streams of one device (the port
+    runs one stream). Made with torch.zeros outside any CUDA graph capture:
+    call the wrapper once before capturing it."""
+    key = _index(device)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("group_norm_leaky: call it once outside CUDA "
+                               "graph capture at this batch size first (its "
+                               "counters are made then)")
+        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def onepass_plan(x: torch.Tensor, y: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None,
+                 n_groups: int = 8) -> Optional[OnePassPlan]:
+    """The one-pass route's plan for a CUDA ``x`` (written to ``y``), or
+    None where the shape takes the two-pass route."""
     b, c, h, w = x.shape
-    y = torch.empty_like(x, memory_format=torch.channels_last)
+    ptrs = [x.data_ptr(), y.data_ptr()]
+    if residual is not None:
+        ptrs.append(residual.data_ptr())
+    if any(p % 16 for p in ptrs) or \
+            not _onepass_layout_ok(c, x.element_size(), n_groups):
+        return None
+    n_blocks, stage = _capacity(_index(x.device))
+    return _plan_onepass(b, h * w, c, x.element_size(), n_blocks, stage)
+
+
+def _onepass(x, scale, bias, residual, y, plan, n_groups, negative_slope,
+             eps):
+    b, c, h, w = x.shape
+    cnt = _counters(x.device, 2 * b)
+    ws = torch.empty((b, plan.ranges, n_groups, 2), dtype=torch.float32,
+                     device=x.device)
+    code = _build.library().msr_gn_onepass_fwd(
+        x.data_ptr(), None if residual is None else residual.data_ptr(),
+        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(),
+        cnt.data_ptr(), b, h * w, c, n_groups, plan.chunk_px, plan.ranges,
+        plan.images_per_wave, plan.waves, _capacity(_index(x.device))[1],
+        int(x.dtype == torch.bfloat16), eps, negative_slope,
+        _build.stream_ptr(x.device))
+    group_norm_leaky.launches += 1
+    group_norm_leaky.onepass_launches += 1
+    _build.check(code, "group_norm_leaky (one-pass)")
+    return y
+
+
+def _twopass(x, scale, bias, residual, y, n_groups, negative_slope, eps):
+    b, c, h, w = x.shape
     ptrs = [x.data_ptr(), y.data_ptr()]
     if residual is not None:
         ptrs.append(residual.data_ptr())
@@ -113,8 +248,52 @@ def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         int(x.dtype == torch.bfloat16), eps, negative_slope,
         _build.stream_ptr(x.device))
     group_norm_leaky.launches += 1
-    _build.check(code, "group_norm_leaky")
+    _build.check(code, "group_norm_leaky (two-pass)")
     return y
 
 
+def group_norm_leaky_twopass(x: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor,
+                             residual: Optional[torch.Tensor] = None,
+                             n_groups: int = 8, negative_slope: float = 0.2,
+                             eps: float = GN_EPS) -> torch.Tensor:
+    """The two-pass kernel on a CUDA ``x`` whatever its shape: what
+    :func:`group_norm_leaky` runs where the one-pass route does not apply,
+    callable alone so that the two routes can be compared."""
+    _check(x, scale, bias, residual, n_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"the two-pass kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    return _twopass(x, scale, bias, residual, y, n_groups, negative_slope,
+                    eps)
+
+
+def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     residual: Optional[torch.Tensor] = None,
+                     n_groups: int = 8, negative_slope: float = 0.2,
+                     eps: float = GN_EPS) -> torch.Tensor:
+    """``leaky_relu(group_norm(x) * scale + bias) [+ residual]``.
+
+    x: (B, C, H, W) float32 or bfloat16 in channels_last memory; scale,
+    bias: (C,) float32; residual: like x. Returns x's dtype and layout.
+    On a CUDA tensor the one-pass kernel where :func:`onepass_plan` gives a
+    plan, else the two-pass kernel; the plain version on a CPU tensor.
+    """
+    _check(x, scale, bias, residual, n_groups)
+    if x.device.type == "cpu":
+        return group_norm_leaky_plain(x, scale, bias, residual, n_groups,
+                                      negative_slope, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    plan = onepass_plan(x, y, residual, n_groups)
+    if plan is not None:
+        return _onepass(x, scale, bias, residual, y, plan, n_groups,
+                        negative_slope, eps)
+    return _twopass(x, scale, bias, residual, y, n_groups, negative_slope,
+                    eps)
+
+
 group_norm_leaky.launches = 0
+group_norm_leaky.onepass_launches = 0

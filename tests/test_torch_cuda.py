@@ -17,7 +17,7 @@ from mri_superresolution_torch.config import ModelConfig
 from mri_superresolution_torch.infer import InferenceEngine
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
-    group_norm_leaky, group_norm_leaky_plain)
+    group_norm_leaky, group_norm_leaky_plain, onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.roll_probe import (
@@ -80,6 +80,71 @@ def test_group_norm_leaky_kernel(dev, shape, dtype, offset, with_res):
     assert group_norm_leaky.launches == before + 1
     assert got.is_contiguous(memory_format=torch.channels_last)
     _close(got, group_norm_leaky_plain(x, g, b, residual=res), dtype)
+
+
+def _gn_case(shape, dtype, dev, gen, with_res, offset=0):
+    c = shape[1]
+    x = _cl(shape, dtype, dev, gen, offset)
+    g = torch.randn(c, generator=gen, device=dev)
+    b = torch.randn(c, generator=gen, device=dev)
+    res = _cl(shape, dtype, dev, gen) if with_res else None
+    return x, g, b, res
+
+
+# the unet's five GroupNorm shapes at batch 16 (base_filters 32, 256^2 in),
+# and the final stage at batch 1
+@pytest.mark.parametrize("shape", [
+    (16, 32, 256, 256), (16, 64, 128, 128), (16, 128, 64, 64),
+    (16, 256, 32, 32), (16, 16, 512, 512), (1, 16, 512, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_group_norm_leaky_onepass(dev, shape, dtype, with_res):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, g, b, res = _gn_case(shape, dtype, dev, gen, with_res)
+    assert onepass_plan(x, torch.empty_like(x), res) is not None
+    before = (group_norm_leaky.launches, group_norm_leaky.onepass_launches)
+    got = group_norm_leaky(x, g, b, residual=res)
+    assert (group_norm_leaky.launches,
+            group_norm_leaky.onepass_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _close(got, group_norm_leaky_plain(x, g, b, residual=res), dtype)
+    # fixed-order sums: the same bits on every run
+    assert torch.equal(got, group_norm_leaky(x, g, b, residual=res))
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 16, 64, 64), 1),              # an offset view: not 16-byte aligned
+    ((1, 32, 1024, 1024), 0),          # 64 MiB: more than the SMs can stage
+])
+def test_group_norm_leaky_twopass_route(dev, shape, offset):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, g, b, res = _gn_case(shape, torch.bfloat16, dev, gen, True, offset)
+    assert onepass_plan(x, torch.empty_like(x), res) is None
+    before = (group_norm_leaky.launches, group_norm_leaky.onepass_launches)
+    got = group_norm_leaky(x, g, b, residual=res)
+    assert (group_norm_leaky.launches,
+            group_norm_leaky.onepass_launches) == (before[0] + 1, before[1])
+    _close(got, group_norm_leaky_plain(x, g, b, residual=res), torch.bfloat16)
+
+
+def test_group_norm_leaky_onepass_in_cuda_graph(dev):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x, g, b, res = _gn_case((16, 32, 64, 64), torch.bfloat16, dev, gen, True)
+    group_norm_leaky(x, g, b, residual=res)     # once outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = group_norm_leaky(x, g, b, residual=res)
+    for seed in (9, 10):
+        x.copy_(_cl(x.shape, x.dtype, dev,
+                    torch.Generator(device=dev).manual_seed(seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, group_norm_leaky_plain(x, g, b, residual=res),
+               torch.bfloat16)
+    first = out.clone()
+    graph.replay()
+    assert torch.equal(out, first)
 
 
 def test_group_norm_leaky_kernel_refuses_nchw(dev):
