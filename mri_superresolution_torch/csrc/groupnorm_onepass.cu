@@ -49,12 +49,22 @@
 //     wave into it, so that wave's loads fly while this one's stores drain
 //     and HBM sees reads and writes together; only the exchange and the
 //     finalize leave it idle.
+// int8 output (kQuant; bf16 x, no residual): kernel B4's work at the unet's
+// seven DoubleConv conv2 sites, done in the apply loop instead of in a
+// second pass. Each fp32 z is cast to bf16 exactly as above (the GroupNorm's
+// own LeakyReLU is not applied: those sites call it with slope 1.0), then
+// goes through quantize.cuh's quant_code (LeakyReLU in bf16 at `slope`,
+// per-channel int8 quantize), and 8 codes a vector are stored. The result
+// equals B1 at slope 1.0 followed by B4, code for code, and saves the bf16
+// tensor between them: 4 of the 7 bytes an element that the two kernels
+// move, and a launch.
 // Every sum runs in a fixed order, so results do not change from run to
 // run. The wrapper takes this kernel where x, y (and the residual) are
 // 16-byte aligned, C / V is a power of two and one image fits on chip;
 // other shapes take groupnorm_leaky.cu.
 
 #include "common.cuh"
+#include "quantize.cuh"
 
 namespace {
 
@@ -154,16 +164,18 @@ __device__ __forceinline__ void stage_piece(const T* src, uint32_t dst,
   bulk_load(dst + off, reinterpret_cast<const char*>(src) + off, n, bar);
 }
 
-template <typename T, int V, bool kRes>
+template <typename T, int V, bool kRes, bool kQuant>
 __global__ void __launch_bounds__(kThreads, 1)
     gn_onepass_kernel(const T* __restrict__ x, const T* __restrict__ res,
                       const float* __restrict__ gamma,
-                      const float* __restrict__ beta, T* __restrict__ y,
+                      const float* __restrict__ beta,
+                      const float* __restrict__ qscale, void* __restrict__ yv,
                       float* __restrict__ ws, unsigned* __restrict__ cnt,
                       int b, long long hw, int c, int g, int chunk_px,
                       int ranges, int ipw, int waves, float eps,
                       float slope) {
   using Vec = msr::Vec<T, V>;
+  static_assert(!kQuant || (V == 8 && !kRes), "int8 output: bf16, no res");
   extern __shared__ __align__(128) unsigned char smem[];
   float2* stats = reinterpret_cast<float2*>(smem + kStatsOff);
   float2* part = reinterpret_cast<float2*>(smem + kPartOff);
@@ -188,6 +200,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int k = 0; k < V; ++k) {
     gam[k] = gamma[cvec * V + k];
     bet[k] = beta[cvec * V + k];
+  }
+  // int8 output: each channel's scale and reciprocal, once
+  float qs[V], qr[V];
+  bool qfast = true;
+  if constexpr (kQuant) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      qs[k] = qscale[cvec * V + k];
+      qr[k] = __frcp_rn(qs[k]);
+      qfast = qfast && msr::quant_fast_ok(qs[k]);
+    }
   }
   if (t == 0) {
     for (int i = 0; i < pieces; ++i) mbar_init(bars + 8 * i);
@@ -333,16 +356,39 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int pp = p + u * L.rows;
         if (pp < n_px) {
           const Vec v = stage[pp * L.vpp + cvec];
-          Vec o;
+          const long long at = col + static_cast<long long>(pp) * c;
+          if constexpr (kQuant) {
+            float zb[V];
 #pragma unroll
-          for (int k = 0; k < V; ++k) {
-            float z = (msr::to_float(v.v[k]) - m[k]) * sc[k] + bet[k];
-            z = z >= 0.f ? z : slope * z;
-            if (kRes) z += msr::to_float(r[u].v[k]);
-            o.v[k] = msr::from_float<T>(z);
+            for (int k = 0; k < V; ++k) {
+              const float z = (msr::to_float(v.v[k]) - m[k]) * sc[k] + bet[k];
+              zb[k] = msr::to_float(msr::from_float<T>(z));
+            }
+            uint32_t q[V];
+            if (qfast) {
+#pragma unroll
+              for (int k = 0; k < V; ++k)
+                q[k] = msr::quant_code<true, true>(zb[k], slope, qs[k], qr[k]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < V; ++k)
+                q[k] = msr::quant_code<true, false>(zb[k], slope, qs[k],
+                                                    qr[k]);
+            }
+            *reinterpret_cast<uint2*>(static_cast<int8_t*>(yv) + at) =
+                make_uint2(msr::pack_codes(q[0], q[1], q[2], q[3]),
+                           msr::pack_codes(q[4], q[5], q[6], q[7]));
+          } else {
+            Vec o;
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              float z = (msr::to_float(v.v[k]) - m[k]) * sc[k] + bet[k];
+              z = z >= 0.f ? z : slope * z;
+              if (kRes) z += msr::to_float(r[u].v[k]);
+              o.v[k] = msr::from_float<T>(z);
+            }
+            *reinterpret_cast<Vec*>(static_cast<T*>(yv) + at) = o;
           }
-          *reinterpret_cast<Vec*>(y + col + static_cast<long long>(pp) * c) =
-              o;
         }
       }
       __syncthreads();
@@ -355,9 +401,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int V, bool kRes>
+template <typename T, int V, bool kRes, bool kQuant = false>
 cudaError_t prepare(int smem, int* per_sm) {
-  auto kernel = gn_onepass_kernel<T, V, kRes>;
+  auto kernel = gn_onepass_kernel<T, V, kRes, kQuant>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -365,9 +411,9 @@ cudaError_t prepare(int smem, int* per_sm) {
                                                        kThreads, smem);
 }
 
-template <typename T, int V, bool kRes>
+template <typename T, int V, bool kRes, bool kQuant = false>
 int launch(const void* x, const void* res, const float* gamma,
-           const float* beta, void* y, float* ws, unsigned* cnt, int b,
+           const float* beta, const float* qscale, void* y, float* ws, unsigned* cnt, int b,
            long long hw, int c, int g, int chunk_px, int ranges, int ipw,
            int waves, int stage_bytes, float eps, float slope,
            cudaStream_t stream) {
@@ -382,8 +428,8 @@ int launch(const void* x, const void* res, const float* gamma,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, gn_onepass_kernel<T, V, kRes>, static_cast<const T*>(x),
-      static_cast<const T*>(res), gamma, beta, static_cast<T*>(y), ws, cnt, b,
+      &cfg, gn_onepass_kernel<T, V, kRes, kQuant>, static_cast<const T*>(x),
+      static_cast<const T*>(res), gamma, beta, qscale, y, ws, cnt, b,
       hw, c, g, chunk_px, ranges, ipw, waves, eps, slope);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -412,7 +458,8 @@ extern "C" int msr_gn_onepass_capacity(int* n_blocks, int* stage_bytes) {
   int n = 0;
   cudaError_t (*instances[])(int, int*) = {
       prepare<float, 4, false>, prepare<float, 4, true>,
-      prepare<__nv_bfloat16, 8, false>, prepare<__nv_bfloat16, 8, true>};
+      prepare<__nv_bfloat16, 8, false>, prepare<__nv_bfloat16, 8, true>,
+      prepare<__nv_bfloat16, 8, false, true>};
   for (auto fn : instances) {
     e = fn(smem, &n);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -425,15 +472,18 @@ extern "C" int msr_gn_onepass_capacity(int* n_blocks, int* stage_bytes) {
 }
 
 // x, res, y: (B, HW, C) channels-last, bf16 (is_bf16) or fp32, 16-byte
-// aligned; res may be null. gamma, beta: (C,) fp32. ws: (B, ranges, G, 2)
-// fp32 scratch. cnt: 2 * B unsigned counters, zero on entry and on exit.
+// aligned; res may be null. gamma, beta: (C,) fp32. qscale: null, or (C,)
+// fp32 int8 scales: then x is bf16, res null, y (B, HW, C) int8 codes,
+// 8-byte aligned, and slope is the quantize's LeakyReLU (the GroupNorm's
+// own is not applied). ws: (B, ranges, G, 2) fp32 scratch. cnt: 2 * B unsigned counters, zero on entry and on exit.
 // The plan (chunk_px, ranges, ipw, waves) is _plan_onepass's; stage_bytes
 // is msr_gn_onepass_capacity's. Refuses a layout the kernel does not take.
 extern "C" int msr_gn_onepass_fwd(const void* x, const void* res,
                                   const float* gamma, const float* beta,
-                                  void* y, float* ws, unsigned* cnt, int b,
-                                  long long hw, int c, int g, int chunk_px,
-                                  int ranges, int ipw, int waves,
+                                  const float* qscale, void* y, float* ws,
+                                  unsigned* cnt, int b, long long hw, int c,
+                                  int g, int chunk_px, int ranges, int ipw,
+                                  int waves,
                                   int stage_bytes, int is_bf16, float eps,
                                   float slope, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -450,21 +500,28 @@ extern "C" int msr_gn_onepass_fwd(const void* x, const void* res,
       static_cast<long long>(chunk_px) * ranges < hw ||
       static_cast<long long>(ipw) * waves < b)
     return cudaErrorInvalidValue;
+  if (qscale != nullptr) {
+    if (!is_bf16 || res != nullptr) return cudaErrorInvalidValue;
+    return launch<__nv_bfloat16, 8, false, true>(
+        x, res, gamma, beta, qscale, y, ws, cnt, b, hw, c, g, chunk_px, ranges,
+        ipw, waves, stage_bytes, eps, slope, s);
+  }
   if (is_bf16) {
     if (res != nullptr)
-      return launch<__nv_bfloat16, 8, true>(x, res, gamma, beta, y, ws, cnt,
-                                            b, hw, c, g, chunk_px, ranges,
-                                            ipw, waves, stage_bytes, eps,
-                                            slope, s);
-    return launch<__nv_bfloat16, 8, false>(x, res, gamma, beta, y, ws, cnt, b,
-                                           hw, c, g, chunk_px, ranges, ipw,
-                                           waves, stage_bytes, eps, slope, s);
+      return launch<__nv_bfloat16, 8, true>(x, res, gamma, beta, qscale, y,
+                                            ws, cnt, b, hw, c, g, chunk_px,
+                                            ranges, ipw, waves, stage_bytes,
+                                            eps, slope, s);
+    return launch<__nv_bfloat16, 8, false>(x, res, gamma, beta, qscale, y, ws,
+                                           cnt, b, hw, c, g, chunk_px, ranges,
+                                           ipw, waves, stage_bytes, eps, slope,
+                                           s);
   }
   if (res != nullptr)
-    return launch<float, 4, true>(x, res, gamma, beta, y, ws, cnt, b, hw, c,
-                                  g, chunk_px, ranges, ipw, waves,
+    return launch<float, 4, true>(x, res, gamma, beta, qscale, y, ws, cnt, b,
+                                  hw, c, g, chunk_px, ranges, ipw, waves,
                                   stage_bytes, eps, slope, s);
-  return launch<float, 4, false>(x, res, gamma, beta, y, ws, cnt, b, hw, c, g,
-                                 chunk_px, ranges, ipw, waves, stage_bytes,
-                                 eps, slope, s);
+  return launch<float, 4, false>(x, res, gamma, beta, qscale, y, ws, cnt, b,
+                                 hw, c, g, chunk_px, ranges, ipw, waves,
+                                 stage_bytes, eps, slope, s);
 }

@@ -3,13 +3,14 @@
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version in the same module, and counts its kernel launches in
 ``<wrapper>.launches`` (``group_norm_leaky.onepass_launches`` counts its
-one-pass route apart). Nothing here builds or imports anything at import
-time: ``_build.library()`` compiles at first use.
+one-pass route apart, ``leaky_quantize.stream_launches`` its stream route).
+Nothing here builds or imports anything at import time:
+``_build.library()`` compiles at first use.
 """
 
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3  # noqa: F401
 from mri_superresolution_torch.kernels.groupnorm import (  # noqa: F401
-    group_norm_leaky)
+    gn_quantize, group_norm_leaky)
 from mri_superresolution_torch.kernels.leaky_quantize import (  # noqa: F401
     leaky_quantize)
 from mri_superresolution_torch.kernels.roll_probe import (  # noqa: F401
@@ -17,13 +18,14 @@ from mri_superresolution_torch.kernels.roll_probe import (  # noqa: F401
 from mri_superresolution_torch.kernels.ssim import ssim_per_sample  # noqa: F401
 
 WRAPPERS = (group_norm_leaky, conv3x3, ssim_per_sample, leaky_quantize,
-            roll_copy, roll32, taps3)
+            gn_quantize, roll_copy, roll32, taps3)
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     group_norm_leaky.onepass_launches = 0
+    leaky_quantize.stream_launches = 0
 
 
 def launch_counts() -> dict:

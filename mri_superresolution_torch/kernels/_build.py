@@ -38,12 +38,13 @@ SIGNATURES = {
     "msr_gn_leaky_fwd": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
                          _I, _I, _F, _F, _P],
     "msr_gn_onepass_capacity": [_PI, _PI],
-    "msr_gn_onepass_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _F, _F, _P],
+    "msr_gn_onepass_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "msr_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "msr_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "msr_ssim_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "msr_leaky_quantize": [_P, _P, _P, _LL, _I, _I, _I, _F, _P],
+    "msr_leaky_quantize_stream": [_P, _P, _P, _LL, _I, _F, _P],
     "msr_probe_copy": [_P, _P, _I, _I, _P],
     "msr_probe_roll32": [_P, _P, _I, _I, _P],
     "msr_probe_taps3": [_P, _P, _I, _I, _P],

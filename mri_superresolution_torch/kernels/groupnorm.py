@@ -18,6 +18,12 @@ The notes in both sources say what bounds them on the H100 (bytes). The
 plain version below is the reference formula: fp32 statistics (mean, then
 E[x^2] - mean^2), fp32 affine, LeakyReLU and residual in fp32, one cast
 back to x's dtype.
+
+:func:`gn_quantize` is kernel B4's fused route: the one-pass kernel with an
+int8 output (bf16 x, no residual), which applies B4's LeakyReLU and
+quantize to each element before it is stored, in place of B1 at slope 1.0
+followed by ``kernels.leaky_quantize``. Where the one-pass route does not
+take the shape, it runs those two kernels in turn.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from mri_superresolution_torch.kernels import _build
+from mri_superresolution_torch.kernels.leaky_quantize import (
+    _check as _check_quantize, leaky_quantize, leaky_quantize_plain)
 from mri_superresolution_torch.ops.functional import GN_EPS, group_norm_fp32
 
 # Elements each block of the two-pass kernel streams (its pixel chunk):
@@ -200,13 +208,16 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 def onepass_plan(x: torch.Tensor, y: torch.Tensor,
                  residual: Optional[torch.Tensor] = None,
                  n_groups: int = 8) -> Optional[OnePassPlan]:
-    """The one-pass route's plan for a CUDA ``x`` (written to ``y``), or
-    None where the shape takes the two-pass route."""
+    """The one-pass route's plan for a CUDA ``x`` (written to ``y``, of x's
+    dtype or int8 codes), or None where the shape takes the two-pass
+    route. x and the residual must be 16-byte aligned, and y aligned to
+    one vector of its own type (16 bytes, or 8 for int8 codes)."""
     b, c, h, w = x.shape
-    ptrs = [x.data_ptr(), y.data_ptr()]
+    ptrs = [x.data_ptr()]
     if residual is not None:
         ptrs.append(residual.data_ptr())
-    if any(p % 16 for p in ptrs) or \
+    y_align = 16 * y.element_size() // x.element_size()
+    if any(p % 16 for p in ptrs) or y.data_ptr() % y_align or \
             not _onepass_layout_ok(c, x.element_size(), n_groups):
         return None
     n_blocks, stage = _capacity(_index(x.device))
@@ -214,21 +225,29 @@ def onepass_plan(x: torch.Tensor, y: torch.Tensor,
 
 
 def _onepass(x, scale, bias, residual, y, plan, n_groups, negative_slope,
-             eps):
+             eps, qscale=None):
+    """One launch of the one-pass kernel; with ``qscale`` (the int8
+    scales) y takes int8 codes and the launch counts as ``gn_quantize``'s."""
     b, c, h, w = x.shape
     cnt = _counters(x.device, 2 * b)
     ws = torch.empty((b, plan.ranges, n_groups, 2), dtype=torch.float32,
                      device=x.device)
     code = _build.library().msr_gn_onepass_fwd(
         x.data_ptr(), None if residual is None else residual.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(),
-        cnt.data_ptr(), b, h * w, c, n_groups, plan.chunk_px, plan.ranges,
-        plan.images_per_wave, plan.waves, _capacity(_index(x.device))[1],
+        scale.data_ptr(), bias.data_ptr(),
+        None if qscale is None else qscale.data_ptr(), y.data_ptr(),
+        ws.data_ptr(), cnt.data_ptr(), b, h * w, c, n_groups, plan.chunk_px,
+        plan.ranges, plan.images_per_wave, plan.waves,
+        _capacity(_index(x.device))[1],
         int(x.dtype == torch.bfloat16), eps, negative_slope,
         _build.stream_ptr(x.device))
-    group_norm_leaky.launches += 1
-    group_norm_leaky.onepass_launches += 1
-    _build.check(code, "group_norm_leaky (one-pass)")
+    if qscale is None:
+        group_norm_leaky.launches += 1
+        group_norm_leaky.onepass_launches += 1
+        _build.check(code, "group_norm_leaky (one-pass)")
+    else:
+        gn_quantize.launches += 1
+        _build.check(code, "gn_quantize (one-pass)")
     return y
 
 
@@ -297,3 +316,46 @@ def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 group_norm_leaky.launches = 0
 group_norm_leaky.onepass_launches = 0
+
+
+def gn_quantize_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      qscale: torch.Tensor, negative_slope: float = 0.2,
+                      n_groups: int = 8, eps: float = GN_EPS) -> torch.Tensor:
+    return leaky_quantize_plain(
+        group_norm_leaky_plain(x, scale, bias, None, n_groups, 1.0, eps),
+        qscale, negative_slope)
+
+
+def gn_quantize(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                qscale: torch.Tensor, negative_slope: float = 0.2,
+                n_groups: int = 8, eps: float = GN_EPS) -> torch.Tensor:
+    """``leaky_quantize(group_norm_leaky(x, scale, bias, negative_slope=1.0),
+    qscale, negative_slope)``: the GroupNorm's affine output cast to x's
+    dtype, then LeakyReLU in that dtype and the per-channel int8 quantize.
+
+    x: (B, C, H, W) float32 or bfloat16 in channels_last memory; scale,
+    bias, qscale: (C,) float32. Returns int8 (B, C, H, W), channels_last.
+    On a CUDA tensor the one-pass kernel with its int8 output where x is
+    bf16 and :func:`onepass_plan` gives a plan, else the two kernels in
+    turn; the plain version on a CPU tensor.
+    """
+    _check(x, scale, bias, None, n_groups)
+    _check_quantize(x, qscale)
+    if x.device.type == "cpu":
+        return gn_quantize_plain(x, scale, bias, qscale, negative_slope,
+                                 n_groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype == torch.bfloat16:
+        y = torch.empty(x.shape, dtype=torch.int8, device=x.device,
+                        memory_format=torch.channels_last)
+        plan = onepass_plan(x, y, None, n_groups)
+        if plan is not None:
+            return _onepass(x, scale, bias, None, y, plan, n_groups,
+                            negative_slope, eps, qscale=qscale)
+    return leaky_quantize(
+        group_norm_leaky(x, scale, bias, None, n_groups, 1.0, eps), qscale,
+        negative_slope)
+
+
+gn_quantize.launches = 0

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from mri_superresolution_torch.kernels import _build
-from mri_superresolution_torch.ops.ssim import _gaussian_window_np, ssim
+from mri_superresolution_torch.ops.ssim import gaussian_window, ssim
 
 MAX_WINDOW = 15
 _TILE = 32          # the kernel's output tile (csrc/ssim_fused.cu kTile)
@@ -54,7 +54,7 @@ def ssim_per_sample(img1: torch.Tensor, img2: torch.Tensor,
         raise ValueError("inputs must be contiguous")
     b, h, w = img1.shape
     dev = img1.device
-    win = torch.from_numpy(_gaussian_window_np(window_size, sigma)).to(dev)
+    win = gaussian_window(window_size, sigma, dev)
     tiles = -(-h // _TILE) * -(-w // _TILE)
     partial = torch.empty((b, tiles), dtype=torch.float32, device=dev)
     out = torch.empty((b,), dtype=torch.float32, device=dev)

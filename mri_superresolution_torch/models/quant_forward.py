@@ -15,16 +15,16 @@ three modes that share one code path:
             per-input-channel activation scales folded into per-Cout weight
             scales.
 
-In ``int8`` mode every quantized site's input goes through kernel B4
-(``kernels.leaky_quantize``), 20 per forward. At the seven DoubleConv
-``conv2`` sites the GroupNorm before it runs through B1 with slope 1.0 (the
-affine and one cast to bf16) and B4 applies the LeakyReLU in bf16 and
-quantizes, which is the JAX dataflow (GroupNorm cast to bf16, bf16
-leaky_relu, quantize). The other 13 sites quantize with slope 1.0. The
-output head (``final_conv.3``, site ``__out__``) stays bf16, as in JAX; so
-``final_up_conv`` and ``final_conv1`` run int8 there and not on kernel B3.
-Launches per forward: ``ref``/``calib`` B1 20 and B3 2; ``int8`` B1 20 and
-B4 20.
+In ``int8`` mode every quantized site's input goes through kernel B4, 20
+per forward. At the seven DoubleConv ``conv2`` sites it is B4's fused
+route, ``kernels.gn_quantize``: the GroupNorm before the site (its affine
+and one cast to bf16), then the LeakyReLU in bf16 and the quantize, which
+is the JAX dataflow (GroupNorm cast to bf16, bf16 leaky_relu, quantize) in
+one kernel. The other 13 sites quantize with ``kernels.leaky_quantize`` at
+slope 1.0. The output head (``final_conv.3``, site ``__out__``) stays bf16,
+as in JAX; so ``final_up_conv`` and ``final_conv1`` run int8 there and not
+on kernel B3. Launches per forward: ``ref``/``calib`` B1 20 and B3 2;
+``int8`` B1 13, ``gn_quantize`` 7 and ``leaky_quantize`` 13.
 
 Calibration sidecars (``save_scales``/``load_scales``, format
 ``int8-ptq-scales-v1``) are byte-compatible with the JAX package's, so each
@@ -41,7 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mri_superresolution_torch.kernels import (conv3x3, group_norm_leaky,
+from mri_superresolution_torch.kernels import (conv3x3, gn_quantize,
+                                               group_norm_leaky,
                                                leaky_quantize)
 from mri_superresolution_torch.models.unet import CL, _conv, _upsample2
 from mri_superresolution_torch.ops.functional import (GN_EPS, max_pool2,
@@ -67,32 +68,25 @@ class _Ctx:
         self.amax: Dict[str, torch.Tensor] = {}
 
 
-def _gn(sd, prefix, x, residual=None, slope=_SLOPE):
+def _gn(sd, prefix, x, residual=None):
     return group_norm_leaky(x, sd[f"{prefix}.weight"], sd[f"{prefix}.bias"],
                             residual=residual, n_groups=_GROUPS,
-                            negative_slope=slope, eps=GN_EPS)
+                            negative_slope=_SLOPE, eps=GN_EPS)
 
 
-def _gn_into_site(ctx, sd, prefix, x):
-    """GroupNorm + LeakyReLU whose output feeds a conv site directly.
-    Returns (y, slope the site's quantize still has to apply): in int8 mode
-    the LeakyReLU is left to B4, so that it runs in bf16 after the cast."""
-    if ctx.mode == "int8":
-        return _gn(sd, prefix, x, slope=1.0), _SLOPE
-    return _gn(sd, prefix, x), 1.0
+def _int8_site(ctx, site, q, dtype, bias=None, padding=1):
+    """The int8 conv at ``site`` on its quantized input ``q``."""
+    qk, sk = ctx.qweights[site]
+    return int8_conv(q, qk, sk, bias=bias, padding=padding, out_dtype=dtype)
 
 
-def _site(ctx, site, x, weight, dtype, bias=None, padding=1, slope=1.0,
-          narrow=False):
-    """The conv at ``site`` on its input ``x``. ``slope`` is the LeakyReLU
-    still owed on ``x`` (int8 mode only); ``narrow`` sites run kernel B3
-    in bf16 (padding 1, no bias)."""
+def _site(ctx, site, x, weight, dtype, bias=None, padding=1, narrow=False):
+    """The conv at ``site`` on its input ``x``; ``narrow`` sites run kernel
+    B3 in bf16 (padding 1, no bias)."""
     if ctx.mode == "int8" and site != OUT_SITE:
-        qk, sk = ctx.qweights[site]
         q = leaky_quantize(x.contiguous(memory_format=CL), ctx.scales[site],
-                           slope)
-        return int8_conv(q, qk, sk, bias=bias, padding=padding,
-                         out_dtype=x.dtype)
+                           1.0)
+        return _int8_site(ctx, site, q, x.dtype, bias, padding)
     if ctx.mode == "calib" and site != OUT_SITE:
         ctx.amax[site] = x.abs().amax(dim=(0, 2, 3)).float()
     if narrow:
@@ -102,12 +96,20 @@ def _site(ctx, site, x, weight, dtype, bias=None, padding=1, slope=1.0,
 
 def _double_conv(ctx, sd, site, prefix, x, dtype):
     """DoubleConv (models/unet.py): conv -> GN+leaky -> conv -> GN+leaky,
-    the residual added inside the second GN kernel when channels match."""
+    the residual added inside the second GN kernel when channels match. In
+    int8 mode the first GN+leaky also quantizes conv2's input, in one
+    kernel (B4's fused route)."""
     p = f"{prefix}.double_conv"
     y = _site(ctx, f"{site}.conv1", x, sd[f"{p}.0.weight"], dtype)
-    y, owed = _gn_into_site(ctx, sd, f"{p}.1", y)
-    y = _site(ctx, f"{site}.conv2", y, sd[f"{p}.3.weight"], dtype,
-              slope=owed)
+    conv2 = f"{site}.conv2"
+    if ctx.mode == "int8":
+        q = gn_quantize(y, sd[f"{p}.1.weight"], sd[f"{p}.1.bias"],
+                        ctx.scales[conv2], _SLOPE, n_groups=_GROUPS,
+                        eps=GN_EPS)
+        y = _int8_site(ctx, conv2, q, y.dtype)
+    else:
+        y = _site(ctx, conv2, _gn(sd, f"{p}.1", y), sd[f"{p}.3.weight"],
+                  dtype)
     res = x if x.shape[1] == y.shape[1] else None
     return _gn(sd, f"{p}.4", y, residual=res)
 

@@ -26,12 +26,21 @@ def _gaussian_window_np(window_size: int, sigma: float) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def gaussian_window(window_size: int, sigma: float,
+                    device: torch.device) -> torch.Tensor:
+    """The 1D window as an fp32 tensor on ``device``, made once: a copy from
+    pageable host memory on every call would synchronise, which CUDA graph
+    capture refuses."""
+    return torch.from_numpy(_gaussian_window_np(window_size, sigma)).to(device)
+
+
 def _separable_blur(x: torch.Tensor, window_size: int,
                     sigma: float) -> torch.Tensor:
     """Zero-padded depthwise Gaussian blur of an NCHW fp32 tensor: rows,
     then columns (outer(g, g) separates exactly)."""
     c = x.shape[1]
-    g = torch.from_numpy(_gaussian_window_np(window_size, sigma)).to(x.device)
+    g = gaussian_window(window_size, sigma, x.device)
     pad = window_size // 2
     x = F.conv2d(x, g.view(1, 1, window_size, 1).expand(c, 1, window_size, 1),
                  padding=(pad, 0), groups=c)

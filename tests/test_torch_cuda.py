@@ -17,14 +17,15 @@ from mri_superresolution_torch.config import ModelConfig
 from mri_superresolution_torch.infer import InferenceEngine
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
-    group_norm_leaky, group_norm_leaky_plain, onepass_plan)
+    gn_quantize, group_norm_leaky, group_norm_leaky_plain, onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
-    leaky_quantize, leaky_quantize_plain)
+    leaky_quantize, leaky_quantize_generic, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.roll_probe import (
     roll32, roll32_plain, roll_copy, roll_copy_plain, taps3, taps3_plain)
 from mri_superresolution_torch.kernels.ssim import (ssim_per_sample,
                                                     ssim_per_sample_plain)
 from mri_superresolution_torch.models import build_model
+from mri_superresolution_torch.models import quant_forward
 
 pytestmark = pytest.mark.cuda
 
@@ -234,7 +235,8 @@ def test_unet_on_card_matches_cpu(dev):
     got = gpu.upscale_batch(x)
     assert kernels.launch_counts() == {
         "group_norm_leaky": 20, "conv3x3": 2, "ssim_per_sample": 0,
-        "leaky_quantize": 0, "roll_copy": 0, "roll32": 0, "taps3": 0}
+        "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
+        "taps3": 0}
     np.testing.assert_allclose(got, cpu.upscale_batch(x), rtol=1e-4,
                                atol=1e-4)
     m = InferenceEngine.calculate_metrics(got[0], got[1], dev)
@@ -283,6 +285,164 @@ def test_leaky_quantize_kernel(dev, shape, dtype, offset, slope):
     assert int((want.abs() == 127).sum()) > 0
 
 
+# classes of per-channel scales for the exhaustive cases: 1.0, amax /
+# 127-like values, non-powers of two near both ends of [2^-64, 2^64] (the
+# stream kernel's reciprocal route), extremes outside it (its IEEE division)
+_SCALES = (1.0, 0.0123, 3.7 / 127, 1e-30, 1e30, 1.0 / 3.0, 7.1e-20, 5.5e18)
+_IN_RANGE = [2.0 ** -64 <= s <= 2.0 ** 64 for s in _SCALES]
+
+
+def _every_bf16(c, dev, offset=0, cls=0):
+    """(1, c, 256, 256) bf16, channels_last, ``offset`` elements into its
+    buffer: every finite bf16 code (65,280) in every channel, the channel's
+    codes rotated by its index, and the 256 spare pixels zero; scales
+    differ from channel to channel. Each group of 16 channels (one stream
+    thread's) takes one class of scale, class ``cls`` for the first group,
+    so that a thread whose scales all lie in [2^-64, 2^64] runs the
+    reciprocal route rather than the IEEE division."""
+    codes = torch.arange(65536, dtype=torch.int32)
+    bits = (codes << 16).view(torch.float32)
+    finite = torch.cat([bits[torch.isfinite(bits)], torch.zeros(256)])
+    cols = torch.stack([finite.roll(17 * k) for k in range(c)], dim=1)
+    buf = torch.zeros(cols.numel() + offset, dtype=torch.bfloat16)
+    buf[offset:] = cols.reshape(-1).to(torch.bfloat16)
+    x = buf.to(dev)[offset:].view(1, 256, 256, c).permute(0, 3, 1, 2)
+    s = torch.tensor([_SCALES[(k // 16 + cls) % len(_SCALES)] * (1 + k / 997)
+                      for k in range(c)], dtype=torch.float32, device=dev)
+    return x, s
+
+
+@pytest.mark.parametrize("c,route,cls", [
+    *((1, "stream", cls) for cls in range(len(_SCALES))),
+    *((16, "stream", cls) for cls in range(len(_SCALES))),
+    (256, "stream", 0), (24, "element", 0)])
+@pytest.mark.parametrize("slope", [0.2, 1.0])
+def test_leaky_quantize_every_bf16_code(dev, c, route, cls, slope):
+    x, s = _every_bf16(c, dev, cls=cls)
+    if c in (16, 256):
+        # the groups whose threads take the reciprocal route: all or none
+        # at C = 16, 12 of the 16 at C = 256
+        a = s.abs().cpu().view(-1, 16)
+        fast = int(((a >= 2.0 ** -64) & (a <= 2.0 ** 64)).all(dim=1).sum())
+        assert fast == {16: int(_IN_RANGE[cls]), 256: 12}[c]
+    want = leaky_quantize_plain(x, s, slope)
+    before = (leaky_quantize.launches, leaky_quantize.stream_launches)
+    got = leaky_quantize(x, s, slope)
+    stream = int(route == "stream")
+    assert (leaky_quantize.launches, leaky_quantize.stream_launches) == (
+        before[0] + 1, before[1] + stream)
+    assert torch.equal(got, want)
+    assert torch.equal(got, leaky_quantize(x, s, slope))
+    # the element kernel on the same codes
+    assert torch.equal(leaky_quantize_generic(x, s, slope), want)
+
+
+@pytest.mark.parametrize("slope", [0.2, 1.0])
+def test_leaky_quantize_every_bf16_code_offset_view(dev, slope):
+    x, s = _every_bf16(16, dev, offset=3)
+    assert x.data_ptr() % 16 != 0
+    before = leaky_quantize.stream_launches
+    got = leaky_quantize(x, s, slope)
+    assert leaky_quantize.stream_launches == before
+    assert torch.equal(got, leaky_quantize_plain(x, s, slope))
+
+
+def _gn_quant_case(shape, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, g, b, _ = _gn_case(shape, torch.bfloat16, dev, gen, False)
+    # calibration-like scales of the GroupNorm's output, a little short so
+    # that some codes saturate
+    y = group_norm_leaky(x, g, b, negative_slope=1.0)
+    s = (y.float().abs().amax(dim=(0, 2, 3)) / 140.0).contiguous()
+    return x, g, b, s
+
+
+# the unet's DoubleConv conv2 shapes at batch 16 (base_filters 32, 256^2
+# in): inc and up3, down1 and up2, down2 and up1, down3; and batch 1
+@pytest.mark.parametrize("shape", [
+    (16, 32, 256, 256), (16, 64, 128, 128), (16, 128, 64, 64),
+    (16, 256, 32, 32), (1, 32, 256, 256)])
+def test_gn_quantize_matches_composition(dev, shape):
+    x, g, b, s = _gn_quant_case(shape, dev, 11)
+    assert onepass_plan(x, torch.empty(shape, dtype=torch.int8,
+                                       device=dev)) is not None
+    want = leaky_quantize_plain(group_norm_leaky(x, g, b, negative_slope=1.0),
+                                s, 0.2)
+    before = (gn_quantize.launches, group_norm_leaky.launches,
+              leaky_quantize.launches)
+    got = gn_quantize(x, g, b, s)
+    assert (gn_quantize.launches, group_norm_leaky.launches,
+            leaky_quantize.launches) == (before[0] + 1, before[1], before[2])
+    assert got.dtype == torch.int8
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    assert int((got.abs() == 127).sum()) > 0
+    # fixed-order sums: the same bits on every run
+    assert torch.equal(got, gn_quantize(x, g, b, s))
+
+
+def test_gn_quantize_twopass_shape_runs_two_kernels(dev):
+    x, g, b, s = _gn_quant_case((1, 32, 1024, 1024), dev, 12)
+    before = (gn_quantize.launches, group_norm_leaky.launches,
+              leaky_quantize.stream_launches)
+    got = gn_quantize(x, g, b, s)
+    assert (gn_quantize.launches, group_norm_leaky.launches,
+            leaky_quantize.stream_launches) == (before[0], before[1] + 1,
+                                                before[2] + 1)
+    assert torch.equal(got, leaky_quantize_plain(
+        group_norm_leaky(x, g, b, negative_slope=1.0), s, 0.2))
+
+
+def test_gn_quantize_in_cuda_graph(dev):
+    x, g, b, s = _gn_quant_case((16, 64, 64, 64), dev, 13)
+    gn_quantize(x, g, b, s)                   # once outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gn_quantize(x, g, b, s)
+    for seed in (14, 15):
+        x.copy_(_cl(x.shape, x.dtype, dev,
+                    torch.Generator(device=dev).manual_seed(seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, leaky_quantize_plain(
+            group_norm_leaky(x, g, b, negative_slope=1.0), s, 0.2))
+    first = out.clone()
+    graph.replay()
+    assert torch.equal(out, first)
+
+
+def test_int8_forward_kernels_match_plain_quantize(dev, monkeypatch):
+    """The int8 unet forward with its 20 quantize sites on the kernels
+    against the same forward with them on the plain versions (the fused
+    sites' reference keeps B1's kernel): the same output, bit for bit."""
+    cfg = ModelConfig(base_filters=16)
+    params = build_model(cfg, generator=torch.Generator().manual_seed(0)
+                         ).to(dev).state_dict()
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (2, 48, 48, 1), np.float32)).to(dev)
+    _, amax = quant_forward.build_calib_forward()(params, x)
+    scales = quant_forward.scales_from_amax(
+        {k: v.cpu().numpy() for k, v in amax.items()})
+    fwd = quant_forward.build_int8_forward(params, scales)
+    kernels.reset_launch_counts()
+    got = fwd(params, x)
+    assert (kernels.leaky_quantize.stream_launches,
+            kernels.launch_counts()["gn_quantize"]) == (13, 7)
+
+    def gn_quantize_ref(y, g, b, s, slope=0.2, n_groups=8, eps=1e-5):
+        return leaky_quantize_plain(
+            group_norm_leaky(y, g, b, None, n_groups, 1.0, eps), s, slope)
+
+    monkeypatch.setattr(quant_forward, "leaky_quantize", leaky_quantize_plain)
+    monkeypatch.setattr(quant_forward, "gn_quantize", gn_quantize_ref)
+    kernels.reset_launch_counts()
+    want = fwd(params, x)
+    assert (kernels.launch_counts()["leaky_quantize"],
+            kernels.launch_counts()["gn_quantize"]) == (0, 0)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("rows,lanes", [(128, 256), (512, 16384), (64, 40)])
 def test_roll_probe_kernels(dev, rows, lanes):
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -320,7 +480,9 @@ def test_int8_engine_on_card_follows_the_cpu_state_machine(dev, tmp_path):
     got = gpu.upscale_batch(batch)
     counts = kernels.launch_counts()
     assert (counts["leaky_quantize"], counts["group_norm_leaky"],
-            counts["conv3x3"]) == (20, 20, 0)
+            counts["gn_quantize"], counts["conv3x3"]) == (13, 13, 7, 0)
+    assert kernels.leaky_quantize.stream_launches == 13
+    assert group_norm_leaky.onepass_launches == 13
     assert gpu._quant_batches["int8"] == 1
     # the CPU port with the card's frozen scales: the bf16 budget
     ref = InferenceEngine(cfg, params, device="cpu", quant="int8",

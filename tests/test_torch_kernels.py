@@ -221,9 +221,11 @@ def test_cpu_calls_do_not_count_as_launches():
     conv3x3(x, torch.randn(16, 16, 3, 3))
     ssim_per_sample(torch.rand(1, 8, 8), torch.rand(1, 8, 8))
     kernels.leaky_quantize(x, torch.ones(16))
+    kernels.gn_quantize(x, torch.ones(16), torch.zeros(16), torch.ones(16))
     p = torch.randn(64, 64).bfloat16()
     for probe in (kernels.roll_copy, kernels.roll32, kernels.taps3):
         probe(p)
     assert kernels.launch_counts() == {
         "group_norm_leaky": 0, "conv3x3": 0, "ssim_per_sample": 0,
-        "leaky_quantize": 0, "roll_copy": 0, "roll32": 0, "taps3": 0}
+        "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
+        "taps3": 0}
