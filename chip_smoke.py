@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each reported on its own line; any failure exits non-zero before
 the last line is printed:
@@ -21,7 +21,13 @@ the last line is printed:
    kernel with an int8 output) is checked code for code against B1 + B4,
    run to run, and against its plain version within one code on under
    0.5% of the elements at the seven DoubleConv conv2 sites, and timed
-   against B1 (bf16 out) + B4 run separately.
+   against B1 (bf16 out) + B4 run separately. B2 runs at one 512^2
+   image (``calculate_metrics``) and at batches of 8 (training) and 16
+   (serving): within 1e-5 of its plain version, the same bits twice, one
+   device kernel a call (``torch.profiler``), then timed twice. With
+   ``--parent DIR`` the B2 kernel of the checkout in DIR (an older commit)
+   is timed before and after, by ``tools/ssim_time.py`` in a process of
+   its own.
 3. main path: ``InferenceEngine`` (full-width unet, seeded random weights,
    bf16) upscales 16 synthetic 256^2 slices to 512^2 and reports metrics
    for one of them; the launch counters must show every kernel ran (B1 20
@@ -47,13 +53,17 @@ the last line is printed:
    B4's row its stream route over the 13 sites it serves on the int8 path,
    the element kernel's there as ``earlier_ms``, and both over all 20
    sites as ``all_20_sites``; the ``gn_quantize`` row the fused route over
-   the seven conv2 sites, and B1 + B4 there as ``earlier_ms``.
+   the seven conv2 sites, and B1 + B4 there as ``earlier_ms``; B2's row
+   the batch of 8 (the batch of 16 beside it as ``batch16``), and the one
+   image on a row of its own (with ``--parent``, the older kernel's time
+   as ``earlier_ms``).
 
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -78,8 +88,9 @@ from mri_superresolution_torch.kernels.groupnorm import (
     group_norm_leaky_twopass, onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_generic, leaky_quantize_plain)
-from mri_superresolution_torch.kernels.ssim import (ssim_per_sample,
-                                                    ssim_per_sample_plain)
+from mri_superresolution_torch.kernels.ssim import (
+    flops_per_pixel as ssim_flops_per_pixel, ssim_per_sample,
+    ssim_per_sample_plain)
 from mri_superresolution_torch.models import build_model, param_count
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.ops.metrics import psnr
@@ -99,6 +110,12 @@ BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
 CODES_MAX_DIFF, CODES_MAX_FRAC = 1, 0.005
 BATCH, LR, BASE_FILTERS = 16, 256, 32
 PROBE_ROWS, PROBE_LANES = 512, 16384
+# B2: one 512^2 image (calculate_metrics), the training batch (the JAX
+# package's default TrainConfig.batch_size) and the serving batch
+B2_SHAPES = ((1, 512, 512), (8, 512, 512), (16, 512, 512))
+B2_ROW_SHAPE = (8, 512, 512)
+SSIM_TIME = Path(__file__).resolve().parent / "mri_superresolution_torch" / \
+    "tools" / "ssim_time.py"
 # written by the int8 engine when its scales freeze; build/ is not
 # committed
 SCALES_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
@@ -227,30 +244,100 @@ def check_b3(dev, gen) -> dict:
     return {**tot, "max_abs_err": worst, "bound_by": bound_by}
 
 
-def check_b2(dev, gen) -> dict:
-    hr = 2 * LR
-    a = torch.rand((1, hr, hr), generator=gen, device=dev)
-    b = (a + 0.05 * torch.randn((1, hr, hr), generator=gen,
-                                device=dev)).clamp(0, 1)
-    got, want = ssim_per_sample(a, b), ssim_per_sample_plain(a, b)
-    ok, err = within(got, want, 0.0, 1e-5)
-    log("kernel_check", kernel="B2", shape=list(a.shape), dtype="fp32",
-        max_abs_err=err, atol=1e-5, ssim=float(got[0]), ok=ok)
-    if not ok:
-        raise AssertionError(f"B2 disagrees with its plain version: "
-                             f"{float(got[0])} vs {float(want[0])}")
-    pairs = l2_cold_copies(torch.stack([a, b]))
-    k = cuda_ms_cold(lambda t: ssim_per_sample(t[0], t[1]), pairs)
-    p = cuda_ms_cold(lambda t: ssim_per_sample_plain(t[0], t[1]), pairs)
-    del pairs
-    # per pixel: 3 products, 2 x 11 taps x 5 maps x 2, ~18 for the map
-    bnd, bound_by = bound_ms(2 * a.numel() * 4 + 4, 241.0 * a.numel(),
-                             torch.float32)
-    log("kernel_time", kernel="B2", shape=list(a.shape), kernel_ms=k,
-        plain_ms=p, library_ms=None, bound_ms=bnd,
-        timing="L2-cold, CUDA graph replays")
-    return {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": bnd,
-            "max_abs_err": err, "bound_by": bound_by}
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs, from
+    ``torch.profiler``."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def b2_bound(shape) -> tuple:
+    # one read of both images, one fp32 write an image; the least fp32
+    # work of the function (kernels/ssim.flops_per_pixel, an FMA counts 2)
+    b, h, w = shape
+    return bound_ms(2 * b * h * w * 4 + 4 * b,
+                    float(ssim_flops_per_pixel(11)) * b * h * w,
+                    torch.float32)
+
+
+def parent_b2_ms(parent: str) -> dict:
+    """B2's L2-cold times, by shape, of the port in the checkout ``parent``
+    (an older commit), from ``tools/ssim_time.py`` in a process of its
+    own, which builds that checkout's kernels."""
+    shapes = ["x".join(map(str, s)) for s in B2_SHAPES]
+    r = subprocess.run([sys.executable, str(SSIM_TIME), "--tree", parent,
+                        "--shapes", *shapes], capture_output=True, text=True,
+                       timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"timing B2 in {parent} failed:\n"
+                             f"{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    return {tuple(int(v) for v in k.split("x")): v
+            for k, v in res["ms"].items()}
+
+
+def check_b2(dev, gen, parent=None) -> dict:
+    """B2 at one image (``calculate_metrics``) and at the training and
+    serving batches: within 1e-5 of the plain version, the same bits twice,
+    one device kernel a call (``torch.profiler``); then L2-cold times from
+    CUDA graph replays, twice, and the plain version's. With ``parent``
+    (a checkout of an older commit) that commit's kernel is timed before
+    and after, in processes of their own: its times are ``earlier_ms``."""
+    earlier = [parent_b2_ms(parent)] if parent else []
+    rows = {}
+    for shape in B2_SHAPES:
+        a = torch.rand(shape, generator=gen, device=dev)
+        b = (a + 0.05 * torch.randn(shape, generator=gen,
+                                    device=dev)).clamp(0, 1)
+        got, want = ssim_per_sample(a, b), ssim_per_sample_plain(a, b)
+        ok, err = within(got, want, 0.0, 1e-5)
+        same = torch.equal(got, ssim_per_sample(a, b))
+        names = device_kernels(lambda: ssim_per_sample(a, b))
+        log("kernel_check", kernel="B2", shape=list(shape), dtype="fp32",
+            max_abs_err=err, atol=1e-5, run_to_run_equal=same,
+            device_kernels=names, ssim_first=float(got[0]), ok=ok)
+        if not (ok and same and len(names) == 1):
+            raise AssertionError(f"B2 at {shape}: max abs err {err} (gate "
+                                 f"1e-5), run to run equal {same}, device "
+                                 f"kernels a call {names}")
+        pairs = l2_cold_copies(torch.stack([a, b]))
+        runs = [cuda_ms_cold(lambda t: ssim_per_sample(t[0], t[1]), pairs)
+                for _ in range(2)]
+        p = cuda_ms_cold(lambda t: ssim_per_sample_plain(t[0], t[1]), pairs)
+        del pairs
+        k = sum(runs) / 2
+        bnd, bound_by = b2_bound(shape)
+        rows[shape] = {"ms": k, "plain_ms": p, "library_ms": None,
+                       "bound_ms": bnd, "bound_by": bound_by,
+                       "max_abs_err": err, "shape": list(shape),
+                       "ms_runs": runs}
+        if min(runs + [p]) < bnd:
+            raise AssertionError(f"B2 times below their {bnd} ms bound at "
+                                 f"{shape}: {runs}, {p}")
+    if parent:
+        earlier.append(parent_b2_ms(parent))
+    for shape, r in rows.items():
+        if earlier:
+            r["earlier_runs"] = [e[shape] for e in earlier]
+            r["earlier_ms"] = sum(r["earlier_runs"]) / len(earlier)
+        log("kernel_time", kernel="B2", shape=r["shape"], kernel_ms=r["ms"],
+            kernel_runs=r["ms_runs"], earlier_ms=r.get("earlier_ms"),
+            earlier_runs=r.get("earlier_runs"), plain_ms=r["plain_ms"],
+            library_ms=None, bound_ms=r["bound_ms"],
+            bound_share=r["bound_ms"] / r["ms"],
+            timing="L2-cold, CUDA graph replays; earlier: parent, this, "
+                   "this, parent" if earlier else "L2-cold, CUDA graph "
+                   "replays")
+    # the row: the training batch; the serving batch beside it, one image
+    # on its own row
+    row = dict(rows[B2_ROW_SHAPE])
+    row["batch16"] = rows[(16, 512, 512)]
+    return {**row, "one_image": rows[(1, 512, 512)]}
 
 
 def b4_sites(b: int, lr: int, f: int):
@@ -633,7 +720,13 @@ def probe_path(dev) -> tuple:
     return res, counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one "
+                                 "NVIDIA GPU")
+    ap.add_argument("--parent", default=None,
+                    help="checkout of an older commit whose B2 kernel is "
+                         "timed beside this one (earlier_ms)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -664,7 +757,8 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {"B1": check_b1(dev, gen), "B3": check_b3(dev, gen),
-               "B2": check_b2(dev, gen), "B4": check_b4(dev, gen),
+               "B2": check_b2(dev, gen, args.parent),
+               "B4": check_b4(dev, gen),
                "B4 fused": check_fused(dev, gen)}
     cfg = ModelConfig(base_filters=BASE_FILTERS)
     params = build_model(cfg, generator=torch.Generator().manual_seed(0)
@@ -699,9 +793,19 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
-        for extra in ("earlier_ms", "sites", "all_20_sites"):
+        for extra in ("earlier_ms", "sites", "all_20_sites", "shape",
+                      "batch16"):
             if extra in r:
                 rows[-1][extra] = r[extra]
+        if key == "B2":
+            one = r["one_image"]
+            rows.append({**rows[-1], **{k: one[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "shape")}})
+            rows[-1].pop("batch16")
+            rows[-1].pop("earlier_ms", None)
+            if "earlier_ms" in one:
+                rows[-1]["earlier_ms"] = one["earlier_ms"]
     for name, wrapper in (("copy", "roll_copy"), ("roll32", "roll32"),
                           ("taps3", "taps3")):
         r = probe[name]

@@ -42,7 +42,9 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "msr_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "msr_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "msr_ssim_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "msr_ssim_capacity": [_I, _PI, _PI],
+    "msr_ssim_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _F, _F, _F, _P],
     "msr_leaky_quantize": [_P, _P, _P, _LL, _I, _I, _I, _F, _P],
     "msr_leaky_quantize_stream": [_P, _P, _P, _LL, _I, _F, _P],
     "msr_probe_copy": [_P, _P, _I, _I, _P],
@@ -146,3 +148,40 @@ def check(code: int, what: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_index(device) -> int:
+    import torch
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+# arrival counters of the kernels that end in a cross-block step (B1's
+# one-pass kernel, B2), one int32 buffer a device; every launch leaves them
+# at zero. A buffer replaced by a larger one is kept: a captured CUDA
+# graph may still point at it.
+_COUNTERS: dict = {}
+_RETIRED: list = []
+_MIN_COUNTERS = 1024
+
+
+def counters(device, n: int, what: str):
+    """At least ``n`` counters on ``device``, zero between launches. One
+    buffer a device, so two such launches must not run at once on two
+    streams of one device (the port runs one stream). Made with
+    torch.zeros outside any CUDA graph capture: call the wrapper once, at
+    the largest batch, before capturing it."""
+    import torch
+    key = device_index(device)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what}: call it once outside CUDA graph "
+                               f"capture at this batch size first (its "
+                               f"counters are made then)")
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[key] = buf
+    return buf

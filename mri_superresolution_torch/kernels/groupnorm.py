@@ -51,10 +51,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _ONEPASS_THREADS = 512
 _ONEPASS_MAX_GROUPS = 256
 _ONEPASS_PART_ENTRIES = 1024
-# the one-pass kernel's arrival counters, device index -> int32 tensor;
-# each launch leaves them at zero
-_COUNTERS: dict = {}
-_MIN_COUNTERS = 1024
 
 
 def group_norm_leaky_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -169,11 +165,6 @@ def _onepass_layout_ok(c: int, itemsize: int, n_groups: int) -> bool:
     return prow * ent <= _ONEPASS_PART_ENTRIES
 
 
-def _index(device: torch.device) -> int:
-    return device.index if device.index is not None else \
-        torch.cuda.current_device()
-
-
 @functools.lru_cache(maxsize=None)
 def _capacity(index: int) -> tuple:
     """(co-resident blocks, bytes each can stage) of the one-pass kernel
@@ -184,25 +175,6 @@ def _capacity(index: int) -> tuple:
             ctypes.byref(n), ctypes.byref(stage))
     _build.check(code, "group_norm_leaky (one-pass capacity)")
     return n.value, stage.value
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """The one-pass kernel's counters on ``device``, at least ``n`` of
-    them, zero between launches. One buffer a device, so two one-pass
-    launches must not run at once on two streams of one device (the port
-    runs one stream). Made with torch.zeros outside any CUDA graph capture:
-    call the wrapper once before capturing it."""
-    key = _index(device)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("group_norm_leaky: call it once outside CUDA "
-                               "graph capture at this batch size first (its "
-                               "counters are made then)")
-        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
-                          device=device)
-        _COUNTERS[key] = buf
-    return buf
 
 
 def onepass_plan(x: torch.Tensor, y: torch.Tensor,
@@ -220,7 +192,7 @@ def onepass_plan(x: torch.Tensor, y: torch.Tensor,
     if any(p % 16 for p in ptrs) or y.data_ptr() % y_align or \
             not _onepass_layout_ok(c, x.element_size(), n_groups):
         return None
-    n_blocks, stage = _capacity(_index(x.device))
+    n_blocks, stage = _capacity(_build.device_index(x.device))
     return _plan_onepass(b, h * w, c, x.element_size(), n_blocks, stage)
 
 
@@ -229,7 +201,7 @@ def _onepass(x, scale, bias, residual, y, plan, n_groups, negative_slope,
     """One launch of the one-pass kernel; with ``qscale`` (the int8
     scales) y takes int8 codes and the launch counts as ``gn_quantize``'s."""
     b, c, h, w = x.shape
-    cnt = _counters(x.device, 2 * b)
+    cnt = _build.counters(x.device, 2 * b, "group_norm_leaky")
     ws = torch.empty((b, plan.ranges, n_groups, 2), dtype=torch.float32,
                      device=x.device)
     code = _build.library().msr_gn_onepass_fwd(
@@ -238,7 +210,7 @@ def _onepass(x, scale, bias, residual, y, plan, n_groups, negative_slope,
         None if qscale is None else qscale.data_ptr(), y.data_ptr(),
         ws.data_ptr(), cnt.data_ptr(), b, h * w, c, n_groups, plan.chunk_px,
         plan.ranges, plan.images_per_wave, plan.waves,
-        _capacity(_index(x.device))[1],
+        _capacity(_build.device_index(x.device))[1],
         int(x.dtype == torch.bfloat16), eps, negative_slope,
         _build.stream_ptr(x.device))
     if qscale is None:

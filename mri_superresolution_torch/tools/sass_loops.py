@@ -9,13 +9,16 @@ count, the count up to its first unpredicated ``EXIT`` (the main path,
 without the subroutines placed after it, such as the IEEE division's slow
 path), each loop (a branch back to an earlier address) with its count,
 and, for the main path and each loop, the instructions that issue on the
-SM's quarter-rate pipes (MUFU, conversions, FRND). Dividing a loop's count
-by the elements one trip handles gives the instructions an element.
+SM's quarter-rate pipes (MUFU, conversions, FRND) and the counts of shared
+loads and stores (LDS*, STS*), global loads (LDG*) and fp32 FFMA, FMUL and
+FADD, with shared loads per FFMA. Dividing a loop's count by the elements
+one trip handles gives the instructions an element.
 
 The defaults are kernel B4's two kernels at slope 1.0 (the element kernel
 on bf16, 8 elements a thread; the stream kernel, 16 elements a trip) and
-B1's one-pass kernel with its int8 output. Needs the CUDA toolkit
-(``cuobjdump``).
+B1's one-pass kernel with its int8 output. ``--lib`` disassembles another
+build of the library (an older commit's ``build/torch_kernels/*.so``)
+instead of this checkout's. Needs the CUDA toolkit (``cuobjdump``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ DEFAULT_MATCH = ("leaky_quantize_kernelI13__nv_bfloat16Li8E",
                  "leaky_quantize_stream_kernelILb0E",
                  "gn_onepass_kernelI13__nv_bfloat16Li8ELb0ELb1E")
 QUARTER_RATE = ("MUFU", "F2I", "I2F", "F2F", "FRND", "F2FP", "I2FP", "F2IP")
+# opcode families counted by their first word: every width of a load
+COUNTED = ("LDS", "STS", "LDG", "FFMA", "FMUL", "FADD")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _PRED = re.compile(r"^@!?U?P[T0-9]+\s+")
 
@@ -71,6 +76,14 @@ def _quarter(insns) -> dict:
     return {k: c[k] for k in QUARTER_RATE if c[k]}
 
 
+def _counted(insns) -> dict:
+    c = Counter(op.split(".")[0] for _, _, op, _ in insns)
+    out = {k: c[k] for k in COUNTED}
+    out["lds_per_ffma"] = c["LDS"] / c["FFMA"] if c["FFMA"] else None
+    return out
+
+
+
 def summarize(insns) -> dict:
     """Counts of one function's instructions (NOPs left out)."""
     body = [i for i in insns if i[2] != "NOP"]
@@ -88,16 +101,20 @@ def summarize(insns) -> dict:
                 inner = [i for i in body if lo <= i[0] <= addr]
                 loops.append({"from": hex(lo), "to": hex(addr),
                               "instructions": len(inner),
-                              "quarter_rate": _quarter(inner)})
+                              "quarter_rate": _quarter(inner),
+                              "counts": _counted(inner)})
     return {"instructions": len(body), "main_path": len(main),
-            "main_path_quarter_rate": _quarter(main), "loops": loops}
+            "main_path_quarter_rate": _quarter(main),
+            "main_path_counts": _counted(main), "loops": loops}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--match", nargs="+", default=list(DEFAULT_MATCH))
+    ap.add_argument("--lib", default=None,
+                    help="library to disassemble (default: build this one)")
     args = ap.parse_args(argv)
-    lib = _build.build()
+    lib = args.lib or _build.build()
     sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     found = 0

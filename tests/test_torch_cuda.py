@@ -22,10 +22,11 @@ from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_generic, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.roll_probe import (
     roll32, roll32_plain, roll_copy, roll_copy_plain, taps3, taps3_plain)
-from mri_superresolution_torch.kernels.ssim import (ssim_per_sample,
-                                                    ssim_per_sample_plain)
+from mri_superresolution_torch.kernels.ssim import (
+    ssim_fused, ssim_per_sample, ssim_per_sample_plain)
 from mri_superresolution_torch.models import build_model
 from mri_superresolution_torch.models import quant_forward
+from mri_superresolution_torch.ops.ssim import ssim as ssim_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -208,19 +209,98 @@ def test_conv3x3_counts_each_launch(dev, dtype):
     assert conv3x3.launches == before + 2
 
 
-@pytest.mark.parametrize("shape,window", [((3, 27, 35), 11),
-                                          ((2, 512, 512), 11),
-                                          ((1, 40, 33), 7)])
-def test_ssim_kernel(dev, shape, window):
-    gen = torch.Generator(device=dev).manual_seed(2)
+def _ssim_pair(shape, dev, seed=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     a = torch.rand(shape, generator=gen, device=dev)
     b = (a + 0.1 * torch.randn(shape, generator=gen, device=dev)).clamp(0, 1)
+    return a, b
+
+
+@pytest.mark.parametrize("shape,window", [((3, 27, 35), 11),
+                                          ((2, 512, 512), 11),
+                                          ((1, 40, 33), 7),
+                                          ((8, 512, 512), 11),
+                                          ((16, 512, 512), 11),
+                                          ((1, 1, 1), 11),
+                                          ((2, 17, 600), 11),
+                                          ((2, 17, 600), 15),
+                                          ((3, 70, 130), 15),
+                                          ((2, 9, 21), 1)])
+def test_ssim_kernel(dev, shape, window):
+    a, b = _ssim_pair(shape, dev)
+    before = ssim_per_sample.launches
     got = ssim_per_sample(a, b, window_size=window)
+    assert ssim_per_sample.launches == before + 1
     torch.testing.assert_close(
         got, ssim_per_sample_plain(a, b, window_size=window), rtol=0,
         atol=1e-5)
     # fixed-order reductions: the same bits on every run
     assert torch.equal(got, ssim_per_sample(a, b, window_size=window))
+
+
+def test_ssim_kernel_other_sigma_range_and_types(dev):
+    a, b = _ssim_pair((2, 64, 80), dev, seed=3)
+    a, b = 255 * a, 255 * b
+    got = ssim_per_sample(a, b, window_size=9, sigma=2.0, val_range=255.0)
+    torch.testing.assert_close(
+        got, ssim_per_sample_plain(a, b, window_size=9, sigma=2.0,
+                                   val_range=255.0), rtol=0, atol=1e-5)
+    # bf16 inputs are cast to float32 first, as the JAX kernel casts them
+    a16, b16 = (a / 255).bfloat16(), (b / 255).bfloat16()
+    assert torch.equal(ssim_per_sample(a16, b16),
+                       ssim_per_sample(a16.float(), b16.float()))
+
+
+def test_ssim_kernel_in_cuda_graph(dev):
+    """The per-image counters are left at zero by each launch, so graph
+    replays give the same bits as eager calls."""
+    a, b = _ssim_pair((8, 512, 512), dev, seed=4)
+    eager = ssim_per_sample(a, b)            # once outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssim_per_sample(a, b)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    a2, b2 = _ssim_pair((8, 512, 512), dev, seed=5)
+    a.copy_(a2)
+    b.copy_(b2)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ssim_per_sample_plain(a2, b2), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 512), (8, 512, 512)])
+def test_ssim_kernel_is_one_device_kernel(dev, shape):
+    a, b = _ssim_pair(shape, dev, seed=6)
+    ssim_per_sample(a, b)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ssim_per_sample(a, b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "ssim" in names[0], names
+
+
+def test_ssim_fused_grads_on_card(dev):
+    a, b = _ssim_pair((4, 96, 80), dev, seed=7)
+    x1, x2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = ssim_per_sample.launches
+    val = ssim_fused(x1, x2)
+    assert ssim_per_sample.launches == before + 1
+    val.backward()
+    y1, y2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    want = ssim_plain(y1[..., None], y2[..., None])
+    want.backward()
+    torch.testing.assert_close(val, want.detach(), rtol=0, atol=1e-5)
+    # the same backward (autograd of the plain version) on the same inputs;
+    # cuDNN may sum the depthwise weight gradients in another order
+    torch.testing.assert_close(x1.grad, y1.grad, rtol=1e-5, atol=1e-8)
+    torch.testing.assert_close(x2.grad, y2.grad, rtol=1e-5, atol=1e-8)
 
 
 def test_unet_on_card_matches_cpu(dev):

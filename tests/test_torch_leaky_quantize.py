@@ -207,8 +207,10 @@ def test_sass_loop_counts():
     got = summarize(funcs["_Zk"])
     assert got["instructions"] == 9 and got["main_path"] == 7
     assert got["main_path_quarter_rate"] == {"MUFU": 1}
+    none = dict.fromkeys(("LDS", "STS", "LDG", "FFMA", "FMUL", "FADD"), 0)
     assert got["loops"] == [
         {"from": "0x30", "to": "0x50", "instructions": 3,
-         "quarter_rate": {"MUFU": 1}},
+         "quarter_rate": {"MUFU": 1},
+         "counts": {**none, "FADD": 1, "lds_per_ffma": None}},
         {"from": "0x80", "to": "0x80", "instructions": 1,
-         "quarter_rate": {}}]
+         "quarter_rate": {}, "counts": {**none, "lds_per_ffma": None}}]
