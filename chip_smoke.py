@@ -27,7 +27,10 @@ the last line is printed:
    device kernel a call (``torch.profiler``), then timed twice. With
    ``--parent DIR`` the B2 kernel of the checkout in DIR (an older commit)
    is timed before and after, by ``tools/ssim_time.py`` in a process of
-   its own.
+   its own. B1's backward kernel runs at the unet's 20 training sites
+   (batch 8 of 128^2, bf16) against its plain twin (dx within one bf16
+   ulp plus 1e-5, dscale and dbias within rtol 1e-4, the same bits twice),
+   then L2-cold beside the twin and the library's backward.
 3. main path: ``InferenceEngine`` (full-width unet, seeded random weights,
    bf16) upscales 16 synthetic 256^2 slices to 512^2 and reports metrics
    for one of them; the launch counters must show every kernel ran (B1 20
@@ -45,7 +48,18 @@ the last line is printed:
    (512, 16384): its three kernels exact against their plain versions, and
    their L2-cold device times (replayed from a CUDA graph) beside
    ``x.clone()`` and ``torch.roll``.
-6. the ``kernels`` JSON line, the card's name and power limit, and the
+6. training: ``cli.train.main`` (the JAX package's defaults, full width,
+   bf16) trains 2 epochs on 40 seeded phantom pairs of 128^2 -> 256^2
+   written as PNGs by the port's encoder; its JSON lines, checkpoints,
+   finite losses, moved weights and exact launch counts are checked (a
+   step: B1 20, B1 backward 20, B3 2, B2 1; a validation batch: B1 20, B3
+   2, B2 1); then one step and one validation batch counted alone, the
+   step time (CUDA events, 10 steps after 2 warm-up), one step on the card
+   against the CPU port from the same weights and batch (fp32 without
+   TF32: loss rtol 1e-4, gradients 1e-3 relative L2; bf16: loss 1e-2,
+   gradient cosines >= 0.99), and the final checkpoint served through
+   ``load_engine`` with serving's launch counts.
+7. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -56,7 +70,8 @@ the last line is printed:
    the seven conv2 sites, and B1 + B4 there as ``earlier_ms``; B2's row
    the batch of 8 (the batch of 16 beside it as ``batch16``), and the one
    image on a row of its own (with ``--parent``, the older kernel's time
-   as ``earlier_ms``).
+   as ``earlier_ms``); B1's backward row its 20 training sites, with the
+   training run's launches.
 
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
@@ -64,9 +79,12 @@ Needs one CUDA card; without one it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -78,14 +96,17 @@ import torch.nn.functional as F
 
 # the port itself, from the checkout this script sits in: without it the
 # script fails here, before it prints anything
-from mri_superresolution_torch import kernels
-from mri_superresolution_torch.config import ModelConfig
-from mri_superresolution_torch.infer import InferenceEngine
+from mri_superresolution_torch import kernels, native
+from mri_superresolution_torch.cli import train as train_cli
+from mri_superresolution_torch.config import (InferConfig, LossConfig,
+                                              ModelConfig)
+from mri_superresolution_torch.infer import InferenceEngine, load_engine
 from mri_superresolution_torch.kernels import _build
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
-    gn_quantize, gn_quantize_plain, group_norm_leaky, group_norm_leaky_plain,
-    group_norm_leaky_twopass, onepass_plan)
+    gn_quantize, gn_quantize_plain, group_norm_leaky,
+    group_norm_leaky_backward, group_norm_leaky_backward_plain,
+    group_norm_leaky_plain, group_norm_leaky_twopass, onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_generic, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.ssim import (
@@ -95,7 +116,10 @@ from mri_superresolution_torch.models import build_model, param_count
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.ops.metrics import psnr
 from mri_superresolution_torch.ops.ssim import ssim
+from mri_superresolution_torch.losses import CombinedLoss
 from mri_superresolution_torch.tools import roll_probe
+from mri_superresolution_torch.train import checkpoint as ckpt
+from mri_superresolution_torch.train import trainer
 from mri_superresolution_torch.utils.phantom import phantom_batch
 from mri_superresolution_torch.utils.timing import (cuda_ms, cuda_ms_cold,
                                                     l2_cold_copies)
@@ -120,6 +144,12 @@ SSIM_TIME = Path(__file__).resolve().parent / "mri_superresolution_torch" / \
 # committed
 SCALES_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
     "int8_scales.json"
+# the training phase: the JAX package's TrainConfig defaults (batch 8, lr
+# 1e-4, weight decay 1e-5, ssim_weight 0.3, bf16) on LR 128^2 -> HR 256^2
+# (ExtractConfig.target_size), a PNG set of seeded phantoms written there
+TRAIN_BATCH, TRAIN_LR, TRAIN_PAIRS, TRAIN_EPOCHS, TRAIN_SEED = 8, 128, 40, 2, 0
+TRAIN_DIR = SCALES_PATH.parent / "train"
+STEP_ITERS = 10
 
 
 def log(phase: str, **fields) -> None:
@@ -566,6 +596,89 @@ def check_fused(dev, gen) -> dict:
             "bound_by": bound_by}
 
 
+def b1_bwd_bound(x: torch.Tensor) -> tuple:
+    # one read of x and g, one write of dx (x's dtype); ~20 fp32 operations
+    # an element (statistics, xhat, z, the mask, the four sums, dx)
+    return bound_ms(3 * x.numel() * x.element_size(), 20.0 * x.numel(),
+                    torch.float32)
+
+
+def check_b1_backward(dev, gen) -> dict:
+    """B1's backward kernel at the unet's 20 training sites (batch 8 of
+    128^2, base filters 32, bf16) against its plain twin: dx within one
+    bf16 ulp (relative) plus 1e-5, dscale and dbias within rtol 1e-4 (plus
+    1e-4 of their largest entry: sums of ~1e6 terms of either sign), the
+    same bits twice; then L2-cold times of the kernel, the twin and the
+    library's backward (``torch.autograd.grad`` of ``F.leaky_relu(
+    F.group_norm(x, 8, g, b), 0.2)`` with respect to (x, g, b), its forward
+    graph built beforehand), from CUDA graph replays."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    worst, bound_by = 0.0, "bytes"
+    for shape, count in gn_sites(TRAIN_BATCH, TRAIN_LR, BASE_FILTERS):
+        b, c = shape[0], shape[1]
+        xg = torch.randn((2 * b,) + shape[1:], generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x, gy = xg[:b], xg[b:]
+        gam = torch.randn(c, generator=gen, device=dev)
+        bet = torch.randn(c, generator=gen, device=dev)
+        got = group_norm_leaky_backward(x, gam, bet, gy)
+        want = group_norm_leaky_backward_plain(x, gam, bet, gy)
+        ok_dx, err = within(got[0], want[0], BF16_RTOL, 1e-5)
+        ok_s, err_s = within(got[1], want[1], 1e-4,
+                             1e-4 * float(want[1].abs().max()))
+        ok_b, err_b = within(got[2], want[2], 1e-4,
+                             1e-4 * float(want[2].abs().max()))
+        again = group_norm_leaky_backward(x, gam, bet, gy)
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        log("kernel_check", kernel="B1 backward", shape=list(shape),
+            dtype="bf16", max_abs_err_dx=err, max_abs_err_dscale=err_s,
+            max_abs_err_dbias=err_b, gates="dx rtol 2^-7 atol 1e-5; "
+            "dscale, dbias rtol 1e-4 atol 1e-4 of the largest entry",
+            run_to_run_equal=same, ok=ok_dx and ok_s and ok_b)
+        if not (ok_dx and ok_s and ok_b and same):
+            raise AssertionError(f"B1's backward disagrees with its plain "
+                                 f"twin at {shape} (dx {err}, dscale "
+                                 f"{err_s}, dbias {err_b}) or from run to "
+                                 f"run ({same})")
+        worst = max(worst, err)
+        del got, want, again
+        xs = l2_cold_copies(xg)
+        k = cuda_ms_cold(lambda t: group_norm_leaky_backward(
+            t[:b], gam, bet, t[b:]), xs)
+        p = cuda_ms_cold(lambda t: group_norm_leaky_backward_plain(
+            t[:b], gam, bet, t[b:]), xs)
+        # the forwards on a stream of their own, where autograd then runs
+        # their backwards and the graph captures them
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graphs = []
+        with torch.cuda.stream(side):
+            for t in xs:
+                xi = t[:b].detach().requires_grad_()
+                gi = gam.to(torch.bfloat16).requires_grad_()
+                bi = bet.to(torch.bfloat16).requires_grad_()
+                graphs.append((F.leaky_relu(F.group_norm(xi, 8, gi, bi), 0.2),
+                               (xi, gi, bi), t[b:]))
+        torch.cuda.synchronize(dev)
+        lib = cuda_ms_cold(lambda e: torch.autograd.grad(
+            e[0], e[1], e[2], retain_graph=True), graphs, stream=side)
+        del xs, graphs
+        bnd, bound_by = b1_bwd_bound(x)
+        log("kernel_time", kernel="B1 backward", shape=list(shape),
+            sites=count, kernel_ms=k, plain_ms=p, library_ms=lib,
+            bound_ms=bnd, bound_share=bnd / k,
+            timing="L2-cold, CUDA graph replays")
+        if min(k, p, lib) < bnd:
+            raise AssertionError(f"B1 backward times below their {bnd} ms "
+                                 f"bound at {shape}: {k}, {p}, {lib}")
+        for key, v in zip(keys, (k, p, lib, bnd)):
+            tot[key] += count * v
+    log("kernel_total", kernel="B1 backward", sites=20, **tot,
+        bound_share=tot["bound_ms"] / tot["ms"])
+    return {**tot, "max_abs_err": worst, "bound_by": bound_by}
+
+
 def main_path(dev, cfg, params, lr, hr):
     # the serving path's peak, not the kernel phases' timing buffers
     torch.cuda.reset_peak_memory_stats()
@@ -720,6 +833,208 @@ def probe_path(dev) -> tuple:
     return res, counts
 
 
+def _write_pngs(root: Path, n: int, lr: int) -> None:
+    """``n`` seeded phantom pairs (LR lr^2, HR (2 lr)^2, 8-bit grayscale)
+    under root/hr and root/lr, written by the port's PNG encoder."""
+    hr_img = phantom_batch(np.random.default_rng(1), n, 2 * lr)
+    lr_img = phantom_batch(np.random.default_rng(1), n, lr)
+    for sub in ("hr", "lr"):
+        (root / sub).mkdir(parents=True)
+    for i in range(n):
+        name = f"sub-{i // 10:02d}_T1w_s{i:03d}.png"
+        native.imwrite_gray(str(root / "hr" / name),
+                            np.round(hr_img[i] * 255).astype(np.uint8))
+        native.imwrite_gray(str(root / "lr" / name),
+                            np.round(lr_img[i] * 255).astype(np.uint8))
+
+
+def _train_batch(dev, n, lr):
+    return {"lr": torch.from_numpy(phantom_batch(
+                np.random.default_rng(2), n, lr)[..., None]).to(dev),
+            "hr": torch.from_numpy(phantom_batch(
+                np.random.default_rng(2), n, 2 * lr)[..., None]).to(dev),
+            "weight": torch.ones(n, device=dev)}
+
+
+def _step_counts(fn) -> dict:
+    kernels.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def card_vs_cpu_step(dev, cfg) -> dict:
+    """One step's loss and gradients on the card against the CPU port, from
+    the same seeded weights and the same batch of 8 phantoms, augmentation
+    off. fp32 (TF32 off): loss within rtol 1e-4; every gradient within 5e-2
+    relative L2, and their median within 2e-3. bf16 (against the CPU port
+    in bf16): loss within 1e-2 relative, every gradient's cosine >= 0.99.
+
+    The fp32 gate is wider than 1e-3 a tensor because PyTorch's own CUDA
+    and CPU ops differ by that much here: with every port kernel swapped
+    for its plain version and cuDNN off, the card's fp32 gradients sit as
+    far from the CPU's (a median of 8.2e-4, `alpha` at 2.7e-2 at batch 2),
+    and the fp32 forward's output differs by 1e-3 of its range. The
+    reference's GroupNorm takes E[x^2] - mean^2, which turns the two
+    devices' different orders of summation into that much (PERF.md §6).
+    A missing or wrong gradient is off by order 1."""
+    sd = build_model(cfg, generator=torch.Generator().manual_seed(
+        TRAIN_SEED)).state_dict()
+    batch = _train_batch("cpu", TRAIN_BATCH, TRAIN_LR)
+    res = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        out = []
+        for where in (dev, torch.device("cpu")):
+            m = build_model(cfg, dtype=dtype).to(where)
+            m.load_state_dict(sd)
+            b = {k: v.to(where) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            loss, _, grads = trainer.loss_and_grads(
+                m, CombinedLoss(LossConfig()), b["hr"], b["lr"], b["weight"])
+            out.append((float(loss), [g.detach().double().cpu()
+                                      for g in grads],
+                        time.perf_counter() - t0))
+        names = [n for n, _ in build_model(cfg).named_parameters()]
+        (lg, gg, tg), (lc, gc, tc) = out
+        d_loss = abs(lg - lc) / abs(lc)
+        rel = [float((a - b).norm() / b.norm()) for a, b in zip(gg, gc)]
+        cos = [float(a.flatten() @ b.flatten() / (a.norm() * b.norm()))
+               for a, b in zip(gg, gc)]
+        if name == "fp32":
+            i = int(np.argmax(rel))
+            med = float(np.median(rel))
+            ok = d_loss <= 1e-4 and rel[i] <= 5e-2 and med <= 2e-3
+            worst = {"tensor": names[i], "rel_l2": rel[i], "cosine": cos[i],
+                     "median_rel_l2": med}
+            gate = ("loss rtol 1e-4, every gradient relative L2 <= 5e-2, "
+                    "their median <= 2e-3")
+        else:
+            i = int(np.argmin(cos))
+            ok = d_loss <= 1e-2 and cos[i] >= 0.99
+            worst = {"tensor": names[i], "rel_l2": rel[i], "cosine": cos[i]}
+            gate = "loss within 1e-2 relative, gradient cosines >= 0.99"
+        res[name] = {"loss_card": lg, "loss_cpu": lc, "loss_rel_diff": d_loss,
+                     "worst": worst, "gate": gate, "ok": ok,
+                     "cpu_s": tc, "card_s": tg}
+        log("train_cpu_vs_gpu", dtype=name, **res[name])
+        if not ok:
+            raise AssertionError(f"the {name} training step on the card and "
+                                 f"on the CPU differ beyond the gate "
+                                 f"({gate}): loss {lg} against {lc}, worst "
+                                 f"gradient {worst}")
+    return res
+
+
+def train_path(dev, lr_serve) -> dict:
+    """The training slice through its entry point: ``cli.train.main`` at
+    the JAX package's defaults, full width, on a PNG set of 40 phantom
+    pairs for 2 epochs; then its launch counts, one step and one
+    validation batch counted alone, the card against the CPU port, the
+    training rate, and serving from the final checkpoint."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    _write_pngs(TRAIN_DIR, TRAIN_PAIRS, TRAIN_LR)
+    argv = ["--full_res_dir", str(TRAIN_DIR / "hr"),
+            "--low_res_dir", str(TRAIN_DIR / "lr"),
+            "--base_filters", str(BASE_FILTERS),
+            "--batch_size", str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS),
+            "--seed", str(TRAIN_SEED),
+            "--checkpoint_dir", str(TRAIN_DIR / "ckpt"),
+            "--log_dir", str(TRAIN_DIR / "logs")]
+    proto = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(proto):
+        final = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    lines = [json.loads(ln) for ln in proto.getvalue().splitlines()
+             if ln.startswith("{")]
+    by_type = {}
+    for ln in lines:
+        by_type.setdefault(ln["type"], []).append(ln)
+    summaries = by_type.get("epoch_summary", [])
+    losses = [s[k] for s in summaries for k in ("train_loss", "val_loss")] + \
+        [u["loss"] for u in by_type.get("batch_update", [])]
+    n_val = int(0.2 * TRAIN_PAIRS)
+    steps = TRAIN_EPOCHS * -(-(TRAIN_PAIRS - n_val) // TRAIN_BATCH)
+    vals = TRAIN_EPOCHS * -(-n_val // TRAIN_BATCH)
+    want = dict.fromkeys(counts, 0)
+    want.update(group_norm_leaky=20 * (steps + vals),
+                group_norm_leaky_backward=20 * steps,
+                conv3x3=2 * (steps + vals), ssim_per_sample=steps + vals)
+    init = build_model(ModelConfig(base_filters=BASE_FILTERS),
+                               generator=torch.Generator().manual_seed(
+                                   TRAIN_SEED)).state_dict()
+    sd = ckpt.load_checkpoint(final)[0]
+    moved = max(float((sd[k] - v).abs().max()) for k, v in init.items())
+    files = {n: (TRAIN_DIR / "ckpt" / f"{n}.ckpt").exists()
+             for n in ("best_model_unet", "final_model_unet")}
+    log("train_path", pairs=TRAIN_PAIRS, lr=[TRAIN_LR, TRAIN_LR],
+        hr=[2 * TRAIN_LR, 2 * TRAIN_LR], batch=TRAIN_BATCH,
+        epochs=TRAIN_EPOCHS, steps=steps, val_batches=vals, seconds=seconds,
+        launches=counts, protocol={k: len(v) for k, v in by_type.items()},
+        epoch_summaries=summaries, checkpoints=files,
+        max_abs_weight_change=moved)
+    if counts != want:
+        raise AssertionError(f"training launch counts {counts}, expected "
+                             f"{want}")
+    if len(by_type.get("params", [])) != 1 or len(summaries) != TRAIN_EPOCHS \
+            or not by_type.get("batch_update"):
+        raise AssertionError(f"bad JSON-line protocol: "
+                             f"{ {k: len(v) for k, v in by_type.items()} }")
+    if not all(np.isfinite(v) for v in losses) or not all(files.values()) \
+            or not moved > 0.0:
+        raise AssertionError(f"training did not run right: losses {losses}, "
+                             f"checkpoints {files}, weight change {moved}")
+
+    # one step and one validation batch, counted alone; then the rate
+    cfg = ModelConfig(base_filters=BASE_FILTERS)
+    model = build_model(cfg, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(
+                                    TRAIN_SEED)).to(dev)
+    state = trainer.TrainState(model, trainer.make_optimizer(
+        model.parameters(), 1e-4, 1e-5))
+    loss_fn = CombinedLoss(LossConfig())
+    step = trainer.build_train_step(loss_fn)
+    evaluate = trainer.build_eval_step(model, loss_fn)
+    batch = _train_batch(dev, TRAIN_BATCH, TRAIN_LR)
+    per_step = _step_counts(lambda: step(state, batch, 1e-4))
+    per_val = _step_counts(lambda: evaluate(None, batch))
+    log("train_step_launches", step=per_step, validation_batch=per_val)
+    if per_step != {"group_norm_leaky": 20, "group_norm_leaky_backward": 20,
+                    "conv3x3": 2, "ssim_per_sample": 1} or \
+            per_val != {"group_norm_leaky": 20, "conv3x3": 2,
+                        "ssim_per_sample": 1}:
+        raise AssertionError(f"per-step launches {per_step}, per validation "
+                             f"batch {per_val}")
+    step(state, batch, 1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch, 1e-4), iters=STEP_ITERS, warmup=2)
+    log("train_throughput", batch=TRAIN_BATCH, lr=[TRAIN_LR, TRAIN_LR],
+        step_ms=ms, slices_per_s=TRAIN_BATCH / ms * 1e3, steps=STEP_ITERS,
+        cli_epoch_slices_per_s=[s["slices_per_sec"] for s in summaries],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        timing="CUDA events around 10 train steps after 2 warm-up steps, "
+               "batch on the card, augmentation off")
+    gate = card_vs_cpu_step(dev, cfg)
+
+    # serve the final checkpoint
+    engine = load_engine(InferConfig(checkpoint_path=final), device=dev)
+    engine.upscale_batch(lr_serve[:2])
+    kernels.reset_launch_counts()
+    out = engine.upscale_batch(lr_serve)
+    served = {k: v for k, v in kernels.launch_counts().items() if v}
+    log("serve_trained", checkpoint=final, slices=len(lr_serve),
+        output=list(out.shape[1:]), launches=served)
+    if served != {"group_norm_leaky": 20, "conv3x3": 2} or \
+            not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"serving the trained checkpoint: launches "
+                             f"{served}, output range [{out.min()}, "
+                             f"{out.max()}]")
+    return {"counts": counts, "step_ms": ms, "gate": gate}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA GPU")
@@ -759,7 +1074,8 @@ def main(argv=None) -> int:
     results = {"B1": check_b1(dev, gen), "B3": check_b3(dev, gen),
                "B2": check_b2(dev, gen, args.parent),
                "B4": check_b4(dev, gen),
-               "B4 fused": check_fused(dev, gen)}
+               "B4 fused": check_fused(dev, gen),
+               "B1 backward": check_b1_backward(dev, gen)}
     cfg = ModelConfig(base_filters=BASE_FILTERS)
     params = build_model(cfg, generator=torch.Generator().manual_seed(0)
                          ).state_dict()
@@ -768,6 +1084,7 @@ def main(argv=None) -> int:
     counts, bf16_engine = main_path(dev, cfg, params, lr, hr)
     counts_int8 = int8_path(dev, cfg, params, lr, hr, bf16_engine)
     probe, counts_probe = probe_path(dev)
+    trained = train_path(dev, lr)
 
     torch_root = "mri_superresolution_torch/csrc/"
     tpu_root = "mri_superresolution_tpu/experiments/"
@@ -782,9 +1099,13 @@ def main(argv=None) -> int:
                "tools/bench_int8_probe4.py:57", counts_int8),
         "B4 fused": ("gn_quantize", torch_root + "groupnorm_onepass.cu",
                      "tools/bench_int8_probe4.py:57", counts_int8),
+        "B1 backward": ("group_norm_leaky_backward",
+                        torch_root + "groupnorm_bwd.cu",
+                        tpu_root + "groupnorm_pallas.py:273",
+                        trained["counts"]),
     }
     rows = []
-    for key in ("B1", "B2", "B3", "B4", "B4 fused"):
+    for key in ("B1", "B2", "B3", "B4", "B4 fused", "B1 backward"):
         name, source, replaces, launches = meta[key]
         r = results[key]
         rows.append({"name": name, "route": "cuda", "source": source,

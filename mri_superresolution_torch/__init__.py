@@ -4,11 +4,13 @@ super-resolution framework, for one NVIDIA H100.
 It serves the parity ``unet`` (``UNetSuperRes``, bf16 compute on fp32
 params) through ``infer.InferenceEngine``, in bf16 or, with
 ``quant="int8"``, as the int8 post-training-quantized forward of
-``models/quant_forward.py``. The hot operations of those paths run as
-hand-written CUDA kernels (``kernels/``, sources in ``csrc/``): fused
-GroupNorm+LeakyReLU, the narrow-Cout 3x3 conv, the fused SSIM and the
-fused LeakyReLU+int8 quantize; the roll/stencil probe of
-``tools/roll_probe.py`` has three more. Each kernel keeps a plain PyTorch
+``models/quant_forward.py``, and trains it (``train.trainer.train``,
+``python -m mri_superresolution_torch.cli.train``: L1 + SSIM, torch-style
+Adam, the JAX package's checkpoints). The hot operations of those paths
+run as hand-written CUDA kernels (``kernels/``, sources in ``csrc/``):
+fused GroupNorm+LeakyReLU and its backward, the narrow-Cout 3x3 conv, the
+fused SSIM and the fused LeakyReLU+int8 quantize; the roll/stencil probe
+of ``tools/roll_probe.py`` has three more. Each kernel keeps a plain PyTorch
 version beside it, which the wrapper uses for CPU tensors only.
 
 The package imports torch and nothing of JAX. Importing a module neither

@@ -1,25 +1,121 @@
-"""Typed configs of the serving slice.
+"""Typed configs of the port.
 
-An own copy of ``ModelConfig`` and ``InferConfig`` from the JAX package,
-limited to the fields this package reads. ``model_config_from_dict`` reads
-the ``config.model`` block of a checkpoint's JSON sidecar and ignores keys
-this copy does not know (``num_blocks``, ``in_channels`` ...).
+An own copy of the JAX package's ``config.py`` for the slices ported so
+far: ``ModelConfig`` (with every field of the JAX one, so that a
+checkpoint's JSON sidecar has the same ``config`` block whichever package
+wrote it), ``InferConfig`` limited to the fields serving reads, and
+``LossConfig``, ``AugmentConfig`` and ``TrainConfig`` whole. Training
+options that later slices port keep their names and defaults here;
+``train.trainer.check_supported`` rejects them when they are set, naming
+the ROADMAP item that ports each. ``model_config_from_dict`` and
+``train_config_from_dict`` read a sidecar's blocks and ignore keys this
+copy does not know.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass
 class ModelConfig:
     """U-Net hyperparameters (reference models/unet_model.py:116-129)."""
     model_type: str = "unet"
+    in_channels: int = 1
+    out_channels: int = 1
     base_filters: int = 32
     initial_alpha: float = 0.0  # percentage 0-100, normalized /100 internally
-    icnr_init: bool = False
+    num_blocks: int = 8         # trunk depth (edsr family only)
+
+
+@dataclass
+class LossConfig:
+    """CombinedLoss weights (reference utils/losses.py:153-198).
+    l1_weight = 1 - ssim_weight - perceptual_weight, derived."""
+    ssim_weight: float = 0.3
+    perceptual_weight: float = 0.0
+    vgg_layer_idx: int = 35        # relu5_4 features in VGG19
+    perceptual_loss_type: str = "l1"
+    window_size: int = 11
+    sigma: float = 1.5
+    val_range: float = 1.0
+
+    @property
+    def l1_weight(self) -> float:
+        return 1.0 - self.ssim_weight - self.perceptual_weight
+
+    def validate(self) -> None:
+        if not 0 <= self.ssim_weight <= 1:
+            raise ValueError("ssim_weight must be between 0 and 1")
+        if not 0 <= self.perceptual_weight <= 1:
+            raise ValueError("perceptual_weight must be between 0 and 1")
+        if self.ssim_weight + self.perceptual_weight > 1:
+            raise ValueError("Sum of ssim_weight and perceptual_weight "
+                             "cannot exceed 1")
+
+
+@dataclass
+class AugmentConfig:
+    """Paired augmentation defaults (reference utils/dataset.py:71-81)."""
+    enabled: bool = False
+    flip_prob: float = 0.5
+    rotate_prob: float = 0.5
+    rotate_range: Tuple[float, float] = (-5.0, 5.0)
+    brightness_prob: float = 0.3
+    brightness_range: Tuple[float, float] = (0.9, 1.1)
+    contrast_prob: float = 0.3
+    contrast_range: Tuple[float, float] = (0.9, 1.1)
+    noise_prob: float = 0.2      # applied to the LR image only
+    noise_std: float = 0.01
+
+
+@dataclass
+class TrainConfig:
+    """Training loop config (reference scripts/train.py:486-548 defaults).
+    The meaning of each field is the JAX package's (its ``config.py``);
+    the ones this port does not run yet are rejected when set
+    (``train.trainer.check_supported``)."""
+    full_res_dir: str = ""
+    low_res_dir: str = ""
+    model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
+    batch_size: int = 8
+    epochs: int = 100
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-5
+    validation_split: float = 0.2
+    split_by_subject: bool = False  # subject-level split (no leakage)
+    patience: int = 10
+    seed: int = 42
+    checkpoint_dir: str = "./checkpoints"
+    log_dir: str = "./logs"
+    use_tensorboard: bool = False
+    bf16: bool = True            # bfloat16 compute on fp32 master weights
+    num_data_devices: int = 0    # devices of the data mesh (ROADMAP A14)
+    resume: bool = False
+    vgg_weights: Optional[str] = None  # VGG19 for the perceptual loss (A5)
+    profile_dir: Optional[str] = None  # profiler trace (A14)
+    # "off": decode the whole dataset up front; "on": per-batch decode with
+    # a background prefetch; "auto": stream past streaming_threshold_mb
+    streaming: str = "auto"
+    streaming_prefetch: int = 2
+    streaming_threshold_mb: int = 2048
+    spatial_shards: int = 1      # row sharding over devices (A14)
+    remat: bool = False          # recompute the forward in the backward (A14)
+    # sequential microbatches a step, fp32 gradients recombined exactly
+    grad_accum: int = 1
+    # Polyak average of the weights after each step (0 = off); validation,
+    # best-model selection and the checkpoint's params use it
+    ema_decay: float = 0.0
+    opt_shard: bool = False      # ZeRO-1 optimizer-state sharding (A14)
+    qat: bool = False            # quantization-aware training (A11)
+    qat_decay: float = 0.98
+    # every N optimizer steps a step_model_<type> checkpoint with the
+    # epoch's batch cursor, for a bit-identical mid-epoch --resume
+    save_every_steps: int = 0
 
 
 @dataclass
@@ -42,6 +138,31 @@ class InferConfig:
     quant_calib_path: Optional[str] = None
 
 
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+_SUB = {"model": ModelConfig, "loss": LossConfig, "augment": AugmentConfig}
+
+
+def _build(cls, data: dict):
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in data.items():
+        if k not in names:
+            continue
+        if isinstance(v, dict) and k in _SUB:
+            kwargs[k] = _build(_SUB[k], v)
+        elif isinstance(v, list):
+            kwargs[k] = tuple(v)
+        else:
+            kwargs[k] = v
+    return cls(**kwargs)
+
+
 def model_config_from_dict(data: dict) -> ModelConfig:
-    names = {f.name for f in dataclasses.fields(ModelConfig)}
-    return ModelConfig(**{k: v for k, v in data.items() if k in names})
+    return _build(ModelConfig, data)
+
+
+def train_config_from_dict(data: dict) -> TrainConfig:
+    return _build(TrainConfig, data)

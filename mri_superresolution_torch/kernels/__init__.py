@@ -10,15 +10,16 @@ Nothing here builds or imports anything at import time:
 
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3  # noqa: F401
 from mri_superresolution_torch.kernels.groupnorm import (  # noqa: F401
-    gn_quantize, group_norm_leaky)
+    gn_quantize, group_norm_leaky, group_norm_leaky_backward)
 from mri_superresolution_torch.kernels.leaky_quantize import (  # noqa: F401
     leaky_quantize)
 from mri_superresolution_torch.kernels.roll_probe import (  # noqa: F401
     roll32, roll_copy, taps3)
 from mri_superresolution_torch.kernels.ssim import ssim_per_sample  # noqa: F401
 
-WRAPPERS = (group_norm_leaky, conv3x3, ssim_per_sample, leaky_quantize,
-            gn_quantize, roll_copy, roll32, taps3)
+WRAPPERS = (group_norm_leaky, group_norm_leaky_backward, conv3x3,
+            ssim_per_sample, leaky_quantize, gn_quantize, roll_copy, roll32,
+            taps3)
 
 
 def reset_launch_counts() -> None:

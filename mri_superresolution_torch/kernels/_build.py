@@ -37,6 +37,8 @@ _PI = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "msr_gn_leaky_fwd": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
                          _I, _I, _F, _F, _P],
+    "msr_gn_leaky_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _LL, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "msr_gn_onepass_capacity": [_PI, _PI],
     "msr_gn_onepass_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                            _I, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -185,3 +187,13 @@ def counters(device, n: int, what: str):
                           device=device)
         _COUNTERS[key] = buf
     return buf
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will differentiate a call on ``tensors`` (None
+    entries allowed): grad mode on and one of them requires grad. A
+    wrapper then runs as its ``torch.autograd.Function``; otherwise it
+    calls its kernel directly and saves nothing for a backward."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

@@ -11,6 +11,14 @@ channels_last, as the unet casts it. The bf16 kernel sums over K chunk by
 chunk of :func:`k_chunk` input channels (zero-padded past Ci), within a
 chunk over dw, then over dh. The plain version is ``F.conv2d`` with fp32
 accumulation made explicit: inputs cast to fp32, the result cast back.
+
+Where autograd needs it, :func:`conv3x3` runs as a
+``torch.autograd.Function``: the same forward, and a backward from
+PyTorch's convolution gradients (``aten.convolution_backward``, what
+``torch.nn.grad.conv2d_input`` / ``conv2d_weight`` call, with padding 1),
+as the JAX package's ``custom_vjp`` takes its backward from XLA's conv
+VJP. On the card they run in x's dtype; on the CPU bf16 goes through
+fp32, as the plain forward does.
 """
 
 from __future__ import annotations
@@ -58,15 +66,7 @@ def _check(x, weight):
                          "right at the call site)")
 
 
-def conv3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """3x3 conv, stride 1, zero pad 1, no bias.
-
-    x: (B, Ci, H, W) float32 or bfloat16 in channels_last memory; weight:
-    (Co, Ci, 3, 3), Co a multiple of 8 up to 64. Returns (B, Co, H, W) in
-    x's dtype, channels_last. A kernel on a CUDA tensor (tensor cores for
-    bf16, CUDA cores for fp32), the plain version on a CPU tensor.
-    """
-    _check(x, weight)
+def _forward(x, weight):
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight)
     if x.device.type != "cuda":
@@ -86,6 +86,48 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     conv3x3.launches += 1
     _build.check(code, "conv3x3")
     return y
+
+
+def conv3x3_backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                     mask=(True, True)) -> tuple:
+    """(dx, dweight) of :func:`conv3x3` for the output's gradient ``g``,
+    each None where ``mask`` says it is not needed: PyTorch's convolution
+    gradients, in x's dtype (through fp32 for bf16 on the CPU)."""
+    dt = x.dtype
+    if x.device.type == "cpu" and dt != torch.float32:
+        x, weight, g = x.float(), weight.float(), g.float()
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g, x, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [mask[0], mask[1], False])
+    return (None if dx is None else dx.to(dt),
+            None if dw is None else dw.to(dt))
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return _forward(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        return conv3x3_backward(x, weight, g, ctx.needs_input_grad)
+
+
+def conv3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """3x3 conv, stride 1, zero pad 1, no bias.
+
+    x: (B, Ci, H, W) float32 or bfloat16 in channels_last memory; weight:
+    (Co, Ci, 3, 3), Co a multiple of 8 up to 64. Returns (B, Co, H, W) in
+    x's dtype, channels_last. A kernel on a CUDA tensor (tensor cores for
+    bf16, CUDA cores for fp32), the plain version on a CPU tensor.
+    Differentiable: see the module's note.
+    """
+    _check(x, weight)
+    if _build.needs_grad(x, weight):
+        return _Conv3x3.apply(x, weight)
+    return _forward(x, weight)
 
 
 conv3x3.launches = 0

@@ -19,6 +19,15 @@ plain version below is the reference formula: fp32 statistics (mean, then
 E[x^2] - mean^2), fp32 affine, LeakyReLU and residual in fp32, one cast
 back to x's dtype.
 
+Where autograd needs it (grad mode on and an input that requires grad),
+:func:`group_norm_leaky` runs as a ``torch.autograd.Function``: the same
+forward, and a backward by :func:`group_norm_leaky_backward`, B1's
+gradient (``csrc/groupnorm_bwd.cu`` on a CUDA tensor, the plain twin
+:func:`group_norm_leaky_backward_plain` on a CPU tensor), in place of the
+JAX package's ``custom_vjp`` with its jnp ``_backward``. The residual's
+gradient is the output's. Otherwise (serving, ``torch.no_grad``) the
+wrapper calls the kernel directly and saves nothing.
+
 :func:`gn_quantize` is kernel B4's fused route: the one-pass kernel with an
 int8 output (bf16 x, no residual), which applies B4's LeakyReLU and
 quantize to each element before it is stored, in place of B1 at slope 1.0
@@ -260,18 +269,7 @@ def group_norm_leaky_twopass(x: torch.Tensor, scale: torch.Tensor,
                     eps)
 
 
-def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     residual: Optional[torch.Tensor] = None,
-                     n_groups: int = 8, negative_slope: float = 0.2,
-                     eps: float = GN_EPS) -> torch.Tensor:
-    """``leaky_relu(group_norm(x) * scale + bias) [+ residual]``.
-
-    x: (B, C, H, W) float32 or bfloat16 in channels_last memory; scale,
-    bias: (C,) float32; residual: like x. Returns x's dtype and layout.
-    On a CUDA tensor the one-pass kernel where :func:`onepass_plan` gives a
-    plan, else the two-pass kernel; the plain version on a CPU tensor.
-    """
-    _check(x, scale, bias, residual, n_groups)
+def _forward(x, scale, bias, residual, n_groups, negative_slope, eps):
     if x.device.type == "cpu":
         return group_norm_leaky_plain(x, scale, bias, residual, n_groups,
                                       negative_slope, eps)
@@ -286,8 +284,131 @@ def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps)
 
 
+class _GroupNormLeaky(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, residual, n_groups, negative_slope,
+                eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (n_groups, negative_slope, eps)
+        ctx.has_residual = residual is not None
+        return _forward(x, scale, bias, residual, n_groups, negative_slope,
+                        eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        g = g.contiguous(memory_format=torch.channels_last)
+        dx, dscale, dbias = group_norm_leaky_backward(x, scale, bias, g,
+                                                      *ctx.args)
+        return (dx, dscale, dbias, g if ctx.has_residual else None, None,
+                None, None)
+
+
+def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     residual: Optional[torch.Tensor] = None,
+                     n_groups: int = 8, negative_slope: float = 0.2,
+                     eps: float = GN_EPS) -> torch.Tensor:
+    """``leaky_relu(group_norm(x) * scale + bias) [+ residual]``.
+
+    x: (B, C, H, W) float32 or bfloat16 in channels_last memory; scale,
+    bias: (C,) float32; residual: like x. Returns x's dtype and layout.
+    On a CUDA tensor the one-pass kernel where :func:`onepass_plan` gives a
+    plan, else the two-pass kernel; the plain version on a CPU tensor.
+    Differentiable: see the module's note.
+    """
+    _check(x, scale, bias, residual, n_groups)
+    if _build.needs_grad(x, scale, bias, residual):
+        return _GroupNormLeaky.apply(x, scale, bias, residual, n_groups,
+                                     negative_slope, eps)
+    return _forward(x, scale, bias, residual, n_groups, negative_slope, eps)
+
+
 group_norm_leaky.launches = 0
 group_norm_leaky.onepass_launches = 0
+
+
+def group_norm_leaky_backward_plain(x: torch.Tensor, scale: torch.Tensor,
+                                    bias: torch.Tensor, g: torch.Tensor,
+                                    n_groups: int = 8,
+                                    negative_slope: float = 0.2,
+                                    eps: float = GN_EPS) -> tuple:
+    """The JAX package's ``_backward`` (``experiments/groupnorm_pallas.py``
+    :273-295) line by line, on NCHW-indexed tensors: (dx in x's dtype and
+    layout, dscale, dbias in fp32). Two choices fix the bits of mean, rstd
+    and z, and so the LeakyReLU mask, to the kernel's: the statistics are
+    summed in float64 and rounded once to fp32, and rstd is ``1 / sqrt``,
+    both IEEE-rounded (``rsqrt`` is approximate on the card)."""
+    b, c, h, w = x.shape
+    cg = c // n_groups
+    shape = (b, n_groups, cg, h, w)
+    xd = x.double().reshape(shape)
+    mean = xd.mean(dim=(2, 3, 4), keepdim=True).float()
+    var = (xd * xd).mean(dim=(2, 3, 4), keepdim=True).float() - mean * mean
+    rstd = torch.sqrt(var + eps).reciprocal()
+    xhat = (x.float().reshape(shape) - mean) * rstd
+    sc = scale.float().reshape(1, n_groups, cg, 1, 1)
+    z = xhat * sc + bias.float().reshape(1, n_groups, cg, 1, 1)
+
+    gf = g.float().reshape(shape)
+    dz = torch.where(z >= 0, gf, gf * negative_slope)
+    dscale = (dz * xhat).sum(dim=(0, 3, 4)).reshape(c)
+    dbias = dz.sum(dim=(0, 3, 4)).reshape(c)
+
+    dxhat = dz * sc
+    m1 = dxhat.mean(dim=(2, 3, 4), keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=(2, 3, 4), keepdim=True)
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    return (dx.reshape(b, c, h, w).to(x.dtype).contiguous(
+        memory_format=torch.channels_last), dscale, dbias)
+
+
+def group_norm_leaky_backward(x: torch.Tensor, scale: torch.Tensor,
+                              bias: torch.Tensor, g: torch.Tensor,
+                              n_groups: int = 8, negative_slope: float = 0.2,
+                              eps: float = GN_EPS) -> tuple:
+    """The gradient of :func:`group_norm_leaky` (without the residual's,
+    which is ``g``): (dx, dscale, dbias) for the forward's x, scale and
+    bias and the output's gradient ``g`` (like x, channels_last). dx takes
+    x's dtype and layout, dscale and dbias fp32. The kernel of
+    ``csrc/groupnorm_bwd.cu`` on a CUDA tensor, the plain twin on a CPU
+    tensor."""
+    _check(x, scale, bias, None, n_groups)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or \
+            not g.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("g must match x in shape, dtype, device and "
+                         "channels_last layout")
+    if x.device.type == "cpu":
+        return group_norm_leaky_backward_plain(x, scale, bias, g, n_groups,
+                                               negative_slope, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    b, c, h, w = x.shape
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    vec, rows, chunk_px, nchunks = _launch_geometry(
+        h * w, c, x.element_size(),
+        all(t.data_ptr() % 16 == 0 for t in (x, g, dx)))
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    ws_stats = torch.empty((b, nchunks, n_groups, 2), dtype=torch.float64,
+                           device=dev)
+    ws_part = torch.empty((b, nchunks, c, 2), **f32)
+    ws_img = torch.empty((b, c, 2), **f32)
+    ws_m = torch.empty((b, n_groups, 2), **f32)
+    dscale = torch.empty((c,), **f32)
+    dbias = torch.empty((c,), **f32)
+    code = _build.library().msr_gn_leaky_bwd(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+        ws_stats.data_ptr(), ws_part.data_ptr(), ws_img.data_ptr(),
+        ws_m.data_ptr(), b, h * w, c, n_groups, chunk_px, nchunks, rows, vec,
+        int(x.dtype == torch.bfloat16), eps, negative_slope,
+        _build.stream_ptr(dev))
+    group_norm_leaky_backward.launches += 1
+    _build.check(code, "group_norm_leaky_backward")
+    return dx, dscale, dbias
+
+
+group_norm_leaky_backward.launches = 0
 
 
 def gn_quantize_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

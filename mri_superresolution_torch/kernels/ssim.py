@@ -5,9 +5,11 @@ Replaces the TPU kernel ``experiments/ssim_pallas.py``
 is ``csrc/ssim_fused.cu``; its note says what bounds it on the H100 and how
 strips, bands and a register ring replace the TPU kernel's whole image in
 VMEM. :func:`ssim_plan` gives its launch geometry. The plain version is
-``ops.ssim.ssim(..., size_average=False)``. :func:`ssim_fused` is the
-differentiable mean: the kernel forward, the plain version's autograd
-backward, as JAX's ``custom_vjp`` routes its backward through XLA.
+``ops.ssim.ssim(..., size_average=False)``. Where autograd needs it,
+:func:`ssim_per_sample` runs as a ``torch.autograd.Function``: the kernel
+forward and the plain version's autograd backward, as JAX's
+``custom_vjp`` routes its backward through XLA. The loss takes a weighted
+mean of its (B,) values; :func:`ssim_fused` is their plain mean.
 """
 
 from __future__ import annotations
@@ -130,13 +132,20 @@ def ssim_per_sample(img1: torch.Tensor, img2: torch.Tensor,
     """Per-image SSIM (B,) fp32 of single-channel batches, (B, H, W) or
     (B, H, W, 1). Inputs are cast to float32, as the JAX kernel casts them.
     The kernel takes contiguous inputs on the card; CPU tensors go to the
-    plain version."""
+    plain version. Differentiable: see the module's note."""
     img1, img2 = _single_channel(img1, img2)
     if img1.device != img2.device:
         raise ValueError("inputs must share a device")
     if window_size % 2 == 0 or not 1 <= window_size <= MAX_WINDOW:
         raise ValueError(f"window_size must be odd and <= {MAX_WINDOW}")
     img1, img2 = img1.float(), img2.float()
+    if _build.needs_grad(img1, img2):
+        return _SSIMPerSample.apply(img1, img2, window_size, sigma,
+                                    val_range)
+    return _forward(img1, img2, window_size, sigma, val_range)
+
+
+def _forward(img1, img2, window_size, sigma, val_range):
     if img1.device.type == "cpu":
         return ssim_per_sample_plain(img1, img2, window_size, sigma,
                                      val_range)
@@ -169,13 +178,12 @@ def ssim_per_sample(img1: torch.Tensor, img2: torch.Tensor,
 ssim_per_sample.launches = 0
 
 
-class _SSIMFused(torch.autograd.Function):
+class _SSIMPerSample(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img1, img2, window_size, sigma, val_range):
         ctx.save_for_backward(img1, img2)
         ctx.args = (window_size, sigma, val_range)
-        return ssim_per_sample(img1, img2, window_size, sigma,
-                               val_range).mean()
+        return _forward(img1, img2, window_size, sigma, val_range)
 
     @staticmethod
     def backward(ctx, grad):
@@ -183,19 +191,17 @@ class _SSIMFused(torch.autograd.Function):
         with torch.enable_grad():
             a = img1.detach().requires_grad_()
             b = img2.detach().requires_grad_()
-            x1, x2 = (a[..., None], b[..., None]) if a.dim() == 3 else (a, b)
-            d1, d2 = torch.autograd.grad(ssim(x1, x2, *ctx.args), (a, b),
-                                         grad)
+            d1, d2 = torch.autograd.grad(
+                ssim_per_sample_plain(a, b, *ctx.args), (a, b), grad)
         return d1, d2, None, None, None
 
 
 def ssim_fused(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
                sigma: float = 1.5, val_range: float = 1.0) -> torch.Tensor:
     """Scalar mean SSIM of single-channel batches, (B, H, W) or (B, H, W,
-    1): the fused forward (:func:`ssim_per_sample`), and a backward through
-    autograd of the plain ``ops.ssim.ssim`` (``ssim_pallas.ssim_fused``)."""
-    _single_channel(img1, img2)
-    return _SSIMFused.apply(img1, img2, window_size, sigma, val_range)
+    1): the mean of :func:`ssim_per_sample`, differentiable
+    (``ssim_pallas.ssim_fused``)."""
+    return ssim_per_sample(img1, img2, window_size, sigma, val_range).mean()
 
 
 def flops_per_pixel(window_size: int) -> int:

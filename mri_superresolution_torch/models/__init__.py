@@ -16,9 +16,10 @@ KNOWN_MODEL_TYPES = ("edsr", "simple", "unet", "unet_tpu")
 def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                 generator: torch.Generator = None) -> UNetSuperRes:
     if cfg.model_type == "unet":
-        return UNetSuperRes(base_filters=cfg.base_filters,
-                            initial_alpha=cfg.initial_alpha,
-                            icnr_init=cfg.icnr_init, dtype=dtype,
+        return UNetSuperRes(in_channels=cfg.in_channels,
+                            out_channels=cfg.out_channels,
+                            base_filters=cfg.base_filters,
+                            initial_alpha=cfg.initial_alpha, dtype=dtype,
                             generator=generator)
     if cfg.model_type in KNOWN_MODEL_TYPES:
         raise NotImplementedError(

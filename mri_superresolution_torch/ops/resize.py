@@ -171,9 +171,11 @@ def upsample_bilinear_align_corners(x: torch.Tensor,
 def _align_corners_tensor(in_size: int, out_size: int, device: torch.device,
                           dtype: torch.dtype) -> torch.Tensor:
     """The matrix on the device, uploaded once per shape instead of once
-    per forward."""
-    return torch.from_numpy(_align_corners_matrix(in_size, out_size)).to(
-        device, dtype)
+    per forward. Made outside inference mode even when the first caller
+    serves under it, so that a training step may use it later."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_align_corners_matrix(in_size, out_size)).to(
+            device, dtype)
 
 
 @functools.lru_cache(maxsize=128)

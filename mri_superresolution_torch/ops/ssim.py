@@ -31,8 +31,11 @@ def gaussian_window(window_size: int, sigma: float,
                     device: torch.device) -> torch.Tensor:
     """The 1D window as an fp32 tensor on ``device``, made once: a copy from
     pageable host memory on every call would synchronise, which CUDA graph
-    capture refuses."""
-    return torch.from_numpy(_gaussian_window_np(window_size, sigma)).to(device)
+    capture refuses. Made outside inference mode even when the first caller
+    serves under it, so that a training step may use it later."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_gaussian_window_np(window_size,
+                                                    sigma)).to(device)
 
 
 def _separable_blur(x: torch.Tensor, window_size: int,

@@ -1,28 +1,34 @@
-"""Checkpoint loading for serving: the JAX package's ``.ckpt`` and bare
-``.msgpack`` params, and reference ``.pth`` files.
+"""Checkpoints in the JAX package's format: the ``.ckpt`` it writes and
+reads, bare ``.msgpack`` params, and reference ``.pth`` files.
 
 A ``.ckpt`` is a flax msgpack blob beside a JSON sidecar of hyperparams
-(``<base>.json``). It is decoded here with ``msgpack`` alone: flax stores an
-ndarray as ext type 1 holding msgpack ``(shape, dtype name, C-order
-bytes)``, a numpy scalar as ext type 3 in the same encoding, and splits
-arrays over 1 GiB into ``__msgpack_chunked_array__`` dicts. ``msgpack`` is
-imported only when such a file is read. Discovery precedence mirrors the
-reference: ``best_model_{type}`` -> ``final_model_{type}`` -> any file
-naming the type (scripts/infer.py:74-95). Saving and resuming come with the
-training slice.
+(``<base>.json``). It is encoded and decoded here with ``msgpack`` alone:
+flax stores an ndarray as ext type 1 holding msgpack ``(shape, dtype name,
+C-order bytes)``, a numpy scalar as ext type 3 in the same encoding, and
+splits arrays over 1 GiB into ``__msgpack_chunked_array__`` dicts (read
+here; the unet's arrays are far smaller, so none is written). ``msgpack``
+is imported only when such a file is read or written. The blob holds
+``params`` as the JAX package's flax tree (``utils/weights``),
+``opt_state`` as optax's ``(add_decayed_weights, scale_by_adam)`` state
+``{"0": {}, "1": {"count", "mu", "nu"}}`` with the moments mapped like the
+params, and extras such as ``raw_params`` (the live weights under EMA), so
+checkpoints move both ways between the packages. Discovery precedence
+mirrors the reference: ``best_model_{type}`` -> ``final_model_{type}`` ->
+any file naming the type (scripts/infer.py:74-95).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mri_superresolution_torch.models import KNOWN_MODEL_TYPES
-from mri_superresolution_torch.utils.weights import state_dict_from_jax
+from mri_superresolution_torch.utils.weights import (
+    jax_params_from_state_dict, state_dict_from_jax)
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -67,6 +73,84 @@ def msgpack_restore(blob: bytes) -> Any:
     return _unchunk(msgpack.unpackb(blob, ext_hook=_ext_hook, raw=False))
 
 
+def _ext_pack(x):
+    import msgpack
+    if isinstance(x, (np.ndarray, np.generic)):
+        code = _EXT_NDARRAY if isinstance(x, np.ndarray) else _EXT_NPSCALAR
+        a = np.asarray(x)
+        return msgpack.ExtType(code, msgpack.packb(
+            (list(a.shape), a.dtype.name, a.tobytes("C")), use_bin_type=True))
+    raise TypeError(f"cannot serialize {type(x)}")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode nested dicts of numpy arrays as flax's ``msgpack_serialize``
+    does."""
+    import msgpack
+    return msgpack.packb(tree, default=_ext_pack, strict_types=True)
+
+
+def _atomic_write(path: str, data, mode: str) -> None:
+    # a crash mid-save must never corrupt the previous checkpoint
+    tmp = path + ".tmp"
+    with open(tmp, mode) as f:
+        if isinstance(data, (bytes, str)):
+            f.write(data)
+        else:
+            json.dump(data, f, indent=2, sort_keys=True, default=str)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
+                    opt_state: Optional[Dict[str, Any]] = None,
+                    meta: Optional[Dict] = None,
+                    extras: Optional[Dict[str, Dict[str, torch.Tensor]]]
+                    = None) -> None:
+    """Write ``{path}.ckpt`` (msgpack) and ``{path}.json`` (meta sidecar),
+    as the JAX package's ``save_checkpoint`` does.
+
+    params: the port's state_dict; opt_state: ``{"count": int, "mu": sd,
+    "nu": sd}`` (Adam's step and moments keyed like the params, see
+    ``train.trainer.adam_state``); extras: further state_dicts stored
+    beside them (the trainer stores the live weights as ``raw_params``
+    under EMA)."""
+    state: Dict[str, Any] = {"params": jax_params_from_state_dict(params)}
+    if opt_state is not None:
+        state["opt_state"] = {"0": {}, "1": {
+            "count": np.asarray(opt_state["count"], np.int32),
+            "mu": jax_params_from_state_dict(opt_state["mu"]),
+            "nu": jax_params_from_state_dict(opt_state["nu"])}}
+    for key, sd in (extras or {}).items():
+        if key in state:
+            raise ValueError(f"extras key {key!r} collides with {list(state)}")
+        state[key] = jax_params_from_state_dict(sd)
+    base = path[:-5] if path.endswith(".ckpt") else path
+    _atomic_write(base + ".ckpt", msgpack_serialize(state), "wb")
+    _atomic_write(base + ".json", meta or {}, "w")
+
+
+def load_checkpoint(path: str, return_extras: bool = False):
+    """Read a ``.ckpt`` of either package -> (params state_dict, opt_state
+    ``{"count", "mu", "nu"}`` or None, meta dict), and with
+    ``return_extras`` a fourth element: the other stored trees (e.g.
+    ``raw_params``) as state_dicts."""
+    base = path[:-5] if path.endswith(".ckpt") else path
+    with open(base + ".ckpt", "rb") as f:
+        state = msgpack_restore(f.read())
+    opt = None
+    adam = (state.get("opt_state") or {}).get("1")
+    if adam:
+        opt = {"count": int(adam["count"]),
+               "mu": state_dict_from_jax(adam["mu"]),
+               "nu": state_dict_from_jax(adam["nu"])}
+    out = (state_dict_from_jax(state["params"]), opt, read_meta(path))
+    if return_extras:
+        extras = {k: state_dict_from_jax(v) for k, v in state.items()
+                  if k not in ("params", "opt_state")}
+        return out + (extras,)
+    return out
+
+
 def read_meta(path: str) -> Dict:
     """The JSON sidecar ``<base>.json`` of a checkpoint, or {}."""
     base = path[:-5] if path.endswith(".ckpt") else path
@@ -80,6 +164,10 @@ def checkpoint_paths(checkpoint_dir: str, model_type: str) -> Dict[str, str]:
     return {
         "best": os.path.join(checkpoint_dir, f"best_model_{model_type}"),
         "final": os.path.join(checkpoint_dir, f"final_model_{model_type}"),
+        # mid-epoch step checkpoint (TrainConfig.save_every_steps): carries
+        # a "batch_cursor" in its meta; resume prefers whichever of
+        # final/step has the greater optimizer step count
+        "step": os.path.join(checkpoint_dir, f"step_model_{model_type}"),
     }
 
 

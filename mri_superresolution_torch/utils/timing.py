@@ -21,7 +21,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def cuda_ms_cold(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms_cold(fn, inputs, iters: int = 20, warmup: int = 3,
+                 stream=None) -> float:
     """Device time of ``fn(inp)`` in ms, with cold caches and without the
     host's share. ``iters`` calls, taking ``inputs`` in turn, are captured
     in one CUDA graph with every result kept, so each call writes memory of
@@ -32,12 +33,15 @@ def cuda_ms_cold(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
     back to back, so a call whose host side (checks, allocation, launch)
     takes longer than its kernel is timed by its kernel; :func:`cuda_ms`
     times both. ``fn`` runs ``warmup`` times first, outside the graph, and
-    counts launches only while it is captured. Needs a CUDA device."""
+    counts launches only while it is captured. ``stream``: the stream to
+    capture on (a backward through ``torch.autograd`` runs on its
+    forward's stream, so capture it on the stream its forward ran on).
+    Needs a CUDA device."""
     for i in range(warmup):
         fn(inputs[i % len(inputs)])
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         keep = [fn(inputs[i % len(inputs)]) for i in range(iters)]
     graph.replay()                                  # untimed
     start = torch.cuda.Event(enable_timing=True)

@@ -17,7 +17,8 @@ from mri_superresolution_torch.config import ModelConfig
 from mri_superresolution_torch.infer import InferenceEngine
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
-    gn_quantize, group_norm_leaky, group_norm_leaky_plain, onepass_plan)
+    gn_quantize, group_norm_leaky, group_norm_leaky_backward,
+    group_norm_leaky_backward_plain, group_norm_leaky_plain, onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_generic, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.roll_probe import (
@@ -27,6 +28,7 @@ from mri_superresolution_torch.kernels.ssim import (
 from mri_superresolution_torch.models import build_model
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.ops.ssim import ssim as ssim_plain
+from mri_superresolution_torch.utils.phantom import phantom_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -314,7 +316,8 @@ def test_unet_on_card_matches_cpu(dev):
     kernels.reset_launch_counts()
     got = gpu.upscale_batch(x)
     assert kernels.launch_counts() == {
-        "group_norm_leaky": 20, "conv3x3": 2, "ssim_per_sample": 0,
+        "group_norm_leaky": 20, "group_norm_leaky_backward": 0,
+        "conv3x3": 2, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
         "taps3": 0}
     np.testing.assert_allclose(got, cpu.upscale_batch(x), rtol=1e-4,
@@ -572,3 +575,220 @@ def test_int8_engine_on_card_follows_the_cpu_state_machine(dev, tmp_path):
     # the JAX package's int8 bound (tests/test_quant.py): bf16 rounds
     # differently in cuDNN and on the CPU, so a few codes move
     assert np.abs(got - want).mean() < 0.05
+
+
+# ------------------------------------------------ training: B1, B2, B3 grads
+
+ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
+
+
+def _bwd_close(got, want, dtype):
+    """B1 backward's gates: dx within one ulp of x's dtype (relative) plus
+    1e-5 absolute, for summation orders that differ where terms cancel;
+    dscale, dbias within rtol 1e-4 (plus 1e-4 of their largest entry, for
+    sums of ~1e6 terms of either sign)."""
+    (dx, ds, db), (wx, ws, wb) = got, want
+    assert dx.dtype == wx.dtype == dtype
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(dx.float(), wx.float(), rtol=ULP[dtype],
+                               atol=1e-5)
+    for a, b in ((ds, ws), (db, wb)):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+# the unet's five GroupNorm shapes at the training batch (8 x 128^2 in,
+# base_filters 32), then odd ones: 3 vectors a pixel, groups across
+# vectors, an offset view (scalar loads), one wide image
+@pytest.mark.parametrize("shape,offset", [
+    ((8, 32, 128, 128), 0), ((8, 64, 64, 64), 0), ((8, 128, 32, 32), 0),
+    ((8, 256, 16, 16), 0), ((8, 16, 256, 256), 0), ((2, 24, 9, 7), 0),
+    ((1, 24, 5, 11), 0), ((2, 16, 16, 16), 1), ((1, 16, 512, 512), 0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_leaky_backward_kernel(dev, shape, offset, dtype):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, g, b, _ = _gn_case(shape, dtype, dev, gen, False, offset)
+    gy = _cl(shape, dtype, dev, gen).contiguous(
+        memory_format=torch.channels_last)
+    before = group_norm_leaky_backward.launches
+    got = group_norm_leaky_backward(x, g, b, gy)
+    assert group_norm_leaky_backward.launches == before + 1
+    _bwd_close(got, group_norm_leaky_backward_plain(x, g, b, gy), dtype)
+    # fixed-order sums: the same bits on every run
+    again = group_norm_leaky_backward(x, g, b, gy)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_group_norm_leaky_grads_through_autograd(dev, dtype, with_res):
+    """The Function's gradients against torch autograd of the plain
+    forward, on the card (relative L2 1e-4: autograd's z rounds in
+    another order, which may flip a few masks at z ~ 0)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x, g, b, res = _gn_case((2, 32, 24, 20), dtype, dev, gen, with_res)
+    gy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+    leaves = [t for t in (x, g, b, res) if t is not None]
+    grads = []
+    for fn in (group_norm_leaky, group_norm_leaky_plain):
+        ins = [t.detach().clone().requires_grad_() for t in leaves]
+        ins[0] = ins[0].detach().contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        if with_res:
+            ins[3] = ins[3].detach().contiguous(
+                memory_format=torch.channels_last).requires_grad_()
+        before = group_norm_leaky_backward.launches
+        fn(*ins[:3], residual=ins[3] if with_res else None).backward(gy)
+        grads.append([t.grad.float() for t in ins])
+        if fn is group_norm_leaky:
+            assert group_norm_leaky_backward.launches == before + 1
+    for got, want in zip(*grads):
+        err = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        assert err <= (1e-2 if dtype == torch.bfloat16 else 1e-4), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ci", [32, 16])
+def test_conv3x3_grads_on_card(dev, dtype, ci):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = _cl((2, ci, 40, 36), dtype, dev, gen).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn((16, ci, 3, 3), generator=gen, device=dev) / 12).to(
+        dtype)
+    gy = torch.randn((2, 16, 40, 36), generator=gen, device=dev).to(dtype)
+    x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = conv3x3.launches
+    conv3x3(x1, w1).backward(gy)
+    assert conv3x3.launches == before + 1
+    x2, w2 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    torch.nn.functional.conv2d(x2, w2, padding=1).backward(gy)
+    # the same library gradients on the same inputs
+    tol = dict(rtol=BF16_RTOL, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(x1.grad, x2.grad, **tol)
+    torch.testing.assert_close(w1.grad, w2.grad, **tol)
+
+
+def test_ssim_per_sample_grads_on_card(dev):
+    a, b = _ssim_pair((4, 96, 80), dev, seed=9)
+    wv = torch.tensor([1.0, 0.5, 0.0, 2.0], device=dev)
+    x1, x2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = ssim_per_sample.launches
+    (ssim_per_sample(x1, x2) * wv).sum().backward()
+    assert ssim_per_sample.launches == before + 1
+    y1, y2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    (ssim_per_sample_plain(y1, y2) * wv).sum().backward()
+    torch.testing.assert_close(x1.grad, y1.grad, rtol=1e-5, atol=1e-8)
+    torch.testing.assert_close(x2.grad, y2.grad, rtol=1e-5, atol=1e-8)
+
+
+def _unet_grads(device, dtype, sd, lo, hr):
+    from mri_superresolution_torch.config import LossConfig
+    from mri_superresolution_torch.losses import CombinedLoss
+    model = build_model(ModelConfig(base_filters=32), dtype=dtype).to(device)
+    model.load_state_dict(sd)
+    loss, _ = CombinedLoss(LossConfig())(model(lo.to(device)), hr.to(device))
+    loss.backward()
+    return float(loss.detach()), {n: p.grad
+                                  for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unet_backward_on_card_gives_every_param_a_gradient(dev, dtype):
+    """The autograd repair: after loss.backward() on the card every
+    parameter has a gradient, close to the CPU port's in the same dtype
+    from the same weights and phantom batch, at the unet's full width.
+    bf16: every cosine >= 0.99. fp32 without TF32: every gradient within
+    5e-2 relative L2, their median within 2e-3; PyTorch's own CUDA and CPU
+    ops differ by that much here (with the port's kernels swapped for
+    their plain versions and cuDNN off, a median of 8.2e-4 and `alpha` at
+    2.7e-2), while a missing or wrong gradient is off by order 1."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sd = build_model(ModelConfig(base_filters=32),
+                         generator=torch.Generator().manual_seed(3)
+                         ).state_dict()
+        lo = torch.from_numpy(phantom_batch(np.random.default_rng(3), 2,
+                                            128))[..., None]
+        hr = torch.from_numpy(phantom_batch(np.random.default_rng(3), 2,
+                                            256))[..., None]
+        kernels.reset_launch_counts()
+        lg, gg = _unet_grads(dev, dtype, sd, lo, hr)
+        counts = kernels.launch_counts()
+        assert (counts["group_norm_leaky"], counts["group_norm_leaky_backward"],
+                counts["conv3x3"], counts["ssim_per_sample"]) == (20, 20, 2, 1)
+        lc, gc = _unet_grads("cpu", dtype, sd, lo, hr)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert abs(lg - lc) <= (1e-2 if dtype == torch.bfloat16 else 1e-4) * lc
+    errs = []
+    for name, want in gc.items():
+        got = gg[name]
+        assert got is not None, name
+        got, want = got.cpu().double().flatten(), want.double().flatten()
+        if dtype == torch.float32:
+            errs.append(float((got - want).norm() / want.norm()))
+            assert errs[-1] <= 5e-2, (name, errs[-1])
+        else:
+            cos = float(got @ want / (got.norm() * want.norm()))
+            assert cos >= 0.99, (name, cos)
+    if errs:
+        assert float(np.median(errs)) <= 2e-3, np.median(errs)
+
+
+def test_serving_forward_saves_nothing_and_keeps_its_bits(dev):
+    """Under no_grad the wrappers call their kernels directly: nothing is
+    saved for a backward, the launch counts are serving's, and the output
+    has the bits of the differentiable route's forward."""
+    sd = build_model(ModelConfig(base_filters=16),
+                     generator=torch.Generator().manual_seed(4)).state_dict()
+    model = build_model(ModelConfig(base_filters=16), dtype=torch.bfloat16)
+    model.load_state_dict(sd)
+    model.to(dev)
+    x = torch.from_numpy(np.random.default_rng(4).random(
+        (2, 32, 32, 1), np.float32)).to(dev)
+    saved = []
+    kernels.reset_launch_counts()
+    with torch.no_grad(), torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        served = model(x)
+    counts = kernels.launch_counts()
+    assert saved == [] and counts["group_norm_leaky"] == 20 and \
+        counts["conv3x3"] == 2 and counts["group_norm_leaky_backward"] == 0
+    trained = model(x)
+    assert trained.requires_grad and torch.equal(served, trained.detach())
+
+
+def test_cli_train_one_epoch_on_card(dev, tmp_path, capsys):
+    """``python -m mri_superresolution_torch.cli.train`` for one epoch on the
+    card: every step through B1 forward and backward, B3 and B2, finite
+    losses, best and final checkpoints."""
+    import json
+    from mri_superresolution_torch import native
+    from mri_superresolution_torch.cli import train as cli
+    hr = phantom_batch(np.random.default_rng(5), 12, 64)
+    lr = phantom_batch(np.random.default_rng(5), 12, 32)
+    for sub, imgs in (("hr", hr), ("lr", lr)):
+        (tmp_path / sub).mkdir()
+        for i, img in enumerate(imgs):
+            native.imwrite_gray(str(tmp_path / sub / f"sub-{i}_s{i}.png"),
+                                np.round(img * 255).astype(np.uint8))
+    kernels.reset_launch_counts()
+    final = cli.main(["--full_res_dir", str(tmp_path / "hr"),
+                      "--low_res_dir", str(tmp_path / "lr"),
+                      "--base_filters", "16", "--batch_size", "4",
+                      "--epochs", "1", "--seed", "0",
+                      "--checkpoint_dir", str(tmp_path / "ckpt"),
+                      "--log_dir", str(tmp_path / "logs")])
+    counts = kernels.launch_counts()
+    # 12 pairs: 10 train (3 steps), 2 validation (1 batch)
+    assert (counts["group_norm_leaky"], counts["group_norm_leaky_backward"],
+            counts["conv3x3"], counts["ssim_per_sample"]) == (80, 60, 8, 4)
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    summary = [ln for ln in lines if ln["type"] == "epoch_summary"]
+    assert len(summary) == 1 and np.isfinite(summary[0]["train_loss"]) and \
+        np.isfinite(summary[0]["val_loss"])
+    assert final.endswith("final_model_unet.ckpt")
+    assert (tmp_path / "ckpt" / "best_model_unet.ckpt").exists()

@@ -219,6 +219,7 @@ def test_cpu_calls_do_not_count_as_launches():
     kernels.reset_launch_counts()
     x = torch.randn(1, 16, 8, 8).contiguous(memory_format=torch.channels_last)
     group_norm_leaky(x, torch.ones(16), torch.zeros(16))
+    kernels.group_norm_leaky_backward(x, torch.ones(16), torch.zeros(16), x)
     conv3x3(x, torch.randn(16, 16, 3, 3))
     ssim_per_sample(torch.rand(1, 8, 8), torch.rand(1, 8, 8))
     kernels.leaky_quantize(x, torch.ones(16))
@@ -227,6 +228,7 @@ def test_cpu_calls_do_not_count_as_launches():
     for probe in (kernels.roll_copy, kernels.roll32, kernels.taps3):
         probe(p)
     assert kernels.launch_counts() == {
-        "group_norm_leaky": 0, "conv3x3": 0, "ssim_per_sample": 0,
+        "group_norm_leaky": 0, "group_norm_leaky_backward": 0,
+        "conv3x3": 0, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
         "taps3": 0}
