@@ -27,10 +27,14 @@ the last line is printed:
    device kernel a call (``torch.profiler``), then timed twice. With
    ``--parent DIR`` the B2 kernel of the checkout in DIR (an older commit)
    is timed before and after, by ``tools/ssim_time.py`` in a process of
-   its own. B1's backward kernel runs at the unet's 20 training sites
-   (batch 8 of 128^2, bf16) against its plain twin (dx within one bf16
-   ulp plus 1e-5, dscale and dbias within rtol 1e-4, the same bits twice),
-   then L2-cold beside the twin and the library's backward.
+   its own. B1's backward runs at the unet's 20 training sites (batch 8
+   of 128^2, bf16) on both routes, the one-pass kernel the wrapper takes
+   there and the four-pass kernel, against its plain twin (dx within one
+   bf16 ulp plus 1e-5, dscale and dbias within rtol 1e-4, the same bits
+   twice, 1 and 4 device kernels a call), then L2-cold beside the twin
+   and the library's backward; the one-pass route also from two replays
+   of a CUDA graph captured on a side stream, and the four-pass route
+   through the wrapper at an offset view.
 3. main path: ``InferenceEngine`` (full-width unet, seeded random weights,
    bf16) upscales 16 synthetic 256^2 slices to 512^2 and reports metrics
    for one of them; the launch counters must show every kernel ran (B1 20
@@ -52,8 +56,8 @@ the last line is printed:
    bf16) trains 2 epochs on 40 seeded phantom pairs of 128^2 -> 256^2
    written as PNGs by the port's encoder; its JSON lines, checkpoints,
    finite losses, moved weights and exact launch counts are checked (a
-   step: B1 20, B1 backward 20, B3 2, B2 1; a validation batch: B1 20, B3
-   2, B2 1); then one step and one validation batch counted alone, the
+   step: B1 20, B1 backward 20, all one-pass, B3 2, B2 1; a validation
+   batch: B1 20, B3 2, B2 1); then one step and one validation batch counted alone, the
    step time (CUDA events, 10 steps after 2 warm-up), one step on the card
    against the CPU port from the same weights and batch (fp32 without
    TF32: loss rtol 1e-4, gradients 1e-3 relative L2; bf16: loss 1e-2,
@@ -70,8 +74,9 @@ the last line is printed:
    the seven conv2 sites, and B1 + B4 there as ``earlier_ms``; B2's row
    the batch of 8 (the batch of 16 beside it as ``batch16``), and the one
    image on a row of its own (with ``--parent``, the older kernel's time
-   as ``earlier_ms``); B1's backward row its 20 training sites, with the
-   training run's launches.
+   as ``earlier_ms``); B1's backward row the one-pass route at its 20
+   training sites, the four-pass kernel's time there as ``earlier_ms``,
+   and the training run's launches and one-pass launches.
 
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
@@ -105,8 +110,9 @@ from mri_superresolution_torch.kernels import _build
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
     gn_quantize, gn_quantize_plain, group_norm_leaky,
-    group_norm_leaky_backward, group_norm_leaky_backward_plain,
-    group_norm_leaky_plain, group_norm_leaky_twopass, onepass_plan)
+    group_norm_leaky_backward, group_norm_leaky_backward_fourpass,
+    group_norm_leaky_backward_plain, group_norm_leaky_plain,
+    group_norm_leaky_twopass, onepass_backward_plan, onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_generic, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.ssim import (
@@ -274,16 +280,24 @@ def check_b3(dev, gen) -> dict:
     return {**tot, "max_abs_err": worst, "bound_by": bound_by}
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, tries: int = 3) -> list:
     """Names of the device kernels one call of ``fn`` runs, from
-    ``torch.profiler``."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    ``torch.profiler``. Now and then the profiler records no device event
+    at all for a call (seen once in a run on the H100 machine, for B2); a
+    trace with none is taken again, each on one call of its own, up to
+    ``tries`` times."""
+    names = []
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def b2_bound(shape) -> tuple:
@@ -603,48 +617,91 @@ def b1_bwd_bound(x: torch.Tensor) -> tuple:
                     torch.float32)
 
 
+def _b1_bwd_gates(got, want) -> tuple:
+    """B1 backward's gates against the twin: dx within one bf16 ulp
+    (relative) plus 1e-5, dscale and dbias within rtol 1e-4 plus 1e-4 of
+    their largest entry (sums of ~1e6 terms of either sign). (ok, max abs
+    errors of dx, dscale, dbias)."""
+    ok_dx, err = within(got[0], want[0], BF16_RTOL, 1e-5)
+    ok_s, err_s = within(got[1], want[1], 1e-4,
+                         1e-4 * float(want[1].abs().max()))
+    ok_b, err_b = within(got[2], want[2], 1e-4,
+                         1e-4 * float(want[2].abs().max()))
+    return ok_dx and ok_s and ok_b, err, err_s, err_b
+
+
+def _bwd_inputs(shape, dev, gen, offset=0):
+    """x and g of one shape as two halves of one channels-last buffer
+    (``offset`` elements into it breaks 16-byte alignment), and seeded
+    gamma, beta."""
+    b, c, h, w = shape
+    buf = torch.randn(2 * b * c * h * w + offset, generator=gen, device=dev)
+    xg = buf.to(torch.bfloat16)[offset:].view(2 * b, h, w, c).permute(
+        0, 3, 1, 2)
+    gam = torch.randn(c, generator=gen, device=dev)
+    bet = torch.randn(c, generator=gen, device=dev)
+    return xg, gam, bet
+
+
 def check_b1_backward(dev, gen) -> dict:
-    """B1's backward kernel at the unet's 20 training sites (batch 8 of
-    128^2, base filters 32, bf16) against its plain twin: dx within one
-    bf16 ulp (relative) plus 1e-5, dscale and dbias within rtol 1e-4 (plus
-    1e-4 of their largest entry: sums of ~1e6 terms of either sign), the
-    same bits twice; then L2-cold times of the kernel, the twin and the
-    library's backward (``torch.autograd.grad`` of ``F.leaky_relu(
-    F.group_norm(x, 8, g, b), 0.2)`` with respect to (x, g, b), its forward
-    graph built beforehand), from CUDA graph replays."""
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    """B1's backward at the unet's 20 training sites (batch 8 of 128^2,
+    base filters 32, bf16): the one-pass route the wrapper takes there and
+    the four-pass kernel against the plain twin (``_b1_bwd_gates``), the
+    same bits twice, the device kernels a call (``torch.profiler``); the
+    one-pass route replayed twice from a CUDA graph captured on a side
+    stream, with the eager call's bits; the four-pass kernel at a shape of
+    its own route (an offset view). Then L2-cold times of both routes, the
+    twin and the library's backward (``torch.autograd.grad`` of
+    ``F.leaky_relu(F.group_norm(x, 8, g, b), 0.2)`` with respect to (x, g,
+    b), its forward graph built beforehand), from CUDA graph replays."""
+    keys = ("ms", "earlier_ms", "plain_ms", "library_ms", "bound_ms")
     tot = dict.fromkeys(keys, 0.0)
     worst, bound_by = 0.0, "bytes"
+    kernels_a_call = {}
     for shape, count in gn_sites(TRAIN_BATCH, TRAIN_LR, BASE_FILTERS):
-        b, c = shape[0], shape[1]
-        xg = torch.randn((2 * b,) + shape[1:], generator=gen, device=dev).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b = shape[0]
+        xg, gam, bet = _bwd_inputs(shape, dev, gen)
         x, gy = xg[:b], xg[b:]
-        gam = torch.randn(c, generator=gen, device=dev)
-        bet = torch.randn(c, generator=gen, device=dev)
-        got = group_norm_leaky_backward(x, gam, bet, gy)
+        plan = onepass_backward_plan(x, gy, torch.empty_like(x))
+        if plan is None:
+            raise AssertionError(f"B1's one-pass backward does not take "
+                                 f"{shape}")
         want = group_norm_leaky_backward_plain(x, gam, bet, gy)
-        ok_dx, err = within(got[0], want[0], BF16_RTOL, 1e-5)
-        ok_s, err_s = within(got[1], want[1], 1e-4,
-                             1e-4 * float(want[1].abs().max()))
-        ok_b, err_b = within(got[2], want[2], 1e-4,
-                             1e-4 * float(want[2].abs().max()))
-        again = group_norm_leaky_backward(x, gam, bet, gy)
-        same = all(torch.equal(u, v) for u, v in zip(got, again))
-        log("kernel_check", kernel="B1 backward", shape=list(shape),
-            dtype="bf16", max_abs_err_dx=err, max_abs_err_dscale=err_s,
-            max_abs_err_dbias=err_b, gates="dx rtol 2^-7 atol 1e-5; "
-            "dscale, dbias rtol 1e-4 atol 1e-4 of the largest entry",
-            run_to_run_equal=same, ok=ok_dx and ok_s and ok_b)
-        if not (ok_dx and ok_s and ok_b and same):
-            raise AssertionError(f"B1's backward disagrees with its plain "
-                                 f"twin at {shape} (dx {err}, dscale "
-                                 f"{err_s}, dbias {err_b}) or from run to "
-                                 f"run ({same})")
-        worst = max(worst, err)
+        for route, fn in (("onepass", group_norm_leaky_backward),
+                          ("fourpass", group_norm_leaky_backward_fourpass)):
+            before = group_norm_leaky_backward.onepass_launches
+            got = fn(x, gam, bet, gy)
+            onepass = group_norm_leaky_backward.onepass_launches - before
+            ok, err, err_s, err_b = _b1_bwd_gates(got, want)
+            again = fn(x, gam, bet, gy)
+            same = all(torch.equal(u, v) for u, v in zip(got, again))
+            names = device_kernels(lambda: fn(x, gam, bet, gy))
+            kernels_a_call[route] = len(names)
+            log("kernel_check", kernel="B1 backward", route=route,
+                shape=list(shape), dtype="bf16", plan=plan._asdict(),
+                max_abs_err_dx=err, max_abs_err_dscale=err_s,
+                max_abs_err_dbias=err_b, gates="dx rtol 2^-7 atol 1e-5; "
+                "dscale, dbias rtol 1e-4 atol 1e-4 of the largest entry",
+                run_to_run_equal=same, device_kernels=names,
+                onepass_launches=onepass, ok=ok)
+            want_onepass = 1 if route == "onepass" else 0
+            if not (ok and same and onepass == want_onepass):
+                raise AssertionError(f"B1's backward ({route}) disagrees with "
+                                     f"its plain twin at {shape} (dx {err}, "
+                                     f"dscale {err_s}, dbias {err_b}), from "
+                                     f"run to run ({same}) or took the "
+                                     f"wrong route ({onepass} one-pass "
+                                     f"launches)")
+            if route == "onepass":
+                worst = max(worst, err)
+                if len(names) != 1:
+                    raise AssertionError(f"the one-pass backward ran "
+                                         f"{names} at {shape}")
         del got, want, again
         xs = l2_cold_copies(xg)
         k = cuda_ms_cold(lambda t: group_norm_leaky_backward(
+            t[:b], gam, bet, t[b:]), xs)
+        four = cuda_ms_cold(lambda t: group_norm_leaky_backward_fourpass(
             t[:b], gam, bet, t[b:]), xs)
         p = cuda_ms_cold(lambda t: group_norm_leaky_backward_plain(
             t[:b], gam, bet, t[b:]), xs)
@@ -666,17 +723,74 @@ def check_b1_backward(dev, gen) -> dict:
         del xs, graphs
         bnd, bound_by = b1_bwd_bound(x)
         log("kernel_time", kernel="B1 backward", shape=list(shape),
-            sites=count, kernel_ms=k, plain_ms=p, library_ms=lib,
-            bound_ms=bnd, bound_share=bnd / k,
+            sites=count, kernel_ms=k, fourpass_ms=four, plain_ms=p,
+            library_ms=lib, bound_ms=bnd, bound_share=bnd / k,
+            fourpass_bound_share=bnd / four,
             timing="L2-cold, CUDA graph replays")
-        if min(k, p, lib) < bnd:
+        if min(k, four, p, lib) < bnd:
             raise AssertionError(f"B1 backward times below their {bnd} ms "
-                                 f"bound at {shape}: {k}, {p}, {lib}")
-        for key, v in zip(keys, (k, p, lib, bnd)):
+                                 f"bound at {shape}: {k}, {four}, {p}, {lib}")
+        for key, v in zip(keys, (k, four, p, lib, bnd)):
             tot[key] += count * v
     log("kernel_total", kernel="B1 backward", sites=20, **tot,
-        bound_share=tot["bound_ms"] / tot["ms"])
-    return {**tot, "max_abs_err": worst, "bound_by": bound_by}
+        bound_share=tot["bound_ms"] / tot["ms"],
+        device_kernels_a_call=kernels_a_call,
+        note="ms: one-pass route; earlier_ms: four-pass kernel")
+    check_b1_backward_graph(dev, gen)
+    check_b1_backward_fourpass_route(dev, gen)
+    return {**tot, "max_abs_err": worst, "bound_by": bound_by,
+            "device_kernels_a_call": kernels_a_call}
+
+
+def check_b1_backward_graph(dev, gen) -> None:
+    """The one-pass backward at the two-wave training site captured in a
+    CUDA graph on a side stream: two replays give the eager call's bits,
+    so its counters are back at zero after every launch."""
+    shape = gn_sites(TRAIN_BATCH, TRAIN_LR, BASE_FILTERS)[-1][0]
+    b = shape[0]
+    xg, gam, bet = _bwd_inputs(shape, dev, gen)
+    x, gy = xg[:b], xg[b:]
+    eager = group_norm_leaky_backward(x, gam, bet, gy)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = group_norm_leaky_backward(x, gam, bet, gy)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        replays.append(all(torch.equal(u, v) for u, v in zip(out, eager)))
+    log("kernel_check", kernel="B1 backward", route="onepass",
+        check="CUDA graph captured on a side stream", shape=list(shape),
+        replays_equal_eager=replays)
+    if not all(replays):
+        raise AssertionError(f"B1's one-pass backward in a CUDA graph at "
+                             f"{shape}: replays equal to the eager call "
+                             f"{replays}")
+
+
+def check_b1_backward_fourpass_route(dev, gen) -> None:
+    """The four-pass kernel on a shape of its own route (an offset view,
+    not 16-byte aligned) through the wrapper, against the twin."""
+    shape = (2, 16, 64, 64)
+    xg, gam, bet = _bwd_inputs(shape, dev, gen, offset=1)
+    x, gy = xg[:2], xg[2:]
+    before = group_norm_leaky_backward.onepass_launches
+    if onepass_backward_plan(x, gy, torch.empty_like(x)) is not None:
+        raise AssertionError("an offset view took the one-pass backward")
+    got = group_norm_leaky_backward(x, gam, bet, gy)
+    ok, err, err_s, err_b = _b1_bwd_gates(
+        got, group_norm_leaky_backward_plain(x, gam, bet, gy))
+    fourpass = group_norm_leaky_backward.onepass_launches == before
+    log("kernel_check", kernel="B1 backward", route="fourpass",
+        check="offset view", shape=list(shape), max_abs_err_dx=err,
+        max_abs_err_dscale=err_s, max_abs_err_dbias=err_b,
+        took_fourpass=fourpass, ok=ok)
+    if not (ok and fourpass):
+        raise AssertionError(f"B1's four-pass backward at an offset view: "
+                             f"dx {err}, dscale {err_s}, dbias {err_b}, "
+                             f"four-pass route {fourpass}")
 
 
 def main_path(dev, cfg, params, lr, hr):
@@ -857,10 +971,16 @@ def _train_batch(dev, n, lr):
 
 
 def _step_counts(fn) -> dict:
+    """The launches of one call of ``fn`` by wrapper, B1's one-pass
+    backward apart."""
     kernels.reset_launch_counts()
     fn()
     torch.cuda.synchronize()
-    return {k: v for k, v in kernels.launch_counts().items() if v}
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if group_norm_leaky_backward.onepass_launches:
+        counts["group_norm_leaky_backward.onepass"] = \
+            group_norm_leaky_backward.onepass_launches
+    return counts
 
 
 def card_vs_cpu_step(dev, cfg) -> dict:
@@ -948,6 +1068,7 @@ def train_path(dev, lr_serve) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    bwd_onepass = group_norm_leaky_backward.onepass_launches
     lines = [json.loads(ln) for ln in proto.getvalue().splitlines()
              if ln.startswith("{")]
     by_type = {}
@@ -973,12 +1094,14 @@ def train_path(dev, lr_serve) -> dict:
     log("train_path", pairs=TRAIN_PAIRS, lr=[TRAIN_LR, TRAIN_LR],
         hr=[2 * TRAIN_LR, 2 * TRAIN_LR], batch=TRAIN_BATCH,
         epochs=TRAIN_EPOCHS, steps=steps, val_batches=vals, seconds=seconds,
-        launches=counts, protocol={k: len(v) for k, v in by_type.items()},
+        launches=counts, backward_onepass_launches=bwd_onepass,
+        protocol={k: len(v) for k, v in by_type.items()},
         epoch_summaries=summaries, checkpoints=files,
         max_abs_weight_change=moved)
-    if counts != want:
-        raise AssertionError(f"training launch counts {counts}, expected "
-                             f"{want}")
+    if counts != want or bwd_onepass != 20 * steps:
+        raise AssertionError(f"training launch counts {counts} (B1 "
+                             f"backward one-pass {bwd_onepass}), expected "
+                             f"{want} ({20 * steps})")
     if len(by_type.get("params", [])) != 1 or len(summaries) != TRAIN_EPOCHS \
             or not by_type.get("batch_update"):
         raise AssertionError(f"bad JSON-line protocol: "
@@ -1003,6 +1126,7 @@ def train_path(dev, lr_serve) -> dict:
     per_val = _step_counts(lambda: evaluate(None, batch))
     log("train_step_launches", step=per_step, validation_batch=per_val)
     if per_step != {"group_norm_leaky": 20, "group_norm_leaky_backward": 20,
+                    "group_norm_leaky_backward.onepass": 20,
                     "conv3x3": 2, "ssim_per_sample": 1} or \
             per_val != {"group_norm_leaky": 20, "conv3x3": 2,
                         "ssim_per_sample": 1}:
@@ -1032,7 +1156,8 @@ def train_path(dev, lr_serve) -> dict:
         raise AssertionError(f"serving the trained checkpoint: launches "
                              f"{served}, output range [{out.min()}, "
                              f"{out.max()}]")
-    return {"counts": counts, "step_ms": ms, "gate": gate}
+    return {"counts": counts, "backward_onepass_launches": bwd_onepass,
+            "step_ms": ms, "gate": gate}
 
 
 def main(argv=None) -> int:
@@ -1100,7 +1225,7 @@ def main(argv=None) -> int:
         "B4 fused": ("gn_quantize", torch_root + "groupnorm_onepass.cu",
                      "tools/bench_int8_probe4.py:57", counts_int8),
         "B1 backward": ("group_norm_leaky_backward",
-                        torch_root + "groupnorm_bwd.cu",
+                        torch_root + "groupnorm_bwd_onepass.cu",
                         tpu_root + "groupnorm_pallas.py:273",
                         trained["counts"]),
     }
@@ -1115,7 +1240,7 @@ def main(argv=None) -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
         for extra in ("earlier_ms", "sites", "all_20_sites", "shape",
-                      "batch16"):
+                      "batch16", "device_kernels_a_call"):
             if extra in r:
                 rows[-1][extra] = r[extra]
         if key == "B2":
@@ -1127,6 +1252,9 @@ def main(argv=None) -> int:
             rows[-1].pop("earlier_ms", None)
             if "earlier_ms" in one:
                 rows[-1]["earlier_ms"] = one["earlier_ms"]
+        if key == "B1 backward":
+            rows[-1]["onepass_launches"] = \
+                trained["backward_onepass_launches"]
     for name, wrapper in (("copy", "roll_copy"), ("roll32", "roll32"),
                           ("taps3", "taps3")):
         r = probe[name]

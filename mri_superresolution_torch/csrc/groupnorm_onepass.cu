@@ -65,16 +65,19 @@
 
 #include "common.cuh"
 #include "quantize.cuh"
+#include "staging.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+using msr::kPieceBytes;
+using msr::Layout;
+
+constexpr int kThreads = msr::kStageThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroups = 256;
 constexpr int kPartEntries = 1024;     // float2 partial (sum, squares)
-// the stage moves in pieces of 32 KB, each on its own mbarrier: 4 rows of
-// kThreads 16-byte vectors, so a piece is 4 * rows whole pixels
-constexpr unsigned kPieceBytes = 4 * kThreads * 16;
+// the stage moves in pieces of 32 KB (staging.cuh), each on its own
+// mbarrier
 constexpr int kMaxPieces = 8;
 // dynamic shared memory: mbarriers | stats[kMaxGroups] | part | stage
 constexpr int kStatsOff = 128;
@@ -82,87 +85,6 @@ constexpr int kPartOff = kStatsOff + 8 * kMaxGroups;
 constexpr int kStageOff = kPartOff + 8 * kPartEntries;
 static_assert(kStageOff % 128 == 0, "stage alignment");
 static_assert(8 * kMaxPieces <= kStatsOff, "mbarriers");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Launch geometry shared by the kernel and the host check: vpp vectors of
-// V channels a pixel, kThreads / vpp pixels walked together; each row of
-// partials holds `ent` float2 entries (a vector's folded group sum when
-// the vector lies in one group, else one per channel), and the block has
-// kThreads / max(vpp, 32) such rows.
-struct Layout {
-  int vpp, rows, cg, ent, per_group, span, prow;
-  bool fold;
-  __host__ __device__ Layout(int c, int g, int v) {
-    vpp = c / v;
-    rows = kThreads / vpp;
-    cg = c / g;
-    fold = cg >= v;
-    ent = fold ? vpp : c;
-    per_group = ent / g;
-    span = vpp > 32 ? vpp : 32;
-    prow = kThreads / span;
-  }
-};
-
-// Thread 0 starts the copy of one 32 KB piece of a block's range (`bytes`
-// long from src) into the stage, completing on that piece's mbarrier.
-template <typename T>
-__device__ __forceinline__ void stage_piece(const T* src, uint32_t dst,
-                                            uint32_t bytes, int piece,
-                                            uint32_t bars) {
-  const uint32_t off = piece * kPieceBytes;
-  const uint32_t n = bytes - off < kPieceBytes ? bytes - off : kPieceBytes;
-  const uint32_t bar = bars + 8 * piece;
-  mbar_expect(bar, n);
-  bulk_load(dst + off, reinterpret_cast<const char*>(src) + off, n, bar);
-}
 
 template <typename T, int V, bool kRes, bool kQuant>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -180,8 +102,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   float2* stats = reinterpret_cast<float2*>(smem + kStatsOff);
   float2* part = reinterpret_cast<float2*>(smem + kPartOff);
   const Vec* stage = reinterpret_cast<const Vec*>(smem + kStageOff);
-  const uint32_t bars = smem_addr(smem);
-  const uint32_t dst = smem_addr(stage);
+  const uint32_t bars = msr::smem_addr(smem);
+  const uint32_t dst = msr::smem_addr(stage);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const Layout L(c, g, V);
   const int cvec = t % L.vpp, r0 = t / L.vpp;
@@ -213,9 +135,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if (t == 0) {
-    for (int i = 0; i < pieces; ++i) mbar_init(bars + 8 * i);
+    for (int i = 0; i < pieces; ++i) msr::mbar_init(bars + 8 * i);
     for (int i = 0; i < pieces; ++i)
-      stage_piece(x + slot * img_elems + p0 * c, dst, bytes, i, bars);
+      msr::stage_piece(x + slot * img_elems + p0 * c, dst, bytes, i,
+                       bars + 8 * i);
   }
   __syncthreads();
 
@@ -230,7 +153,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int k = 0; k < V; ++k) s[k] = q[k] = 0.f;
     for (int i = 0; i < pieces; ++i) {
-      mbar_wait(bars + 8 * i, w & 1);
+      msr::mbar_wait(bars + 8 * i, w & 1);
       const int end = min((i + 1) * piece_px, n_px);
       for (int p = i * piece_px + r0; p < end; p += L.rows) {
         const Vec v = stage[p * L.vpp + cvec];
@@ -293,18 +216,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     // the exchange: wait for every block of this image
-    if (t == 0) {
-      unsigned* arrive = cnt + 2 * static_cast<long long>(img);
-      unsigned* leave = arrive + 1;
-      __threadfence();
-      atomicAdd(arrive, 1u);
-      while (ld_acquire(arrive) < static_cast<unsigned>(ranges))
-        __nanosleep(32);
-      if (atomicAdd(leave, 1u) == static_cast<unsigned>(ranges - 1)) {
-        atomicExch(arrive, 0u);
-        atomicExch(leave, 0u);
-      }
-    }
+    if (t == 0)
+      msr::image_exchange(cnt + 2 * static_cast<long long>(img), ranges);
     __syncthreads();
 
     // finalize: mean and rstd of each group of this image
@@ -395,7 +308,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (t == 0 && next) {
         // this wave's reads of the piece come before the copy's writes
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        stage_piece(x + base + ipw * img_elems, dst, bytes, i, bars);
+        msr::stage_piece(x + base + ipw * img_elems, dst, bytes, i,
+                       bars + 8 * i);
       }
     }
   }

@@ -2,8 +2,9 @@
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version in the same module, and counts its kernel launches in
-``<wrapper>.launches`` (``group_norm_leaky.onepass_launches`` counts its
-one-pass route apart, ``leaky_quantize.stream_launches`` its stream route).
+``<wrapper>.launches`` (``group_norm_leaky.onepass_launches`` and
+``group_norm_leaky_backward.onepass_launches`` count their one-pass routes
+apart, ``leaky_quantize.stream_launches`` its stream route).
 Nothing here builds or imports anything at import time:
 ``_build.library()`` compiles at first use.
 """
@@ -26,6 +27,7 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     group_norm_leaky.onepass_launches = 0
+    group_norm_leaky_backward.onepass_launches = 0
     leaky_quantize.stream_launches = 0
 
 

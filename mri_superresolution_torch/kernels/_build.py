@@ -42,6 +42,9 @@ SIGNATURES = {
     "msr_gn_onepass_capacity": [_PI, _PI],
     "msr_gn_onepass_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                            _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "msr_gn_onepass_bwd_capacity": [_PI, _PI],
+    "msr_gn_onepass_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "msr_conv3x3_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "msr_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "msr_ssim_capacity": [_I, _PI, _PI],
@@ -159,22 +162,23 @@ def device_index(device) -> int:
 
 
 # arrival counters of the kernels that end in a cross-block step (B1's
-# one-pass kernel, B2), one int32 buffer a device; every launch leaves them
-# at zero. A buffer replaced by a larger one is kept: a captured CUDA
-# graph may still point at it.
+# one-pass kernels, B2), one int32 buffer a device and kernel; every launch
+# leaves them at zero. A buffer replaced by a larger one is kept: a
+# captured CUDA graph may still point at it.
 _COUNTERS: dict = {}
 _RETIRED: list = []
 _MIN_COUNTERS = 1024
 
 
 def counters(device, n: int, what: str):
-    """At least ``n`` counters on ``device``, zero between launches. One
-    buffer a device, so two such launches must not run at once on two
-    streams of one device (the port runs one stream). Made with
-    torch.zeros outside any CUDA graph capture: call the wrapper once, at
-    the largest batch, before capturing it."""
+    """At least ``n`` counters on ``device`` for the kernel named ``what``,
+    zero between launches. One buffer a device and name, so two launches
+    of one kernel must not run at once on two streams of one device (the
+    port runs one stream). Made with torch.zeros outside any CUDA graph
+    capture: call the wrapper once, at the largest batch, before capturing
+    it."""
     import torch
-    key = device_index(device)
+    key = (device_index(device), what)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         if torch.cuda.is_current_stream_capturing():

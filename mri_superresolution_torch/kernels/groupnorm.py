@@ -22,11 +22,20 @@ back to x's dtype.
 Where autograd needs it (grad mode on and an input that requires grad),
 :func:`group_norm_leaky` runs as a ``torch.autograd.Function``: the same
 forward, and a backward by :func:`group_norm_leaky_backward`, B1's
-gradient (``csrc/groupnorm_bwd.cu`` on a CUDA tensor, the plain twin
-:func:`group_norm_leaky_backward_plain` on a CPU tensor), in place of the
-JAX package's ``custom_vjp`` with its jnp ``_backward``. The residual's
-gradient is the output's. Otherwise (serving, ``torch.no_grad``) the
-wrapper calls the kernel directly and saves nothing.
+gradient, in place of the JAX package's ``custom_vjp`` with its jnp
+``_backward``. The residual's gradient is the output's. Otherwise
+(serving, ``torch.no_grad``) the wrapper calls the kernel directly and
+saves nothing. The gradient, like the forward, has two kernels chosen by
+shape, and the plain twin :func:`group_norm_leaky_backward_plain` on a CPU
+tensor:
+
+- ``csrc/groupnorm_bwd_onepass.cu``, the one-pass route: one launch that
+  stages each image's x and g on chip, in waves planned by
+  :func:`_plan_onepass`, so both are read from HBM once. It takes x where
+  x, g and dx are 16-byte aligned, at most 256 channels split into 16-byte
+  vectors in a power-of-two count, and one image's x and g fit on chip
+  (:func:`_onepass_bwd_layout_ok`, :func:`onepass_backward_plan`).
+- ``csrc/groupnorm_bwd.cu``, the four-pass route, for every other shape.
 
 :func:`gn_quantize` is kernel B4's fused route: the one-pass kernel with an
 int8 output (bf16 x, no residual), which applies B4's LeakyReLU and
@@ -60,6 +69,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _ONEPASS_THREADS = 512
 _ONEPASS_MAX_GROUPS = 256
 _ONEPASS_PART_ENTRIES = 1024
+# the one-pass backward's largest channel count and bytes of partials, as
+# in csrc/groupnorm_bwd_onepass.cu
+_BWD_MAX_CHANNELS = 256
+_BWD_PART_BYTES = 32768
 
 
 def group_norm_leaky_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -362,28 +375,82 @@ def group_norm_leaky_backward_plain(x: torch.Tensor, scale: torch.Tensor,
         memory_format=torch.channels_last), dscale, dbias)
 
 
-def group_norm_leaky_backward(x: torch.Tensor, scale: torch.Tensor,
-                              bias: torch.Tensor, g: torch.Tensor,
-                              n_groups: int = 8, negative_slope: float = 0.2,
-                              eps: float = GN_EPS) -> tuple:
-    """The gradient of :func:`group_norm_leaky` (without the residual's,
-    which is ``g``): (dx, dscale, dbias) for the forward's x, scale and
-    bias and the output's gradient ``g`` (like x, channels_last). dx takes
-    x's dtype and layout, dscale and dbias fp32. The kernel of
-    ``csrc/groupnorm_bwd.cu`` on a CUDA tensor, the plain twin on a CPU
-    tensor."""
+def _onepass_bwd_layout_ok(c: int, itemsize: int, n_groups: int) -> bool:
+    """Whether the one-pass backward's thread layout takes ``c`` channels
+    in ``n_groups`` groups: at most 256 channels, 16-byte vectors of V
+    channels in a power-of-two count a pixel, each vector within one group
+    or a whole number of groups, and the block's rows of partials (double
+    statistics, fp32 per-channel sums) within their shared memory (as
+    ``msr_gn_onepass_bwd`` checks)."""
+    vec = 16 // itemsize
+    if c % vec or c > _BWD_MAX_CHANNELS:
+        return False
+    vpp, cg = c // vec, c // n_groups
+    if vpp & (vpp - 1) or (cg % vec and vec % cg):
+        return False
+    ent = vpp if cg >= vec else c
+    prow = _ONEPASS_THREADS // max(vpp, 32)
+    return prow * max(2 * ent, c) * 8 <= _BWD_PART_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_capacity(index: int) -> tuple:
+    """(co-resident blocks, bytes each can stage of each of x and g) of the
+    one-pass backward on CUDA device ``index``, asked once per device."""
+    n, stage = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        code = _build.library().msr_gn_onepass_bwd_capacity(
+            ctypes.byref(n), ctypes.byref(stage))
+    _build.check(code, "group_norm_leaky_backward (one-pass capacity)")
+    return n.value, stage.value
+
+
+def onepass_backward_plan(x: torch.Tensor, g: torch.Tensor, dx: torch.Tensor,
+                          n_groups: int = 8) -> Optional[OnePassPlan]:
+    """The one-pass backward's plan for CUDA ``x`` and ``g`` (dx written to
+    ``dx``), or None where the shape takes the four-pass route: x, g and dx
+    16-byte aligned, the layout taken, one image's x and g on chip."""
+    b, c, h, w = x.shape
+    if any(t.data_ptr() % 16 for t in (x, g, dx)) or \
+            not _onepass_bwd_layout_ok(c, x.element_size(), n_groups):
+        return None
+    n_blocks, stage = _bwd_capacity(_build.device_index(x.device))
+    return _plan_onepass(b, h * w, c, x.element_size(), n_blocks, stage)
+
+
+def _check_backward(x, scale, bias, g, n_groups):
     _check(x, scale, bias, None, n_groups)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or \
             not g.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("g must match x in shape, dtype, device and "
                          "channels_last layout")
-    if x.device.type == "cpu":
-        return group_norm_leaky_backward_plain(x, scale, bias, g, n_groups,
-                                               negative_slope, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+
+
+def _onepass_backward(x, scale, bias, g, dx, plan, n_groups, negative_slope,
+                      eps):
     b, c, h, w = x.shape
-    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    dev = x.device
+    cnt = _build.counters(dev, 2 * b + 1, "group_norm_leaky_backward")
+    ws = torch.empty(16 * b * plan.ranges * n_groups + 8 * b * plan.ranges * c
+                     + 8 * b * c, dtype=torch.uint8, device=dev)
+    grads = torch.empty((2, c), dtype=torch.float32, device=dev)
+    code = _build.library().msr_gn_onepass_bwd(
+        x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        dx.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
+        ws.data_ptr(), cnt.data_ptr(), b, h * w, c, n_groups, plan.chunk_px,
+        plan.ranges, plan.images_per_wave, plan.waves,
+        _bwd_capacity(_build.device_index(dev))[1],
+        int(x.dtype == torch.bfloat16), eps, negative_slope,
+        _build.stream_ptr(dev))
+    group_norm_leaky_backward.launches += 1
+    group_norm_leaky_backward.onepass_launches += 1
+    _build.check(code, "group_norm_leaky_backward (one-pass)")
+    return dx, grads[0], grads[1]
+
+
+def _fourpass_backward(x, scale, bias, g, dx, n_groups, negative_slope,
+                       eps):
+    b, c, h, w = x.shape
     vec, rows, chunk_px, nchunks = _launch_geometry(
         h * w, c, x.element_size(),
         all(t.data_ptr() % 16 == 0 for t in (x, g, dx)))
@@ -404,11 +471,54 @@ def group_norm_leaky_backward(x: torch.Tensor, scale: torch.Tensor,
         int(x.dtype == torch.bfloat16), eps, negative_slope,
         _build.stream_ptr(dev))
     group_norm_leaky_backward.launches += 1
-    _build.check(code, "group_norm_leaky_backward")
+    _build.check(code, "group_norm_leaky_backward (four-pass)")
     return dx, dscale, dbias
 
 
+def group_norm_leaky_backward_fourpass(x: torch.Tensor, scale: torch.Tensor,
+                                       bias: torch.Tensor, g: torch.Tensor,
+                                       n_groups: int = 8,
+                                       negative_slope: float = 0.2,
+                                       eps: float = GN_EPS) -> tuple:
+    """The four-pass kernel on CUDA tensors whatever their shape: what
+    :func:`group_norm_leaky_backward` runs where the one-pass route does
+    not apply, callable alone so that the two routes can be compared."""
+    _check_backward(x, scale, bias, g, n_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"the four-pass kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    return _fourpass_backward(x, scale, bias, g, dx, n_groups,
+                              negative_slope, eps)
+
+
+def group_norm_leaky_backward(x: torch.Tensor, scale: torch.Tensor,
+                              bias: torch.Tensor, g: torch.Tensor,
+                              n_groups: int = 8, negative_slope: float = 0.2,
+                              eps: float = GN_EPS) -> tuple:
+    """The gradient of :func:`group_norm_leaky` (without the residual's,
+    which is ``g``): (dx, dscale, dbias) for the forward's x, scale and
+    bias and the output's gradient ``g`` (like x, channels_last). dx takes
+    x's dtype and layout, dscale and dbias fp32. On a CUDA tensor the
+    one-pass kernel where :func:`onepass_backward_plan` gives a plan, else
+    the four-pass kernel; the plain twin on a CPU tensor."""
+    _check_backward(x, scale, bias, g, n_groups)
+    if x.device.type == "cpu":
+        return group_norm_leaky_backward_plain(x, scale, bias, g, n_groups,
+                                               negative_slope, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    plan = onepass_backward_plan(x, g, dx, n_groups)
+    if plan is not None:
+        return _onepass_backward(x, scale, bias, g, dx, plan, n_groups,
+                                 negative_slope, eps)
+    return _fourpass_backward(x, scale, bias, g, dx, n_groups,
+                              negative_slope, eps)
+
+
 group_norm_leaky_backward.launches = 0
+group_norm_leaky_backward.onepass_launches = 0
 
 
 def gn_quantize_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -9,8 +9,9 @@ then for the bf16 engine and the int8 engine (frozen on that batch) times
 clock around a synchronize, and traces one more call with
 ``torch.profiler``. Prints one JSON line per engine: the host ms per
 forward, the device kernel ms the trace saw, the device's idle share
-(1 - kernel / host, one stream), and the top kernels by device time with
-their launch counts.
+(1 - kernel / host, one stream), and the top kernels by device time and
+host ops by self CPU time with their counts (``tools/profile_step.py``'s
+``trace_calls``, which traces a training step the same way).
 """
 
 from __future__ import annotations
@@ -18,46 +19,21 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from mri_superresolution_torch.config import ModelConfig
 from mri_superresolution_torch.infer import InferenceEngine
 from mri_superresolution_torch.models import build_model
+from mri_superresolution_torch.tools.profile_step import trace_calls
 from mri_superresolution_torch.utils.device import resolve_device
 from mri_superresolution_torch.utils.phantom import phantom_batch
 
 
 def profile_engine(engine: InferenceEngine, batch: np.ndarray, top: int = 12,
                    iters: int = 10) -> dict:
-    for _ in range(2):
-        engine._dispatch_once(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        engine._dispatch_once(batch)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / iters * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine._dispatch_once(batch)
-        torch.cuda.synchronize()
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0),
-                     key=lambda r: -r[1])
-    device_ms = sum(ms for _, ms, _ in kernels)
-    return {"host_ms": host_ms, "device_ms": device_ms,
-            "idle_share": max(0.0, 1.0 - device_ms / host_ms),
-            "launches": sum(n for _, _, n in kernels),
-            "top": [{"kernel": k[:120], "ms": ms, "count": n,
-                     "share": ms / device_ms}
-                    for k, ms, n in kernels[:top]]}
+    return trace_calls(lambda: engine._dispatch_once(batch), top, iters)
 
 
 def main(argv=None) -> int:

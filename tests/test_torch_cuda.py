@@ -18,7 +18,8 @@ from mri_superresolution_torch.infer import InferenceEngine
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
     gn_quantize, group_norm_leaky, group_norm_leaky_backward,
-    group_norm_leaky_backward_plain, group_norm_leaky_plain, onepass_plan)
+    group_norm_leaky_backward_fourpass, group_norm_leaky_backward_plain,
+    group_norm_leaky_plain, onepass_backward_plan, onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_generic, leaky_quantize_plain)
 from mri_superresolution_torch.kernels.roll_probe import (
@@ -597,26 +598,92 @@ def _bwd_close(got, want, dtype):
                                    atol=1e-4 * float(b.abs().max()))
 
 
-# the unet's five GroupNorm shapes at the training batch (8 x 128^2 in,
-# base_filters 32), then odd ones: 3 vectors a pixel, groups across
-# vectors, an offset view (scalar loads), one wide image
-@pytest.mark.parametrize("shape,offset", [
-    ((8, 32, 128, 128), 0), ((8, 64, 64, 64), 0), ((8, 128, 32, 32), 0),
-    ((8, 256, 16, 16), 0), ((8, 16, 256, 256), 0), ((2, 24, 9, 7), 0),
-    ((1, 24, 5, 11), 0), ((2, 16, 16, 16), 1), ((1, 16, 512, 512), 0)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_group_norm_leaky_backward_kernel(dev, shape, offset, dtype):
-    gen = torch.Generator(device=dev).manual_seed(11)
+_BOTH = (torch.bfloat16, torch.float32)
+
+
+def _bwd_case(shape, dtype, dev, seed, offset=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x, g, b, _ = _gn_case(shape, dtype, dev, gen, False, offset)
-    gy = _cl(shape, dtype, dev, gen).contiguous(
-        memory_format=torch.channels_last)
-    before = group_norm_leaky_backward.launches
+    gy = _cl(shape, dtype, dev, gen, offset)
+    return x, g, b, gy
+
+
+# the unet's five GroupNorm shapes at the training batch (8 x 128^2 in,
+# base_filters 32), then odd ones; `onepass`: the dtypes whose one-pass
+# route takes the shape (the rest take the four-pass kernel)
+@pytest.mark.parametrize("shape,offset,onepass", [
+    ((8, 32, 128, 128), 0, _BOTH), ((8, 64, 64, 64), 0, _BOTH),
+    ((8, 128, 32, 32), 0, _BOTH), ((8, 256, 16, 16), 0, _BOTH),
+    ((8, 16, 256, 256), 0, _BOTH),      # two waves in bf16, three in fp32
+    ((3, 32, 128, 128), 0, _BOTH),      # an odd image count
+    ((7, 16, 256, 256), 0, _BOTH),      # waves of 4 and 3: an idle slot
+    ((2, 8, 64, 64), 0, _BOTH),         # one group a channel
+    ((2, 24, 9, 7), 0, ()),             # 3 vectors a pixel
+    ((1, 24, 5, 11), 0, ()),            # groups across vectors
+    ((2, 16, 16, 16), 1, ()),           # an offset view: scalar loads
+    ((1, 16, 512, 512), 0, (torch.bfloat16,)),  # fp32: too large on chip
+    ((2, 512, 8, 8), 0, ())])           # more than 256 channels
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_leaky_backward_kernel(dev, shape, offset, onepass, dtype):
+    x, g, b, gy = _bwd_case(shape, dtype, dev, 11, offset)
+    dx = torch.empty_like(x)
+    assert (onepass_backward_plan(x, gy, dx) is not None) == (
+        dtype in onepass and offset == 0)
+    before = (group_norm_leaky_backward.launches,
+              group_norm_leaky_backward.onepass_launches)
     got = group_norm_leaky_backward(x, g, b, gy)
-    assert group_norm_leaky_backward.launches == before + 1
-    _bwd_close(got, group_norm_leaky_backward_plain(x, g, b, gy), dtype)
+    assert (group_norm_leaky_backward.launches,
+            group_norm_leaky_backward.onepass_launches) == (
+        before[0] + 1, before[1] + int(dtype in onepass and offset == 0))
+    want = group_norm_leaky_backward_plain(x, g, b, gy)
+    _bwd_close(got, want, dtype)
     # fixed-order sums: the same bits on every run
     again = group_norm_leaky_backward(x, g, b, gy)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+    # the four-pass kernel, called alone, at every shape
+    _bwd_close(group_norm_leaky_backward_fourpass(x, g, b, gy), want, dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 256, 256), (8, 256, 16, 16)])
+def test_group_norm_leaky_backward_onepass_in_cuda_graph(dev, shape):
+    """Captured on a side stream (as autograd's backward of a forward run
+    there is), the one-pass backward replays with the eager call's bits,
+    so every launch leaves its counters at zero; fed new inputs, a replay
+    matches the twin."""
+    x, g, b, gy = _bwd_case(shape, torch.bfloat16, dev, 14)
+    eager = group_norm_leaky_backward(x, g, b, gy)   # counters made here
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = group_norm_leaky_backward(x, g, b, gy)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(out, eager))
+    x2, _, _, gy2 = _bwd_case(shape, torch.bfloat16, dev, 15)
+    x.copy_(x2)
+    gy.copy_(gy2)
+    graph.replay()
+    torch.cuda.synchronize()
+    _bwd_close(out, group_norm_leaky_backward_plain(x, g, b, gy),
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("route,kernels_a_call", [
+    (group_norm_leaky_backward, 1), (group_norm_leaky_backward_fourpass, 4)])
+def test_group_norm_leaky_backward_device_kernels(dev, route,
+                                                  kernels_a_call):
+    x, g, b, gy = _bwd_case((8, 32, 128, 128), torch.bfloat16, dev, 16)
+    route(x, g, b, gy)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        route(x, g, b, gy)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == kernels_a_call, names
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -718,6 +785,8 @@ def test_unet_backward_on_card_gives_every_param_a_gradient(dev, dtype):
         counts = kernels.launch_counts()
         assert (counts["group_norm_leaky"], counts["group_norm_leaky_backward"],
                 counts["conv3x3"], counts["ssim_per_sample"]) == (20, 20, 2, 1)
+        # every GroupNorm site's gradient on the one-pass route
+        assert group_norm_leaky_backward.onepass_launches == 20
         lc, gc = _unet_grads("cpu", dtype, sd, lo, hr)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
