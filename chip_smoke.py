@@ -42,17 +42,29 @@ the last line is printed:
    one-pass route). Then slices/s, and a 2-slice batch on the CPU port
    held to the bf16 budget (|dPSNR| <= 0.1 dB, |dSSIM| <= 1e-3 against the
    same ground truth).
-4. int8 path: ``InferenceEngine(quant="int8", quant_calib_slices=16)``
+4. volume path: the infer_volume CLI, in this process, on a 256 x 256 x
+   96 phantom volume stored as int16 with scl_slope 0.5, at batch 32 (3
+   batches), with the main path's weights saved as a checkpoint: (a) the
+   defaults, (b) ``--serve_raw --out_dtype int16`` (``transpose_io``),
+   (c) ``--tta``, (d) a directory of two volumes. Each exits 0 with the
+   output's shape, halved in-plane zooms and decoding scl_slope, B1 20
+   (one-pass) and B3 2 launches a batch (160 and 16 under TTA); b and d
+   against a, slices 48-49 of a and c and one 600^2 slice through
+   ``upscale_tiled`` (tile 256) against the CPU port, each within the bf16
+   budget; then the stages of a volume's time, and volume slices/s of the
+   depth-2 ``upscale_batches`` window against ``map(upscale_batch)`` in
+   turns, of runs a, b and c, with the CLI's wall time and peak memory.
+5. int8 path: ``InferenceEngine(quant="int8", quant_calib_slices=16)``
    calibrates on the 16 slices, freezes (writing its scales sidecar) and
    serves them int8; an int8 forward must launch B4 13 (all on the stream
    route), ``gn_quantize`` 7, B1 13 (one-pass) and B3 0 times. int8 and bf16 slices/s from this call, PSNR/SSIM of
    both against the same ground truth, and the CPU port's int8 forward
    with the same frozen scales on 2 slices held to |dPSNR| <= 0.1 dB.
-5. roll probe: the B5 probe's entry point (``tools/roll_probe.run``) at
+6. roll probe: the B5 probe's entry point (``tools/roll_probe.run``) at
    (512, 16384): its three kernels exact against their plain versions, and
    their L2-cold device times (replayed from a CUDA graph) beside
    ``x.clone()`` and ``torch.roll``.
-6. training: ``cli.train.main`` (the JAX package's defaults, full width,
+7. training: ``cli.train.main`` (the JAX package's defaults, full width,
    bf16) trains 2 epochs on 40 seeded phantom pairs of 128^2 -> 256^2
    written as PNGs by the port's encoder; its JSON lines, checkpoints,
    finite losses, moved weights and exact launch counts are checked (a
@@ -63,7 +75,7 @@ the last line is printed:
    TF32: loss rtol 1e-4, gradients 1e-3 relative L2; bf16: loss 1e-2,
    gradient cosines >= 0.99), and the final checkpoint served through
    ``load_engine`` with serving's launch counts.
-7. the ``kernels`` JSON line, the card's name and power limit, and the
+8. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -76,7 +88,9 @@ the last line is printed:
    image on a row of its own (with ``--parent``, the older kernel's time
    as ``earlier_ms``); B1's backward row the one-pass route at its 20
    training sites, the four-pass kernel's time there as ``earlier_ms``,
-   and the training run's launches and one-pass launches.
+   and the training run's launches and one-pass launches. B1's and B3's
+   rows also carry the volume path's default run's launches
+   (``volume_launches``).
 
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
@@ -101,7 +115,8 @@ import torch.nn.functional as F
 
 # the port itself, from the checkout this script sits in: without it the
 # script fails here, before it prints anything
-from mri_superresolution_torch import kernels, native
+from mri_superresolution_torch import kernels, native, nifti
+from mri_superresolution_torch.cli import infer_volume as volume_cli
 from mri_superresolution_torch.cli import train as train_cli
 from mri_superresolution_torch.config import (InferConfig, LossConfig,
                                               ModelConfig)
@@ -121,6 +136,7 @@ from mri_superresolution_torch.kernels.ssim import (
 from mri_superresolution_torch.models import build_model, param_count
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.ops.metrics import psnr
+from mri_superresolution_torch.ops.normalize import normalize_slices
 from mri_superresolution_torch.ops.ssim import ssim
 from mri_superresolution_torch.losses import CombinedLoss
 from mri_superresolution_torch.tools import roll_probe
@@ -156,6 +172,14 @@ SCALES_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
 TRAIN_BATCH, TRAIN_LR, TRAIN_PAIRS, TRAIN_EPOCHS, TRAIN_SEED = 8, 128, 40, 2, 0
 TRAIN_DIR = SCALES_PATH.parent / "train"
 STEP_ITERS = 10
+# the volume phase: a 256 x 256 x 96 phantom volume stored as int16 with
+# scl_slope 0.5, served at batch 32 (3 batches, so the depth-2 window
+# turns over); two of its slices against the CPU port; one 600^2 slice
+# through upscale_tiled at tile 256 (9 tiles)
+VOL_HW, VOL_SLICES, VOL_BATCH, VOL_SLOPE = 256, 96, 32, 0.5
+VOL_CPU_SLICES = slice(48, 50)
+TILED_HW, TILE, HALO = 600, 256, 16        # HALO: upscale_tiled's default
+VOL_DIR = SCALES_PATH.parent / "volume"
 
 
 def log(phase: str, **fields) -> None:
@@ -186,38 +210,67 @@ def gn_sites(b: int, lr: int, f: int):
             ((b, f // 2, 2 * lr, 2 * lr), 3)]             # final stage
 
 
+def volume_batches() -> tuple:
+    """The batch sizes the volume phase serves besides the main path's:
+    the volume's batches and the tiles of its one tiled slice."""
+    stride = TILE - 2 * HALO
+    tiles = len(range(0, TILED_HW - 2 * HALO, stride)) ** 2
+    return ((VOL_BATCH, VOL_HW, "volume batch"),
+            (tiles, TILE, f"{tiles} tiles of upscale_tiled"))
+
+
+def b1_inputs(shape, dev, gen) -> tuple:
+    x = torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    return (x, torch.randn(c, generator=gen, device=dev),
+            torch.randn(c, generator=gen, device=dev))
+
+
+def b1_check(x, g, b, served_by: str) -> float:
+    """Both routes of B1 (the one-pass kernel the wrapper takes at the
+    unet's shapes, and the two-pass kernel) against the plain version and
+    run to run; the one-pass route's max abs error."""
+    shape = tuple(x.shape)
+    plan = onepass_plan(x, torch.empty_like(x))
+    if plan is None:
+        raise AssertionError(f"B1's one-pass route does not take {shape}")
+    want = group_norm_leaky_plain(x, g, b)
+    worst = 0.0
+    for route, fn in (("onepass", group_norm_leaky),
+                      ("twopass", group_norm_leaky_twopass)):
+        got = fn(x, g, b)
+        ok, err = within(got, want, BF16_RTOL, 1e-5)
+        same = torch.equal(got, fn(x, g, b))
+        log("kernel_check", kernel="B1", route=route, shape=list(shape),
+            served_by=served_by, dtype="bf16", plan=plan._asdict(),
+            max_abs_err=err, rtol=BF16_RTOL, atol=1e-5,
+            run_to_run_equal=same, ok=ok)
+        if not (ok and same):
+            raise AssertionError(f"B1 ({route}) disagrees with its plain "
+                                 f"version at {shape} (max abs err "
+                                 f"{err}) or from run to run ({same})")
+        if route == "onepass":
+            worst = err
+    return worst
+
+
 def check_b1(dev, gen) -> dict:
-    """B1 at the unet's five GroupNorm shapes: both routes (the one-pass
-    kernel the wrapper takes there, and the two-pass kernel) against the
-    plain version and run to run, then every time L2-cold from CUDA graph
-    replays, the library's GroupNorm + LeakyReLU timed the same way."""
+    """B1 at the unet's five GroupNorm shapes: both routes against the
+    plain version and run to run, at the main path's batch and at the
+    volume phase's batches; then, at the main path's batch, every time
+    L2-cold from CUDA graph replays, the library's GroupNorm + LeakyReLU
+    timed the same way."""
     keys = ("ms", "earlier_ms", "plain_ms", "library_ms", "bound_ms")
     tot = dict.fromkeys(keys, 0.0)
     worst, bound_by = 0.0, "bytes"
+    for n, lr, served_by in volume_batches():
+        for shape, _ in gn_sites(n, lr, BASE_FILTERS):
+            worst = max(worst, b1_check(*b1_inputs(shape, dev, gen),
+                                        served_by))
     for shape, count in gn_sites(BATCH, LR, BASE_FILTERS):
-        x = torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        c = shape[1]
-        g = torch.randn(c, generator=gen, device=dev)
-        b = torch.randn(c, generator=gen, device=dev)
-        plan = onepass_plan(x, torch.empty_like(x))
-        if plan is None:
-            raise AssertionError(f"B1's one-pass route does not take {shape}")
-        want = group_norm_leaky_plain(x, g, b)
-        for route, fn in (("onepass", group_norm_leaky),
-                          ("twopass", group_norm_leaky_twopass)):
-            got = fn(x, g, b)
-            ok, err = within(got, want, BF16_RTOL, 1e-5)
-            same = torch.equal(got, fn(x, g, b))
-            log("kernel_check", kernel="B1", route=route, shape=list(shape),
-                dtype="bf16", plan=plan._asdict(), max_abs_err=err,
-                rtol=BF16_RTOL, atol=1e-5, run_to_run_equal=same, ok=ok)
-            if not (ok and same):
-                raise AssertionError(f"B1 ({route}) disagrees with its plain "
-                                     f"version at {shape} (max abs err "
-                                     f"{err}) or from run to run ({same})")
-            if route == "onepass":
-                worst = max(worst, err)
+        x, g, b = b1_inputs(shape, dev, gen)
+        worst = max(worst, b1_check(x, g, b, "main path"))
         gb, bb = g.to(torch.bfloat16), b.to(torch.bfloat16)
         xs = l2_cold_copies(x)
         k = cuda_ms_cold(lambda t: group_norm_leaky(t, g, b), xs)
@@ -245,22 +298,46 @@ def check_b1(dev, gen) -> dict:
     return {**tot, "max_abs_err": worst, "bound_by": bound_by}
 
 
+def b3_inputs(n, ci, co, hr, dev, gen) -> tuple:
+    x = torch.randn((n, ci, hr, hr), generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((co, ci, 3, 3), generator=gen, device=dev)
+         / math.sqrt(9 * ci)).to(torch.bfloat16)
+    return x, w
+
+
+def b3_check(x, w, served_by: str) -> float:
+    """B3 against its plain version and run to run; the max abs error."""
+    got = conv3x3(x, w)
+    ok, err = within(got, conv3x3_plain(x, w), BF16_RTOL, 1e-4)
+    same = torch.equal(got, conv3x3(x, w))
+    log("kernel_check", kernel="B3", shape=list(x.shape), cout=w.shape[0],
+        served_by=served_by, dtype="bf16", max_abs_err=err, rtol=BF16_RTOL,
+        atol=1e-4, run_to_run_equal=same, ok=ok)
+    if not (ok and same):
+        raise AssertionError(f"B3 disagrees with its plain version at "
+                             f"{list(x.shape)} -> {w.shape[0]}: max abs err "
+                             f"{err}, run to run equal {same}")
+    return err
+
+
 def check_b3(dev, gen) -> dict:
-    f, hr = BASE_FILTERS, 2 * LR
+    """B3 at the unet's two sites against its plain version and run to
+    run, at the main path's batch and at the volume phase's batches;
+    then, at the main path's batch, timed L2-cold beside the plain
+    version and the library's convolution."""
+    f = BASE_FILTERS
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     worst, bound_by = 0.0, "bytes"
-    for ci, co in ((f, f // 2), (f // 2, f // 2)):   # final_up_conv, conv1
-        x = torch.randn((BATCH, ci, hr, hr), generator=gen, device=dev).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        w = (torch.randn((co, ci, 3, 3), generator=gen, device=dev)
-             / math.sqrt(9 * ci)).to(torch.bfloat16)
-        ok, err = within(conv3x3(x, w), conv3x3_plain(x, w), BF16_RTOL, 1e-4)
-        log("kernel_check", kernel="B3", shape=list(x.shape), cout=co,
-            dtype="bf16", max_abs_err=err, rtol=BF16_RTOL, atol=1e-4, ok=ok)
-        if not ok:
-            raise AssertionError(f"B3 disagrees with its plain version at "
-                                 f"{ci}->{co}: max abs err {err}")
-        worst = max(worst, err)
+    sites = ((f, f // 2), (f // 2, f // 2))           # final_up_conv, conv1
+    for n, lr, served_by in volume_batches():
+        for ci, co in sites:
+            worst = max(worst, b3_check(
+                *b3_inputs(n, ci, co, 2 * lr, dev, gen), served_by))
+    hr = 2 * LR
+    for ci, co in sites:
+        x, w = b3_inputs(BATCH, ci, co, hr, dev, gen)
+        worst = max(worst, b3_check(x, w, "main path"))
         xs = l2_cold_copies(x)
         k = cuda_ms_cold(lambda t: conv3x3(t, w), xs)
         p = cuda_ms_cold(lambda t: conv3x3_plain(t, w), xs)
@@ -845,10 +922,297 @@ def main_path(dev, cfg, params, lr, hr):
     return counts, engine
 
 
-def _quality(out: np.ndarray, gt: np.ndarray) -> dict:
-    o = torch.from_numpy(np.ascontiguousarray(out)[..., None])
-    g = torch.from_numpy(np.ascontiguousarray(gt)[..., None])
-    return {"psnr_db": float(psnr(o, g)), "ssim": float(ssim(o, g))}
+def _write_volume(path: Path, seed: int) -> np.ndarray:
+    """A (256, 256, 96) phantom volume stored as int16 with scl_slope 0.5
+    (physical values up to 1000), written by the port's codec; returns
+    the (96, 512, 512) 2x ground truth."""
+    lr = phantom_batch(np.random.default_rng(seed), VOL_SLICES, VOL_HW)
+    stored = np.round(lr * 2000.0).astype(np.int16)
+    nifti.save(str(path), np.transpose(stored, (1, 2, 0)),
+               zooms=(1.0, 1.0, 3.0), scl_slope=VOL_SLOPE)
+    return phantom_batch(np.random.default_rng(seed), VOL_SLICES, 2 * VOL_HW)
+
+
+def _budget(name: str, got: dict, want: dict) -> dict:
+    """The bf16 budget between two results against one truth."""
+    d = {"d_psnr_db": abs(got["psnr_db"] - want["psnr_db"]),
+         "d_ssim": abs(got["ssim"] - want["ssim"])}
+    d["ok"] = d["d_psnr_db"] <= 0.1 and d["d_ssim"] <= 1e-3
+    log("volume_check", check=name, got=got, want=want, **d)
+    if not d["ok"]:
+        raise AssertionError(f"{name}: beyond the bf16 budget ({d})")
+    return d
+
+
+def _serve_volume(argv) -> dict:
+    """One in-process run of the infer_volume CLI with the launch counts
+    set to 0 just before and read just after; its wall time and peak
+    device memory."""
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = volume_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"rc": rc, "seconds": seconds,
+            "launches": {k: v for k, v in kernels.launch_counts().items()
+                         if v},
+            "onepass_launches": group_norm_leaky.onepass_launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _read_volume(path: Path, slope: float) -> np.ndarray:
+    """An output volume as (96, 512, 512) [0, 1] slices, after checking
+    its shape, zooms and scl_slope."""
+    data, hdr = nifti.load(str(path), raw=True)
+    zooms_ok = np.allclose(hdr.zooms, (0.5, 0.5, 3.0))
+    if data.shape != (2 * VOL_HW, 2 * VOL_HW, VOL_SLICES) or not zooms_ok \
+            or not math.isclose(hdr.scl_slope, slope, rel_tol=1e-6):
+        raise AssertionError(f"{path}: shape {data.shape}, zooms "
+                             f"{hdr.zooms}, scl_slope {hdr.scl_slope}")
+    out = np.transpose(data, (2, 0, 1)).astype(np.float32) * np.float32(
+        hdr.scl_slope)
+    if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError(f"{path}: values outside [0, 1]")
+    return out
+
+
+def volume_path(dev, cfg, params) -> dict:
+    """Whole-volume serving through its entry point, the infer_volume CLI
+    (in this process, on the card, at batch 32): (a) the defaults, (b)
+    ``--serve_raw --out_dtype int16`` (``transpose_io``), (c) ``--tta``,
+    (d) a directory of two volumes; each run's launches (B1 20 and B3 2 a
+    batch, 160 and 16 under TTA, B1 all one-pass); the outputs against
+    each other and against the CPU port at the bf16 budget; one 600^2
+    slice through ``upscale_tiled``; then the window against the
+    sequential loop, (a) against (b), and (c), by CUDA events."""
+    shutil.rmtree(VOL_DIR, ignore_errors=True)
+    for sub in ("dir", "ckpt"):
+        (VOL_DIR / sub).mkdir(parents=True)
+    ckpt.save_checkpoint(str(VOL_DIR / "ckpt" / "best_model_unet"), params,
+                         meta={"config": {"model": {
+                             "model_type": "unet",
+                             "base_filters": BASE_FILTERS}}})
+    vol = VOL_DIR / "vol.nii"
+    truth = _write_volume(vol, seed=3)
+    for name in ("vol_a.nii", "vol_b.nii"):
+        shutil.copy(vol, VOL_DIR / "dir" / name)
+    common = ["--checkpoint_dir", str(VOL_DIR / "ckpt"),
+              "--batch_size", str(VOL_BATCH)]
+    batches = -(-VOL_SLICES // VOL_BATCH)
+    runs = {"a": ([], 1, 1.0),
+            "b": (["--serve_raw", "--out_dtype", "int16"], 1, 1 / 32767),
+            "c": (["--tta"], 8, 1.0),
+            "d": ([], 1, 1.0)}
+    res, outs = {}, {}
+    for key, (flags, members, slope) in runs.items():
+        src, dst = ((VOL_DIR / "dir", VOL_DIR / "dir_sr") if key == "d"
+                    else (vol, VOL_DIR / f"sr_{key}.nii"))
+        r = _serve_volume(["--input", str(src), "--output", str(dst),
+                           *common, *flags])
+        n_vol = 2 if key == "d" else 1
+        want = {"group_norm_leaky": 20 * members * batches * n_vol,
+                "conv3x3": 2 * members * batches * n_vol}
+        r["volumes"] = n_vol
+        r["launches_ok"] = (r["launches"] == want and
+                            r["onepass_launches"] == want["group_norm_leaky"])
+        res[key] = r
+        log("volume_path", run=key, flags=flags, batches=batches * n_vol,
+            expected_launches=want, **r)
+        if r["rc"] != 0 or not r["launches_ok"]:
+            raise AssertionError(f"volume run {key}: exit {r['rc']}, "
+                                 f"launches {r['launches']} (one-pass "
+                                 f"{r['onepass_launches']}), expected "
+                                 f"{want}")
+        if key == "d":
+            outs[key] = [_read_volume(dst / f"vol_{v}_sr.nii", slope)
+                         for v in "ab"]
+        else:
+            outs[key] = _read_volume(dst, slope)
+
+    q = {k: _quality(outs[k], truth, dev) for k in "abc"}
+    _budget("serve_raw int16 (b) against defaults (a)", q["b"], q["a"])
+    for i, o in enumerate(outs["d"]):
+        _budget(f"directory volume {i} (d) against (a)",
+                _quality(o, truth, dev), q["a"])
+
+    # two slices of (a) and (c) against the CPU port on the same slices
+    data, _ = nifti.load(str(vol))
+    stack = np.ascontiguousarray(np.transpose(data, (2, 0, 1))).astype(
+        np.float32)
+    norm = normalize_slices(torch.from_numpy(stack[VOL_CPU_SLICES])).numpy()
+    gt = truth[VOL_CPU_SLICES]
+    for key, kw in (("a", {}), ("c", {"tta": True})):
+        cpu = InferenceEngine(cfg, params, bf16=True, device="cpu", **kw)
+        _budget(f"({key}) slices {VOL_CPU_SLICES.start}-"
+                f"{VOL_CPU_SLICES.stop - 1} against the CPU port",
+                _quality(outs[key][VOL_CPU_SLICES], gt, dev),
+                _quality(cpu.upscale_batch(norm), gt, dev))
+
+    # one 600^2 slice through upscale_tiled (9 tiles of 256^2, one batch)
+    big = phantom_batch(np.random.default_rng(4), 1, TILED_HW)[0]
+    big_gt = phantom_batch(np.random.default_rng(4), 1, 2 * TILED_HW)
+    engine = InferenceEngine(cfg, params, bf16=True, device=dev)
+    kernels.reset_launch_counts()
+    tiled = engine.upscale_tiled(big, tile=TILE, halo=HALO)
+    tiled_counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if tiled.shape != (2 * TILED_HW, 2 * TILED_HW):
+        raise AssertionError(f"upscale_tiled gave {tiled.shape}")
+    cpu = InferenceEngine(cfg, params, bf16=True, device="cpu")
+    log("volume_tiled", input=[TILED_HW, TILED_HW], tile=TILE,
+        output=list(tiled.shape), launches=tiled_counts)
+    if tiled_counts != {"group_norm_leaky": 20, "conv3x3": 2}:
+        raise AssertionError(f"upscale_tiled launches {tiled_counts}: its "
+                             "tiles are one batch, one forward")
+    _budget(f"upscale_tiled {TILED_HW}^2 against the CPU port",
+            _quality(tiled[None], big_gt, dev),
+            _quality(cpu.upscale_tiled(big, tile=TILE, halo=HALO)[None],
+                     big_gt, dev))
+
+    # the CLI's inputs: (a) the stack normalized on the card and fetched
+    # into page-locked memory, (b) the raw volume's buffer, page-locked
+    # for the rest of the phase
+    norm_all = volume_cli._normalize_stack(stack, dev)
+    raw, _ = nifti.load(str(vol), raw=True)
+    eng_b = InferenceEngine(cfg, params, bf16=True, device=dev,
+                            normalize_inputs=True, transpose_io=True,
+                            out_dtype="int16")
+    # the page-lock of a freshly read volume and its release, timed
+    # before the phase's own volume is locked (two locked buffers may
+    # share a page)
+    lock_ms = []
+    for _ in range(3):
+        fresh, _ = nifti.load(str(vol), raw=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eng_b.page_locked(fresh.T):
+            pass
+        lock_ms.append((time.perf_counter() - t0) * 1e3)
+    with eng_b.page_locked(raw.T) as raw_locked:
+        _volume_times(dev, cfg, params, stack, vol, res, engine, eng_b,
+                      norm_all, raw_locked, sorted(lock_ms)[1])
+    return res["a"]["launches"]
+
+
+def _volume_times(dev, cfg, params, stack, vol, res, engine, eng_b,
+                  norm_all, raw_locked, page_lock_ms) -> None:
+    """Where a volume's time goes, and the window against the sequential
+    loop, on the CLI's page-locked inputs (``norm_all`` for run a,
+    ``raw_locked``, the (n, w, h) view of the raw volume, for run b)."""
+    starts = range(0, VOL_SLICES, VOL_BATCH)
+    plain = [norm_all[s:s + VOL_BATCH] for s in starts]
+    raw_t = [raw_locked[s:s + VOL_BATCH] for s in starts]
+    if not all(torch.from_numpy(b).is_pinned() for b in plain + raw_t):
+        raise AssertionError("the CLI's batches are not page-locked")
+
+    def host_ms(fn):
+        t = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return sorted(t)[1]
+
+    def read_a():
+        d, _ = nifti.load(str(vol))
+        return np.ascontiguousarray(np.transpose(d, (2, 0, 1))).astype(
+            np.float32)
+
+    def staged_upload(bs):
+        # what a caller with pageable batches gets: a page-locked copy
+        paged = [np.array(b) for b in bs]
+        return lambda: [engine._upload(b) for b in paged]
+
+    def fetch_ms(eng, bs):
+        ys = [eng._dispatch_once(b) for b in bs]
+        torch.cuda.synchronize()
+        return host_ms(lambda: [eng._collect(eng._start_fetch(y))
+                                for y in ys])
+
+    out_a = np.concatenate([engine.upscale_batch(b) for b in plain])
+    out_b = np.concatenate([eng_b.upscale_batch(b) for b in raw_t])
+    stages = {
+        "a": {"read_ms": host_ms(read_a),
+              "normalize_round_trip_ms": host_ms(
+                  lambda: volume_cli._normalize_stack(stack, dev)),
+              "upload_ms": host_ms(lambda: [engine._upload(b)
+                                            for b in plain]),
+              "staged_upload_ms": host_ms(staged_upload(plain)),
+              "upload_forward_ms": host_ms(lambda: [
+                  engine._dispatch_once(b) for b in plain]),
+              "fetch_ms": fetch_ms(engine, plain),
+              "write_ms": host_ms(lambda: nifti.save(
+                  str(VOL_DIR / "stage_a.nii"),
+                  np.transpose(out_a, (1, 2, 0))))},
+        "b": {"read_ms": host_ms(lambda: nifti.load(str(vol), raw=True)),
+              "page_lock_ms": page_lock_ms,
+              "upload_ms": host_ms(lambda: [eng_b._upload(b)
+                                            for b in raw_t]),
+              "staged_upload_ms": host_ms(staged_upload(raw_t)),
+              "upload_normalize_forward_ms": host_ms(lambda: [
+                  eng_b._dispatch_once(b) for b in raw_t]),
+              "fetch_ms": fetch_ms(eng_b, raw_t),
+              "write_ms": host_ms(lambda: nifti.save(
+                  str(VOL_DIR / "stage_b.nii"), out_b.T))}}
+    log("volume_breakdown", slices=VOL_SLICES, batch=VOL_BATCH,
+        stages=stages, cli_seconds={k: res[k]["seconds"] for k in "ab"},
+        timing="host clock around work ending in a synchronize, median "
+               "of 3; upload_ms from the CLI's page-locked stack (a) or "
+               "volume buffer (b), staged_upload_ms from pageable copies "
+               "of the same batches, page_lock_ms the register and "
+               "unregister of the raw volume; "
+               "upload_forward_ms is _dispatch_once (upload, forward, "
+               "crop, pack), fetch_ms the copies of its results to "
+               "page-locked host memory")
+
+    # rates: window against the sequential loop, in turns, by CUDA events
+    # around whole passes over the volume (upload, forward, fetch)
+    engines = {
+        "a": (engine, plain),
+        "b": (eng_b, raw_t),
+        "c": (InferenceEngine(cfg, params, bf16=True, device=dev, tta=True),
+              plain)}
+
+    def window(eng, bs):
+        return lambda: list(eng.upscale_batches(bs))
+
+    def sequential(eng, bs):
+        return lambda: [eng.upscale_batch(b) for b in bs]
+
+    ms = {"window": [], "sequential": []}
+    eng_a, bs_a = engines["a"]
+    for name in ("sequential", "window", "window", "sequential"):
+        fn = (window if name == "window" else sequential)(eng_a, bs_a)
+        ms[name].append(cuda_ms(fn, iters=3, warmup=1))
+    rates = {k: VOL_SLICES / (sum(v) / len(v)) * 1e3 for k, v in ms.items()}
+    torch.cuda.reset_peak_memory_stats()
+    paths = {k: cuda_ms(window(eng, bs), iters=3, warmup=1)
+             for k, (eng, bs) in engines.items()}
+    log("volume_throughput", slices=VOL_SLICES, batch=VOL_BATCH,
+        ms_per_volume=ms, slices_per_s=rates,
+        window_over_sequential=rates["window"] / rates["sequential"],
+        window_ms_per_volume_by_run=paths,
+        window_slices_per_s_by_run={k: VOL_SLICES / v * 1e3
+                                    for k, v in paths.items()},
+        cli_seconds_per_volume={k: r["seconds"] / r["volumes"]
+                                for k, r in res.items()},
+        cli_peak_mem_gb={k: r["peak_mem_gb"] for k, r in res.items()},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        timing="CUDA events around whole passes over the volume's 3 "
+               "batches (page-locked host arrays in, host arrays out), 3 "
+               "passes after 1 warm-up; window and sequential in turns")
+
+
+def _quality(out: np.ndarray, gt: np.ndarray, dev="cpu") -> dict:
+    """PSNR and SSIM of (n, H, W) slices against the truth, with the plain
+    ops on ``dev`` (a check, not a kernel)."""
+    o = torch.from_numpy(np.ascontiguousarray(out, np.float32)).to(dev)
+    g = torch.from_numpy(np.ascontiguousarray(gt, np.float32)).to(dev)
+    return {"psnr_db": float(psnr(o[..., None], g[..., None])),
+            "ssim": float(ssim(o[..., None], g[..., None]))}
 
 
 def int8_path(dev, cfg, params, lr, hr, bf16_engine) -> dict:
@@ -1207,6 +1571,7 @@ def main(argv=None) -> int:
     lr = phantom_batch(np.random.default_rng(0), BATCH, LR)
     hr = phantom_batch(np.random.default_rng(0), BATCH, 2 * LR)
     counts, bf16_engine = main_path(dev, cfg, params, lr, hr)
+    counts_volume = volume_path(dev, cfg, params)
     counts_int8 = int8_path(dev, cfg, params, lr, hr, bf16_engine)
     probe, counts_probe = probe_path(dev)
     trained = train_path(dev, lr)
@@ -1255,6 +1620,9 @@ def main(argv=None) -> int:
         if key == "B1 backward":
             rows[-1]["onepass_launches"] = \
                 trained["backward_onepass_launches"]
+        if key in ("B1", "B3"):
+            # the volume CLI's default run (3 batches of 32 slices)
+            rows[-1]["volume_launches"] = counts_volume[name]
     for name, wrapper in (("copy", "roll_copy"), ("roll32", "roll32"),
                           ("taps3", "taps3")):
         r = probe[name]

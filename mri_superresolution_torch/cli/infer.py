@@ -2,7 +2,7 @@
 
     python -m mri_superresolution_torch.cli.infer --input lr.png \
         --output sr.png [--target hr.png] [--checkpoint_dir ./checkpoints]
-        [--quant int8 [--quant_calib scales.json]]
+        [--quant int8 [--quant_calib scales.json]] [--tta]
 
 Takes the flags of the JAX package's ``scripts/infer.py`` (reference
 scripts/infer.py:452-486). Runs on the card; ``--cpu`` runs on the CPU.
@@ -56,7 +56,10 @@ def parse_args(argv=None):
                         help='JSON sidecar of frozen int8 scales: loaded if '
                              'it exists (int8 from the first batch), '
                              'otherwise written after self-calibration')
-    parser.add_argument('--tta', action='store_true')
+    parser.add_argument('--tta', action='store_true',
+                        help='Test-time augmentation: average the forward '
+                             'over the dihedral flips (8 transforms for '
+                             'square inputs, 4 otherwise)')
     parser.add_argument('--artifact', type=str, default=None)
     return parser.parse_args(argv)
 
@@ -64,8 +67,6 @@ def parse_args(argv=None):
 def unsupported(args) -> list:
     """Messages for the flags this port does not serve yet."""
     msgs = []
-    if args.tta:
-        msgs.append("--tta is not ported yet (ROADMAP A9)")
     if args.artifact:
         msgs.append("--artifact is not ported yet (ROADMAP A12)")
     if args.model_type != 'unet':
@@ -95,7 +96,7 @@ def main(argv=None) -> int:
             checkpoint_path=args.checkpoint_path,
             bf16=not args.no_bf16, bucket=args.bucket, quant=args.quant,
             quant_calib_slices=args.quant_calib_slices,
-            quant_calib_path=args.quant_calib)
+            quant_calib_path=args.quant_calib, tta=args.tta)
         engine = load_engine(cfg, device="cpu" if args.cpu else None)
         fig_path = args.save_figure
         if (args.show_comparison or args.show_diff) and not fig_path:

@@ -3,13 +3,12 @@
 An own copy of the JAX package's ``config.py`` for the slices ported so
 far: ``ModelConfig`` (with every field of the JAX one, so that a
 checkpoint's JSON sidecar has the same ``config`` block whichever package
-wrote it), ``InferConfig`` limited to the fields serving reads, and
-``LossConfig``, ``AugmentConfig`` and ``TrainConfig`` whole. Training
-options that later slices port keep their names and defaults here;
-``train.trainer.check_supported`` rejects them when they are set, naming
-the ROADMAP item that ports each. ``model_config_from_dict`` and
-``train_config_from_dict`` read a sidecar's blocks and ignore keys this
-copy does not know.
+wrote it), and ``LossConfig``, ``AugmentConfig``, ``TrainConfig`` and
+``InferConfig`` whole. Options that later slices port keep their names and
+defaults here; ``train.trainer.check_supported`` and the serving engine
+reject them when they are set, naming the ROADMAP item that ports each.
+``model_config_from_dict`` and ``train_config_from_dict`` read a
+sidecar's blocks and ignore keys this copy does not know.
 """
 
 from __future__ import annotations
@@ -120,22 +119,40 @@ class TrainConfig:
 
 @dataclass
 class InferConfig:
-    """Inference config (reference scripts/infer.py:452-486)."""
+    """Inference config (reference scripts/infer.py:452-486), with the JAX
+    package's fields in its order; ``spatial_shards`` other than 1 is
+    rejected by the engine (ROADMAP A14)."""
     model: ModelConfig = field(default_factory=ModelConfig)
     checkpoint_dir: str = "./checkpoints"
     checkpoint_path: Optional[str] = None
     bf16: bool = True
+    batch_size: int = 8          # slices a forward, for volume serving
     # Spatial shape bucket: inputs are zero-padded to a multiple of this
     # before the forward. 1 = native sizes (GroupNorm-exact, default).
     bucket: int = 1
+    # row sharding over devices (ROADMAP A14)
+    spatial_shards: int = 1
     # "int8": post-training-quantized serving (models/quant_forward.py),
     # self-calibrated on the first content-rich slices; "none": bf16.
     quant: str = "none"
     # streaming self-calibration length in real slices
     quant_calib_slices: int = 8
+    # batches whose fraction of pixels above FOREGROUND_INTENSITY is below
+    # this serve on the bf16 model instead of int8; 0 disables the routing
+    quant_min_foreground: float = 0.05
     # JSON sidecar of frozen int8 scales: loaded if it exists, else
     # written when calibration freezes
     quant_calib_path: Optional[str] = None
+    # test-time augmentation: the mean over the dihedral transforms (8 for
+    # square inputs, 4 otherwise)
+    tta: bool = False
+    # raw uint8/uint16/int16/float inputs, normalized per slice on the card
+    normalize_inputs: bool = False
+    # output coding: "float32", or "uint8"/"int16" packed on the card
+    out_dtype: str = "float32"
+    # batches arrive (N, w, h), the free C-order view of a NIfTI volume's
+    # F-order buffer, and return (N, 2w, 2h); needs normalize_inputs
+    transpose_io: bool = False
 
 
 def to_dict(cfg) -> dict:

@@ -6,10 +6,31 @@ Reference behaviour reproduced (scripts/infer.py): percentile-clip
 (:278-314), metrics with a bicubic target resize on shape mismatch
 (:317-324), PNG and comparison/diff figure outputs (:173-228, 336-394).
 
-Each batch is zero-padded to the shape bucket on the host, uploaded,
-run through the bf16 (or fp32) unet, clamped, cropped to exactly 2x the
-input and, for uint8/int16 ``out_dtype``, packed on the card before the
-fetch. The engine runs on the card unless ``device="cpu"`` is passed.
+Each batch is uploaded as it is, zero-padded to the shape bucket on the
+card, run through the bf16 (or fp32) unet, clamped, cropped to exactly 2x
+the input and, for uint8/int16 ``out_dtype``, packed on the card before
+the fetch. The engine runs on the card unless ``device="cpu"`` is passed.
+The serving options are the JAX engine's (``infer/engine.py`` there):
+
+- ``normalize_inputs``: raw uint8/uint16/int16/float batches are
+  normalized per slice on the card (``ops/normalize.py``), before the
+  bucket pad, so the percentiles see only real pixels;
+- ``transpose_io``: batches arrive (N, w, h), the free C-order view of a
+  NIfTI volume's F-order buffer, and return C-contiguous (N, 2w, 2h), so
+  that ``.T`` of the result is the F-order output volume; both swaps run
+  on the card;
+- ``tta``: the dihedral ensemble (``ops/tta.py``), one upload, the
+  members accumulated in fp32 on the card, one fetch; for bf16, fp32 and
+  frozen-int8 batches. Only int8 that is still calibrating runs the
+  members one by one through the single-forward path, where the identity
+  pass alone feeds calibration;
+- ``upscale_batches``: ``map(upscale_batch)`` with up to ``depth``
+  batches dispatched before the oldest is fetched; on the card each
+  result crosses to the host on a side stream, beside the next forward;
+- ``page_locked``: a volume registered once, so that its batches upload
+  from its own buffer with no host copy;
+- ``upscale_tiled``: halo-overlapped tiles for slices too large for one
+  forward.
 
 ``quant="int8"`` serves the int8 post-training-quantized unet
 (``models/quant_forward.py``) with the JAX engine's state machine
@@ -20,12 +41,16 @@ given, or loaded from it), and near-empty batches on the bf16 model.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
-from typing import Dict, Optional, Tuple
+import warnings
+from collections import deque
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mri_superresolution_torch.config import (InferConfig, ModelConfig,
                                               model_config_from_dict)
@@ -34,8 +59,10 @@ from mri_superresolution_torch.models import build_model
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.ops.functional import pack_unit
 from mri_superresolution_torch.ops.metrics import mae, match_histograms_np, mse
+from mri_superresolution_torch.ops.normalize import normalize_slices
 from mri_superresolution_torch.ops.quant import FOREGROUND_INTENSITY
 from mri_superresolution_torch.ops.resize import Interp, resize
+from mri_superresolution_torch.ops.tta import dihedral_pairs, tta_ensemble
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.utils.device import resolve_device
 
@@ -62,10 +89,14 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-# Serving options of the JAX engine that later slices port, with the
-# ROADMAP item that carries each.
-_LATER = {"tta": "A9", "spatial_shards": "A14",
-          "normalize_inputs": "A4", "transpose_io": "A4"}
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A tensor over the C-contiguous host array ``arr``, no copy. The
+    engine only reads its inputs, so a read-only buffer (a volume straight
+    from ``nifti.load``) is taken as it is."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable")
+        return torch.from_numpy(arr)
 
 
 class InferenceEngine:
@@ -80,19 +111,23 @@ class InferenceEngine:
                  quant_calib_path: Optional[str] = None,
                  spatial_shards: int = 1, normalize_inputs: bool = False,
                  transpose_io: bool = False):
+        if transpose_io and not normalize_inputs:
+            raise ValueError("transpose_io requires normalize_inputs (the "
+                             "card-side input path does the swap)")
         if normalize_inputs and quant == "int8":
             raise ValueError(
                 "normalize_inputs is incompatible with --quant int8: the "
                 "engine's content-aware routing reads normalized [0,1] "
                 "pixels on the host; normalize on the host for int8 "
                 "serving")
-        asked = {"tta": tta, "spatial_shards": spatial_shards != 1,
-                 "normalize_inputs": normalize_inputs,
-                 "transpose_io": transpose_io}
-        for name, on in asked.items():
-            if on:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP {_LATER[name]})")
+        if transpose_io and tta:
+            raise ValueError(
+                "transpose_io does not compose with tta (the ensemble's "
+                "transforms are defined on (N, h, w) batches); serve TTA "
+                "volumes through the standard layout")
+        if spatial_shards != 1:
+            raise NotImplementedError(
+                "spatial_shards is not ported yet (ROADMAP A14)")
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown quant mode {quant!r}")
         if quant == "int8":
@@ -110,11 +145,17 @@ class InferenceEngine:
         if self.out_dtype not in _OUT_DTYPES:
             raise ValueError(f"out_dtype must be float32/uint8/int16, got "
                              f"{self.out_dtype}")
+        self.tta = tta
+        self.normalize_inputs = bool(normalize_inputs)
+        self.transpose_io = bool(transpose_io)
         self._dtype = torch.bfloat16 if bf16 else torch.float32
         self.model = build_model(model_cfg, dtype=self._dtype)
         self.model.load_state_dict(params, strict=True)
         self.model.to(self.device).eval()
         self.bucket = bucket
+        # results cross to the host on this stream, beside the next forward
+        self._d2h = (torch.cuda.Stream(self.device)
+                     if self.device.type == "cuda" else None)
 
         self.quant = quant
         self.quant_calib_path = quant_calib_path
@@ -150,8 +191,16 @@ class InferenceEngine:
             dtype=self._dtype)
         self._quant_scales = scales
 
+    def _served(self, mode: str, count: bool) -> None:
+        """Count a batch of the int8 path at the precision it is served
+        at (unless ``count`` is False)."""
+        if count:
+            self._quant_batches[mode] += 1
+
     def _quant_upscale(self, x: torch.Tensor, n_real_slices: int,
-                       foreground_frac: float) -> torch.Tensor:
+                       foreground_frac: float, calib_ok: bool = True,
+                       count: bool = True,
+                       force_bf16: bool = False) -> torch.Tensor:
         """int8 PTQ serving with streaming self-calibration. Content-rich
         batches run the bf16 calib forward, which records each conv site's
         per-input-channel max |x|, until ``quant_calib_slices`` real slices
@@ -162,9 +211,17 @@ class InferenceEngine:
         ``foreground_frac`` is taken on the real pixels, before zero
         padding. Batches below ``quant_min_foreground`` neither calibrate
         nor run int8: they serve on the bf16 model, where int8 noise would
-        dominate their small error."""
-        if foreground_frac < self.quant_min_foreground:
-            self._quant_batches["bf16"] += 1
+        dominate their small error.
+
+        For the host TTA loop: ``calib_ok=False`` serves bf16 without
+        feeding the statistics while calibrating (8 flips of one slice are
+        not 8 calibration slices); ``count=False`` leaves the batch count
+        alone (one ensemble counts as one batch); ``force_bf16`` pins the
+        bf16 model, so an ensemble whose identity pass was served bf16
+        stays bf16 even when that pass froze the scales."""
+        if (force_bf16 or foreground_frac < self.quant_min_foreground
+                or (self._quant_scales is None and not calib_ok)):
+            self._served("bf16", count)
             return self.model(x)
         if self._quant_scales is None:
             first = self._calib_seen == 0
@@ -179,7 +236,7 @@ class InferenceEngine:
                 logger.info(f"int8 PTQ: calibrating "
                             f"({self._calib_seen}/{self.quant_calib_slices} "
                             "slices seen); serving bf16 meanwhile")
-                self._quant_batches["bf16"] += 1
+                self._served("bf16", count)
                 return y
             scales = quant_forward.scales_from_amax(self._calib_amax)
             logger.info(f"int8 PTQ: froze {len(scales)} activation scales "
@@ -194,9 +251,9 @@ class InferenceEngine:
             if not first:
                 # this batch has its bf16 result already; int8 starts
                 # with the next one
-                self._quant_batches["bf16"] += 1
+                self._served("bf16", count)
                 return y
-        self._quant_batches["int8"] += 1
+        self._served("int8", count)
         return self._quant_fwd(self._params, x)
 
     @property
@@ -220,36 +277,298 @@ class InferenceEngine:
         return (_round_up(max(h, 8), self.bucket),
                 _round_up(max(w, 8), self.bucket))
 
-    def _dispatch_once(self, batch: np.ndarray) -> torch.Tensor:
-        """Pad -> upload -> forward -> clip -> crop -> pack, enqueued on the
-        device; the returned tensor is not fetched."""
-        n, h, w = batch.shape
+    @staticmethod
+    def _foreground(batch: np.ndarray) -> float:
+        """Fraction of the batch's real pixels above FOREGROUND_INTENSITY
+        (the int8 routing's measure, taken on the host)."""
+        return float((np.abs(batch) > FOREGROUND_INTENSITY).mean())
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """The host array on the engine's device, in its own dtype. On the
+        card the copy is asynchronous from page-locked memory: straight
+        from the caller's buffer when it is page-locked (see
+        :meth:`page_locked`), so the caller must leave it unchanged until
+        the batch's result is returned; otherwise through a page-locked
+        copy (:meth:`_staged`). A copy from pageable memory may wait for
+        the compute stream, which would hold the host back while the
+        previous batch runs."""
+        src = _host_tensor(np.ascontiguousarray(arr))
+        if self._d2h is None:
+            return src
+        if not src.is_pinned():
+            src = self._staged(src)
+        return src.to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _staged(src: torch.Tensor) -> torch.Tensor:
+        """A page-locked host copy of ``src``."""
+        staged = torch.empty_like(src, pin_memory=True)
+        staged.copy_(src)
+        return staged
+
+    @contextlib.contextmanager
+    def page_locked(self, arr: np.ndarray):
+        """Page-lock the C-contiguous host array ``arr`` for the duration
+        (``cudaHostRegister``), so that batches that are views of it upload
+        from it with no host copy. A volume served in batches is
+        registered once around its ``upscale_batches`` loop. Nothing to do
+        on the CPU, or when ``arr`` is page-locked already."""
+        src = _host_tensor(arr)
+        if self._d2h is None or src.numel() == 0 or src.is_pinned():
+            yield arr
+            return
+        if not arr.flags.c_contiguous:
+            raise ValueError("page_locked needs a C-contiguous array")
+        cudart = torch.cuda.cudart()
+        with torch.cuda.device(self.device):
+            err = cudart.cudaHostRegister(src.data_ptr(), arr.nbytes, 0)
+        if int(err) != 0:
+            raise RuntimeError(f"cudaHostRegister of {arr.nbytes} bytes "
+                               f"failed: cudaError {int(err)}")
+        try:
+            yield arr
+        finally:
+            # the uploads from ``arr`` are done before it is unlocked
+            torch.cuda.synchronize(self.device)
+            with torch.cuda.device(self.device):
+                err = cudart.cudaHostUnregister(src.data_ptr())
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostUnregister failed: cudaError "
+                                   f"{int(err)}")
+
+    def _device_input(self, batch: np.ndarray, bh: int,
+                      bw: int) -> torch.Tensor:
+        """The (n, h, w) batch — (n, w, h) under ``transpose_io`` — as the
+        forward's (max(n, 1), bh, bw, 1) fp32 input on the device. The raw
+        batch is uploaded as it is; then, on the device: cast to fp32,
+        swap the axes (``transpose_io``), normalize per slice
+        (``normalize_inputs``) and zero-pad to (bh, bw), so that the
+        percentiles see only real pixels. Runs under inference mode."""
+        if batch.shape[0] == 0:
+            batch = np.zeros((1,) + batch.shape[1:], batch.dtype)
+        x = self._upload(batch).float()
+        if self.transpose_io:
+            x = x.transpose(1, 2)
+        if self.normalize_inputs:
+            x = normalize_slices(x)
+        h, w = x.shape[1:]
+        if (bh, bw) != (h, w):
+            x = F.pad(x, (0, bw - w, 0, bh - h))
+        return x[..., None]
+
+    def _dispatch_once(self, batch: np.ndarray,
+                       _quant_calib_ok: bool = True,
+                       _quant_count: bool = True,
+                       _quant_force_bf16: bool = False,
+                       _pack: bool = True) -> torch.Tensor:
+        """Upload -> (normalize) -> pad -> forward -> clip -> crop ->
+        (transpose) -> pack, queued on the device; nothing is fetched.
+        The ``_quant_*`` arguments are :meth:`_quant_upscale`'s, for the
+        host TTA loop, which also fetches its members unpacked."""
+        n = batch.shape[0]
+        h, w = ((batch.shape[2], batch.shape[1]) if self.transpose_io
+                else (batch.shape[1], batch.shape[2]))
         bh, bw = self._bucket_hw(h, w)
-        x = np.zeros((max(n, 1), bh, bw, 1), np.float32)
-        x[:n, :h, :w, 0] = batch
         with torch.inference_mode():
-            xd = torch.from_numpy(x).to(self.device)
+            x = self._device_input(batch, bh, bw)
             if self.quant == "int8":
                 y = self._quant_upscale(
-                    xd, n, float((np.abs(batch) > FOREGROUND_INTENSITY)
-                                 .mean()))
+                    x, n, self._foreground(batch), calib_ok=_quant_calib_ok,
+                    count=_quant_count, force_bf16=_quant_force_bf16)
             else:
-                y = self.model(xd)
+                y = self.model(x)
             y = y.clamp(0.0, 1.0)[:n, :2 * h, :2 * w, 0]
-            return pack_unit(y, self.out_dtype)
+            if self.transpose_io:
+                # (N, 2w, 2h): .T of the fetched batch is the F-order
+                # output volume
+                y = y.transpose(1, 2)
+            return pack_unit(y, self.out_dtype) if _pack else y
+
+    def _tta_on_device(self) -> bool:
+        """True when a --tta batch runs as one card-resident ensemble: bf16
+        and fp32 always, int8 once its scales are frozen. Still-calibrating
+        int8 runs the host loop (its routing state machine lives on the
+        host); the switch goes host -> device once, never back."""
+        return self.quant != "int8" or self._quant_scales is not None
+
+    def _tta_dispatch(self, batch: np.ndarray) -> torch.Tensor:
+        """The dihedral ensemble on the card (``ops/tta.py``): one upload,
+        normalized once if ``normalize_inputs`` (the percentiles and the
+        min/max do not change under a dihedral transform), each member
+        padded to the bucket after its transform and cropped before its
+        inverse, the members summed in fp32, the mean packed. Frozen int8
+        takes one routing decision a batch (the transforms keep the
+        foreground fraction), counted as one batch."""
+        n, h, w = batch.shape
+        mode = "bf16"
+        if self.quant == "int8":
+            if self._foreground(batch) >= self.quant_min_foreground:
+                mode = "int8"
+            self._served(mode, count=True)
+        if mode == "int8":
+            def forward(a):
+                return self._quant_fwd(self._params, a).clamp(0.0, 1.0)
+        else:
+            def forward(a):
+                return self.model(a).clamp(0.0, 1.0)
+        with torch.inference_mode():
+            x = self._device_input(batch, h, w)
+            y = tta_ensemble(forward, x, self._bucket_hw)
+            return pack_unit(y[:n, :, :, 0], self.out_dtype)
+
+    def _tta_host_loop(self, batch: np.ndarray) -> np.ndarray:
+        """The ensemble member by member through :meth:`_dispatch_once`,
+        while int8 still calibrates: the identity pass alone feeds the
+        statistics and counts as the batch, and the other members follow
+        the precision it was served at, so one ensemble never mixes bf16
+        and int8. The members' fp32 outputs are summed on the device and
+        the mean is packed and fetched once."""
+        n, h, w = batch.shape
+        pairs = dihedral_pairs(square=(h == w))
+        force_bf16 = False
+        with torch.inference_mode():
+            acc = torch.zeros((n, 2 * h, 2 * w), dtype=torch.float32,
+                              device=self.device)
+            for i, (t, inv) in enumerate(pairs):
+                bf16_before = self._quant_batches["bf16"]
+                acc += inv(self._dispatch_once(
+                    np.ascontiguousarray(t(batch)), _quant_calib_ok=(i == 0),
+                    _quant_count=(i == 0), _quant_force_bf16=force_bf16,
+                    _pack=False))
+                if i == 0:
+                    # the identity pass alone is counted: it was served
+                    # bf16 if it moved the bf16 count
+                    force_bf16 = self._quant_batches["bf16"] > bf16_before
+            y = pack_unit(acc / len(pairs), self.out_dtype)
+        return self._collect(self._start_fetch(y))
+
+    def _dispatch(self, batch: np.ndarray) -> torch.Tensor:
+        return (self._tta_dispatch(batch) if self.tta
+                else self._dispatch_once(batch))
+
+    def _start_fetch(self, y: torch.Tensor):
+        """Queue the copy of the device result ``y`` to the host; returns a
+        handle for :meth:`_collect`. On the card, ``y`` is made contiguous
+        on the compute stream, and the copy into a fresh page-locked buffer
+        runs on the side stream once an event recorded after it has fired,
+        so the compute stream goes on with the next batch meanwhile. The
+        buffer comes from PyTorch's caching host allocator, which does not
+        hand it out again before the copy's event has fired and the
+        returned array is gone."""
+        with torch.inference_mode():
+            y = y.contiguous()
+            if self._d2h is None:
+                return y, None
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+            with torch.cuda.stream(self._d2h):
+                self._d2h.wait_event(ready)
+                out.copy_(y, non_blocking=True)
+                # y's memory stays with y until the side stream is done
+                y.record_stream(self._d2h)
+                done = torch.cuda.Event()
+                done.record(self._d2h)
+        return out, done
+
+    @staticmethod
+    def _collect(handle) -> np.ndarray:
+        """Wait for a fetch queued by :meth:`_start_fetch` and return the
+        host array, the sole view of its buffer."""
+        out, done = handle
+        if done is not None:
+            done.synchronize()
+        return out.numpy()
 
     def upscale_batch(self, batch: np.ndarray) -> np.ndarray:
-        """(N, h, w) float [0,1] -> (N, 2h, 2w) in ``out_dtype``.
+        """(N, h, w) float [0,1] -> (N, 2h, 2w) in ``out_dtype``; with
+        ``normalize_inputs`` the batch is raw (uint8, int16, uint16 or
+        float), and with ``transpose_io`` it is (N, w, h) and the result
+        (N, 2w, 2h), C-contiguous.
 
         Runs at native spatial size by default (bucket=1): the model is
         fully convolutional, and spatial zero-padding would shift every
         GroupNorm's whole-image statistics. A bucket > 1 pads to a multiple
         of it, trading that exactness for fewer distinct shapes.
+
+        With ``tta`` the result is the mean over the dihedral transforms
+        of t^-1(upscale(t(x))): 8 transforms when h == w, the 4 flips
+        otherwise.
         """
-        return self._dispatch_once(batch).cpu().numpy()
+        if self.tta and not self._tta_on_device():
+            return self._tta_host_loop(batch)
+        return self._collect(self._start_fetch(self._dispatch(batch)))
+
+    def upscale_batches(self, batches,
+                        depth: int = 2) -> Iterator[np.ndarray]:
+        """Pipelined serving over an iterable of batches: yields exactly
+        ``map(self.upscale_batch, batches)`` (the same values, order and
+        int8/TTA state machine, which runs at dispatch time in batch
+        order), but keeps up to ``depth`` batches dispatched before it
+        waits for the oldest one's result. On the card the uploads are
+        asynchronous from page-locked buffers and each result crosses to
+        the host on a side stream while the next batches compute. Host-loop
+        TTA batches (int8 still calibrating) flush the window and run
+        alone; a freeze mid-stream re-opens it from the next batch."""
+        depth = max(1, int(depth))
+        window: deque = deque()
+        for b in batches:
+            if self.tta and not self._tta_on_device():
+                while window:
+                    yield self._collect(window.popleft())
+                yield self.upscale_batch(b)
+                continue
+            window.append(self._start_fetch(self._dispatch(b)))
+            if len(window) > depth:
+                yield self._collect(window.popleft())
+        while window:
+            yield self._collect(window.popleft())
 
     def upscale_image(self, image01: np.ndarray) -> np.ndarray:
         return self.upscale_batch(image01[None])[0]
+
+    def upscale_tiled(self, image01: np.ndarray, tile: int = 256,
+                      halo: int = 16) -> np.ndarray:
+        """Tiled upscale with halo overlap, for slices too large for one
+        forward: ``tile``-sized patches overlapping by ``halo`` pixels run
+        as one batch, and the 2x interiors are stitched, so every seam
+        keeps its full receptive field. Refused under
+        ``normalize_inputs``, which would normalize each tile alone."""
+        h, w = image01.shape
+        if h <= tile and w <= tile:
+            return self.upscale_image(image01)
+        if self.normalize_inputs:
+            raise ValueError(
+                "normalize_inputs normalizes per forward-pass input, which "
+                "under tiling would be per-TILE, not per-slice; normalize "
+                "on the host for tiled serving")
+        stride = tile - 2 * halo
+        if stride <= 0:
+            raise ValueError(f"tile ({tile}) must exceed 2 * halo ({halo})")
+        ys = list(range(0, max(h - 2 * halo, 1), stride))
+        xs = list(range(0, max(w - 2 * halo, 1), stride))
+        # pad so that every tile lies inside the image
+        pad_h = ys[-1] + tile - h if ys[-1] + tile > h else 0
+        pad_w = xs[-1] + tile - w if xs[-1] + tile > w else 0
+        padded = np.pad(image01, ((0, pad_h), (0, pad_w)), mode="reflect")
+
+        tiles = np.stack([padded[y:y + tile, x:x + tile]
+                          for y in ys for x in xs])
+        up = self.upscale_batch(tiles)  # (n, 2 tile, 2 tile)
+
+        out = np.zeros((2 * (h + pad_h), 2 * (w + pad_w)), self.out_dtype)
+        i = 0
+        for y in ys:
+            for x in xs:
+                # this tile's interior (its halo kept only at the borders)
+                y0 = 0 if y == 0 else halo
+                x0 = 0 if x == 0 else halo
+                y1 = tile if y + tile >= h + pad_h else tile - halo
+                x1 = tile if x + tile >= w + pad_w else tile - halo
+                out[2 * (y + y0):2 * (y + y1), 2 * (x + x0):2 * (x + x1)] = \
+                    up[i, 2 * y0:2 * y1, 2 * x0:2 * x1]
+                i += 1
+        return out[:2 * h, :2 * w]
 
     # ------------------------------------------------------------- metrics
 
@@ -403,6 +722,12 @@ def load_engine(cfg: InferConfig, device=None) -> InferenceEngine:
             logger.info(f"Found QAT calibration sidecar {sidecar}; "
                         f"serving with the trained activation scales")
     return InferenceEngine(model_cfg, params, bf16=cfg.bf16,
-                           bucket=cfg.bucket, device=device, quant=cfg.quant,
+                           bucket=cfg.bucket, device=device,
+                           spatial_shards=cfg.spatial_shards,
+                           quant=cfg.quant,
                            quant_calib_slices=cfg.quant_calib_slices,
-                           quant_calib_path=quant_calib_path)
+                           quant_min_foreground=cfg.quant_min_foreground,
+                           quant_calib_path=quant_calib_path, tta=cfg.tta,
+                           normalize_inputs=cfg.normalize_inputs,
+                           out_dtype=cfg.out_dtype,
+                           transpose_io=cfg.transpose_io)

@@ -861,3 +861,180 @@ def test_cli_train_one_epoch_on_card(dev, tmp_path, capsys):
         np.isfinite(summary[0]["val_loss"])
     assert final.endswith("final_model_unet.ckpt")
     assert (tmp_path / "ckpt" / "best_model_unet.ckpt").exists()
+
+
+# ------------------------------------------------ whole-volume serving
+
+
+def _serving_engine(dev, **kw):
+    params = build_model(ModelConfig(base_filters=16),
+                         generator=torch.Generator().manual_seed(6)
+                         ).state_dict()
+    return InferenceEngine(ModelConfig(base_filters=16), params,
+                           device=dev, **kw), params
+
+
+@pytest.mark.parametrize("kw", [{}, {"tta": True},
+                                {"normalize_inputs": True,
+                                 "transpose_io": True,
+                                 "out_dtype": "int16"}],
+                         ids=["plain", "tta", "transpose_io"])
+def test_upscale_batches_equals_sequential_on_card(dev, kw):
+    """The depth-2 window (asynchronous uploads from page-locked buffers,
+    fetches on a side stream) yields the bits of map(upscale_batch), with
+    every yielded array alive at once and each the sole view of its own
+    page-locked buffer."""
+    eng, _ = _serving_engine(dev, **kw)
+    rng = np.random.default_rng(7)
+    shapes = [(4, 64, 64), (3, 48, 64), (4, 64, 64), (1, 64, 64),
+              (4, 64, 64)]
+    if kw.get("normalize_inputs"):
+        batches = [(rng.random(s) * 3000).astype(np.int16) for s in shapes]
+    else:
+        batches = [rng.random(s, dtype=np.float32) for s in shapes]
+    ref = [eng.upscale_batch(b) for b in batches]
+    got = list(eng.upscale_batches(iter(batches), depth=2))
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        np.testing.assert_array_equal(g, r)
+        # the whole of a page-locked buffer of its own
+        assert isinstance(g.base, torch.Tensor) and g.base.is_pinned()
+        assert g.base.data_ptr() == g.ctypes.data
+        assert g.base.untyped_storage().nbytes() == g.nbytes
+    assert len({g.ctypes.data for g in got}) == len(got)
+
+
+def test_pinned_buffers_wait_for_their_copies(dev):
+    """An upload's page-locked staging buffer goes back to the allocator
+    while its copy is still queued behind a long kernel; the next upload
+    must not reuse it before the copy's event has fired. Likewise a fetch
+    queued behind the sleep lands whole."""
+    eng, _ = _serving_engine(dev)
+    a = np.full((4, 256, 256), 1.0, np.float32)
+    b = np.full((4, 256, 256), 2.0, np.float32)
+    for _ in range(3):
+        torch.cuda._sleep(50_000_000)            # ~tens of ms on the stream
+        xa = eng._upload(a)
+        xb = eng._upload(b)
+        torch.cuda.synchronize()
+        assert bool((xa == 1.0).all()) and bool((xb == 2.0).all())
+    y = torch.full((4, 512, 512), 3.0, device=dev)
+    torch.cuda._sleep(50_000_000)
+    handle = eng._start_fetch(y * 2)
+    del y
+    np.testing.assert_array_equal(eng._collect(handle), 6.0)
+
+
+def test_page_locked_volume_uploads_without_a_host_copy(dev, monkeypatch):
+    """Batches that are views of a volume page-locked by ``page_locked``
+    upload straight from it, with no staging copy, and give the bits of
+    staged uploads of the same batches; the volume is unlocked after."""
+    eng, _ = _serving_engine(dev, normalize_inputs=True, transpose_io=True,
+                             out_dtype="int16")
+    vol = np.asfortranarray(
+        (np.random.default_rng(11).random((40, 48, 9)) * 2000).astype(
+            np.int16))
+    view = vol.T                                  # (9, 48, 40), C-order
+    starts = range(0, 9, 4)
+    staged = []
+    real = InferenceEngine._staged
+    monkeypatch.setattr(InferenceEngine, "_staged", staticmethod(
+        lambda src: staged.append(src.shape) or real(src)))
+    ref = [eng.upscale_batch(view[s:s + 4]) for s in starts]
+    assert len(staged) == 3
+    with eng.page_locked(view) as locked:
+        assert all(torch.from_numpy(locked[s:s + 4]).is_pinned()
+                   for s in starts)
+        got = list(eng.upscale_batches(locked[s:s + 4] for s in starts))
+    assert len(staged) == 3
+    assert not torch.from_numpy(view).is_pinned()
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+
+
+def test_normalized_stack_lands_page_locked(dev):
+    """The volume CLI's normalized stack is fetched into page-locked
+    memory, which ``page_locked`` then leaves as it is."""
+    from mri_superresolution_torch.cli.infer_volume import _normalize_stack
+    from mri_superresolution_torch.ops.normalize import normalize_slices
+    eng, _ = _serving_engine(dev)
+    stack = np.random.default_rng(12).random((5, 32, 40), dtype=np.float32)
+    norm = _normalize_stack(stack, dev)
+    assert torch.from_numpy(norm).is_pinned()
+    np.testing.assert_array_equal(
+        norm, normalize_slices(torch.from_numpy(stack).to(dev)).cpu())
+    with eng.page_locked(norm) as locked:
+        assert locked is norm
+        np.testing.assert_array_equal(eng.upscale_batch(locked[:2]),
+                                      eng.upscale_batch(np.array(norm[:2])))
+    assert torch.from_numpy(norm).is_pinned()
+
+
+def test_transpose_io_layout_on_card(dev):
+    """(N, w, h) raw in, C-contiguous (N, 2w, 2h) out whose .T is the
+    F-order volume; the bits of the standard layout on the same card."""
+    eng, params = _serving_engine(dev, normalize_inputs=True,
+                                  transpose_io=True)
+    std = InferenceEngine(ModelConfig(base_filters=16), params, device=dev,
+                          normalize_inputs=True)
+    raw = (np.random.default_rng(8).random((3, 48, 32)) * 2000).astype(
+        np.int16)
+    got = eng.upscale_batch(raw)
+    assert got.shape == (3, 96, 64) and got.flags.c_contiguous
+    assert got.T.flags.f_contiguous
+    np.testing.assert_array_equal(
+        got.swapaxes(1, 2),
+        std.upscale_batch(np.ascontiguousarray(raw.swapaxes(1, 2))))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.uint16,
+                                   np.float32])
+def test_raw_upload_and_normalize_on_card(dev, dtype):
+    """Raw uint8/int16/uint16/float32 batches are uploaded in their own
+    dtype and normalized on the card: the percentiles as the CPU port's,
+    and the served batch within the card's fp32 tolerance of it."""
+    from mri_superresolution_torch.ops.normalize import normalize_slices
+    rng = np.random.default_rng(9)
+    hi = 255 if dtype == np.uint8 else 30000
+    raw = (rng.random((3, 40, 40)) * hi).astype(dtype)
+    eng, params = _serving_engine(dev, normalize_inputs=True, bf16=False)
+    x = eng._upload(raw)
+    assert x.device.type == "cuda" and x.dtype == torch.from_numpy(raw).dtype
+    np.testing.assert_array_equal(x.float().cpu().numpy(),
+                                  raw.astype(np.float32))
+    torch.testing.assert_close(normalize_slices(x).cpu(),
+                               normalize_slices(torch.from_numpy(raw)),
+                               rtol=0, atol=0)
+    cpu = InferenceEngine(ModelConfig(base_filters=16), params, bf16=False,
+                          device="cpu", normalize_inputs=True)
+    np.testing.assert_allclose(eng.upscale_batch(raw),
+                               cpu.upscale_batch(raw), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_tta_batch_launches_every_member(dev):
+    """One square TTA batch runs 8 forwards on the card: B1 160 times (all
+    one-pass), B3 16; a rectangular one 4 forwards."""
+    eng, params = _serving_engine(dev, tta=True)
+    sq = np.random.default_rng(10).random((2, 64, 64), dtype=np.float32)
+    eng.upscale_batch(sq)                                  # warm
+    kernels.reset_launch_counts()
+    y = eng.upscale_batch(sq)
+    counts = kernels.launch_counts()
+    assert (counts["group_norm_leaky"], counts["conv3x3"]) == (160, 16)
+    assert group_norm_leaky.onepass_launches == 160
+    kernels.reset_launch_counts()
+    eng.upscale_batch(np.ascontiguousarray(sq[:, :, :48]))
+    assert (kernels.launch_counts()["group_norm_leaky"],
+            kernels.launch_counts()["conv3x3"]) == (80, 8)
+    cpu = InferenceEngine(ModelConfig(base_filters=16), params,
+                          device="cpu", tta=True)
+    # bf16 on both: the serving budget
+    from mri_superresolution_torch.ops.metrics import psnr
+    gt = torch.from_numpy(phantom_batch(np.random.default_rng(10), 2, 128))
+    c = cpu.upscale_batch(sq)
+    d_psnr = abs(float(psnr(torch.from_numpy(y)[..., None], gt[..., None]))
+                 - float(psnr(torch.from_numpy(c)[..., None],
+                              gt[..., None])))
+    assert d_psnr <= 0.1

@@ -90,13 +90,19 @@ def test_preprocess_matches_jax():
 
 
 def test_unported_options_raise(jax_params):
+    """Options the port does not serve raise NotImplementedError naming
+    their ROADMAP item; combinations the JAX engine refuses raise
+    ValueError, as there."""
     sd = state_dict_from_jax(jax_params)
-    for kw, item in (({"tta": True}, "A9"),
-                     ({"quant": "int8", "tta": True}, "A9"),
-                     ({"spatial_shards": 2}, "A14"),
-                     ({"normalize_inputs": True}, "A4"),
-                     ({"transpose_io": True}, "A4")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw, err, match in (
+            ({"transpose_io": True}, ValueError, "transpose_io requires"),
+            ({"normalize_inputs": True, "transpose_io": True, "tta": True},
+             ValueError, "does not compose with tta"),
+            ({"spatial_shards": 2}, NotImplementedError, "A14"),
+            ({"quant": "int8", "normalize_inputs": True}, ValueError,
+             "normalize_inputs is incompatible"),
+            ({"out_dtype": "float16"}, ValueError, "out_dtype")):
+        with pytest.raises(err, match=match):
             InferenceEngine(ModelConfig(base_filters=16), sd, device="cpu",
                             **kw)
 
@@ -140,7 +146,7 @@ def test_process_single_image_matches_jax(tmp_path, jax_params):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model_type", "simple"], "A8"), (["--tta"], "A9"),
+    (["--model_type", "simple"], "A8"), (["--model_type", "unet_tpu"], "A8"),
     (["--artifact", "model.mrisrx"], "A12"),
     (["--model_type", "edsr"], "A8")])
 def test_cli_refuses_unported_flags(tmp_path, flags, item):
