@@ -21,10 +21,14 @@ the last line is printed:
    kernel with an int8 output) is checked code for code against B1 + B4,
    run to run, and against its plain version within one code on under
    0.5% of the elements at the seven DoubleConv conv2 sites, and timed
-   against B1 (bf16 out) + B4 run separately. B2 runs at one 512^2
+   against B1 (bf16 out) + B4 run separately. Both B4 routes are also
+   checked, not timed, at every other shape the zoo quantizes (the
+   serving and volume batches). B1 and B3 are checked at the training,
+   volume and tile batches too. B2 runs at one 512^2
    image (``calculate_metrics``) and at batches of 8 (training) and 16
    (serving): within 1e-5 of its plain version, the same bits twice, one
-   device kernel a call (``torch.profiler``), then timed twice. With
+   device kernel a call (``torch.profiler``), then timed twice; and is
+   checked at the training phases' 8 images of 256^2. With
    ``--parent DIR`` the B2 kernel of the checkout in DIR (an older commit)
    is timed before and after, by ``tools/ssim_time.py`` in a process of
    its own. B1's backward runs at the unet's 20 training sites (batch 8
@@ -72,10 +76,36 @@ the last line is printed:
    batch: B1 20, B3 2, B2 1); then one step and one validation batch counted alone, the
    step time (CUDA events, 10 steps after 2 warm-up), one step on the card
    against the CPU port from the same weights and batch (fp32 without
-   TF32: loss rtol 1e-4, gradients 1e-3 relative L2; bf16: loss 1e-2,
+   TF32: loss rtol 1e-4, every gradient 5e-2 relative L2 and their
+   median 2e-3; bf16: loss 1e-2,
    gradient cosines >= 0.99), and the final checkpoint served through
    ``load_engine`` with serving's launch counts.
-8. the ``kernels`` JSON line, the card's name and power limit, and the
+8. the zoo: ``unet_tpu``, ``edsr`` (8 blocks) and ``simple`` at base
+   filters 32. For each, the train CLI for one epoch on the training
+   phase's PNGs (unet_tpu: B1 20 and its backward 20 a step; every
+   family B2 1 a step and validation batch), the volume phase's volume
+   through the infer_volume CLI with its defaults and with ``--quant
+   int8`` (writing frozen scales; a calibration forward, then every
+   batch int8), then 16 slices of 256^2 through ``upscale_batch`` in
+   bf16 and in int8 with those scales: launches a forward (unet_tpu
+   bf16 B1 20 and B3 0, int8 B1 13, ``gn_quantize`` 7, B4 13; edsr int8
+   B4 18; simple int8 B4 2), slices/s of both in turns with peak memory,
+   and 2 of those slices and slices 48-49 of each volume against the CPU
+   port at the bf16 budget; then one training step of the family
+   counted and timed. Every launch count is exact, and so are B1's
+   one-pass and B4's stream launches, from the routes the kernel checks
+   found. Before the paths, B1 at unet_tpu's C = 64 sites, forward at
+   the serving, volume and training batches ((16, 64, 256^2), (32, 64,
+   256^2), (8, 64, 128^2)) and backward (8, 64, 128^2), against the plain
+   versions with B1's gates, and timed L2-cold.
+9. the perceptual leg: the unet trained for one epoch with
+   ``--perceptual_weight 0.1`` (seeded random VGG19, the trainer's
+   warning), one step counted alone, the step's time with cuDNN's TF32
+   on and off beside the step without the term, and one step against the
+   CPU port, each of the loss's two parts at the training gate (PERF.md
+   §2; the perceptual part's fp32 median against a control with the
+   port's kernels swapped for their plain versions; TF32 off).
+10. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -90,7 +120,10 @@ the last line is printed:
    training sites, the four-pass kernel's time there as ``earlier_ms``,
    and the training run's launches and one-pass launches. B1's and B3's
    rows also carry the volume path's default run's launches
-   (``volume_launches``).
+   (``volume_launches``); every row the zoo phase's (``zoo_launches``)
+   and the perceptual training run's (``perceptual_launches``), and B1's
+   and its backward's rows their C = 64 times (``c64``). A ``wall`` line
+   before it gives the script's seconds.
 
 Needs one CUDA card; without one it exits 1 and prints no result.
 """
@@ -99,6 +132,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -135,11 +169,12 @@ from mri_superresolution_torch.kernels.ssim import (
     ssim_per_sample_plain)
 from mri_superresolution_torch.models import build_model, param_count
 from mri_superresolution_torch.models import quant_forward
+from mri_superresolution_torch.models import vgg as vgg_mod
 from mri_superresolution_torch.ops.metrics import psnr
 from mri_superresolution_torch.ops.normalize import normalize_slices
 from mri_superresolution_torch.ops.ssim import ssim
 from mri_superresolution_torch.losses import CombinedLoss
-from mri_superresolution_torch.tools import roll_probe
+from mri_superresolution_torch.tools import grad_gap, roll_probe
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.train import trainer
 from mri_superresolution_torch.utils.phantom import phantom_batch
@@ -160,6 +195,8 @@ PROBE_ROWS, PROBE_LANES = 512, 16384
 # package's default TrainConfig.batch_size) and the serving batch
 B2_SHAPES = ((1, 512, 512), (8, 512, 512), (16, 512, 512))
 B2_ROW_SHAPE = (8, 512, 512)
+# checked, not timed: the training phases' batch (8 of 256^2)
+B2_CHECK_SHAPES = ((8, 256, 256),)
 SSIM_TIME = Path(__file__).resolve().parent / "mri_superresolution_torch" / \
     "tools" / "ssim_time.py"
 # written by the int8 engine when its scales freeze; build/ is not
@@ -180,6 +217,26 @@ VOL_HW, VOL_SLICES, VOL_BATCH, VOL_SLOPE = 256, 96, 32, 0.5
 VOL_CPU_SLICES = slice(48, 50)
 TILED_HW, TILE, HALO = 600, 256, 16        # HALO: upscale_tiled's default
 VOL_DIR = SCALES_PATH.parent / "volume"
+VOL_SEED = 3
+# unet_tpu's three final-stage GroupNorm sites (C = 2f at the input
+# resolution): the forward at the serving, training and volume batches
+# (timed at the first), the backward at the training batch
+C64_FWD = tuple((b, 2 * BASE_FILTERS, hw, hw) for b, hw in (
+    (BATCH, LR), (TRAIN_BATCH, TRAIN_LR), (VOL_BATCH, VOL_HW)))
+C64_BWD = (TRAIN_BATCH, 2 * BASE_FILTERS, TRAIN_LR, TRAIN_LR)
+# the zoo phase: the other three families at the train CLI's full width
+# (base filters 32, edsr 8 blocks), and their launches a forward
+ZOO_DIR = SCALES_PATH.parent / "zoo"
+ZOO_FAMILIES = ("unet_tpu", "edsr", "simple")
+EDSR_BLOCKS = 8
+ZOO_BF16_LAUNCHES = {"unet_tpu": {"group_norm_leaky": 20}, "edsr": {},
+                     "simple": {}}
+ZOO_INT8_LAUNCHES = {
+    "unet_tpu": {"group_norm_leaky": 13, "gn_quantize": 7,
+                 "leaky_quantize": 13},
+    "edsr": {"leaky_quantize": 2 * EDSR_BLOCKS + 2},
+    "simple": {"leaky_quantize": 2}}
+PERC_WEIGHT = 0.1
 
 
 def log(phase: str, **fields) -> None:
@@ -210,12 +267,14 @@ def gn_sites(b: int, lr: int, f: int):
             ((b, f // 2, 2 * lr, 2 * lr), 3)]             # final stage
 
 
-def volume_batches() -> tuple:
-    """The batch sizes the volume phase serves besides the main path's:
-    the volume's batches and the tiles of its one tiled slice."""
+def other_batches() -> tuple:
+    """(batch, input side, name) of what the later phases run besides the
+    main path's batch: the training batch (its forwards), the volume's
+    batches and the tiles of the volume phase's one tiled slice."""
     stride = TILE - 2 * HALO
     tiles = len(range(0, TILED_HW - 2 * HALO, stride)) ** 2
-    return ((VOL_BATCH, VOL_HW, "volume batch"),
+    return ((TRAIN_BATCH, TRAIN_LR, "training batch"),
+            (VOL_BATCH, VOL_HW, "volume batch"),
             (tiles, TILE, f"{tiles} tiles of upscale_tiled"))
 
 
@@ -256,15 +315,16 @@ def b1_check(x, g, b, served_by: str) -> float:
 
 
 def check_b1(dev, gen) -> dict:
-    """B1 at the unet's five GroupNorm shapes: both routes against the
-    plain version and run to run, at the main path's batch and at the
-    volume phase's batches; then, at the main path's batch, every time
+    """B1 at the unet's five GroupNorm shapes (unet_tpu's backbone takes
+    the first four): both routes against the plain version and run to
+    run, at the main path's batch and at the training, volume and tile
+    batches; then, at the main path's batch, every time
     L2-cold from CUDA graph replays, the library's GroupNorm + LeakyReLU
     timed the same way."""
     keys = ("ms", "earlier_ms", "plain_ms", "library_ms", "bound_ms")
     tot = dict.fromkeys(keys, 0.0)
     worst, bound_by = 0.0, "bytes"
-    for n, lr, served_by in volume_batches():
+    for n, lr, served_by in other_batches():
         for shape, _ in gn_sites(n, lr, BASE_FILTERS):
             worst = max(worst, b1_check(*b1_inputs(shape, dev, gen),
                                         served_by))
@@ -323,14 +383,14 @@ def b3_check(x, w, served_by: str) -> float:
 
 def check_b3(dev, gen) -> dict:
     """B3 at the unet's two sites against its plain version and run to
-    run, at the main path's batch and at the volume phase's batches;
-    then, at the main path's batch, timed L2-cold beside the plain
+    run, at the main path's batch and at the training, volume and tile
+    batches; then, at the main path's batch, timed L2-cold beside the plain
     version and the library's convolution."""
     f = BASE_FILTERS
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     worst, bound_by = 0.0, "bytes"
     sites = ((f, f // 2), (f // 2, f // 2))           # final_up_conv, conv1
-    for n, lr, served_by in volume_batches():
+    for n, lr, served_by in other_batches():
         for ci, co in sites:
             worst = max(worst, b3_check(
                 *b3_inputs(n, ci, co, 2 * lr, dev, gen), served_by))
@@ -403,15 +463,16 @@ def parent_b2_ms(parent: str) -> dict:
 
 
 def check_b2(dev, gen, parent=None) -> dict:
-    """B2 at one image (``calculate_metrics``) and at the training and
-    serving batches: within 1e-5 of the plain version, the same bits twice,
-    one device kernel a call (``torch.profiler``); then L2-cold times from
+    """B2 at one image (``calculate_metrics``), at the training and
+    serving batches and at the training phases' batch of 256^2: within
+    1e-5 of the plain version, the same bits twice, one device kernel a
+    call (``torch.profiler``); then, but for the last, L2-cold times from
     CUDA graph replays, twice, and the plain version's. With ``parent``
     (a checkout of an older commit) that commit's kernel is timed before
     and after, in processes of their own: its times are ``earlier_ms``."""
     earlier = [parent_b2_ms(parent)] if parent else []
     rows = {}
-    for shape in B2_SHAPES:
+    for shape in B2_SHAPES + B2_CHECK_SHAPES:
         a = torch.rand(shape, generator=gen, device=dev)
         b = (a + 0.05 * torch.randn(shape, generator=gen,
                                     device=dev)).clamp(0, 1)
@@ -426,6 +487,8 @@ def check_b2(dev, gen, parent=None) -> dict:
             raise AssertionError(f"B2 at {shape}: max abs err {err} (gate "
                                  f"1e-5), run to run equal {same}, device "
                                  f"kernels a call {names}")
+        if shape in B2_CHECK_SHAPES:
+            continue
         pairs = l2_cold_copies(torch.stack([a, b]))
         runs = [cuda_ms_cold(lambda t: ssim_per_sample(t[0], t[1]), pairs)
                 for _ in range(2)]
@@ -484,6 +547,44 @@ def b4_sites(b: int, lr: int, f: int):
     return sites
 
 
+def zoo_quant_sites(family: str, b: int, lr: int, f: int):
+    """``b4_sites`` of ``family``, in ``quant_forward.quant_sites``' order:
+    unet_tpu's backbone is the unet's, its final stage quantizes the two
+    branch convs' input and the head conv's (C = 2f); every edsr and
+    simple site quantizes a ReLU's output (or the input) at slope 1.0."""
+    if family == "unet":
+        return b4_sites(b, lr, f)
+    if family == "unet_tpu":
+        return b4_sites(b, lr, f)[:-3] + [
+            ("branch_a_conv", (b, f, lr, lr), 1.0),
+            ("branch_b_conv", (b, f, lr, lr), 1.0),
+            ("head_conv", (b, 2 * f, lr, lr), 1.0)]
+    if family == "edsr":
+        return [("head", (b, 1, lr, lr), 1.0)] + [
+            (f"block{i}.conv{j}", (b, f, lr, lr), 1.0)
+            for i in range(EDSR_BLOCKS) for j in (0, 1)] + [
+            ("body_out", (b, f, lr, lr), 1.0)]
+    return [("extract", (b, 1, lr, lr), 1.0), ("map", (b, f, lr, lr), 1.0)]
+
+
+def zoo_only_sites(fused: bool):
+    """(site, shape, slope) of every distinct B4 shape (``fused``: every
+    ``gn_quantize`` shape) the zoo phase quantizes at the serving and
+    volume batches that the unet's sites at the serving batch do not
+    hold, under the first family's site name that has it."""
+    seen = {(shape, slope) for _, shape, slope in
+            b4_sites(BATCH, LR, BASE_FILTERS)}
+    out = []
+    for b, lr in ((BATCH, LR), (VOL_BATCH, VOL_HW)):
+        for family in ZOO_FAMILIES:
+            for site, shape, slope in zoo_quant_sites(family, b, lr,
+                                                      BASE_FILTERS):
+                if (slope != 1.0) == fused and (shape, slope) not in seen:
+                    seen.add((shape, slope))
+                    out.append((f"{family} {site}", shape, slope))
+    return out
+
+
 # classes of per-channel scales of the exhaustive check: 1.0, amax /
 # 127-like values, non-powers of two near both ends of [2^-64, 2^64] (the
 # stream kernel's reciprocal route), and extremes outside it (its IEEE
@@ -529,13 +630,41 @@ def b4_bound(x: torch.Tensor) -> tuple:
                     torch.float32)
 
 
+def b4_site_check(site: str, shape, slope: float, dev, gen) -> tuple:
+    """B4 at one int8 site on calibration-like scales: the stream route
+    (through the wrapper) and the element kernel code for code against
+    the plain version, the same codes twice; (x, scale)."""
+    x = torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    # calibration-like scales (amax / 127), a little short so that some
+    # codes saturate
+    scale = (x.float().abs().amax(dim=(0, 2, 3)) / 140.0).contiguous()
+    want = leaky_quantize_plain(x, scale, slope)
+    before = leaky_quantize.stream_launches
+    got = leaky_quantize(x, scale, slope)
+    stream = leaky_quantize.stream_launches == before + 1
+    same = torch.equal(got, leaky_quantize(x, scale, slope))
+    ok = torch.equal(got, want) and stream and \
+        torch.equal(leaky_quantize_generic(x, scale, slope), want)
+    log("kernel_check", kernel="B4", site=site, shape=list(shape),
+        slope=slope, dtype="bf16->s8", routes=["stream", "element"],
+        exact=ok, run_to_run_equal=same,
+        saturated=int((got.abs() == 127).sum()))
+    if not (ok and same):
+        raise AssertionError(f"B4 disagrees with its plain version at "
+                             f"{site} {shape} (stream route taken: "
+                             f"{stream}) or from run to run ({same})")
+    return x, scale
+
+
 def check_b4(dev, gen) -> dict:
     """B4's stream route and the element kernel it replaces: code for code
     against the plain version on every finite bf16 code (C = 1 and 16 with
     each class of scale alone, so that every in-range class runs the
     stream kernel's reciprocal route on every code; C = 256 with all
-    classes at once) and at the 20 unet sites, then both L2-cold at every
-    site. The row reports the 13 sites the stream route serves on the int8
+    classes at once), at the 20 unet sites and at the zoo's other shapes
+    (serving and volume batches; ``zoo_only_sites``), then both L2-cold
+    at every unet site. The row reports the 13 sites the stream route serves on the int8
     path (the element kernel's sum there is its earlier_ms), and the sums
     over all 20 beside them."""
     n = len(EXHAUSTIVE_SCALES)
@@ -565,25 +694,11 @@ def check_b4(dev, gen) -> dict:
     keys = ("ms", "earlier_ms", "plain_ms", "bound_ms")
     tot, fused, standalone = (dict.fromkeys(keys, 0.0) for _ in range(3))
     bound_by, elems = "bytes", 0
+    # the zoo's own shapes, checked and not timed
+    for site, shape, slope in zoo_only_sites(fused=False):
+        b4_site_check(site, shape, slope, dev, gen)
     for site, shape, slope in b4_sites(BATCH, LR, BASE_FILTERS):
-        x = torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        # calibration-like scales (amax / 127), a little short so that
-        # some codes saturate
-        scale = (x.float().abs().amax(dim=(0, 2, 3)) / 140.0).contiguous()
-        want = leaky_quantize_plain(x, scale, slope)
-        before = leaky_quantize.stream_launches
-        got = leaky_quantize(x, scale, slope)
-        ok = torch.equal(got, want) and \
-            leaky_quantize.stream_launches == before + 1 and \
-            torch.equal(leaky_quantize_generic(x, scale, slope), want)
-        log("kernel_check", kernel="B4", site=site, shape=list(shape),
-            slope=slope, dtype="bf16->s8", routes=["stream", "element"],
-            exact=ok, saturated=int((got.abs() == 127).sum()))
-        if not ok:
-            raise AssertionError(f"B4 disagrees with its plain version at "
-                                 f"{site} {shape}")
-        del got, want
+        x, scale = b4_site_check(site, shape, slope, dev, gen)
         xs = l2_cold_copies(x)
         k = cuda_ms_cold(lambda t: leaky_quantize(t, scale, slope), xs)
         e = cuda_ms_cold(lambda t: leaky_quantize_generic(t, scale, slope),
@@ -614,49 +729,60 @@ def check_b4(dev, gen) -> dict:
             "bound_by": bound_by, "sites": 13, "all_20_sites": tot}
 
 
+def fused_site_check(site: str, shape, slope: float, dev, gen) -> tuple:
+    """``gn_quantize`` at one conv2 site: one fused launch, code for code
+    against B1 at slope 1.0 followed by the plain B4, the same codes
+    twice, and within one code on under 0.5% of the elements of its own
+    plain version (the GroupNorm in fp32 in PyTorch, whose bf16 output may
+    differ from B1's by one ulp); (x, gamma, beta, scales)."""
+    x = torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    g = torch.randn(c, generator=gen, device=dev)
+    b = torch.randn(c, generator=gen, device=dev)
+    y = group_norm_leaky(x, g, b, negative_slope=1.0)
+    s = (y.float().abs().amax(dim=(0, 2, 3)) / 140.0).contiguous()
+    want = leaky_quantize_plain(y, s, slope)
+    before = gn_quantize.launches
+    got = gn_quantize(x, g, b, s, slope)
+    ok = torch.equal(got, want) and gn_quantize.launches == before + 1
+    same = torch.equal(got, gn_quantize(x, g, b, s, slope))
+    d = (got.short() - gn_quantize_plain(x, g, b, s, slope).short()).abs()
+    d_max, d_frac = int(d.max()), float((d != 0).float().mean())
+    close = d_max <= CODES_MAX_DIFF and d_frac < CODES_MAX_FRAC
+    log("kernel_check", kernel="B4 fused", site=site, shape=list(shape),
+        slope=slope, dtype="bf16->s8", exact_vs_b1_plus_b4=ok,
+        run_to_run_equal=same, vs_plain_max_code_diff=d_max,
+        vs_plain_frac_differing=d_frac, vs_plain_close=close,
+        bound=f"codes within {CODES_MAX_DIFF} on under "
+              f"{CODES_MAX_FRAC:.1%} of elements",
+        saturated=int((got.abs() == 127).sum()))
+    if not (ok and same and close):
+        raise AssertionError(f"gn_quantize disagrees with B1 + B4 at "
+                             f"{site} {shape} ({ok}), from run to run "
+                             f"({same}) or with its plain version (codes "
+                             f"up to {d_max} apart on {d_frac:.3%})")
+    return x, g, b, s
+
+
 def check_fused(dev, gen) -> dict:
     """B4's fused route (gn_quantize: B1's one-pass kernel with an int8
-    output) at the seven DoubleConv conv2 sites: code for code against B1
-    at slope 1.0 followed by the plain B4, run to run, and against its own
-    plain version (``gn_quantize_plain``) within one code on under 0.5% of
-    the elements; then L2-cold against B1 (bf16 out) + B4 run separately
+    output) at the seven DoubleConv conv2 sites, at the serving batch and
+    at unet_tpu's volume batch (``fused_site_check``); then, at the
+    serving batch, L2-cold against B1 (bf16 out) + B4 run separately
     (earlier_ms)."""
     keys = ("ms", "earlier_ms", "b1_bf16_ms", "plain_ms", "bound_ms")
     tot = dict.fromkeys(keys, 0.0)
     bound_by = "bytes"
+    # the zoo's own shapes (unet_tpu's conv2 sites at the volume batch),
+    # checked and not timed
+    for site, shape, slope in zoo_only_sites(fused=True):
+        fused_site_check(site, shape, slope, dev, gen)
     for site, shape, slope in b4_sites(BATCH, LR, BASE_FILTERS):
         if slope == 1.0:
             continue
-        x = torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x, g, b, s = fused_site_check(site, shape, slope, dev, gen)
         c = shape[1]
-        g = torch.randn(c, generator=gen, device=dev)
-        b = torch.randn(c, generator=gen, device=dev)
-        y = group_norm_leaky(x, g, b, negative_slope=1.0)
-        s = (y.float().abs().amax(dim=(0, 2, 3)) / 140.0).contiguous()
-        want = leaky_quantize_plain(y, s, slope)
-        before = gn_quantize.launches
-        got = gn_quantize(x, g, b, s, slope)
-        ok = torch.equal(got, want) and gn_quantize.launches == before + 1
-        same = torch.equal(got, gn_quantize(x, g, b, s, slope))
-        # against its own plain version (the GroupNorm in fp32 in PyTorch),
-        # whose bf16 output may differ from B1's by one ulp
-        d = (got.short() - gn_quantize_plain(x, g, b, s, slope).short()).abs()
-        d_max, d_frac = int(d.max()), float((d != 0).float().mean())
-        close = d_max <= CODES_MAX_DIFF and d_frac < CODES_MAX_FRAC
-        log("kernel_check", kernel="B4 fused", site=site, shape=list(shape),
-            slope=slope, dtype="bf16->s8", exact_vs_b1_plus_b4=ok,
-            run_to_run_equal=same, vs_plain_max_code_diff=d_max,
-            vs_plain_frac_differing=d_frac, vs_plain_close=close,
-            bound=f"codes within {CODES_MAX_DIFF} on under "
-                  f"{CODES_MAX_FRAC:.1%} of elements",
-            saturated=int((got.abs() == 127).sum()))
-        if not (ok and same and close):
-            raise AssertionError(f"gn_quantize disagrees with B1 + B4 at "
-                                 f"{site} {shape} ({ok}), from run to run "
-                                 f"({same}) or with its plain version (codes "
-                                 f"up to {d_max} apart on {d_frac:.3%})")
-        del y, got, want, d
         xs = l2_cold_copies(x)
         k = cuda_ms_cold(lambda t: gn_quantize(t, g, b, s, slope), xs)
         two = cuda_ms_cold(lambda t: leaky_quantize(
@@ -720,6 +846,35 @@ def _bwd_inputs(shape, dev, gen, offset=0):
     return xg, gam, bet
 
 
+def _b1_bwd_times(xg, gam, bet, b: int, dev) -> tuple:
+    """L2-cold times (CUDA graph replays) of B1's backward through the
+    wrapper, of its four-pass kernel, of the plain twin and of the
+    library's backward, at x = xg[:b], g = xg[b:]."""
+    xs = l2_cold_copies(xg)
+    k = cuda_ms_cold(lambda t: group_norm_leaky_backward(
+        t[:b], gam, bet, t[b:]), xs)
+    four = cuda_ms_cold(lambda t: group_norm_leaky_backward_fourpass(
+        t[:b], gam, bet, t[b:]), xs)
+    p = cuda_ms_cold(lambda t: group_norm_leaky_backward_plain(
+        t[:b], gam, bet, t[b:]), xs)
+    # the forwards on a stream of their own, where autograd then runs
+    # their backwards and the graph captures them
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graphs = []
+    with torch.cuda.stream(side):
+        for t in xs:
+            xi = t[:b].detach().requires_grad_()
+            gi = gam.to(torch.bfloat16).requires_grad_()
+            bi = bet.to(torch.bfloat16).requires_grad_()
+            graphs.append((F.leaky_relu(F.group_norm(xi, 8, gi, bi), 0.2),
+                           (xi, gi, bi), t[b:]))
+    torch.cuda.synchronize(dev)
+    lib = cuda_ms_cold(lambda e: torch.autograd.grad(
+        e[0], e[1], e[2], retain_graph=True), graphs, stream=side)
+    return k, four, p, lib
+
+
 def check_b1_backward(dev, gen) -> dict:
     """B1's backward at the unet's 20 training sites (batch 8 of 128^2,
     base filters 32, bf16): the one-pass route the wrapper takes there and
@@ -775,29 +930,7 @@ def check_b1_backward(dev, gen) -> dict:
                     raise AssertionError(f"the one-pass backward ran "
                                          f"{names} at {shape}")
         del got, want, again
-        xs = l2_cold_copies(xg)
-        k = cuda_ms_cold(lambda t: group_norm_leaky_backward(
-            t[:b], gam, bet, t[b:]), xs)
-        four = cuda_ms_cold(lambda t: group_norm_leaky_backward_fourpass(
-            t[:b], gam, bet, t[b:]), xs)
-        p = cuda_ms_cold(lambda t: group_norm_leaky_backward_plain(
-            t[:b], gam, bet, t[b:]), xs)
-        # the forwards on a stream of their own, where autograd then runs
-        # their backwards and the graph captures them
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        graphs = []
-        with torch.cuda.stream(side):
-            for t in xs:
-                xi = t[:b].detach().requires_grad_()
-                gi = gam.to(torch.bfloat16).requires_grad_()
-                bi = bet.to(torch.bfloat16).requires_grad_()
-                graphs.append((F.leaky_relu(F.group_norm(xi, 8, gi, bi), 0.2),
-                               (xi, gi, bi), t[b:]))
-        torch.cuda.synchronize(dev)
-        lib = cuda_ms_cold(lambda e: torch.autograd.grad(
-            e[0], e[1], e[2], retain_graph=True), graphs, stream=side)
-        del xs, graphs
+        k, four, p, lib = _b1_bwd_times(xg, gam, bet, b, dev)
         bnd, bound_by = b1_bwd_bound(x)
         log("kernel_time", kernel="B1 backward", shape=list(shape),
             sites=count, kernel_ms=k, fourpass_ms=four, plain_ms=p,
@@ -995,7 +1128,7 @@ def volume_path(dev, cfg, params) -> dict:
                              "model_type": "unet",
                              "base_filters": BASE_FILTERS}}})
     vol = VOL_DIR / "vol.nii"
-    truth = _write_volume(vol, seed=3)
+    truth = _write_volume(vol, seed=VOL_SEED)
     for name in ("vol_a.nii", "vol_b.nii"):
         shutil.copy(vol, VOL_DIR / "dir" / name)
     common = ["--checkpoint_dir", str(VOL_DIR / "ckpt"),
@@ -1038,10 +1171,7 @@ def volume_path(dev, cfg, params) -> dict:
                 _quality(o, truth, dev), q["a"])
 
     # two slices of (a) and (c) against the CPU port on the same slices
-    data, _ = nifti.load(str(vol))
-    stack = np.ascontiguousarray(np.transpose(data, (2, 0, 1))).astype(
-        np.float32)
-    norm = normalize_slices(torch.from_numpy(stack[VOL_CPU_SLICES])).numpy()
+    stack, norm = _volume_slices(vol)
     gt = truth[VOL_CPU_SLICES]
     for key, kw in (("a", {}), ("c", {"tta": True})):
         cpu = InferenceEngine(cfg, params, bf16=True, device="cpu", **kw)
@@ -1347,7 +1477,46 @@ def _step_counts(fn) -> dict:
     return counts
 
 
-def card_vs_cpu_step(dev, cfg) -> dict:
+def _term_grads(m, loss_fn, b) -> tuple:
+    """A step's loss and the gradients of its two parts: the L1 + SSIM
+    terms', and the perceptual term's (their sum is the step's)."""
+    params = list(m.parameters())
+    total, comps = loss_fn(m(b["lr"]), b["hr"], b["weight"])
+    perc = loss_fn.cfg.perceptual_weight * comps["perceptual_loss"]
+    rest = torch.autograd.grad(total - perc, params, retain_graph=True)
+    return total.detach(), [rest, torch.autograd.grad(perc, params)]
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The cosine of two gradients; 1 when both are zero, 0 when one is."""
+    na, nb = float(a.norm()), float(b.norm())
+    if na == 0.0 or nb == 0.0:
+        return 1.0 if na == nb else 0.0
+    return float(a.flatten() @ b.flatten()) / (na * nb)
+
+
+def _grad_gate(name: str, gg, gc, names, median: float = 2e-3) -> tuple:
+    """The training gate on gradients, card (gg) against CPU (gc),
+    without the loss's part: (ok, worst tensor, gate). fp32: every
+    tensor's relative L2 <= 5e-2, their median <= ``median`` (2e-3);
+    bf16: every cosine >= 0.99."""
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(gg, gc)]
+    cos = [_cosine(a, b) for a, b in zip(gg, gc)]
+    if name == "fp32":
+        i = int(np.argmax(rel))
+        med = float(np.median(rel))
+        return (rel[i] <= 5e-2 and med <= median,
+                {"tensor": names[i], "rel_l2": rel[i], "cosine": cos[i],
+                 "median_rel_l2": med},
+                f"every gradient relative L2 <= 5e-2, their median <= "
+                f"{median:.3g}")
+    i = int(np.argmin(cos))
+    return (cos[i] >= 0.99,
+            {"tensor": names[i], "rel_l2": rel[i], "cosine": cos[i]},
+            "gradient cosines >= 0.99")
+
+
+def card_vs_cpu_step(dev, cfg, lcfg=LossConfig(), vgg_params=None) -> dict:
     """One step's loss and gradients on the card against the CPU port, from
     the same seeded weights and the same batch of 8 phantoms, augmentation
     off. fp32 (TF32 off): loss within rtol 1e-4; every gradient within 5e-2
@@ -1361,52 +1530,128 @@ def card_vs_cpu_step(dev, cfg) -> dict:
     and the fp32 forward's output differs by 1e-3 of its range. The
     reference's GroupNorm takes E[x^2] - mean^2, which turns the two
     devices' different orders of summation into that much (PERF.md §6).
-    A missing or wrong gradient is off by order 1."""
+    A missing or wrong gradient is off by order 1.
+
+    With the perceptual term (``lcfg.perceptual_weight`` > 0, VGG from
+    ``vgg_params``) each of the step's two parts, the L1 + SSIM terms'
+    gradient and the perceptual term's, is held to the gate alone: where
+    their pulls on one tensor cancel (``alpha``: +8.6e-3 and -8.6e-3 at
+    this batch, 2e-5 summed), the sum's own norm measures the
+    cancellation, not the step. The perceptual part's fp32 median is
+    held to the larger of 2e-3 and 1.5 times that of a control: the same
+    step on the card with the port's kernels swapped for their plain
+    versions (``tools/grad_gap.use_plain_kernels``), in which no port
+    kernel runs. The L1 of VGG's features carries the two devices'
+    different unet outputs into that part's gradient (PERF.md §6); the
+    control measures how far PyTorch's own ops put it, and the port's
+    kernels may add half of that again, no more."""
+    perceptual = lcfg.perceptual_weight > 0
+    parts = ("L1 + SSIM", "perceptual") if perceptual else ("L1 + SSIM",)
+
+    def make_loss(where):
+        return CombinedLoss(lcfg, None if vgg_params is None else
+                            vgg_mod.VGG19Features.from_params(
+                                vgg_params, lcfg.vgg_layer_idx).to(where))
+
     sd = build_model(cfg, generator=torch.Generator().manual_seed(
         TRAIN_SEED)).state_dict()
     batch = _train_batch("cpu", TRAIN_BATCH, TRAIN_LR)
+    names = [n for n, _ in build_model(cfg).named_parameters()]
+    runs = [("card", dev), ("cpu", torch.device("cpu"))]
+    if perceptual:
+        runs.append(("control", dev))
     res = {}
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        out = []
-        for where in (dev, torch.device("cpu")):
+        out = {}
+        for run, where in runs:
             m = build_model(cfg, dtype=dtype).to(where)
             m.load_state_dict(sd)
             b = {k: v.to(where) for k, v in batch.items()}
+            grad_gap.use_plain_kernels(run == "control")
             t0 = time.perf_counter()
-            loss, _, grads = trainer.loss_and_grads(
-                m, CombinedLoss(LossConfig()), b["hr"], b["lr"], b["weight"])
-            out.append((float(loss), [g.detach().double().cpu()
-                                      for g in grads],
-                        time.perf_counter() - t0))
-        names = [n for n, _ in build_model(cfg).named_parameters()]
-        (lg, gg, tg), (lc, gc, tc) = out
+            try:
+                if perceptual:
+                    loss, grads = _term_grads(m, make_loss(where), b)
+                else:
+                    loss, _, g = trainer.loss_and_grads(
+                        m, make_loss(where), b["hr"], b["lr"], b["weight"])
+                    grads = [g]
+            finally:
+                grad_gap.use_plain_kernels(False)
+            out[run] = (float(loss), [[x.detach().double().cpu()
+                                       for x in g] for g in grads],
+                        time.perf_counter() - t0)
+        (lg, gg, tg), (lc, gc, tc) = out["card"], out["cpu"]
         d_loss = abs(lg - lc) / abs(lc)
-        rel = [float((a - b).norm() / b.norm()) for a, b in zip(gg, gc)]
-        cos = [float(a.flatten() @ b.flatten() / (a.norm() * b.norm()))
-               for a, b in zip(gg, gc)]
-        if name == "fp32":
-            i = int(np.argmax(rel))
-            med = float(np.median(rel))
-            ok = d_loss <= 1e-4 and rel[i] <= 5e-2 and med <= 2e-3
-            worst = {"tensor": names[i], "rel_l2": rel[i], "cosine": cos[i],
-                     "median_rel_l2": med}
-            gate = ("loss rtol 1e-4, every gradient relative L2 <= 5e-2, "
-                    "their median <= 2e-3")
-        else:
-            i = int(np.argmin(cos))
-            ok = d_loss <= 1e-2 and cos[i] >= 0.99
-            worst = {"tensor": names[i], "rel_l2": rel[i], "cosine": cos[i]}
-            gate = "loss within 1e-2 relative, gradient cosines >= 0.99"
+        ok = d_loss <= (1e-4 if name == "fp32" else 1e-2)
+        gate = f"loss rtol {'1e-4' if name == 'fp32' else '1e-2'}"
+        worst, control = {}, {}
+        for i, part in enumerate(parts):
+            median = 2e-3
+            if part == "perceptual":
+                control = _grad_gate(name, out["control"][1][i], gc[i],
+                                     names)[1]
+                if name == "fp32":
+                    median = max(median, 1.5 * control["median_rel_l2"])
+            ok_i, worst[part], gate_i = _grad_gate(name, gg[i], gc[i], names,
+                                                   median)
+            ok = ok and ok_i
+            gate += f"; {part}: {gate_i}"
         res[name] = {"loss_card": lg, "loss_cpu": lc, "loss_rel_diff": d_loss,
                      "worst": worst, "gate": gate, "ok": ok,
                      "cpu_s": tc, "card_s": tg}
-        log("train_cpu_vs_gpu", dtype=name, **res[name])
+        if perceptual:
+            res[name]["control"] = {"perceptual": control,
+                                    "loss": out["control"][0]}
+        log("train_cpu_vs_gpu", dtype=name, loss=" + ".join(parts),
+            **res[name])
         if not ok:
             raise AssertionError(f"the {name} training step on the card and "
                                  f"on the CPU differ beyond the gate "
                                  f"({gate}): loss {lg} against {lc}, worst "
-                                 f"gradient {worst}")
+                                 f"gradients {worst}")
     return res
+
+
+def _train_cli(ck: Path, flags=(), epochs: int = 1, gn: int = 20,
+               b3: int = 2) -> dict:
+    """One in-process run of the train CLI at the JAX package's defaults
+    and full width on the training phase's phantom PNGs, writing to
+    ``ck``, the launch counts set to 0 just before and read just after:
+    the final checkpoint, the seconds, the launches and B1's one-pass
+    ones (forward and backward), the JSON lines by type, the steps and
+    validation batches it ran, and the launches they should make with
+    ``gn`` B1 sites and ``b3`` B3 sites a forward (B2 once a batch)."""
+    argv = ["--full_res_dir", str(TRAIN_DIR / "hr"),
+            "--low_res_dir", str(TRAIN_DIR / "lr"),
+            "--base_filters", str(BASE_FILTERS),
+            "--batch_size", str(TRAIN_BATCH), "--epochs", str(epochs),
+            "--seed", str(TRAIN_SEED), "--checkpoint_dir", str(ck),
+            "--log_dir", str(ck / "logs"), *flags]
+    proto = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(proto):
+        final = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    by_type = {}
+    for ln in proto.getvalue().splitlines():
+        if ln.startswith("{"):
+            d = json.loads(ln)
+            by_type.setdefault(d["type"], []).append(d)
+    n_val = int(0.2 * TRAIN_PAIRS)
+    steps = epochs * -(-(TRAIN_PAIRS - n_val) // TRAIN_BATCH)
+    vals = epochs * -(-n_val // TRAIN_BATCH)
+    want = dict.fromkeys(counts, 0)
+    want.update(group_norm_leaky=gn * (steps + vals),
+                group_norm_leaky_backward=gn * steps,
+                conv3x3=b3 * (steps + vals), ssim_per_sample=steps + vals)
+    return {"final": final, "seconds": seconds, "launches": counts,
+            "expected": want, "onepass": group_norm_leaky.onepass_launches,
+            "backward_onepass": group_norm_leaky_backward.onepass_launches,
+            "by_type": by_type, "steps": steps, "vals": vals}
 
 
 def train_path(dev, lr_serve) -> dict:
@@ -1417,37 +1662,14 @@ def train_path(dev, lr_serve) -> dict:
     training rate, and serving from the final checkpoint."""
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     _write_pngs(TRAIN_DIR, TRAIN_PAIRS, TRAIN_LR)
-    argv = ["--full_res_dir", str(TRAIN_DIR / "hr"),
-            "--low_res_dir", str(TRAIN_DIR / "lr"),
-            "--base_filters", str(BASE_FILTERS),
-            "--batch_size", str(TRAIN_BATCH), "--epochs", str(TRAIN_EPOCHS),
-            "--seed", str(TRAIN_SEED),
-            "--checkpoint_dir", str(TRAIN_DIR / "ckpt"),
-            "--log_dir", str(TRAIN_DIR / "logs")]
-    proto = io.StringIO()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(proto):
-        final = train_cli.main(argv)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    bwd_onepass = group_norm_leaky_backward.onepass_launches
-    lines = [json.loads(ln) for ln in proto.getvalue().splitlines()
-             if ln.startswith("{")]
-    by_type = {}
-    for ln in lines:
-        by_type.setdefault(ln["type"], []).append(ln)
+    run = _train_cli(TRAIN_DIR / "ckpt", epochs=TRAIN_EPOCHS)
+    final, counts, by_type = run["final"], run["launches"], run["by_type"]
+    steps, vals = run["steps"], run["vals"]
+    bwd_onepass = run["backward_onepass"]
     summaries = by_type.get("epoch_summary", [])
     losses = [s[k] for s in summaries for k in ("train_loss", "val_loss")] + \
         [u["loss"] for u in by_type.get("batch_update", [])]
-    n_val = int(0.2 * TRAIN_PAIRS)
-    steps = TRAIN_EPOCHS * -(-(TRAIN_PAIRS - n_val) // TRAIN_BATCH)
-    vals = TRAIN_EPOCHS * -(-n_val // TRAIN_BATCH)
-    want = dict.fromkeys(counts, 0)
-    want.update(group_norm_leaky=20 * (steps + vals),
-                group_norm_leaky_backward=20 * steps,
-                conv3x3=2 * (steps + vals), ssim_per_sample=steps + vals)
+    want = run["expected"]
     init = build_model(ModelConfig(base_filters=BASE_FILTERS),
                                generator=torch.Generator().manual_seed(
                                    TRAIN_SEED)).state_dict()
@@ -1457,7 +1679,8 @@ def train_path(dev, lr_serve) -> dict:
              for n in ("best_model_unet", "final_model_unet")}
     log("train_path", pairs=TRAIN_PAIRS, lr=[TRAIN_LR, TRAIN_LR],
         hr=[2 * TRAIN_LR, 2 * TRAIN_LR], batch=TRAIN_BATCH,
-        epochs=TRAIN_EPOCHS, steps=steps, val_batches=vals, seconds=seconds,
+        epochs=TRAIN_EPOCHS, steps=steps, val_batches=vals,
+        seconds=run["seconds"],
         launches=counts, backward_onepass_launches=bwd_onepass,
         protocol={k: len(v) for k, v in by_type.items()},
         epoch_summaries=summaries, checkpoints=files,
@@ -1524,6 +1747,466 @@ def train_path(dev, lr_serve) -> dict:
             "step_ms": ms, "gate": gate}
 
 
+def b1_c64_check(shape, dev, gen) -> tuple:
+    """B1 at one of unet_tpu's final-stage shapes through the wrapper, on
+    the route its plan gives (logged, not assumed), against the plain
+    version with check_b1's gate and run to run; and the two-pass kernel
+    too where the plan takes the one-pass route (``b1_check``). ((x,
+    gamma, beta), route, max abs error)."""
+    x, g, b = b1_inputs(shape, dev, gen)
+    plan = onepass_plan(x, torch.empty_like(x))
+    before = group_norm_leaky.onepass_launches
+    got = group_norm_leaky(x, g, b)
+    onepass = group_norm_leaky.onepass_launches - before
+    ok, err = within(got, group_norm_leaky_plain(x, g, b), BF16_RTOL, 1e-5)
+    same = torch.equal(got, group_norm_leaky(x, g, b))
+    route = "onepass" if onepass else "twopass"
+    log("kernel_check", kernel="B1", route=route, shape=list(shape),
+        served_by="unet_tpu's final stage", dtype="bf16",
+        plan=None if plan is None else plan._asdict(),
+        onepass_launches=onepass, max_abs_err=err, rtol=BF16_RTOL,
+        atol=1e-5, run_to_run_equal=same, ok=ok)
+    if not (ok and same) or (plan is not None) != bool(onepass):
+        raise AssertionError(f"B1 at {shape}: max abs err {err}, run to "
+                             f"run equal {same}, route {route}, plan {plan}")
+    if plan is not None:
+        err = max(err, b1_check(x, g, b, "unet_tpu's final stage"))
+    return (x, g, b), route, err
+
+
+def check_b1_c64(dev, gen) -> dict:
+    """B1 at unet_tpu's three final-stage sites (C = 64 at the input
+    resolution): the forward at the serving, training and volume batches
+    (``b1_c64_check``), the backward at the training batch (8, 64,
+    128^2), each against its plain version with check_b1's and
+    check_b1_backward's gates and run to run, through the wrapper, on the
+    route its plan gives (logged, not assumed; the other route is checked
+    too where the plan takes the shape); then L2-cold times of the
+    forward at the serving batch and of the backward beside the plain
+    version, the library's and the other route, with the bound. The routes by batch
+    are returned for the zoo phase's launch counts."""
+    routes, worst = {}, 0.0
+    for shape in C64_FWD[1:]:
+        _, routes[shape[0]], err = b1_c64_check(shape, dev, gen)
+        worst = max(worst, err)
+    (x, g, b), route, err = b1_c64_check(C64_FWD[0], dev, gen)
+    routes[BATCH] = route
+    err = max(worst, err)
+    gb, bb = g.to(torch.bfloat16), b.to(torch.bfloat16)
+    xs = l2_cold_copies(x)
+    k = cuda_ms_cold(lambda t: group_norm_leaky(t, g, b), xs)
+    two = cuda_ms_cold(lambda t: group_norm_leaky_twopass(t, g, b), xs)
+    p = cuda_ms_cold(lambda t: group_norm_leaky_plain(t, g, b), xs)
+    lib = cuda_ms_cold(
+        lambda t: F.leaky_relu(F.group_norm(t, 8, gb, bb), 0.2), xs)
+    del xs
+    bnd, by = bound_ms(2 * x.numel() * x.element_size(), 10 * x.numel(),
+                       torch.bfloat16)
+    fwd = {"shape": list(C64_FWD[0]), "route": route, "sites": 3, "ms": k,
+           "twopass_ms": two, "plain_ms": p, "library_ms": lib,
+           "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
+           "routes_by_batch": routes}
+    log("kernel_time", kernel="B1", **fwd, bound_share=bnd / k,
+        timing="L2-cold, CUDA graph replays")
+    del x
+
+    bsz = C64_BWD[0]
+    xg, gam, bet = _bwd_inputs(C64_BWD, dev, gen)
+    xb, gy = xg[:bsz], xg[bsz:]
+    plan = onepass_backward_plan(xb, gy, torch.empty_like(xb))
+    want = group_norm_leaky_backward_plain(xb, gam, bet, gy)
+    before = group_norm_leaky_backward.onepass_launches
+    got = group_norm_leaky_backward(xb, gam, bet, gy)
+    onepass = group_norm_leaky_backward.onepass_launches - before
+    ok, err, err_s, err_b = _b1_bwd_gates(got, want)
+    same = all(torch.equal(u, v) for u, v in zip(
+        got, group_norm_leaky_backward(xb, gam, bet, gy)))
+    route = "onepass" if onepass else "fourpass"
+    checks = {route: ok}
+    if plan is not None:
+        four = group_norm_leaky_backward_fourpass(xb, gam, bet, gy)
+        checks["fourpass"] = _b1_bwd_gates(four, want)[0]
+        del four
+    log("kernel_check", kernel="B1 backward", route=route,
+        shape=list(C64_BWD), served_by="unet_tpu's final stage, training",
+        dtype="bf16", plan=None if plan is None else plan._asdict(),
+        onepass_launches=onepass, max_abs_err_dx=err,
+        max_abs_err_dscale=err_s, max_abs_err_dbias=err_b,
+        routes_within_gates=checks, run_to_run_equal=same, ok=ok)
+    if not (all(checks.values()) and same) or \
+            (plan is not None) != bool(onepass):
+        raise AssertionError(f"B1 backward at {C64_BWD}: dx {err}, dscale "
+                             f"{err_s}, dbias {err_b}, routes {checks}, run "
+                             f"to run {same}, plan {plan}")
+    del got, want
+    k, four, p, lib = _b1_bwd_times(xg, gam, bet, bsz, dev)
+    bnd, by = b1_bwd_bound(xb)
+    bwd = {"shape": list(C64_BWD), "route": route, "sites": 3, "ms": k,
+           "fourpass_ms": four, "plain_ms": p, "library_ms": lib,
+           "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+    log("kernel_time", kernel="B1 backward", **bwd, bound_share=bnd / k,
+        timing="L2-cold, CUDA graph replays")
+    for name, r in (("B1", fwd), ("B1 backward", bwd)):
+        below = [key for key in ("ms", "plain_ms", "library_ms",
+                                 "twopass_ms", "fourpass_ms")
+                 if key in r and r[key] < r["bound_ms"]]
+        if below:
+            raise AssertionError(f"{name} times below their bound at "
+                                 f"{r['shape']}: {below}")
+    return {"forward": fwd, "backward": bwd}
+
+
+def _zoo_want(family: str, int8: bool) -> dict:
+    """The launches of one forward of ``family``, bf16 or int8."""
+    want = dict.fromkeys(kernels.launch_counts(), 0)
+    want.update(ZOO_INT8_LAUNCHES[family] if int8
+                else ZOO_BF16_LAUNCHES[family])
+    return want
+
+
+def _zoo_onepass(family: str, int8: bool, batch: int, c64: dict) -> int:
+    """B1's one-pass launches in one forward of ``family`` at ``batch``:
+    unet_tpu's backbone sites (17; 10 in int8, where ``gn_quantize`` takes
+    each conv2's GroupNorm), which check_b1 holds to the one-pass route,
+    and its three C = 64 sites where check_b1_c64 found that route."""
+    if family != "unet_tpu":
+        return 0
+    c64_onepass = c64["forward"]["routes_by_batch"][batch] == "onepass"
+    return (10 if int8 else 17) + 3 * c64_onepass
+
+
+def _zoo_bwd_onepass(family: str, c64: dict) -> int:
+    """B1's one-pass backward launches in one training step of
+    ``family``: unet_tpu's 17 backbone sites (the unet's, which
+    check_b1_backward holds to that route) and its three C = 64 sites
+    where check_b1_c64 found it."""
+    if family != "unet_tpu":
+        return 0
+    return 17 + 3 * (c64["backward"]["route"] == "onepass")
+
+
+def _counted(fn) -> tuple:
+    """``fn()``'s result and its launches, the counts set to 0 just before
+    and read just after; B1's and B4's routes apart."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts(), {
+        "group_norm_leaky.onepass": group_norm_leaky.onepass_launches,
+        "leaky_quantize.stream": leaky_quantize.stream_launches}
+
+
+def _zoo_train(family: str, c64: dict) -> tuple:
+    """The train CLI for one epoch of ``family`` at full width on the
+    training phase's phantom PNGs, with its exact launches and B1's
+    one-pass ones, forward and backward; (final checkpoint, launches,
+    routes)."""
+    gn = ZOO_BF16_LAUNCHES[family].get("group_norm_leaky", 0)
+    run = _train_cli(ZOO_DIR / f"ckpt_{family}",
+                     ["--model_type", family, "--num_blocks",
+                      str(EDSR_BLOCKS)], gn=gn, b3=0)
+    counts, steps, vals = run["launches"], run["steps"], run["vals"]
+    routes = {"group_norm_leaky.onepass": run["onepass"],
+              "group_norm_leaky_backward.onepass": run["backward_onepass"]}
+    want_routes = {
+        "group_norm_leaky.onepass": (steps + vals) * _zoo_onepass(
+            family, False, TRAIN_BATCH, c64),
+        "group_norm_leaky_backward.onepass": steps * _zoo_bwd_onepass(
+            family, c64)}
+    summaries = run["by_type"].get("epoch_summary", [])
+    sd = ckpt.load_checkpoint(run["final"])[0]
+    log("zoo_train", family=family, steps=steps, val_batches=vals,
+        seconds=run["seconds"], launches=counts, routes=routes,
+        expected=run["expected"], expected_routes=want_routes,
+        epoch_summaries=summaries, checkpoint=run["final"],
+        params=sum(v.numel() for v in sd.values()))
+    losses = [x for s in summaries for x in (s["train_loss"], s["val_loss"])]
+    if counts != run["expected"] or routes != want_routes or \
+            len(summaries) != 1 or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"{family} training: launches {counts}, "
+                             f"expected {run['expected']}; routes {routes}, "
+                             f"expected {want_routes}; summaries "
+                             f"{summaries}")
+    return run["final"], counts, routes
+
+
+def _zoo_step(family: str, dev, c64: dict) -> dict:
+    """One bf16 training step of ``family`` at batch 8 of 128^2 -> 256^2
+    counted alone, then its time (CUDA events, 10 steps after 2)."""
+    model = build_model(ModelConfig(model_type=family,
+                                    base_filters=BASE_FILTERS,
+                                    num_blocks=EDSR_BLOCKS),
+                        dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(
+                            TRAIN_SEED)).to(dev)
+    state = trainer.TrainState(model, trainer.make_optimizer(
+        model.parameters(), 1e-4, 1e-5))
+    step = trainer.build_train_step(CombinedLoss(LossConfig()))
+    batch = _train_batch(dev, TRAIN_BATCH, TRAIN_LR)
+    per_step = _step_counts(lambda: step(state, batch, 1e-4))
+    gn = ZOO_BF16_LAUNCHES[family].get("group_norm_leaky", 0)
+    want = {"ssim_per_sample": 1}
+    if gn:
+        want.update(group_norm_leaky=gn, group_norm_leaky_backward=gn)
+    if _zoo_bwd_onepass(family, c64):
+        want["group_norm_leaky_backward.onepass"] = _zoo_bwd_onepass(
+            family, c64)
+    ms = cuda_ms(lambda: step(state, batch, 1e-4), iters=STEP_ITERS,
+                 warmup=2)
+    log("zoo_train_step", family=family, launches=per_step, expected=want,
+        step_ms=ms, slices_per_s=TRAIN_BATCH / ms * 1e3,
+        timing="CUDA events around 10 steps after 2 warm-up steps")
+    if per_step != want:
+        raise AssertionError(f"{family} step launches {per_step}, "
+                             f"expected {want}")
+    return {"step_ms": ms, "launches": per_step}
+
+
+def _volume_slices(vol: Path) -> tuple:
+    """A volume's (slices, H, W) stack as stored, and its slices
+    ``VOL_CPU_SLICES`` normalized as the CLI does, for the CPU port."""
+    data, _ = nifti.load(str(vol))
+    stack = np.ascontiguousarray(np.transpose(data, (2, 0, 1))).astype(
+        np.float32)
+    return stack, normalize_slices(
+        torch.from_numpy(stack[VOL_CPU_SLICES])).numpy()
+
+
+def _zoo_volume_want(family: str, key: str, c64: dict) -> tuple:
+    """(launches, B1 one-pass launches) of the infer_volume CLI's run of
+    ``family`` at batch 32: bf16, every batch's forward; int8, the first
+    batch's calibration forward (the bf16 one), then every batch int8
+    (the first re-served once its scales freeze)."""
+    batches = -(-VOL_SLICES // VOL_BATCH)
+    bf16, int8 = ZOO_BF16_LAUNCHES[family], ZOO_INT8_LAUNCHES[family]
+    one = _zoo_onepass(family, False, VOL_BATCH, c64)
+    if key == "bf16":
+        return {k: batches * v for k, v in bf16.items()}, batches * one
+    return ({k: bf16.get(k, 0) + batches * int8.get(k, 0)
+             for k in {**bf16, **int8}},
+            one + batches * _zoo_onepass(family, True, VOL_BATCH, c64))
+
+
+def _zoo_serve(family: str, final: str, dev, lr, hr, c64: dict) -> dict:
+    """The family's checkpoint served: the infer_volume CLI on the volume
+    phase's phantom volume (defaults, then ``--quant int8`` writing its
+    frozen scales) with its exact launches and B1's and B4's routes; 16
+    slices of 256^2 through ``upscale_batch`` in bf16 and int8 (those
+    scales), launches counted a forward, slices/s in turns; the card
+    against the CPU port at the bf16 budget, int8 with the same frozen
+    scales: on 2 of the 16 slices, and on slices 48-49 of each volume."""
+    scales = ZOO_DIR / f"scales_{family}.json"
+    scales.unlink(missing_ok=True)
+    truth = phantom_batch(np.random.default_rng(VOL_SEED), VOL_SLICES,
+                          2 * VOL_HW)[VOL_CPU_SLICES]
+    common = ["--input", str(VOL_DIR / "vol.nii"), "--checkpoint_dir",
+              str(Path(final).parent), "--model_type", family,
+              "--batch_size", str(VOL_BATCH)]
+    vol, vol_out = {}, {}
+    for key, flags in (("bf16", []),
+                       ("int8", ["--quant", "int8", "--quant_calib",
+                                 str(scales), "--quant_calib_slices",
+                                 str(VOL_BATCH)])):
+        out = ZOO_DIR / f"sr_{family}_{key}.nii"
+        r = _serve_volume([*common, "--output", str(out), *flags])
+        r["stream_launches"] = leaky_quantize.stream_launches
+        vol_out[key] = _read_volume(out, 1.0)[VOL_CPU_SLICES]
+        want, onepass = _zoo_volume_want(family, key, c64)
+        vol[key] = r
+        log("zoo_volume", family=family, run=key, flags=flags,
+            expected_launches=want, expected_onepass=onepass, **r)
+        ok = r["rc"] == 0 and r["launches"] == want and \
+            r["onepass_launches"] == onepass and \
+            r["stream_launches"] == want.get("leaky_quantize", 0) and \
+            (key == "bf16" or scales.exists())
+        if not ok:
+            raise AssertionError(f"{family} volume ({key}): exit {r['rc']}, "
+                                 f"launches {r['launches']} (B1 one-pass "
+                                 f"{r['onepass_launches']}, B4 stream "
+                                 f"{r['stream_launches']}), expected {want} "
+                                 f"({onepass}); sidecar {scales.exists()}")
+
+    cfg = InferConfig(checkpoint_path=final)
+    bf16 = load_engine(cfg, device=dev)
+    int8 = load_engine(dataclasses.replace(
+        cfg, quant="int8", quant_calib_path=str(scales)), device=dev)
+    names = [s for s, _ in quant_forward.quant_sites(int8._params, family)]
+    if names != [s for s, _, _ in zoo_quant_sites(family, BATCH, LR,
+                                                  BASE_FILTERS)]:
+        raise AssertionError(f"zoo_quant_sites does not list {family}'s "
+                             f"int8 sites {names}")
+    res = {"volume": vol}
+    outs = {}
+    for key, eng in (("bf16", bf16), ("int8", int8)):
+        eng.upscale_batch(lr[:2])                         # warm
+        out, counts, routes = _counted(lambda: eng.upscale_batch(lr))
+        want = _zoo_want(family, key == "int8")
+        want_routes = {
+            "group_norm_leaky.onepass": _zoo_onepass(family, key == "int8",
+                                                     BATCH, c64),
+            "leaky_quantize.stream": want["leaky_quantize"]}
+        outs[key] = out
+        log("zoo_launches", family=family, precision=key, slices=BATCH,
+            launches=counts, routes=routes, expected=want,
+            expected_routes=want_routes)
+        if counts != want or routes != want_routes:
+            raise AssertionError(f"{family} {key} forward launches {counts},"
+                                 f" expected {want}; routes {routes}, "
+                                 f"expected {want_routes}")
+        if out.shape != (BATCH, 2 * LR, 2 * LR) or \
+                not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+            raise AssertionError(f"{family} {key}: bad output {out.shape}")
+        res[key] = {"launches": counts, "routes": routes}
+    if int8._quant_batches["bf16"] or int8.quant_calibrating:
+        raise AssertionError(f"{family} int8 engine: {int8.quant_summary()}")
+
+    # serving rates in turns, and peak memory of the two engines
+    torch.cuda.reset_peak_memory_stats()
+    t = {"bf16": [], "int8": []}
+    for key in ("bf16", "int8", "int8", "bf16"):
+        eng = bf16 if key == "bf16" else int8
+        t[key].append(cuda_ms(lambda: eng.upscale_batch(lr), iters=10,
+                              warmup=2))
+    for key, v in t.items():
+        res[key]["ms_per_batch"] = v
+        res[key]["slices_per_s"] = BATCH / (sum(v) / len(v)) * 1e3
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("zoo_throughput", family=family, batch=BATCH,
+        slices_per_s={k: res[k]["slices_per_s"] for k in ("bf16", "int8")},
+        ms_per_batch=t, peak_mem_gb=res["peak_mem_gb"],
+        timing="CUDA events around 10 upscale_batch calls after 2, host "
+               "batch in and out, in turns bf16, int8, int8, bf16")
+
+    # the CPU port, int8 with the card's frozen scales: 2 of the 16
+    # slices, then slices 48-49 of the volume
+    norm = _volume_slices(VOL_DIR / "vol.nii")[1]
+    for key, kw in (("bf16", {}), ("int8", {"quant": "int8",
+                                           "quant_calib_path": str(scales)})):
+        cpu = load_engine(dataclasses.replace(cfg, **kw), device="cpu")
+        out_cpu = cpu.upscale_batch(lr[:2])
+        g, c = _quality(outs[key][:2], hr[:2]), _quality(out_cpu, hr[:2])
+        d = {"d_psnr_db": abs(g["psnr_db"] - c["psnr_db"]),
+             "d_ssim": abs(g["ssim"] - c["ssim"])}
+        d["ok"] = d["d_psnr_db"] <= 0.1 and d["d_ssim"] <= 1e-3
+        log("zoo_cpu_vs_gpu", family=family, precision=key, slices=2,
+            card=g, cpu=c, max_abs_diff=float(np.abs(
+                outs[key][:2] - out_cpu).max()), **d)
+        if not d["ok"]:
+            raise AssertionError(f"{family} {key}: the card and the CPU "
+                                 f"port differ beyond the bf16 budget {d}")
+        res[key]["cpu_vs_gpu"] = d
+        vol[key]["cpu_vs_gpu"] = _budget(
+            f"{family} volume ({key}) slices {VOL_CPU_SLICES.start}-"
+            f"{VOL_CPU_SLICES.stop - 1} against the CPU port",
+            _quality(vol_out[key], truth, dev),
+            _quality(cpu.upscale_batch(norm), truth, dev))
+        if key == "int8" and cpu._quant_batches != {"int8": 2, "bf16": 0}:
+            raise AssertionError(f"the CPU port's int8 engine: "
+                                 f"{cpu.quant_summary()}")
+    return res
+
+
+def zoo_path(dev, lr, hr, c64: dict) -> dict:
+    """The other three families through their entry points, at full width
+    (base filters 32, edsr 8 blocks), seeded init: the train CLI for one
+    epoch writes each family's checkpoint, which the infer_volume CLI and
+    the engine then serve in bf16 and int8; each family's training step
+    counted and timed. B1's routes are expected as check_b1_c64 found
+    them (``c64``). The launch counts of the whole phase are returned for
+    the kernels line."""
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    ZOO_DIR.mkdir(parents=True)
+    res, totals = {}, dict.fromkeys(kernels.launch_counts(), 0)
+    for family in ZOO_FAMILIES:
+        final, train_counts, train_routes = _zoo_train(family, c64)
+        serve = _zoo_serve(family, final, dev, lr, hr, c64)
+        res[family] = {"train": {"launches": train_counts,
+                                 "routes": train_routes},
+                       "serve": serve, "step": _zoo_step(family, dev, c64)}
+        # the phase's counted runs: training, the two volume runs and
+        # one forward in each precision
+        for counts in (train_counts, serve["volume"]["bf16"]["launches"],
+                       serve["volume"]["int8"]["launches"],
+                       serve["bf16"]["launches"], serve["int8"]["launches"]):
+            for k, v in counts.items():
+                totals[k] += v
+    log("zoo_path", families=list(ZOO_FAMILIES), launches=totals)
+    return {"results": res, "launches": totals}
+
+
+def perceptual_path(dev) -> dict:
+    """The unet's training with the perceptual term (``perceptual_weight``
+    0.1, VGG19 to relu5_4 on seeded random weights, as the trainer falls
+    back without ``--vgg_weights``): the train CLI for one epoch; one step
+    counted alone; step ms at batch 8 of 128^2 -> 256^2 with cuDNN's TF32
+    on and off, beside the same step without the term (VGG's share); one
+    step's loss and gradients on the card against the CPU port, each of
+    its two parts at the training gate (``card_vs_cpu_step``), TF32
+    off."""
+    run = _train_cli(ZOO_DIR / "ckpt_perceptual",
+                     ["--perceptual_weight", str(PERC_WEIGHT)])
+    counts, summaries = run["launches"], run["by_type"].get(
+        "epoch_summary", [])
+    warned = any("RANDOM VGG" in ln.get("message", "")
+                 for lines in run["by_type"].values() for ln in lines)
+    steps = run["steps"]
+    log("perceptual_train", launches=counts, expected=run["expected"],
+        backward_onepass=run["backward_onepass"],
+        epoch_summaries=summaries, random_vgg_warning=warned,
+        checkpoint=run["final"])
+    if counts != run["expected"] or run["backward_onepass"] != 20 * steps \
+            or len(summaries) != 1 or not warned or \
+            not np.isfinite(summaries[0]["train_loss"]):
+        raise AssertionError(f"perceptual training: launches {counts}, "
+                             f"expected {run['expected']}, B1 backward "
+                             f"one-pass {run['backward_onepass']} of "
+                             f"{20 * steps}; {summaries}; warning {warned}")
+
+    cfg = ModelConfig(base_filters=BASE_FILTERS)
+    lcfg = LossConfig(perceptual_weight=PERC_WEIGHT)
+    vgg_params = vgg_mod.random_params(torch.Generator().manual_seed(0),
+                                       lcfg.vgg_layer_idx)
+    vgg = vgg_mod.VGG19Features.from_params(vgg_params,
+                                            lcfg.vgg_layer_idx).to(dev)
+    batch = _train_batch(dev, TRAIN_BATCH, TRAIN_LR)
+    times = {}
+    for name, loss_fn in (("perceptual", CombinedLoss(lcfg, vgg)),
+                          ("l1_ssim", CombinedLoss(LossConfig()))):
+        model = build_model(cfg, dtype=torch.bfloat16,
+                            generator=torch.Generator().manual_seed(
+                                TRAIN_SEED)).to(dev)
+        state = trainer.TrainState(model, trainer.make_optimizer(
+            model.parameters(), 1e-4, 1e-5))
+        step = trainer.build_train_step(loss_fn)
+        if name == "perceptual":
+            per_step = _step_counts(lambda: step(state, batch, 1e-4))
+        torch.cuda.reset_peak_memory_stats()
+        for tf32 in (False, True, True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            times.setdefault(f"{name}_tf32_{'on' if tf32 else 'off'}",
+                             []).append(cuda_ms(lambda: step(state, batch,
+                                                             1e-4),
+                                                iters=STEP_ITERS, warmup=2))
+        torch.backends.cudnn.allow_tf32 = False
+        times[f"{name}_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ms = {k: sum(v) / len(v) for k, v in times.items()
+          if not k.endswith("gb")}
+    share = {f"tf32_{t}": 1.0 - ms[f"l1_ssim_tf32_{t}"] /
+             ms[f"perceptual_tf32_{t}"] for t in ("on", "off")}
+    log("perceptual_step", batch=TRAIN_BATCH, lr=[TRAIN_LR, TRAIN_LR],
+        launches=per_step, times=times, step_ms=ms, vgg_share=share,
+        timing="CUDA events around 10 steps after 2 warm-up steps, in "
+               "turns TF32 off, on, on, off")
+    want = {"group_norm_leaky": 20, "group_norm_leaky_backward": 20,
+            "group_norm_leaky_backward.onepass": 20, "conv3x3": 2,
+            "ssim_per_sample": 1}
+    if per_step != want:
+        raise AssertionError(f"perceptual step launches {per_step}")
+    gate = card_vs_cpu_step(dev, cfg, lcfg, vgg_params)
+    return {"launches": counts, "step_ms": ms, "vgg_share": share,
+            "gate": gate}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA GPU")
@@ -1531,6 +2214,7 @@ def main(argv=None) -> int:
                     help="checkout of an older commit whose B2 kernel is "
                          "timed beside this one (earlier_ms)")
     args = ap.parse_args(argv)
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1565,6 +2249,7 @@ def main(argv=None) -> int:
                "B4": check_b4(dev, gen),
                "B4 fused": check_fused(dev, gen),
                "B1 backward": check_b1_backward(dev, gen)}
+    c64 = check_b1_c64(dev, gen)
     cfg = ModelConfig(base_filters=BASE_FILTERS)
     params = build_model(cfg, generator=torch.Generator().manual_seed(0)
                          ).state_dict()
@@ -1575,6 +2260,8 @@ def main(argv=None) -> int:
     counts_int8 = int8_path(dev, cfg, params, lr, hr, bf16_engine)
     probe, counts_probe = probe_path(dev)
     trained = train_path(dev, lr)
+    zoo = zoo_path(dev, lr, hr, c64)
+    perc = perceptual_path(dev)
 
     torch_root = "mri_superresolution_torch/csrc/"
     tpu_root = "mri_superresolution_tpu/experiments/"
@@ -1608,6 +2295,12 @@ def main(argv=None) -> int:
                       "batch16", "device_kernels_a_call"):
             if extra in r:
                 rows[-1][extra] = r[extra]
+        # the zoo phase (unet_tpu, edsr, simple: training, volumes, one
+        # forward in each precision) and the perceptual training run
+        rows[-1]["zoo_launches"] = zoo["launches"][name]
+        rows[-1]["perceptual_launches"] = perc["launches"][name]
+        if key in ("B1", "B1 backward"):
+            rows[-1]["c64"] = c64["forward" if key == "B1" else "backward"]
         if key == "B2":
             one = r["one_image"]
             rows.append({**rows[-1], **{k: one[k] for k in (
@@ -1637,6 +2330,7 @@ def main(argv=None) -> int:
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")
+    log("wall", seconds=time.perf_counter() - start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

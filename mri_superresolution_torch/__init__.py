@@ -1,12 +1,13 @@
 """mri_superresolution_torch — the PyTorch/CUDA port of the MRI
 super-resolution framework, for one NVIDIA H100.
 
-It serves the parity ``unet`` (``UNetSuperRes``, bf16 compute on fp32
-params) through ``infer.InferenceEngine``, in bf16 or, with
-``quant="int8"``, as the int8 post-training-quantized forward of
-``models/quant_forward.py``, and trains it (``train.trainer.train``,
-``python -m mri_superresolution_torch.cli.train``: L1 + SSIM, torch-style
-Adam, the JAX package's checkpoints). The hot operations of those paths
+It serves every model family of the JAX package (the parity ``unet``,
+``unet_tpu``, ``edsr`` and ``simple``; bf16 compute on fp32 params)
+through ``infer.InferenceEngine``, in bf16 or, with ``quant="int8"``, as
+the int8 post-training-quantized forward of ``models/quant_forward.py``,
+and trains them (``train.trainer.train``, ``python -m
+mri_superresolution_torch.cli.train``: L1 + SSIM and the VGG19 perceptual
+term, torch-style Adam, the JAX package's checkpoints). The hot operations of those paths
 run as hand-written CUDA kernels (``kernels/``, sources in ``csrc/``):
 fused GroupNorm+LeakyReLU and its backward, the narrow-Cout 3x3 conv, the
 fused SSIM and the fused LeakyReLU+int8 quantize; the roll/stencil probe

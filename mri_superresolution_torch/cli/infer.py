@@ -69,9 +69,6 @@ def unsupported(args) -> list:
     msgs = []
     if args.artifact:
         msgs.append("--artifact is not ported yet (ROADMAP A12)")
-    if args.model_type != 'unet':
-        msgs.append(f"--model_type {args.model_type} is not ported yet "
-                    "(ROADMAP A8)")
     return msgs
 
 

@@ -104,9 +104,6 @@ def unsupported(args) -> list:
         msgs.append("--spatial_shards > 1 is not ported yet (ROADMAP A14)")
     if args.num_devices > 1:
         msgs.append("--num_devices > 1 is not ported yet (ROADMAP A14)")
-    if args.model_type != 'unet':
-        msgs.append(f"--model_type {args.model_type} is not ported yet "
-                    "(ROADMAP A8)")
     return msgs
 
 

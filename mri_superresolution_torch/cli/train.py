@@ -1,16 +1,17 @@
-"""Train the unet on the GPU.
+"""Train a model of the zoo on the GPU.
 
     python -m mri_superresolution_torch.cli.train --full_res_dir hr \
-        --low_res_dir lr [--epochs 100] [--batch_size 8] [--resume] ...
+        --low_res_dir lr [--model_type unet|unet_tpu|edsr|simple] \
+        [--perceptual_weight 0.1 [--vgg_weights vgg19.npz]] [--epochs 100] \
+        [--batch_size 8] [--resume] ...
 
 Takes the flags of the JAX package's ``scripts/train.py`` (reference
 scripts/train.py:486-548), with the same defaults and meanings, and
 writes the same checkpoints and JSON-line protocol. Runs on the card;
 ``--cpu`` runs on the CPU. Flags of training modes the port does not run
 yet (``--qat``, ``--spatial_shards`` > 1, ``--opt_shard``, ``--multihost``,
-``--remat``, ``--num_devices`` > 1, ``--profile_dir``,
-``--perceptual_weight`` > 0, a ``--model_type`` other than unet) raise an
-error that names the ROADMAP item that ports each.
+``--remat``, ``--num_devices`` > 1, ``--profile_dir``) raise an error that
+names the ROADMAP item that ports each.
 """
 
 from __future__ import annotations

@@ -95,7 +95,7 @@ class TrainConfig:
     bf16: bool = True            # bfloat16 compute on fp32 master weights
     num_data_devices: int = 0    # devices of the data mesh (ROADMAP A14)
     resume: bool = False
-    vgg_weights: Optional[str] = None  # VGG19 for the perceptual loss (A5)
+    vgg_weights: Optional[str] = None  # VGG19 .npz for the perceptual loss
     profile_dir: Optional[str] = None  # profiler trace (A14)
     # "off": decode the whole dataset up front; "on": per-batch decode with
     # a background prefetch; "auto": stream past streaming_threshold_mb

@@ -7,7 +7,8 @@ Reference behaviour reproduced (scripts/infer.py): percentile-clip
 (:317-324), PNG and comparison/diff figure outputs (:173-228, 336-394).
 
 Each batch is uploaded as it is, zero-padded to the shape bucket on the
-card, run through the bf16 (or fp32) unet, clamped, cropped to exactly 2x
+card, run through the bf16 (or fp32) model of any family (``unet``,
+``unet_tpu``, ``edsr``, ``simple``), clamped, cropped to exactly 2x
 the input and, for uint8/int16 ``out_dtype``, packed on the card before
 the fetch. The engine runs on the card unless ``device="cpu"`` is passed.
 The serving options are the JAX engine's (``infer/engine.py`` there):
@@ -32,7 +33,7 @@ The serving options are the JAX engine's (``infer/engine.py`` there):
 - ``upscale_tiled``: halo-overlapped tiles for slices too large for one
   forward.
 
-``quant="int8"`` serves the int8 post-training-quantized unet
+``quant="int8"`` serves the int8 post-training-quantized model
 (``models/quant_forward.py``) with the JAX engine's state machine
 (``infer/engine.py:371-467`` there): streaming self-calibration on
 content-rich batches, then frozen scales (saved to ``quant_calib_path`` if
@@ -42,6 +43,7 @@ given, or loaded from it), and near-empty batches on the bf16 model.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import os
 import warnings
@@ -65,6 +67,7 @@ from mri_superresolution_torch.ops.resize import Interp, resize
 from mri_superresolution_torch.ops.tta import dihedral_pairs, tta_ensemble
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.utils.device import resolve_device
+from mri_superresolution_torch.utils.weights import edsr_num_blocks
 
 logger = logging.getLogger("mri_superresolution_torch.infer")
 
@@ -100,7 +103,7 @@ def _host_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 class InferenceEngine:
-    """Holds the unet with its params on one device and serves padded,
+    """Holds a model with its params on one device and serves padded,
     bucketed forwards."""
 
     def __init__(self, model_cfg: ModelConfig, params: Dict[str, torch.Tensor],
@@ -138,6 +141,13 @@ class InferenceEngine:
                     f"{model_cfg.model_type!r}")
             if quant_calib_slices < 1:
                 raise ValueError("quant_calib_slices must be >= 1")
+            if model_cfg.model_type == "unet_tpu":
+                logger.warning(
+                    "--quant int8 on model type 'unet_tpu': its final stage "
+                    "runs at the input resolution, where the quantize "
+                    "passes may outweigh the int8 convs' gain; compare its "
+                    "slices/s against bf16 on your card before choosing "
+                    "(chip_smoke.py's zoo phase measures both)")
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.out_dtype = np.dtype(out_dtype if out_dtype is not None
@@ -705,13 +715,17 @@ def load_engine(cfg: InferConfig, device=None) -> InferenceEngine:
     path = ckpt.resolve_checkpoint(cfg.checkpoint_dir, cfg.model.model_type,
                                    cfg.checkpoint_path)
     logger.info(f"Using checkpoint: {path}")
-    params, meta = ckpt.load_params_any(path)
+    params, meta = ckpt.load_params_any(path, cfg.model.model_type)
     model_cfg = cfg.model
     mc = (meta.get("config") or {}).get("model")
     if mc:
         model_cfg = model_config_from_dict(mc)
         logger.info(f"Model hyperparams from checkpoint: "
                     f"base_filters={model_cfg.base_filters}")
+    if model_cfg.model_type == "edsr":
+        # a bare weight file carries its depth in its blocks
+        model_cfg = dataclasses.replace(
+            model_cfg, num_blocks=edsr_num_blocks(params))
     quant_calib_path = cfg.quant_calib_path
     if cfg.quant == "int8" and not quant_calib_path:
         # a QAT checkpoint carries its frozen scales beside it: serve with

@@ -1,4 +1,4 @@
-"""Composite training loss: L1 + SSIM (+ VGG perceptual, not ported yet).
+"""Composite training loss: L1 + SSIM + optional VGG19 perceptual.
 
 An own copy of the JAX package's ``losses/combined.py`` (reference
 ``CombinedLoss``, utils/losses.py:153-240): ``total = l1_w * L1 + ssim_w *
@@ -7,8 +7,11 @@ perc_w``, SSIM window 11 / sigma 1.5 / val_range 1.0, every term a mean
 over the batch weighted by per-sample weights (zeros mark the padding rows
 of a final partial batch). The SSIM term is kernel B2
 (``kernels.ssim_per_sample``), differentiable on the card. The perceptual
-term needs VGG19 and comes with ROADMAP A5; ``perceptual_weight > 0``
-raises.
+term runs output and target through VGG19 (``models/vgg.py``, cuDNN's
+convs in fp32, TF32 on the card unless ``torch.backends.cudnn.allow_tf32``
+is off), the target's features without a gradient (the reference's
+stop-gradient, utils/losses.py:146-147), and takes the per-sample mean of
+|dF| (``l1``) or dF^2 (``l2``/``mse``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from mri_superresolution_torch.config import LossConfig
 from mri_superresolution_torch.kernels import ssim_per_sample
+from mri_superresolution_torch.models.vgg import VGG19Features
 
 
 def _weighted_mean(per_sample: torch.Tensor,
@@ -39,25 +43,19 @@ def l1_loss(a: torch.Tensor, b: torch.Tensor,
                           sample_weights)
 
 
-def _check_ported(cfg: LossConfig) -> None:
-    if cfg.perceptual_weight > 0:
-        raise NotImplementedError(
-            "perceptual_weight > 0 needs the VGG19 perceptual loss, which "
-            "the port does not have yet (ROADMAP A5, models/vgg.py)")
-
-
 def _ssim(cfg: LossConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ssim_per_sample(a.contiguous(), b.contiguous(), cfg.window_size,
                            cfg.sigma, cfg.val_range)
 
 
 def compose_loss(cfg: LossConfig, out32: torch.Tensor, tgt32: torch.Tensor,
-                 sample_weights: Optional[torch.Tensor]
+                 sample_weights: Optional[torch.Tensor],
+                 vgg: Optional[VGG19Features] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The CombinedLoss composition on fp32 (B, H, W, 1) tensors. ``comps``
-    holds ``l1_loss``, ``ssim_loss`` and ``ssim_metric`` (the clipped
-    SSIM), as in the JAX package."""
-    _check_ported(cfg)
+    holds ``l1_loss``, ``ssim_loss``, ``ssim_metric`` (the clipped SSIM)
+    and ``perceptual_loss`` for the terms with a weight, as in the JAX
+    package."""
     total = torch.zeros((), dtype=torch.float32, device=out32.device)
     comps: Dict[str, torch.Tensor] = {}
     if cfg.l1_weight > 0:
@@ -71,17 +69,37 @@ def compose_loss(cfg: LossConfig, out32: torch.Tensor, tgt32: torch.Tensor,
         total = total + cfg.ssim_weight * ssim_l
         comps["ssim_loss"] = ssim_l
         comps["ssim_metric"] = ssim_val
+    if cfg.perceptual_weight > 0:
+        fg = vgg(out32)
+        with torch.no_grad():
+            ft = vgg(tgt32)
+        if cfg.perceptual_loss_type == "l1":
+            per = _per_sample_mean((fg - ft).abs())
+        elif cfg.perceptual_loss_type in ("l2", "mse"):
+            per = _per_sample_mean((fg - ft).square())
+        else:
+            raise ValueError(
+                f"Unsupported perceptual loss: {cfg.perceptual_loss_type}")
+        perc = _weighted_mean(per, sample_weights)
+        total = total + cfg.perceptual_weight * perc
+        comps["perceptual_loss"] = perc
     return total, comps
 
 
 class CombinedLoss:
     """Callable loss bundle: ``loss(output, target, sample_weights) ->
-    (total, comps)`` on (B, H, W, 1) tensors."""
+    (total, comps)`` on (B, H, W, 1) tensors. ``vgg`` (a
+    ``VGG19Features`` on the device of the tensors) is required iff
+    ``perceptual_weight > 0``."""
 
-    def __init__(self, cfg: LossConfig):
+    def __init__(self, cfg: LossConfig, vgg: Optional[VGG19Features] = None):
         cfg.validate()
-        _check_ported(cfg)
+        if cfg.perceptual_weight > 0 and vgg is None:
+            raise ValueError(
+                "perceptual_weight > 0 requires VGG19 weights (pass vgg; "
+                "see models/vgg.py for loading options)")
         self.cfg = cfg
+        self.vgg = vgg
 
     def ssim_per_sample(self, a: torch.Tensor, b: torch.Tensor
                         ) -> torch.Tensor:
@@ -92,4 +110,4 @@ class CombinedLoss:
                  sample_weights: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return compose_loss(self.cfg, output.float(), target.float(),
-                            sample_weights)
+                            sample_weights, self.vgg)

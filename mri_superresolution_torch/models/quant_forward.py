@@ -1,30 +1,40 @@
-"""Functional unet forward with int8 post-training quantization.
+"""Functional model-zoo forwards with int8 post-training quantization.
 
-An own port of the JAX package's ``models/quant_forward.py`` for the
-``unet`` family (the other families come with ROADMAP A8; ``supported()``
-says so). It takes the port's state_dict (``UNetSuperRes.state_dict()``,
-fp32 tensors on the serving device) and runs every conv site in one of
-three modes that share one code path:
+An own port of the JAX package's ``models/quant_forward.py`` for the four
+families (``unet``, ``unet_tpu``, ``edsr``, ``simple``). It takes the
+port's state_dict (fp32 tensors on the serving device) and runs every conv
+site in one of three modes that share one code path:
 
-- ``ref``   the bf16 forward, bit-identical to ``UNetSuperRes.forward``
-            (the same functions and kernels in the same order;
-            tests/test_torch_quant.py asserts it);
+- ``ref``   the bf16 forward, bit-identical to the module's forward (the
+            same functions and kernels in the same order;
+            tests/test_torch_quant.py and tests/test_torch_zoo.py assert
+            it);
 - ``calib`` ``ref`` plus each conv input's per-channel max |x|, from which
             the static activation scales come;
 - ``int8``  s8 x s8 -> s32 convs (``ops/quant.int8_conv``) with the
             per-input-channel activation scales folded into per-Cout weight
             scales.
 
-In ``int8`` mode every quantized site's input goes through kernel B4, 20
-per forward. At the seven DoubleConv ``conv2`` sites it is B4's fused
-route, ``kernels.gn_quantize``: the GroupNorm before the site (its affine
-and one cast to bf16), then the LeakyReLU in bf16 and the quantize, which
-is the JAX dataflow (GroupNorm cast to bf16, bf16 leaky_relu, quantize) in
-one kernel. The other 13 sites quantize with ``kernels.leaky_quantize`` at
-slope 1.0. The output head (``final_conv.3``, site ``__out__``) stays bf16,
-as in JAX; so ``final_up_conv`` and ``final_conv1`` run int8 there and not
-on kernel B3. Launches per forward: ``ref``/``calib`` B1 20 and B3 2;
-``int8`` B1 13, ``gn_quantize`` 7 and ``leaky_quantize`` 13.
+The output head (site ``__out__``: the unet's ``final_conv.3``,
+``unet_tpu``'s ``head_out``, edsr's ``tail``, simple's ``reconstruct``)
+stays bf16 in every mode, as in the JAX package. In ``int8`` mode every
+other site's input goes through kernel B4. At the unet and unet_tpu's
+seven DoubleConv ``conv2`` sites it is B4's fused route,
+``kernels.gn_quantize``: the GroupNorm before the site (its affine and one
+cast to bf16), then the LeakyReLU in bf16 and the quantize, which is the
+JAX dataflow (GroupNorm cast to bf16, bf16 leaky_relu, quantize) in one
+kernel. Every other site quantizes with ``kernels.leaky_quantize`` at
+slope 1.0, a tensor that is already activated (edsr's and simple's ReLU
+runs in bf16 before it, as JAX's does). So the unet's ``final_up_conv``
+and ``final_conv1`` run int8 there and not on kernel B3. Launches per
+forward:
+
+| family | ``ref``/``calib`` | ``int8`` |
+| --- | --- | --- |
+| unet | B1 20, B3 2 | B1 13, ``gn_quantize`` 7, B4 13 |
+| unet_tpu | B1 20 | B1 13, ``gn_quantize`` 7, B4 13 |
+| edsr (8 blocks) | none | B4 18 |
+| simple | none | B4 2 |
 
 Calibration sidecars (``save_scales``/``load_scales``, format
 ``int8-ptq-scales-v1``) are byte-compatible with the JAX package's, so each
@@ -48,6 +58,7 @@ from mri_superresolution_torch.models.unet import CL, _conv, _upsample2
 from mri_superresolution_torch.ops.functional import (GN_EPS, max_pool2,
                                                       pixel_shuffle)
 from mri_superresolution_torch.ops.quant import int8_conv, weight_qparams
+from mri_superresolution_torch.utils.weights import edsr_num_blocks
 
 SCALES_FORMAT = "int8-ptq-scales-v1"
 _SLOPE = 0.2
@@ -128,9 +139,18 @@ def _up_block(ctx, sd, i, x1, x2, dtype):
     return _double_conv(ctx, sd, f"up{i}.conv", f"up{i}.conv", x, dtype)
 
 
-def _forward_unet(ctx, sd, x, dtype):
-    """Mirrors UNetSuperRes.forward (models/unet.py). x: (B, H, W, 1)."""
-    x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=CL)
+def _nchw(x, dtype):
+    """(B, H, W, C) input -> NCHW-indexed channels_last in ``dtype``."""
+    return x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=CL)
+
+
+def _head(y):
+    """PixelShuffle(2) of the output head, sigmoid in fp32, NHWC."""
+    return torch.sigmoid(pixel_shuffle(y, 2).float()).permute(0, 2, 3, 1)
+
+
+def _backbone(ctx, sd, x, dtype):
+    """The unet's encoder-decoder (models/unet.backbone), 17 GN sites."""
     x1 = _double_conv(ctx, sd, "inc", "inc", x, dtype)
     x2 = _double_conv(ctx, sd, "down1", "down1.maxpool_conv.1",
                       max_pool2(x1).contiguous(memory_format=CL), dtype)
@@ -140,7 +160,12 @@ def _forward_unet(ctx, sd, x, dtype):
                       max_pool2(x3).contiguous(memory_format=CL), dtype)
     y = _up_block(ctx, sd, 1, x4, x3, dtype)
     y = _up_block(ctx, sd, 2, y, x2, dtype)
-    y = _up_block(ctx, sd, 3, y, x1, dtype)
+    return _up_block(ctx, sd, 3, y, x1, dtype)
+
+
+def _forward_unet(ctx, sd, x, dtype):
+    """Mirrors UNetSuperRes.forward (models/unet.py). x: (B, H, W, 1)."""
+    y = _backbone(ctx, sd, _nchw(x, dtype), dtype)
 
     # dual-branch final 2x upsample
     yb = _site(ctx, "final_up_conv", _upsample2(y),
@@ -163,7 +188,52 @@ def _forward_unet(ctx, sd, x, dtype):
     return torch.sigmoid(y.float()).permute(0, 2, 3, 1)
 
 
-_FORWARDS = {"unet": _forward_unet}
+def _forward_unet_tpu(ctx, sd, x, dtype):
+    """Mirrors UNetSuperResTPU.forward (models/unet_tpu.py)."""
+    y = _backbone(ctx, sd, _nchw(x, dtype), dtype)
+    a = _gn(sd, "branch_a_norm", _site(ctx, "branch_a_conv", y,
+                                       sd["branch_a_conv.weight"], dtype))
+    b = _gn(sd, "branch_b_norm", _site(ctx, "branch_b_conv", y,
+                                       sd["branch_b_conv.weight"], dtype,
+                                       bias=sd["branch_b_conv.bias"]))
+    w = torch.sigmoid(sd["alpha"]).to(dtype).reshape(())
+    y = (w * a + (1.0 - w) * b).contiguous(memory_format=CL)
+    y = _gn(sd, "head_norm", _site(ctx, "head_conv", y,
+                                   sd["head_conv.weight"], dtype))
+    return _head(_site(ctx, OUT_SITE, y, sd["head_out.weight"], dtype,
+                       bias=sd["head_out.bias"], padding=0))
+
+
+def _forward_edsr(ctx, sd, x, dtype):
+    """Mirrors EDSR.forward (models/edsr.py): conv head, residual blocks
+    (conv-ReLU-conv, res_scale 1.0), global skip, the tail (``__out__``).
+    ``num_blocks`` is read off the state_dict."""
+    def conv(name, t, site=None):
+        return _site(ctx, site or name, t, sd[f"{name}.weight"], dtype,
+                     bias=sd[f"{name}.bias"])
+
+    head = conv("head", _nchw(x, dtype))
+    y = head
+    for i in range(edsr_num_blocks(sd)):
+        z = F.relu(conv(f"block{i}.conv0", y))
+        y = y + 1.0 * conv(f"block{i}.conv1", z)
+    y = conv("body_out", y)
+    return _head(conv("tail", y + head, OUT_SITE))
+
+
+def _forward_simple(ctx, sd, x, dtype):
+    """Mirrors SimpleSR.forward (models/simple.py): the 9-5-5 trunk, the
+    ``reconstruct`` conv the output head."""
+    y = F.relu(_site(ctx, "extract", _nchw(x, dtype), sd["extract.weight"],
+                     dtype, bias=sd["extract.bias"], padding=4))
+    y = F.relu(_site(ctx, "map", y, sd["map.weight"], dtype,
+                     bias=sd["map.bias"], padding=2))
+    return _head(_site(ctx, OUT_SITE, y, sd["reconstruct.weight"], dtype,
+                       bias=sd["reconstruct.bias"], padding=2))
+
+
+_FORWARDS = {"unet": _forward_unet, "unet_tpu": _forward_unet_tpu,
+             "edsr": _forward_edsr, "simple": _forward_simple}
 
 
 def supported(model_type: str) -> bool:
@@ -171,14 +241,13 @@ def supported(model_type: str) -> bool:
 
 
 def supported_types():
-    """Model types with a quantizable forward in this port (the others
-    come with ROADMAP A8)."""
+    """Model types with a quantizable forward."""
     return sorted(_FORWARDS)
 
 
 def reference_forward(params, x, model_type: str = "unet",
                       dtype=torch.bfloat16) -> torch.Tensor:
-    """The bf16 forward, bit-identical to ``UNetSuperRes.forward``."""
+    """The bf16 forward, bit-identical to the module's forward."""
     return _FORWARDS[model_type](_Ctx("ref"), params, x, dtype)
 
 
@@ -232,7 +301,7 @@ def load_scales(path: str) -> Tuple[Dict[str, np.ndarray], str]:
 def quant_sites(params, model_type: str = "unet"):
     """``[(site, OIHW weight)]`` for every quantizable conv site (all but
     the output head), in the JAX package's order and names: 20 for the
-    unet."""
+    unet and unet_tpu, 2 * num_blocks + 2 for edsr, 2 for simple."""
     if not supported(model_type):
         raise ValueError(f"no quantized forward for {model_type!r}")
     sites = []
@@ -241,16 +310,28 @@ def quant_sites(params, model_type: str = "unet"):
         sites.append((f"{site}.conv1", params[f"{prefix}.double_conv.0.weight"]))
         sites.append((f"{site}.conv2", params[f"{prefix}.double_conv.3.weight"]))
 
-    dc("inc", "inc")
-    for i in (1, 2, 3):
-        dc(f"down{i}", f"down{i}.maxpool_conv.1")
-    for i in (1, 2, 3):
-        sites.append((f"up{i}.up_conv", params[f"up{i}.up.1.weight"]))
-        dc(f"up{i}.conv", f"up{i}.conv")
-    sites.append(("final_up_conv", params["final_up_bilinear.1.weight"]))
-    sites.append(("final_up_pixelshuffle.conv",
-                  params["final_up_pixelshuffle.conv.weight"]))
-    sites.append(("final_conv1", params["final_conv.0.weight"]))
+    if model_type in ("unet", "unet_tpu"):
+        dc("inc", "inc")
+        for i in (1, 2, 3):
+            dc(f"down{i}", f"down{i}.maxpool_conv.1")
+        for i in (1, 2, 3):
+            sites.append((f"up{i}.up_conv", params[f"up{i}.up.1.weight"]))
+            dc(f"up{i}.conv", f"up{i}.conv")
+    if model_type == "unet":
+        sites.append(("final_up_conv", params["final_up_bilinear.1.weight"]))
+        sites.append(("final_up_pixelshuffle.conv",
+                      params["final_up_pixelshuffle.conv.weight"]))
+        sites.append(("final_conv1", params["final_conv.0.weight"]))
+    elif model_type == "unet_tpu":
+        for site in ("branch_a_conv", "branch_b_conv", "head_conv"):
+            sites.append((site, params[f"{site}.weight"]))
+    elif model_type == "edsr":
+        names = ["head"] + [f"block{i}.conv{j}"
+                            for i in range(edsr_num_blocks(params))
+                            for j in (0, 1)] + ["body_out"]
+        sites += [(n, params[f"{n}.weight"]) for n in names]
+    else:
+        sites += [(n, params[f"{n}.weight"]) for n in ("extract", "map")]
     return sites
 
 
@@ -275,7 +356,7 @@ def build_int8_forward(params, scales, model_type: str = "unet",
     device copies of the scales are made here, once."""
     fwd = _FORWARDS[model_type]
     qweights = int8_qweights(params, scales, model_type)
-    dev = params["alpha"].device
+    dev = next(iter(params.values())).device
     act = {site: torch.as_tensor(np.asarray(scales[site], np.float32),
                                  device=dev).contiguous()
            for site in qweights}

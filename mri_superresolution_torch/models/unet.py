@@ -67,6 +67,37 @@ def _norm(c):
     return nn.GroupNorm(8, c, eps=1e-5)
 
 
+@torch.no_grad()
+def kaiming_init_(module: nn.Module, generator: torch.Generator = None
+                  ) -> None:
+    """Kaiming fan_out normal for every conv of ``module`` (the JAX
+    package's ``kaiming_fan_out``), zero biases, unit GroupNorm scales,
+    drawn from ``generator`` in module order."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.kaiming_normal_(m.weight, a=_KAIMING_A, mode="fan_out",
+                                    nonlinearity="leaky_relu",
+                                    generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+@torch.no_grad()
+def icnr_(weight: torch.Tensor, scale: int = 2,
+          generator: torch.Generator = None) -> None:
+    """ICNR (the JAX package's ``icnr_kaiming_fan_in``): a Kaiming fan_in
+    kernel of Cout/scale² channels, each repeated scale² times, so the
+    PixelShuffle after the conv starts as a nearest-neighbour upsample."""
+    r2 = scale ** 2
+    base = torch.empty((weight.shape[0] // r2,) + tuple(weight.shape[1:]))
+    nn.init.kaiming_normal_(base, a=_KAIMING_A, mode="fan_in",
+                            nonlinearity="leaky_relu", generator=generator)
+    weight.copy_(base.repeat_interleave(r2, dim=0))
+
+
 class DoubleConv(nn.Module):
     """(Conv3x3 -> GroupNorm(8) -> LeakyReLU(0.2)) x2, residual when channels
     match (reference models/unet_model.py:17-45)."""
@@ -145,6 +176,19 @@ class PixelShuffleUp(nn.Module):
         return _gn_leaky(x, self.norm)
 
 
+def backbone(m: nn.Module, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The encoder-decoder of ``unet`` and ``unet_tpu``: ``m.inc``, three
+    Downs and three Ups with skips, on an NCHW-indexed channels_last
+    ``x``; 17 GroupNorm+LeakyReLU sites."""
+    x1 = m.inc(x, dtype)
+    x2 = m.down1(x1, dtype)
+    x3 = m.down2(x2, dtype)
+    x4 = m.down3(x3, dtype)
+    y = m.up1(x4, x3, dtype)
+    y = m.up2(y, x2, dtype)
+    return m.up3(y, x1, dtype)
+
+
 class UNetSuperRes(nn.Module):
     """2x super-resolution U-Net (reference models/unet_model.py:116-211).
 
@@ -177,46 +221,20 @@ class UNetSuperRes(nn.Module):
         self.alpha = nn.Parameter(torch.tensor([initial_alpha / 100.0]))
         self.reset_parameters(icnr_init, generator)
 
-    @torch.no_grad()
     def reset_parameters(self, icnr_init: bool = False,
                          generator: torch.Generator = None) -> None:
         """Kaiming fan_out normal for every conv (the reference's
         ``_initialize_weights``), zero biases, unit GroupNorm scales; with
-        ``icnr_init`` the PixelShuffle conv takes ICNR instead: a Kaiming
-        fan_in kernel of out/scale² channels, each repeated scale² times."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                nn.init.kaiming_normal_(m.weight, a=_KAIMING_A,
-                                        mode="fan_out",
-                                        nonlinearity="leaky_relu",
-                                        generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.GroupNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+        ``icnr_init`` the PixelShuffle conv takes ICNR instead."""
+        kaiming_init_(self, generator)
         if icnr_init:
             ps = self.final_up_pixelshuffle
-            w = ps.conv.weight
-            r2 = ps.scale ** 2
-            base = torch.empty((w.shape[0] // r2,) + tuple(w.shape[1:]))
-            nn.init.kaiming_normal_(base, a=_KAIMING_A, mode="fan_in",
-                                    nonlinearity="leaky_relu",
-                                    generator=generator)
-            w.copy_(base.repeat_interleave(r2, dim=0))
+            icnr_(ps.conv.weight, ps.scale, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        x = x.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=CL)
-
-        x1 = self.inc(x, dt)
-        x2 = self.down1(x1, dt)
-        x3 = self.down2(x2, dt)
-        x4 = self.down3(x3, dt)
-
-        y = self.up1(x4, x3, dt)
-        y = self.up2(y, x2, dt)
-        y = self.up3(y, x1, dt)
+        y = backbone(self, x.permute(0, 3, 1, 2).to(dt).contiguous(
+            memory_format=CL), dt)
 
         # dual-branch final 2x upsample
         _, up_conv, up_norm, _ = self.final_up_bilinear

@@ -2,12 +2,15 @@
 
     python mri_superresolution_torch/tools/profile_step.py [--tree DIR]
         [--batch 8 --size 128 --base_filters 32] [--top 12]
+        [--perceptual_weight 0.1 [--no_tf32]]
 
 Imports ``mri_superresolution_torch`` from DIR (default: the checkout this
 file sits in), so that an older commit unpacked in DIR is traced by this
 script beside the current one in the same call. Builds the unet (bf16
 compute on fp32 master weights, seeded random weights), Adam and the
-L1 + SSIM loss at the JAX package's defaults, and a seeded phantom batch
+L1 + SSIM loss at the JAX package's defaults (with ``--perceptual_weight``
+also the VGG19 perceptual term on seeded random VGG weights, its fp32
+convs in TF32 unless ``--no_tf32``), and a seeded phantom batch
 of ``batch`` slices of ``size``^2 -> (2 size)^2 on the card (augmentation
 off); times 10 steps by the host clock around a synchronize, after 3
 warm-up steps, and traces one more step with ``torch.profiler``. Prints
@@ -79,6 +82,9 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--base_filters", type=int, default=32)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--perceptual_weight", type=float, default=0.0)
+    ap.add_argument("--no_tf32", action="store_true",
+                    help="cuDNN's fp32 convs (VGG's) in full fp32")
     args = ap.parse_args(argv)
     tree = str(Path(args.tree).resolve())
     sys.path.insert(0, tree)
@@ -98,7 +104,16 @@ def main(argv=None) -> int:
                         generator=torch.Generator().manual_seed(0)).to(dev)
     state = trainer.TrainState(model, trainer.make_optimizer(
         model.parameters(), 1e-4, 1e-5))
-    step = trainer.build_train_step(CombinedLoss(LossConfig()))
+    lcfg = LossConfig(perceptual_weight=args.perceptual_weight)
+    vgg = None
+    if lcfg.perceptual_weight > 0:
+        from mri_superresolution_torch.models import vgg as vgg_mod
+        vgg = vgg_mod.VGG19Features.from_params(
+            vgg_mod.random_params(torch.Generator().manual_seed(0),
+                                  lcfg.vgg_layer_idx),
+            lcfg.vgg_layer_idx).to(dev)
+    torch.backends.cudnn.allow_tf32 = not args.no_tf32
+    step = trainer.build_train_step(CombinedLoss(lcfg, vgg))
     batch = {"lr": torch.from_numpy(phantom_batch(
                  np.random.default_rng(2), args.batch,
                  args.size)[..., None]).to(dev),
@@ -110,6 +125,8 @@ def main(argv=None) -> int:
                       warmup=3)
     print(json.dumps({"tree": tree, "batch": args.batch, "size": args.size,
                       "base_filters": args.base_filters,
+                      "perceptual_weight": args.perceptual_weight,
+                      "tf32": torch.backends.cudnn.allow_tf32,
                       "device": torch.cuda.get_device_name(0), **res}),
           flush=True)
     return 0

@@ -8,7 +8,9 @@ C-order bytes)``, a numpy scalar as ext type 3 in the same encoding, and
 splits arrays over 1 GiB into ``__msgpack_chunked_array__`` dicts (read
 here; the unet's arrays are far smaller, so none is written). ``msgpack``
 is imported only when such a file is read or written. The blob holds
-``params`` as the JAX package's flax tree (``utils/weights``),
+``params`` as the JAX package's flax tree of the model's family
+(``utils/weights``; the family is the meta's ``config.model.model_type``,
+else the caller's),
 ``opt_state`` as optax's ``(add_decayed_weights, scale_by_adam)`` state
 ``{"0": {}, "1": {"count", "mu", "nu"}}`` with the moments mapped like the
 params, and extras such as ``raw_params`` (the live weights under EMA), so
@@ -101,51 +103,71 @@ def _atomic_write(path: str, data, mode: str) -> None:
     os.replace(tmp, path)
 
 
+def model_type_of(meta: Optional[Dict], default: str = "unet") -> str:
+    """The family a checkpoint's meta names (``config.model.model_type``),
+    else ``default``."""
+    model = ((meta or {}).get("config") or {}).get("model") or {}
+    return model.get("model_type", default)
+
+
 def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
                     opt_state: Optional[Dict[str, Any]] = None,
                     meta: Optional[Dict] = None,
                     extras: Optional[Dict[str, Dict[str, torch.Tensor]]]
-                    = None) -> None:
+                    = None, model_type: Optional[str] = None) -> None:
     """Write ``{path}.ckpt`` (msgpack) and ``{path}.json`` (meta sidecar),
     as the JAX package's ``save_checkpoint`` does.
 
-    params: the port's state_dict; opt_state: ``{"count": int, "mu": sd,
+    params: the port's state_dict of ``model_type`` (default: the family
+    the meta names, else the unet); opt_state: ``{"count": int, "mu": sd,
     "nu": sd}`` (Adam's step and moments keyed like the params, see
     ``train.trainer.adam_state``); extras: further state_dicts stored
     beside them (the trainer stores the live weights as ``raw_params``
     under EMA)."""
-    state: Dict[str, Any] = {"params": jax_params_from_state_dict(params)}
+    family = model_type or model_type_of(meta)
+
+    def tree(sd):
+        return jax_params_from_state_dict(sd, family)
+
+    state: Dict[str, Any] = {"params": tree(params)}
     if opt_state is not None:
         state["opt_state"] = {"0": {}, "1": {
             "count": np.asarray(opt_state["count"], np.int32),
-            "mu": jax_params_from_state_dict(opt_state["mu"]),
-            "nu": jax_params_from_state_dict(opt_state["nu"])}}
+            "mu": tree(opt_state["mu"]), "nu": tree(opt_state["nu"])}}
     for key, sd in (extras or {}).items():
         if key in state:
             raise ValueError(f"extras key {key!r} collides with {list(state)}")
-        state[key] = jax_params_from_state_dict(sd)
+        state[key] = tree(sd)
     base = path[:-5] if path.endswith(".ckpt") else path
     _atomic_write(base + ".ckpt", msgpack_serialize(state), "wb")
     _atomic_write(base + ".json", meta or {}, "w")
 
 
-def load_checkpoint(path: str, return_extras: bool = False):
+def load_checkpoint(path: str, return_extras: bool = False,
+                    model_type: str = "unet"):
     """Read a ``.ckpt`` of either package -> (params state_dict, opt_state
     ``{"count", "mu", "nu"}`` or None, meta dict), and with
     ``return_extras`` a fourth element: the other stored trees (e.g.
-    ``raw_params``) as state_dicts."""
+    ``raw_params``) as state_dicts. The trees are mapped as the family the
+    meta names, else as ``model_type``; a tree of another family
+    raises ValueError."""
     base = path[:-5] if path.endswith(".ckpt") else path
     with open(base + ".ckpt", "rb") as f:
         state = msgpack_restore(f.read())
+    meta = read_meta(path)
+    family = model_type_of(meta, model_type)
+
+    def sd(tree):
+        return state_dict_from_jax(tree, family)
+
     opt = None
     adam = (state.get("opt_state") or {}).get("1")
     if adam:
-        opt = {"count": int(adam["count"]),
-               "mu": state_dict_from_jax(adam["mu"]),
-               "nu": state_dict_from_jax(adam["nu"])}
-    out = (state_dict_from_jax(state["params"]), opt, read_meta(path))
+        opt = {"count": int(adam["count"]), "mu": sd(adam["mu"]),
+               "nu": sd(adam["nu"])}
+    out = (sd(state["params"]), opt, meta)
     if return_extras:
-        extras = {k: state_dict_from_jax(v) for k, v in state.items()
+        extras = {k: sd(v) for k, v in state.items()
                   if k not in ("params", "opt_state")}
         return out + (extras,)
     return out
@@ -208,10 +230,14 @@ def calib_sidecar_path(path: str) -> str:
             ) + ".calib.json"
 
 
-def load_params_any(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
-    """Load unet params as this port's state_dict, with the checkpoint's
-    meta: a ``.ckpt`` (params + sidecar), a bare ``.msgpack`` param tree,
-    or a reference ``.pth`` (full checkpoint dict or bare state_dict)."""
+def load_params_any(path: str, model_type: str = "unet"
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """Load params as this port's state_dict, with the checkpoint's meta:
+    a ``.ckpt`` (params + sidecar; the family its meta names, else
+    ``model_type``), a bare ``.msgpack`` param tree (of ``model_type``), or
+    a ``.pth`` state_dict (a reference unet checkpoint, full dict or bare
+    state_dict, or a port state_dict). A param tree that does not fit the
+    family raises ValueError."""
     if path.endswith(".pth"):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         sd = ckpt["model_state_dict"] if "model_state_dict" in ckpt else ckpt
@@ -221,5 +247,7 @@ def load_params_any(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
     with open(blob_path, "rb") as f:
         state = msgpack_restore(f.read())
     if path.endswith(".msgpack"):
-        return state_dict_from_jax(state), {}
-    return state_dict_from_jax(state["params"]), read_meta(path)
+        return state_dict_from_jax(state, model_type), {}
+    meta = read_meta(path)
+    return state_dict_from_jax(state["params"],
+                               model_type_of(meta, model_type)), meta

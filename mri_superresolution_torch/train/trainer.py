@@ -1,4 +1,5 @@
-"""Single-device trainer of the unet: bf16 compute on fp32 master weights.
+"""Single-device trainer of the model zoo: bf16 compute on fp32 master
+weights.
 
 An own copy of the JAX package's ``train/trainer.py`` for one device.
 Reference behaviour reproduced (scripts/train.py:142-484): Adam (lr 1e-4,
@@ -8,16 +9,21 @@ split, the per-batch SSIM metric, the JSON-line protocol (``params``,
 ``batch_update``, ``epoch_summary``), best/final checkpoints, early
 stopping, optional TensorBoard and periodic sample grids.
 
-On the card every GroupNorm+LeakyReLU runs kernel B1 forward and
-backward, both narrow 3x3 convs kernel B3, and the loss's SSIM kernel B2
-(``kernels/``: each wrapper is an ``autograd.Function`` where autograd
-needs it). Augmentation runs on the device from a ``torch.Generator``
-seeded from (seed, epoch, batch), as the JAX trainer folds its key, so a
-resumed run replays the same draws. Checkpoints are the JAX package's
-format (``train/checkpoint.py``), the optimizer state included, so runs
-resume across packages. The JAX trainer's mesh, multi-host, spatial
-sharding, ZeRO-1, remat, QAT and profiler are not ported:
-:func:`check_supported` names the ROADMAP item that ports each.
+Every family of the JAX package trains (``unet``, ``unet_tpu``, ``edsr``,
+``simple``), with the full ``CombinedLoss``: L1, SSIM and the VGG19
+perceptual term (``--vgg_weights``, an ``.npz`` in the JAX package's
+format; without it seeded random VGG weights, with a warning, as the JAX
+trainer does). On the card every GroupNorm+LeakyReLU runs kernel B1
+forward and backward, the unet's two narrow 3x3 convs kernel B3, and the
+loss's SSIM kernel B2 (``kernels/``: each wrapper is an
+``autograd.Function`` where autograd needs it). Augmentation runs on the
+device from a ``torch.Generator`` seeded from (seed, epoch, batch), as the
+JAX trainer folds its key, so a resumed run replays the same draws.
+Checkpoints are the JAX package's format (``train/checkpoint.py``), the
+optimizer state included, so runs resume across packages. The JAX
+trainer's mesh, multi-host, spatial sharding, ZeRO-1, remat, QAT and
+profiler are not ported: :func:`check_supported` names the ROADMAP item
+that ports each.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from mri_superresolution_torch.data import (BatchLoader, PairedSliceDataset,
 from mri_superresolution_torch.losses import CombinedLoss
 from mri_superresolution_torch.losses.combined import _weighted_mean
 from mri_superresolution_torch.models import build_model
+from mri_superresolution_torch.models import vgg as vgg_mod
 from mri_superresolution_torch.ops.augment import augment_pair
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.train.plateau import (EarlyStopping,
@@ -56,10 +63,6 @@ def check_supported(cfg: TrainConfig) -> None:
         (cfg.remat, "--remat", "A14"),
         (cfg.num_data_devices > 1, "--num_devices > 1", "A14"),
         (cfg.profile_dir is not None, "--profile_dir", "A14"),
-        (cfg.loss.perceptual_weight > 0,
-         "--perceptual_weight > 0 (the VGG19 perceptual loss)", "A5"),
-        (cfg.model.model_type != "unet",
-         f"--model_type {cfg.model.model_type}", "A8"),
     ]
     for on, what, item in later:
         if on:
@@ -255,6 +258,33 @@ def save_example_images(low_res, high_res, output, epoch: int,
     plt.close()
 
 
+def load_vgg(cfg: TrainConfig, device) -> Optional[vgg_mod.VGG19Features]:
+    """The perceptual loss's VGG19 on ``device`` (None without the term):
+    ``cfg.vgg_weights`` (an ``.npz`` in the JAX package's format), or
+    seeded random weights with a warning, as the JAX trainer falls back."""
+    if cfg.loss.perceptual_weight <= 0:
+        return None
+    if cfg.vgg_weights:
+        params = vgg_mod.load_params_npz(cfg.vgg_weights)
+        log_message(f"Loaded VGG19 weights from {cfg.vgg_weights}")
+    else:
+        # a semantics-changing substitution: the reference uses ImageNet
+        # VGG19 (utils/losses.py:90); a random CNN is only a structural
+        # prior
+        log_message(
+            "WARNING: perceptual_weight > 0 but no --vgg_weights given. "
+            "Falling back to RANDOM VGG features (a structural prior, NOT "
+            "the reference's ImageNet-pretrained perceptual loss). Convert "
+            "real weights to an .npz of conv{i}/kernel (HWIO) and "
+            "conv{i}/bias on a networked machine and pass --vgg_weights, "
+            "or set perceptual_weight=0 for exact reference-loss "
+            "semantics.", message_type="warning")
+        params = vgg_mod.random_params(torch.Generator().manual_seed(0),
+                                       cfg.loss.vgg_layer_idx)
+    return vgg_mod.VGG19Features.from_params(
+        params, cfg.loss.vgg_layer_idx).to(device)
+
+
 def _meta_step(base: str) -> int:
     """Optimizer step count from a checkpoint's JSON sidecar; -1 when the
     pair is absent or unreadable (never resumed from)."""
@@ -361,7 +391,8 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
             resume_base = names[cands[-1][2]]
     if resume_base is not None:
         params_r, opt_r, meta, extras = ckpt.load_checkpoint(
-            resume_base + ".ckpt", return_extras=True)
+            resume_base + ".ckpt", return_extras=True,
+            model_type=cfg.model.model_type)
         # EMA checkpoints store the averaged weights as "params" and the
         # live ones as "raw_params"; the optimizer resumes from the live
         live = extras.get("raw_params", params_r)
@@ -400,7 +431,7 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         state.ema = {k: p.detach().clone()
                      for k, p in model.named_parameters()}
 
-    loss_fn = CombinedLoss(cfg.loss)
+    loss_fn = CombinedLoss(cfg.loss, load_vgg(cfg, dev))
     train_step = build_train_step(loss_fn, cfg.augment, cfg.grad_accum,
                                   cfg.ema_decay)
     eval_step = build_eval_step(model, loss_fn)
@@ -442,7 +473,7 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         serve = ({k: v.cpu() for k, v in state.ema.items()} if ema_on
                  else live)
         ckpt.save_checkpoint(base, serve, adam_state(model, optimizer),
-                             meta=meta,
+                             meta=meta, model_type=cfg.model.model_type,
                              extras={"raw_params": live} if ema_on else None)
 
     def put(batch):

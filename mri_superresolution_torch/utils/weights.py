@@ -1,12 +1,24 @@
-"""Carry unet weights between the JAX package's param tree and this port.
+"""Carry weights between the JAX package's param trees and this port.
 
-The port's state_dict keys are the reference PyTorch model's (models/
-unet_model.py:116-211), so the JAX tree maps onto them as the JAX package's
-own ``utils/torch_compat.py`` maps it: conv kernels HWIO <-> OIHW,
-GroupNorm scale/bias <-> weight/bias, ``alpha`` () <-> (1,). PixelShuffle
-channel order is the same in both, so no channel permute is needed. The
-mapping is a bijection. Trees here are nested dicts of numpy arrays; no JAX
-is needed to read them.
+One bijection for each model family and for VGG19, between the JAX
+package's flax tree (nested dicts of numpy arrays; no JAX is needed to
+read them) and the port's state_dict (fp32 CPU tensors). Conv kernels go
+HWIO <-> OIHW, GroupNorm scale/bias <-> weight/bias, ``alpha`` () <-> (1,).
+PixelShuffle channel order is the same in both packages, so no channel is
+permuted.
+
+- ``unet``: the reference PyTorch model's keys (models/unet_model.py:
+  116-211), as the JAX package's own ``utils/torch_compat.py`` maps them;
+- ``unet_tpu``: the unet's keys for the backbone, then ``branch_a_conv``,
+  ``branch_a_norm``, ``branch_b_conv``, ``branch_b_norm``, ``head_conv``,
+  ``head_norm``, ``head_out`` and ``alpha`` under their flax names;
+- ``edsr``: ``head``, ``block{i}.conv0``/``conv1`` (flax ``block{i}/
+  Conv_0``/``Conv_1``), ``body_out``, ``tail``;
+- ``simple``: ``extract``, ``map``, ``reconstruct``;
+- VGG19 (``vgg_state_dict_from_jax``): ``conv{i}`` <-> torchvision's
+  ``features.{idx}`` at the i-th conv index.
+
+A tree whose top-level keys do not fit the family raises ValueError.
 """
 
 from __future__ import annotations
@@ -47,77 +59,217 @@ def _double_conv(tree: dict, prefix: str, out: Dict[str, torch.Tensor]):
     out[f"{prefix}.4.bias"] = _vec(tree["norm2"]["bias"])
 
 
-def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
-    """The JAX package's unet param tree (nested numpy arrays) -> this
-    port's state_dict (fp32 CPU tensors)."""
-    sd: Dict[str, torch.Tensor] = {}
+def _conv(node: dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _oihw(node["kernel"])
+    if "bias" in node:
+        out[f"{prefix}.bias"] = _vec(node["bias"])
+
+
+def _norm(node: dict, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _vec(node["scale"])
+    out[f"{prefix}.bias"] = _vec(node["bias"])
+
+
+def _conv_inv(sd, prefix: str) -> dict:
+    node = {"kernel": _hwio(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = _np(sd[f"{prefix}.bias"])
+    return node
+
+
+def _norm_inv(sd, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+_BACKBONE = ("inc", "down1", "down2", "down3", "up1", "up2", "up3")
+_UNET_HEAD = ("final_up_conv", "final_up_norm", "final_up_pixelshuffle",
+              "final_conv1", "final_norm", "final_conv2", "alpha")
+_UNET_TPU_HEAD = ("branch_a_conv", "branch_a_norm", "branch_b_conv",
+                  "branch_b_norm", "head_conv", "head_norm", "head_out",
+                  "alpha")
+_TOP_KEYS = {"unet": set(_BACKBONE + _UNET_HEAD),
+             "unet_tpu": set(_BACKBONE + _UNET_TPU_HEAD),
+             "edsr": {"head", "body_out", "tail"},
+             "simple": {"extract", "map", "reconstruct"}}
+
+
+def edsr_num_blocks(tree) -> int:
+    """The residual blocks of an edsr param tree (flax names
+    ``block{i}``) or state_dict (``block{i}.*`` keys)."""
+    names = {k.split(".")[0] for k in tree if k.startswith("block")}
+    return len(names)
+
+
+def check_tree(params: dict, model_type: str) -> None:
+    """Raise ValueError unless the param tree's top-level keys are those of
+    ``model_type``."""
+    if model_type not in _TOP_KEYS:
+        raise ValueError(f"Unknown model type: {model_type} "
+                         f"(have {sorted(_TOP_KEYS)})")
+    want = set(_TOP_KEYS[model_type])
+    if model_type == "edsr":
+        want |= {f"block{i}" for i in range(edsr_num_blocks(params))}
+    got = set(params)
+    if got != want:
+        raise ValueError(
+            f"the param tree does not fit model type {model_type!r}: "
+            f"missing {sorted(want - got)}, unexpected {sorted(got - want)}")
+
+
+def _backbone(params: dict, sd: Dict[str, torch.Tensor]) -> None:
     _double_conv(params["inc"], "inc.double_conv", sd)
-    sd["alpha"] = _vec(params["alpha"]).reshape(1)
-    sd["final_up_bilinear.1.weight"] = _oihw(params["final_up_conv"]["kernel"])
-    sd["final_up_bilinear.2.weight"] = _vec(params["final_up_norm"]["scale"])
-    sd["final_up_bilinear.2.bias"] = _vec(params["final_up_norm"]["bias"])
-    ps = params["final_up_pixelshuffle"]
-    sd["final_up_pixelshuffle.conv.weight"] = _oihw(ps["conv"]["kernel"])
-    sd["final_up_pixelshuffle.conv.bias"] = _vec(ps["conv"]["bias"])
-    sd["final_up_pixelshuffle.norm.weight"] = _vec(ps["norm"]["scale"])
-    sd["final_up_pixelshuffle.norm.bias"] = _vec(ps["norm"]["bias"])
-    sd["final_conv.0.weight"] = _oihw(params["final_conv1"]["kernel"])
-    sd["final_conv.1.weight"] = _vec(params["final_norm"]["scale"])
-    sd["final_conv.1.bias"] = _vec(params["final_norm"]["bias"])
-    sd["final_conv.3.weight"] = _oihw(params["final_conv2"]["kernel"])
-    sd["final_conv.3.bias"] = _vec(params["final_conv2"]["bias"])
     for i in (1, 2, 3):
         _double_conv(params[f"down{i}"]["conv"],
                      f"down{i}.maxpool_conv.1.double_conv", sd)
     for i in (1, 2, 3):
         up = params[f"up{i}"]
         sd[f"up{i}.up.1.weight"] = _oihw(up["up_conv"]["kernel"])
-        sd[f"up{i}.up.2.weight"] = _vec(up["up_norm"]["scale"])
-        sd[f"up{i}.up.2.bias"] = _vec(up["up_norm"]["bias"])
+        _norm(up["up_norm"], f"up{i}.up.2", sd)
         _double_conv(up["conv"], f"up{i}.conv.double_conv", sd)
+
+
+def _backbone_inv(sd, params: dict) -> None:
+    params["inc"] = _double_conv_inv(sd, "inc.double_conv")
+    for i in (1, 2, 3):
+        params[f"down{i}"] = {"conv": _double_conv_inv(
+            sd, f"down{i}.maxpool_conv.1.double_conv")}
+    for i in (1, 2, 3):
+        params[f"up{i}"] = {
+            "up_conv": {"kernel": _hwio(sd[f"up{i}.up.1.weight"])},
+            "up_norm": _norm_inv(sd, f"up{i}.up.2"),
+            "conv": _double_conv_inv(sd, f"up{i}.conv.double_conv"),
+        }
+
+
+def _unet(params: dict, sd: Dict[str, torch.Tensor]) -> None:
+    _backbone(params, sd)
+    sd["alpha"] = _vec(params["alpha"]).reshape(1)
+    sd["final_up_bilinear.1.weight"] = _oihw(params["final_up_conv"]["kernel"])
+    _norm(params["final_up_norm"], "final_up_bilinear.2", sd)
+    ps = params["final_up_pixelshuffle"]
+    _conv(ps["conv"], "final_up_pixelshuffle.conv", sd)
+    _norm(ps["norm"], "final_up_pixelshuffle.norm", sd)
+    sd["final_conv.0.weight"] = _oihw(params["final_conv1"]["kernel"])
+    _norm(params["final_norm"], "final_conv.1", sd)
+    _conv(params["final_conv2"], "final_conv.3", sd)
+
+
+def _unet_inv(sd, params: dict) -> None:
+    _backbone_inv(sd, params)
+    params.update({
+        "alpha": _np(sd["alpha"]).reshape(()),
+        "final_up_conv": {"kernel": _hwio(sd["final_up_bilinear.1.weight"])},
+        "final_up_norm": _norm_inv(sd, "final_up_bilinear.2"),
+        "final_up_pixelshuffle": {
+            "conv": _conv_inv(sd, "final_up_pixelshuffle.conv"),
+            "norm": _norm_inv(sd, "final_up_pixelshuffle.norm")},
+        "final_conv1": {"kernel": _hwio(sd["final_conv.0.weight"])},
+        "final_norm": _norm_inv(sd, "final_conv.1"),
+        "final_conv2": _conv_inv(sd, "final_conv.3"),
+    })
+
+
+def _unet_tpu(params: dict, sd: Dict[str, torch.Tensor]) -> None:
+    _backbone(params, sd)
+    for name in _UNET_TPU_HEAD[:-1]:
+        (_norm if name.endswith("_norm") else _conv)(params[name], name, sd)
+    sd["alpha"] = _vec(params["alpha"]).reshape(1)
+
+
+def _unet_tpu_inv(sd, params: dict) -> None:
+    _backbone_inv(sd, params)
+    for name in _UNET_TPU_HEAD[:-1]:
+        params[name] = (_norm_inv if name.endswith("_norm") else _conv_inv)(
+            sd, name)
+    params["alpha"] = _np(sd["alpha"]).reshape(())
+
+
+def _edsr(params: dict, sd: Dict[str, torch.Tensor]) -> None:
+    _conv(params["head"], "head", sd)
+    for i in range(edsr_num_blocks(params)):
+        block = params[f"block{i}"]
+        _conv(block["Conv_0"], f"block{i}.conv0", sd)
+        _conv(block["Conv_1"], f"block{i}.conv1", sd)
+    _conv(params["body_out"], "body_out", sd)
+    _conv(params["tail"], "tail", sd)
+
+
+def _edsr_inv(sd, params: dict) -> None:
+    params["head"] = _conv_inv(sd, "head")
+    for i in range(edsr_num_blocks(sd)):
+        params[f"block{i}"] = {"Conv_0": _conv_inv(sd, f"block{i}.conv0"),
+                               "Conv_1": _conv_inv(sd, f"block{i}.conv1")}
+    params["body_out"] = _conv_inv(sd, "body_out")
+    params["tail"] = _conv_inv(sd, "tail")
+
+
+def _simple(params: dict, sd: Dict[str, torch.Tensor]) -> None:
+    for name in ("extract", "map", "reconstruct"):
+        _conv(params[name], name, sd)
+
+
+def _simple_inv(sd, params: dict) -> None:
+    for name in ("extract", "map", "reconstruct"):
+        params[name] = _conv_inv(sd, name)
+
+
+_TO_SD = {"unet": _unet, "unet_tpu": _unet_tpu, "edsr": _edsr,
+          "simple": _simple}
+_FROM_SD = {"unet": _unet_inv, "unet_tpu": _unet_tpu_inv, "edsr": _edsr_inv,
+            "simple": _simple_inv}
+
+
+def state_dict_from_jax(params: dict, model_type: str = "unet"
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's param tree of ``model_type`` (nested numpy
+    arrays) -> this port's state_dict (fp32 CPU tensors). Raises
+    ValueError when the tree is not one of that family."""
+    check_tree(params, model_type)
+    sd: Dict[str, torch.Tensor] = {}
+    _TO_SD[model_type](params, sd)
     return sd
 
 
 def _double_conv_inv(sd, prefix: str) -> dict:
     return {
         "conv1": {"kernel": _hwio(sd[f"{prefix}.0.weight"])},
-        "norm1": {"scale": _np(sd[f"{prefix}.1.weight"]),
-                  "bias": _np(sd[f"{prefix}.1.bias"])},
+        "norm1": _norm_inv(sd, f"{prefix}.1"),
         "conv2": {"kernel": _hwio(sd[f"{prefix}.3.weight"])},
-        "norm2": {"scale": _np(sd[f"{prefix}.4.weight"]),
-                  "bias": _np(sd[f"{prefix}.4.bias"])},
+        "norm2": _norm_inv(sd, f"{prefix}.4"),
     }
 
 
-def jax_params_from_state_dict(sd) -> dict:
-    """Inverse of :func:`state_dict_from_jax`: a port (or reference)
-    state_dict -> the JAX package's unet param tree of numpy arrays."""
-    params = {
-        "inc": _double_conv_inv(sd, "inc.double_conv"),
-        "alpha": _np(sd["alpha"]).reshape(()),
-        "final_up_conv": {"kernel": _hwio(sd["final_up_bilinear.1.weight"])},
-        "final_up_norm": {"scale": _np(sd["final_up_bilinear.2.weight"]),
-                          "bias": _np(sd["final_up_bilinear.2.bias"])},
-        "final_up_pixelshuffle": {
-            "conv": {"kernel": _hwio(sd["final_up_pixelshuffle.conv.weight"]),
-                     "bias": _np(sd["final_up_pixelshuffle.conv.bias"])},
-            "norm": {"scale": _np(sd["final_up_pixelshuffle.norm.weight"]),
-                     "bias": _np(sd["final_up_pixelshuffle.norm.bias"])},
-        },
-        "final_conv1": {"kernel": _hwio(sd["final_conv.0.weight"])},
-        "final_norm": {"scale": _np(sd["final_conv.1.weight"]),
-                       "bias": _np(sd["final_conv.1.bias"])},
-        "final_conv2": {"kernel": _hwio(sd["final_conv.3.weight"]),
-                        "bias": _np(sd["final_conv.3.bias"])},
-    }
-    for i in (1, 2, 3):
-        params[f"down{i}"] = {
-            "conv": _double_conv_inv(sd, f"down{i}.maxpool_conv.1.double_conv")}
-    for i in (1, 2, 3):
-        params[f"up{i}"] = {
-            "up_conv": {"kernel": _hwio(sd[f"up{i}.up.1.weight"])},
-            "up_norm": {"scale": _np(sd[f"up{i}.up.2.weight"]),
-                        "bias": _np(sd[f"up{i}.up.2.bias"])},
-            "conv": _double_conv_inv(sd, f"up{i}.conv.double_conv"),
-        }
+def jax_params_from_state_dict(sd, model_type: str = "unet") -> dict:
+    """Inverse of :func:`state_dict_from_jax`: a port state_dict of
+    ``model_type`` (for the unet, a reference one too) -> the JAX
+    package's param tree of numpy arrays."""
+    if model_type not in _FROM_SD:
+        raise ValueError(f"Unknown model type: {model_type} "
+                         f"(have {sorted(_FROM_SD)})")
+    params: dict = {}
+    _FROM_SD[model_type](sd, params)
     return params
+
+
+def vgg_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's VGG19 tree (``conv{i}``: HWIO kernel, bias) ->
+    the state_dict of ``models.vgg.VGG19Features`` (torchvision's
+    ``features.{idx}`` keys at the i-th conv index)."""
+    from mri_superresolution_torch.models.vgg import conv_indices
+    idx = conv_indices()
+    n = len(params)
+    if set(params) != {f"conv{i}" for i in range(n)} or n > len(idx):
+        raise ValueError(f"not a VGG19 param tree: {sorted(params)}")
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(n):
+        _conv(params[f"conv{i}"], f"features.{idx[i]}", sd)
+    return sd
+
+
+def vgg_params_from_state_dict(sd) -> dict:
+    """Inverse of :func:`vgg_state_dict_from_jax`."""
+    from mri_superresolution_torch.models.vgg import conv_indices
+    idx = [i for i in conv_indices() if f"features.{i}.weight" in sd]
+    return {f"conv{ci}": _conv_inv(sd, f"features.{i}")
+            for ci, i in enumerate(idx)}

@@ -101,6 +101,34 @@ def test_load_params_any_formats(tmp_path, jax_params):
             assert torch.equal(sd[k], want[k]), (path, k)
 
 
+def test_load_params_any_takes_the_family_and_refuses_a_misfit(tmp_path):
+    """A ``.ckpt`` is mapped as the family its sidecar names; a bare
+    ``.msgpack`` as the caller's. An edsr ``.msgpack`` given as ``unet``
+    raises instead of loading a mis-mapped unet."""
+    from mri_superresolution_tpu.models import build_model as jbuild
+    jcfg = JaxModelConfig(model_type="edsr", base_filters=8, num_blocks=2)
+    p = jax.tree_util.tree_map(np.asarray, jbuild(jcfg).init(
+        jax.random.key(0), jnp.zeros((1, 16, 16, 1)))["params"])
+    want = state_dict_from_jax(p, "edsr")
+    path = str(tmp_path / "edsr.msgpack")
+    with open(path, "wb") as f:
+        f.write(serialization.msgpack_serialize(p))
+    with pytest.raises(ValueError, match="does not fit model type 'unet'"):
+        ckpt.load_params_any(path)
+    sd, _ = ckpt.load_params_any(path, "edsr")
+    assert sd.keys() == want.keys() and all(
+        torch.equal(sd[k], want[k]) for k in want)
+    base = str(tmp_path / "best_model_edsr")
+    jax_ckpt.save_checkpoint(base, p, meta={"config": {"model": {
+        "model_type": "edsr", "base_filters": 8, "num_blocks": 2}}})
+    sd, meta = ckpt.load_params_any(base + ".ckpt")       # caller: unet
+    assert meta["config"]["model"]["model_type"] == "edsr"
+    assert sd.keys() == want.keys()
+    assert ckpt.load_checkpoint(base + ".ckpt")[0].keys() == want.keys()
+    with pytest.raises(ValueError, match="does not fit"):
+        ckpt.load_params_any(path, "simple")
+
+
 def test_find_best_checkpoint_precedence(tmp_path):
     d = str(tmp_path)
     for name in ("unet_tpu_model.ckpt", "old_unet.pth"):

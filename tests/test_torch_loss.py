@@ -23,6 +23,7 @@ from mri_superresolution_torch.kernels.groupnorm import (
     group_norm_leaky, group_norm_leaky_backward,
     group_norm_leaky_backward_plain, group_norm_leaky_plain)
 from mri_superresolution_torch.losses import CombinedLoss
+from mri_superresolution_torch.models.vgg import VGG19Features, random_params
 from mri_superresolution_torch.ops import augment as taug
 from mri_superresolution_torch.train import plateau as tplateau
 
@@ -155,8 +156,17 @@ def test_combined_loss_metric_only_and_refusals():
                            torch.from_numpy(w))),
         float(jssim.ssim(jnp.asarray(o), jnp.asarray(t),
                          sample_weights=jnp.asarray(w))), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="A5"):
+    # the perceptual term needs VGG19 weights, as JAX's CombinedLoss does
+    with pytest.raises(ValueError, match="VGG19"):
         CombinedLoss(tcfg.LossConfig(perceptual_weight=0.1))
+    vgg = VGG19Features.from_params(
+        random_params(torch.Generator().manual_seed(0), 3), 3)
+    _, comps = CombinedLoss(tcfg.LossConfig(perceptual_weight=0.1,
+                                            vgg_layer_idx=3), vgg)(
+        torch.from_numpy(o), torch.from_numpy(t))
+    assert sorted(comps) == ["l1_loss", "perceptual_loss", "ssim_loss",
+                             "ssim_metric"]
+    assert float(comps["perceptual_loss"]) > 0
     with pytest.raises(ValueError, match="exceed"):
         CombinedLoss(tcfg.LossConfig(ssim_weight=0.9, perceptual_weight=0.5))
 

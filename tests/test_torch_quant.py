@@ -305,9 +305,14 @@ def test_int8_weights_need_every_scale(jax_params):
 
 
 def test_only_unet_is_supported():
-    assert qf.supported("unet") and qf.supported_types() == ["unet"]
-    for t in ("unet_tpu", "edsr", "simple"):
-        assert not qf.supported(t)
+    """The quantized forward takes every family of the JAX package, and
+    no other type."""
+    assert qf.supported_types() == sorted(jqf.supported_types()) == [
+        "edsr", "simple", "unet", "unet_tpu"]
+    assert all(qf.supported(t) for t in qf.supported_types())
+    assert not qf.supported("nope")
+    with pytest.raises(ValueError, match="no quantized forward"):
+        qf.quant_sites({}, "nope")
 
 
 # ------------------------------------------------------------- sidecars

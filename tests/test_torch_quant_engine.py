@@ -113,7 +113,7 @@ def test_engine_quant_validation(params):
     with pytest.raises(ValueError, match="unknown quant"):
         _engine(params, quant="fp8")
     with pytest.raises(ValueError, match="supports model types"):
-        InferenceEngine(ModelConfig(model_type="edsr", base_filters=16),
+        InferenceEngine(ModelConfig(model_type="nope", base_filters=16),
                         params, device="cpu", quant="int8")
     with pytest.raises(ValueError, match="calib_slices"):
         _engine(params, quant="int8", quant_calib_slices=0)

@@ -17,6 +17,7 @@ from mri_superresolution_tpu.config import LossConfig as JaxLossConfig
 from mri_superresolution_tpu.losses import CombinedLoss as JaxLoss
 from mri_superresolution_tpu.models import UNetSuperRes as JaxUNet
 from mri_superresolution_tpu.models import init_params
+from mri_superresolution_tpu.models import vgg as jvgg
 from mri_superresolution_tpu.train import checkpoint as jax_ckpt
 from mri_superresolution_tpu.train import trainer as jtrain
 from mri_superresolution_torch import native
@@ -25,6 +26,7 @@ from mri_superresolution_torch.config import LossConfig, ModelConfig
 from mri_superresolution_torch.kernels.groupnorm import group_norm_leaky
 from mri_superresolution_torch.losses import CombinedLoss
 from mri_superresolution_torch.models import build_model
+from mri_superresolution_torch.models import vgg as vgg_mod
 from mri_superresolution_torch.models import unet as unet_mod
 from mri_superresolution_torch.ops.functional import group_norm_fp32
 from mri_superresolution_torch.train import checkpoint as ckpt
@@ -109,6 +111,36 @@ def test_one_step_loss_and_grads_match_jax(setup, monkeypatch):
     loss, comps, grads = trainer.loss_and_grads(
         m, CombinedLoss(LossConfig()), tb["hr"], tb["lr"], tb["weight"])
     assert len(closest) == 20 and min(closest) > 2.4e-7, closest
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    got = _leaves(_tree(dict(zip([n for n, _ in m.named_parameters()],
+                                 grads))))
+    want = _leaves(jg)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=1e-4,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=k)
+
+
+def test_one_step_with_perceptual_loss_matches_jax(setup):
+    """The unet's step with ``perceptual_weight`` 0.1 (VGG19 to relu5_4,
+    JAX's random VGG weights carried across): loss within rtol 1e-5 and
+    every gradient within rtol 1e-4, atol 1e-5 of its largest entry, the
+    bars of the step above."""
+    model, params, batch = setup
+    vgg = jax.tree_util.tree_map(np.asarray, jvgg.random_params(
+        jax.random.key(0), 35))
+    lcfg = dict(perceptual_weight=0.1)
+    jl = JaxLoss(JaxLossConfig(**lcfg), vgg)
+    (jloss, jcomps), jg = jax.jit(jax.value_and_grad(
+        lambda p: jl(model.apply({"params": p}, batch["lr"]), batch["hr"],
+                     batch["weight"]), has_aux=True))(params)
+    m = _port(params)
+    tb = _tb(batch)
+    loss_fn = CombinedLoss(LossConfig(**lcfg),
+                           vgg_mod.VGG19Features.from_params(vgg, 35))
+    loss, comps, grads = trainer.loss_and_grads(m, loss_fn, tb["hr"],
+                                                tb["lr"], tb["weight"])
+    np.testing.assert_allclose(float(comps["perceptual_loss"]),
+                               float(jcomps["perceptual_loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     got = _leaves(_tree(dict(zip([n for n, _ in m.named_parameters()],
                                  grads))))
@@ -433,12 +465,59 @@ def test_cli_checkpoint_serves_in_the_port(pngs, tmp_path):
     assert out.shape == (2, 32, 32) and np.isfinite(out).all()
 
 
+@pytest.mark.parametrize("family,flags", [
+    ("edsr", ("--num_blocks", "2")), ("unet_tpu", ()), ("simple", ()),
+    ("unet", ("--perceptual_weight", "0.1")),
+    ("unet", ("--perceptual_weight", "0.1", "--vgg_layer_idx", "8",
+              "--perceptual_loss_type", "mse", "--vgg_weights", "VGG"))])
+def test_cli_trains_every_family_and_the_perceptual_loss(
+        pngs, tmp_path, capsys, family, flags):
+    """One epoch of the train CLI for each family and with the perceptual
+    term (seeded random VGG weights with the JAX trainer's warning, or an
+    ``.npz`` given by --vgg_weights): finite losses, a checkpoint of the
+    family whose sidecar carries the flags, served by ``load_engine``."""
+    if "VGG" in flags:
+        npz = str(tmp_path / "vgg.npz")
+        vgg_mod.save_params_npz(npz, vgg_mod.random_params(
+            torch.Generator().manual_seed(1), 8))
+        flags = tuple(npz if f == "VGG" else f for f in flags)
+    path = cli.main(_argv(pngs, tmp_path, "--epochs", "1", "--model_type",
+                          family, *flags))
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    summary = [ln for ln in lines if ln["type"] == "epoch_summary"][0]
+    assert np.isfinite(summary["train_loss"]) and \
+        np.isfinite(summary["val_loss"])
+    warned = any("RANDOM VGG" in ln.get("message", "") for ln in lines)
+    loaded = any("Loaded VGG19" in ln.get("message", "") for ln in lines)
+    assert (warned, loaded) == ("--perceptual_weight" in flags
+                                and "--vgg_weights" not in flags,
+                                "--vgg_weights" in flags)
+    assert path == str(tmp_path / f"final_model_{family}.ckpt")
+    cfg = ckpt.read_meta(path)["config"]
+    assert cfg["model"]["model_type"] == family
+    if family == "edsr":
+        assert cfg["model"]["num_blocks"] == 2
+    if "--perceptual_weight" in flags:
+        assert cfg["loss"]["perceptual_weight"] == 0.1
+        assert cfg["loss"]["vgg_layer_idx"] == (8 if loaded else 35)
+        assert cfg["loss"]["perceptual_loss_type"] == ("mse" if loaded
+                                                       else "l1")
+    from mri_superresolution_torch.config import InferConfig
+    from mri_superresolution_torch.infer import load_engine
+    eng = load_engine(InferConfig(checkpoint_path=path, bf16=False),
+                      device="cpu")
+    assert eng.model_cfg.model_type == family
+    out = eng.upscale_batch(np.random.default_rng(0).random(
+        (2, 16, 16)).astype(np.float32))
+    assert out.shape == (2, 32, 32) and np.isfinite(out).all()
+
+
 @pytest.mark.parametrize("flags,item", [
     (("--qat",), "A11"), (("--spatial_shards", "2"), "A14"),
     (("--opt_shard",), "A14"), (("--multihost",), "A14"),
     (("--remat",), "A14"), (("--num_devices", "2"), "A14"),
-    (("--profile_dir", "p"), "A14"), (("--perceptual_weight", "0.1"), "A5"),
-    (("--model_type", "edsr"), "A8")])
+    (("--profile_dir", "p"), "A14")])
 def test_cli_rejects_unported_modes(pngs, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(_argv(pngs, tmp_path, "--epochs", "1", *flags))

@@ -144,8 +144,19 @@ def test_icnr_init_repeats_subbands():
 
 
 def test_build_model_families():
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_model(ModelConfig(model_type="edsr"))
+    """The registry builds every family of the JAX package, with the
+    config's widths; an unknown type raises."""
+    from mri_superresolution_torch.models import (EDSR, KNOWN_MODEL_TYPES,
+                                                  SimpleSR, UNetSuperResTPU)
+    want = {"unet": UNetSuperRes, "unet_tpu": UNetSuperResTPU,
+            "edsr": EDSR, "simple": SimpleSR}
+    assert sorted(want) == sorted(KNOWN_MODEL_TYPES)
+    for t, cls in want.items():
+        m = build_model(ModelConfig(model_type=t, base_filters=16,
+                                    num_blocks=3))
+        assert type(m) is cls and param_count(m) > 0
+    assert build_model(ModelConfig(model_type="edsr", num_blocks=3)
+                       ).num_blocks == 3
     with pytest.raises(ValueError):
         build_model(ModelConfig(model_type="nope"))
 

@@ -390,9 +390,30 @@ def test_infer_volume_directory_batch(workspace, monkeypatch):
                      str(workspace), "--cpu"]) == 1
 
 
+@pytest.mark.parametrize("family", ["edsr", "simple"])
+def test_infer_volume_serves_other_families_as_jax_does(
+        workspace, monkeypatch, family):
+    """``--model_type`` picks the family's checkpoint (a JAX-written one,
+    base filters 8, edsr 2 blocks) beside the unet's; both CLIs serve it
+    to the same volume."""
+    from mri_superresolution_tpu.models import build_model as jbuild
+    jcfg = JaxModelConfig(model_type=family, base_filters=8, num_blocks=2)
+    p = jbuild(jcfg).init(jax.random.key(1), np.zeros((1, 16, 16, 1),
+                                                      np.float32))["params"]
+    jax_ckpt.save_checkpoint(
+        str(workspace / f"best_model_{family}"),
+        jax.tree_util.tree_map(np.asarray, p),
+        meta={"config": {"model": dataclasses.asdict(jcfg)}})
+    rc, jrc = _run_both(workspace, monkeypatch, ["--model_type", family],
+                        out=f"{family}.nii")
+    assert rc == jrc == 0
+    got, _ = _compare(workspace, f"{family}.nii", False)
+    assert got.shape == (48, 40, 6)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--artifact", "m.mrisrx"], "A12"), (["--spatial_shards", "2"], "A14"),
-    (["--num_devices", "2"], "A14"), (["--model_type", "edsr"], "A8")])
+    (["--num_devices", "2"], "A14")])
 def test_infer_volume_refuses_unported_flags(tmp_path, flags, item):
     argv = ["--input", "v.nii", "--output", str(tmp_path / "o.nii"), "--cpu",
             *flags]
