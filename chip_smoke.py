@@ -23,12 +23,15 @@ the last line is printed:
    0.5% of the elements at the seven DoubleConv conv2 sites, and timed
    against B1 (bf16 out) + B4 run separately. Both B4 routes are also
    checked, not timed, at every other shape the zoo quantizes (the
-   serving and volume batches). B1 and B3 are checked at the training,
-   volume and tile batches too. B2 runs at one 512^2
+   serving and volume batches) and the extraction phase's unet one image
+   of 128^2 at a time. B1 and B3 are checked at the training, volume,
+   tile and extraction-serving (one image of 128^2) batches too. B2 runs
+   at one 512^2
    image (``calculate_metrics``) and at batches of 8 (training) and 16
    (serving): within 1e-5 of its plain version, the same bits twice, one
    device kernel a call (``torch.profiler``), then timed twice; and is
-   checked at the training phases' 8 images of 256^2. With
+   checked at the training phases' 8 images of 256^2 and the extraction
+   phase's 50 held-out pairs of 256^2. With
    ``--parent DIR`` the B2 kernel of the checkout in DIR (an older commit)
    is timed before and after, by ``tools/ssim_time.py`` in a process of
    its own. B1's backward runs at the unet's 20 training sites (batch 8
@@ -98,14 +101,40 @@ the last line is printed:
    the serving, volume and training batches ((16, 64, 256^2), (32, 64,
    256^2), (8, 64, 128^2)) and backward (8, 64, 128^2), against the plain
    versions with B1's gates, and timed L2-cold.
-9. the perceptual leg: the unet trained for one epoch with
+9. extraction (the port's data pipeline): 8 synthetic anatomy volumes
+   (``tools/quality.make_volume``) at a clinical 192 x 256 in-plane
+   matrix, 160 slices, stored int16 with scl_slope, as .nii and .nii.gz,
+   6 train and 2 test, through the extract CLI on the card at 25 slices
+   and the reference's default target 256^2 (LR 128^2) with
+   ``--stage_times``: exit 0, 150 and 50 pairs of the right sizes, the
+   stages' ms (read, select and upload, HR pipeline, LR pipeline, fetch,
+   PNG write) and slices/s; the test split again without
+   ``--stage_times`` (the CLI's own default, which synchronizes only at
+   the fetch): slices/s and the same PNG bytes; one volume traced (host
+   against device ms); the test split's PNG codes against
+   the CPU port's pipelines on the card's noise draws (at least 99.9%
+   identical, none more than 1 apart); the unet at full width trained on
+   the pairs by the train CLI for 20 epochs at the JAX package's
+   defaults (exact launches; the train loss must fall); its final
+   checkpoint served over the 50 held-out pairs in bf16, int8 PTQ (scales
+   calibrated on train-split slices) and TTA through ``tools/quality.py``,
+   beside the bilinear, sharp-bilinear and bicubic baselines, with
+   ``metric_suites``' means and deltas and exact launches (B1 all
+   one-pass, B4 all on the stream route); bf16 and int8 on the card
+   against the CPU port at the bf16 budget on the first 2 held-out pairs
+   with content that int8 serves (int8 with the card's frozen scales);
+   bf16 on the card against the CPU port on every black pair (LR all
+   zero, where B1's groups have zero variance) on max abs difference
+   (``BLACK_MAX_ABS``), beside a control: the CPU port's bf16 against
+   its fp32 on the same pairs.
+10. the perceptual leg: the unet trained for one epoch with
    ``--perceptual_weight 0.1`` (seeded random VGG19, the trainer's
    warning), one step counted alone, the step's time with cuDNN's TF32
    on and off beside the step without the term, and one step against the
    CPU port, each of the loss's two parts at the training gate (PERF.md
    §2; the perceptual part's fp32 median against a control with the
    port's kernels swapped for their plain versions; TF32 off).
-10. the ``kernels`` JSON line, the card's name and power limit, and the
+11. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -120,8 +149,9 @@ the last line is printed:
    training sites, the four-pass kernel's time there as ``earlier_ms``,
    and the training run's launches and one-pass launches. B1's and B3's
    rows also carry the volume path's default run's launches
-   (``volume_launches``); every row the zoo phase's (``zoo_launches``)
-   and the perceptual training run's (``perceptual_launches``), and B1's
+   (``volume_launches``); every row the zoo phase's (``zoo_launches``),
+   the extraction phase's (``extract_launches``, B5's rows too) and the
+   perceptual training run's (``perceptual_launches``), and B1's
    and its backward's rows their C = 64 times (``c64``). A ``wall`` line
    before it gives the script's seconds.
 
@@ -136,6 +166,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -150,8 +181,13 @@ import torch.nn.functional as F
 # the port itself, from the checkout this script sits in: without it the
 # script fails here, before it prints anything
 from mri_superresolution_torch import kernels, native, nifti
+from mri_superresolution_torch.cli import extract as extract_cli
 from mri_superresolution_torch.cli import infer_volume as volume_cli
 from mri_superresolution_torch.cli import train as train_cli
+from mri_superresolution_torch.data.extraction import (
+    extract_from_nifti, find_nifti_files, generate_bids_identifier,
+    generate_filename, hr_pipeline, lr_pipeline, pick_slices, sub_seed,
+    to_uint8)
 from mri_superresolution_torch.config import (InferConfig, LossConfig,
                                               ModelConfig)
 from mri_superresolution_torch.infer import InferenceEngine, load_engine
@@ -171,10 +207,13 @@ from mri_superresolution_torch.models import build_model, param_count
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.models import vgg as vgg_mod
 from mri_superresolution_torch.ops.metrics import psnr
+from mri_superresolution_torch.ops.kspace import draw_kspace_noise
 from mri_superresolution_torch.ops.normalize import normalize_slices
+from mri_superresolution_torch.ops.quant import FOREGROUND_INTENSITY
 from mri_superresolution_torch.ops.ssim import ssim
 from mri_superresolution_torch.losses import CombinedLoss
-from mri_superresolution_torch.tools import grad_gap, roll_probe
+from mri_superresolution_torch.tools import grad_gap, quality, roll_probe
+from mri_superresolution_torch.tools.profile_step import trace_calls
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.train import trainer
 from mri_superresolution_torch.utils.phantom import phantom_batch
@@ -195,8 +234,6 @@ PROBE_ROWS, PROBE_LANES = 512, 16384
 # package's default TrainConfig.batch_size) and the serving batch
 B2_SHAPES = ((1, 512, 512), (8, 512, 512), (16, 512, 512))
 B2_ROW_SHAPE = (8, 512, 512)
-# checked, not timed: the training phases' batch (8 of 256^2)
-B2_CHECK_SHAPES = ((8, 256, 256),)
 SSIM_TIME = Path(__file__).resolve().parent / "mri_superresolution_torch" / \
     "tools" / "ssim_time.py"
 # written by the int8 engine when its scales freeze; build/ is not
@@ -237,6 +274,28 @@ ZOO_INT8_LAUNCHES = {
     "edsr": {"leaky_quantize": 2 * EDSR_BLOCKS + 2},
     "simple": {"leaky_quantize": 2}}
 PERC_WEIGHT = 0.1
+# the extraction phase: 8 synthetic anatomy volumes at a clinical matrix
+# (192 x 256 in-plane, non-square so that the letterbox pads; 160
+# slices), stored int16 with scl_slope, .nii and .nii.gz; 6 train and 2
+# test volumes, 25 slices each, at the reference's default target 256^2
+# (LR 128^2); the unet trained on them for EXTRACT_EPOCHS epochs
+EXTRACT_DIR = SCALES_PATH.parent / "extract"
+EXTRACT_SHAPE, EXTRACT_SLOPE = (192, 256, 160), 0.25
+EXTRACT_VOLUMES = {"train": 6, "test": 2}
+EXTRACT_SLICES, EXTRACT_TARGET, EXTRACT_SEED = 25, 256, 0
+EXTRACT_EPOCHS = 20
+# B2 checked, not timed: the training phases' batch (8 of 256^2) and the
+# extraction phase's metric batch (its 50 held-out pairs of 256^2)
+B2_CHECK_SHAPES = ((8, 256, 256), (EXTRACT_VOLUMES["test"] * EXTRACT_SLICES,
+                                   EXTRACT_TARGET, EXTRACT_TARGET))
+# the extraction phase's black pairs (LR all zero): card against CPU port
+# bf16 outputs, max abs difference. Read on an NVIDIA H100 80GB HBM3 at
+# 700 W: 3.3e-3 to 4.6e-3 over three trained checkpoints, and 3.3e-3 to
+# 5.8e-3 for the control, the CPU port's bf16 against its fp32 on the
+# same pairs: the limit lies 1.7 times or more above every reading
+BLACK_MAX_ABS = 1e-2
+# card against CPU port codes (PNG): share identical, largest difference
+CODES_SAME_MIN, CODES_DIFF_MAX = 0.999, 1
 
 
 def log(phase: str, **fields) -> None:
@@ -270,12 +329,15 @@ def gn_sites(b: int, lr: int, f: int):
 def other_batches() -> tuple:
     """(batch, input side, name) of what the later phases run besides the
     main path's batch: the training batch (its forwards), the volume's
-    batches and the tiles of the volume phase's one tiled slice."""
+    batches, the tiles of the volume phase's one tiled slice, and the
+    extraction phase's serving, one LR image of 128^2 at a time (int8
+    calibration, bf16, int8 and each TTA pass)."""
     stride = TILE - 2 * HALO
     tiles = len(range(0, TILED_HW - 2 * HALO, stride)) ** 2
     return ((TRAIN_BATCH, TRAIN_LR, "training batch"),
             (VOL_BATCH, VOL_HW, "volume batch"),
-            (tiles, TILE, f"{tiles} tiles of upscale_tiled"))
+            (tiles, TILE, f"{tiles} tiles of upscale_tiled"),
+            (1, EXTRACT_TARGET // 2, "extraction serving"))
 
 
 def b1_inputs(shape, dev, gen) -> tuple:
@@ -317,8 +379,7 @@ def b1_check(x, g, b, served_by: str) -> float:
 def check_b1(dev, gen) -> dict:
     """B1 at the unet's five GroupNorm shapes (unet_tpu's backbone takes
     the first four): both routes against the plain version and run to
-    run, at the main path's batch and at the training, volume and tile
-    batches; then, at the main path's batch, every time
+    run, at the main path's batch and at ``other_batches``; then, at the main path's batch, every time
     L2-cold from CUDA graph replays, the library's GroupNorm + LeakyReLU
     timed the same way."""
     keys = ("ms", "earlier_ms", "plain_ms", "library_ms", "bound_ms")
@@ -383,8 +444,7 @@ def b3_check(x, w, served_by: str) -> float:
 
 def check_b3(dev, gen) -> dict:
     """B3 at the unet's two sites against its plain version and run to
-    run, at the main path's batch and at the training, volume and tile
-    batches; then, at the main path's batch, timed L2-cold beside the plain
+    run, at the main path's batch and at ``other_batches``; then, at the main path's batch, timed L2-cold beside the plain
     version and the library's convolution."""
     f = BASE_FILTERS
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
@@ -464,7 +524,7 @@ def parent_b2_ms(parent: str) -> dict:
 
 def check_b2(dev, gen, parent=None) -> dict:
     """B2 at one image (``calculate_metrics``), at the training and
-    serving batches and at the training phases' batch of 256^2: within
+    serving batches and at ``B2_CHECK_SHAPES``: within
     1e-5 of the plain version, the same bits twice, one device kernel a
     call (``torch.profiler``); then, but for the last, L2-cold times from
     CUDA graph replays, twice, and the plain version's. With ``parent``
@@ -567,16 +627,19 @@ def zoo_quant_sites(family: str, b: int, lr: int, f: int):
     return [("extract", (b, 1, lr, lr), 1.0), ("map", (b, f, lr, lr), 1.0)]
 
 
-def zoo_only_sites(fused: bool):
+def other_sites(fused: bool):
     """(site, shape, slope) of every distinct B4 shape (``fused``: every
-    ``gn_quantize`` shape) the zoo phase quantizes at the serving and
-    volume batches that the unet's sites at the serving batch do not
+    ``gn_quantize`` shape) that the zoo phase quantizes at the serving
+    and volume batches, and the extraction phase's unet one LR image of
+    128^2 at a time, that the unet's sites at the serving batch do not
     hold, under the first family's site name that has it."""
     seen = {(shape, slope) for _, shape, slope in
             b4_sites(BATCH, LR, BASE_FILTERS)}
     out = []
-    for b, lr in ((BATCH, LR), (VOL_BATCH, VOL_HW)):
-        for family in ZOO_FAMILIES:
+    for b, lr, families in ((BATCH, LR, ZOO_FAMILIES),
+                            (VOL_BATCH, VOL_HW, ZOO_FAMILIES),
+                            (1, EXTRACT_TARGET // 2, ("unet",))):
+        for family in families:
             for site, shape, slope in zoo_quant_sites(family, b, lr,
                                                       BASE_FILTERS):
                 if (slope != 1.0) == fused and (shape, slope) not in seen:
@@ -662,8 +725,8 @@ def check_b4(dev, gen) -> dict:
     against the plain version on every finite bf16 code (C = 1 and 16 with
     each class of scale alone, so that every in-range class runs the
     stream kernel's reciprocal route on every code; C = 256 with all
-    classes at once), at the 20 unet sites and at the zoo's other shapes
-    (serving and volume batches; ``zoo_only_sites``), then both L2-cold
+    classes at once), at the 20 unet sites and at the zoo's and the
+    extraction phase's other shapes (``other_sites``), then both L2-cold
     at every unet site. The row reports the 13 sites the stream route serves on the int8
     path (the element kernel's sum there is its earlier_ms), and the sums
     over all 20 beside them."""
@@ -694,8 +757,9 @@ def check_b4(dev, gen) -> dict:
     keys = ("ms", "earlier_ms", "plain_ms", "bound_ms")
     tot, fused, standalone = (dict.fromkeys(keys, 0.0) for _ in range(3))
     bound_by, elems = "bytes", 0
-    # the zoo's own shapes, checked and not timed
-    for site, shape, slope in zoo_only_sites(fused=False):
+    # the zoo's and the extraction phase's own shapes, checked and not
+    # timed
+    for site, shape, slope in other_sites(fused=False):
         b4_site_check(site, shape, slope, dev, gen)
     for site, shape, slope in b4_sites(BATCH, LR, BASE_FILTERS):
         x, scale = b4_site_check(site, shape, slope, dev, gen)
@@ -767,16 +831,18 @@ def fused_site_check(site: str, shape, slope: float, dev, gen) -> tuple:
 
 def check_fused(dev, gen) -> dict:
     """B4's fused route (gn_quantize: B1's one-pass kernel with an int8
-    output) at the seven DoubleConv conv2 sites, at the serving batch and
-    at unet_tpu's volume batch (``fused_site_check``); then, at the
+    output) at the seven DoubleConv conv2 sites, at the serving batch, at
+    unet_tpu's volume batch and at the extraction phase's one image
+    (``fused_site_check``); then, at the
     serving batch, L2-cold against B1 (bf16 out) + B4 run separately
     (earlier_ms)."""
     keys = ("ms", "earlier_ms", "b1_bf16_ms", "plain_ms", "bound_ms")
     tot = dict.fromkeys(keys, 0.0)
     bound_by = "bytes"
-    # the zoo's own shapes (unet_tpu's conv2 sites at the volume batch),
+    # the zoo's and the extraction phase's own shapes (unet_tpu's conv2
+    # sites at the volume batch, the unet's at one image of 128^2),
     # checked and not timed
-    for site, shape, slope in zoo_only_sites(fused=True):
+    for site, shape, slope in other_sites(fused=True):
         fused_site_check(site, shape, slope, dev, gen)
     for site, shape, slope in b4_sites(BATCH, LR, BASE_FILTERS):
         if slope == 1.0:
@@ -2134,6 +2200,339 @@ def zoo_path(dev, lr, hr, c64: dict) -> dict:
     return {"results": res, "launches": totals}
 
 
+def _write_extract_volumes() -> dict:
+    """The extraction phase's volumes: ``quality.make_volume`` anatomy at
+    ``EXTRACT_SHAPE`` stored int16 under scl_slope ``EXTRACT_SLOPE``, the
+    even ones as .nii and the odd ones as .nii.gz, in a BIDS tree a
+    split; the datasets folder by split."""
+    rng = np.random.default_rng(EXTRACT_SEED)
+    roots, i = {}, 0
+    for split, n in EXTRACT_VOLUMES.items():
+        roots[split] = EXTRACT_DIR / f"data_{split}"
+        for _ in range(n):
+            anat = roots[split] / f"set1/sub-{i:02d}/anat"
+            anat.mkdir(parents=True)
+            stored = np.round(quality.make_volume(rng, EXTRACT_SHAPE)
+                              / EXTRACT_SLOPE).astype(np.int16)
+            nifti.save(str(anat / f"sub-{i:02d}_T1w.nii{'.gz' * (i % 2)}"),
+                       stored, zooms=(0.9, 0.9, 1.0),
+                       scl_slope=EXTRACT_SLOPE)
+            i += 1
+    return roots
+
+
+def _extract_cli(data: Path, split: str, out: str = None,
+                 stage_times: bool = True) -> dict:
+    """One in-process run of the extract CLI on the card over ``data``
+    (``split``'s volumes), writing EXTRACT_DIR/hr_<out> and lr_<out>
+    (``out`` defaults to ``split``), with ``--stage_times`` if asked; its
+    summary (stage ms, slices, seconds), with its wall time and the
+    checked outputs."""
+    out_name = out or split
+    argv = ["--datasets_dir", str(data),
+            "--hr_output_dir", str(EXTRACT_DIR / f"hr_{out_name}"),
+            "--lr_output_dir", str(EXTRACT_DIR / f"lr_{out_name}"),
+            "--n_slices", str(EXTRACT_SLICES), "--target_size",
+            str(EXTRACT_TARGET), str(EXTRACT_TARGET),
+            "--seed", str(EXTRACT_SEED)] + ["--stage_times"] * stage_times
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = extract_cli.run(extract_cli.parse_args(argv))
+    res["wall_s"] = time.perf_counter() - t0
+    hr = sorted(p.name for p in (EXTRACT_DIR / f"hr_{out_name}").iterdir())
+    lr = sorted(p.name for p in (EXTRACT_DIR / f"lr_{out_name}").iterdir())
+    n = EXTRACT_VOLUMES[split] * EXTRACT_SLICES
+    sizes = {native.png_size(str(EXTRACT_DIR / f"{d}_{out_name}" / hr[0]))
+             for d in ("hr", "lr")}
+    log("extract_cli", split=split, out=out_name, stage_times=stage_times,
+        rc=res["rc"], files=res["files"],
+        failed=res["failed"], slices=res["slices"], seconds=res["seconds"],
+        wall_s=res["wall_s"], stage_ms=res["stage_ms"],
+        slices_per_s=res["slices"] / res["wall_s"], png_sizes=sorted(sizes),
+        last_line=printed.getvalue().splitlines()[-1])
+    want_sizes = {(EXTRACT_TARGET, EXTRACT_TARGET),
+                  (EXTRACT_TARGET // 2, EXTRACT_TARGET // 2)}
+    if res["rc"] != 0 or res["slices"] != n or hr != lr or len(hr) != n \
+            or sizes != want_sizes:
+        raise AssertionError(f"extract CLI ({split}): rc {res['rc']}, "
+                             f"{res['slices']} slices of {n}, {len(hr)} HR "
+                             f"and {len(lr)} LR files, sizes {sizes}")
+    return res
+
+
+def _extract_card_vs_cpu(data: Path, split: str, dev) -> dict:
+    """The card's PNGs of ``split`` against the CPU port's pipelines on
+    the same volumes and the same noise (the card's draws, fetched):
+    codes identical on at least CODES_SAME_MIN of the pixels, none more
+    than CODES_DIFF_MAX apart, HR and LR apart."""
+    diffs = {"hr": [], "lr": []}
+    size = (EXTRACT_TARGET, EXTRACT_TARGET)
+    for i, path in enumerate(find_nifti_files(str(data))):
+        stored, hdr = nifti.load_stored(path)
+        idx, stack = pick_slices(stored, EXTRACT_SLICES, 0.2, 0.8, hdr)
+        x = torch.from_numpy(stack)
+        noise = draw_kspace_noise(tuple(x.shape), torch.Generator(
+            device=dev).manual_seed(sub_seed(EXTRACT_SEED, i)))
+        cpu = {"hr": hr_pipeline(x, size).numpy(),
+               "lr": lr_pipeline(x, tuple(n.cpu() for n in noise),
+                                 size).numpy()}
+        subject = generate_bids_identifier(path)
+        for key, imgs in cpu.items():
+            for j, z in enumerate(idx):
+                png = native.imread_gray(str(
+                    EXTRACT_DIR / f"{key}_{split}" /
+                    generate_filename(subject, int(z))))
+                diffs[key].append(np.abs(png.astype(np.int16) - to_uint8(
+                    imgs[j]).astype(np.int16)))
+    res = {}
+    for key, d in diffs.items():
+        d = np.stack(d)
+        res[key] = {"pixels": int(d.size),
+                    "same_share": float((d == 0).mean()),
+                    "max_code_diff": int(d.max())}
+    ok = all(r["same_share"] >= CODES_SAME_MIN and
+             r["max_code_diff"] <= CODES_DIFF_MAX for r in res.values())
+    log("extract_cpu_vs_gpu", split=split, volumes=EXTRACT_VOLUMES[split],
+        **res, ok=ok)
+    if not ok:
+        raise AssertionError(f"extraction on the card against the CPU port "
+                             f"({split}): {res}")
+    return res
+
+
+def _add(totals: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def extract_path(dev) -> dict:
+    """Paired-slice extraction through its entry point, then the unet
+    trained and served on what it made: 8 int16 volumes (6 train, 2 test)
+    through the extract CLI on the card, with its stages' ms
+    (``--stage_times``) and slices/s; the test split again without it
+    (slices/s, the same PNG bytes); one volume traced (host against
+    device time); the test split's
+    PNGs against the CPU port on the card's noise draws; the train CLI at
+    full width and the JAX package's defaults for EXTRACT_EPOCHS epochs
+    (the train loss must fall); the final checkpoint served over the 50
+    held-out pairs in bf16, int8 PTQ (scales calibrated on 8
+    content-rich train-split slices) and TTA, beside the three baselines
+    (``tools/quality.py``);
+    bf16 and int8 on the card against the CPU port at the bf16 budget on
+    2 pairs with content, int8 with the card's frozen scales; bf16 on the
+    black pairs on max abs difference (``BLACK_MAX_ABS``) beside its
+    control. Every launch of the phase is counted, train and serve
+    segments exactly, with B1's and B4's routes."""
+    start = time.perf_counter()
+    shutil.rmtree(EXTRACT_DIR, ignore_errors=True)
+    roots = _write_extract_volumes()
+    write_s = time.perf_counter() - start
+    totals = dict.fromkeys(kernels.launch_counts(), 0)
+
+    runs = {}
+    for split, data in roots.items():
+        kernels.reset_launch_counts()
+        runs[split] = _extract_cli(data, split)
+        _add(totals, kernels.launch_counts())
+    stage_ms = {k: sum(r["stage_ms"][k] for r in runs.values())
+                for k in runs["train"]["stage_ms"]}
+    wall = sum(r["wall_s"] for r in runs.values())
+    slices = sum(r["slices"] for r in runs.values())
+    # the test split again as the CLI runs by default (the card
+    # synchronized only at the fetch): the same PNG bytes
+    kernels.reset_launch_counts()
+    plain = _extract_cli(roots["test"], "test", "test_unsynced", False)
+    _add(totals, kernels.launch_counts())
+    same = all((EXTRACT_DIR / f"{d}_test" / f.name).read_bytes()
+               == f.read_bytes()
+               for d in ("hr", "lr")
+               for f in (EXTRACT_DIR / f"{d}_test_unsynced").iterdir())
+    log("extract_unsynced", slices=plain["slices"], wall_s=plain["wall_s"],
+        slices_per_s=plain["slices"] / plain["wall_s"],
+        synced_slices_per_s=runs["test"]["slices"] / runs["test"]["wall_s"],
+        same_png_bytes=same)
+    if not same:
+        raise AssertionError("the extract CLI wrote other PNG bytes without "
+                             "--stage_times from the same seed")
+    test_vol = find_nifti_files(str(roots["test"]))[0]
+    scratch = EXTRACT_DIR / "traced"
+    scratch.mkdir()
+    traced = trace_calls(lambda: extract_from_nifti(
+        test_vol, str(scratch), str(scratch), seed=1, device=dev,
+        n_slices=EXTRACT_SLICES, target_size=(EXTRACT_TARGET,
+                                              EXTRACT_TARGET),
+        verbose=False), top=8, iters=3, warmup=1)
+    log("extract_breakdown", volumes=sum(EXTRACT_VOLUMES.values()),
+        volume=list(EXTRACT_SHAPE), slices=slices, wall_s=wall,
+        slices_per_s=slices / wall, stage_ms=stage_ms,
+        stage_share={k: v / (wall * 1e3) for k, v in stage_ms.items()},
+        write_volumes_s=write_s, traced_volume=traced,
+        timing="host clock; each stage ends in a synchronize "
+               "(--stage_times); one .nii.gz test volume traced with "
+               "torch.profiler")
+    check = _extract_card_vs_cpu(roots["test"], "test", dev)
+
+    # the unet trained on the extracted pairs
+    n_train = EXTRACT_VOLUMES["train"] * EXTRACT_SLICES
+    n_val = int(0.2 * n_train)
+    steps = EXTRACT_EPOCHS * -(-(n_train - n_val) // TRAIN_BATCH)
+    vals = EXTRACT_EPOCHS * -(-n_val // TRAIN_BATCH)
+    ck = EXTRACT_DIR / "ckpt"
+    argv = ["--full_res_dir", str(EXTRACT_DIR / "hr_train"),
+            "--low_res_dir", str(EXTRACT_DIR / "lr_train"),
+            "--base_filters", str(BASE_FILTERS),
+            "--batch_size", str(TRAIN_BATCH), "--epochs",
+            str(EXTRACT_EPOCHS), "--seed", str(TRAIN_SEED),
+            "--checkpoint_dir", str(ck), "--log_dir", str(ck / "logs")]
+    proto = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(proto):
+        final = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = kernels.launch_counts()
+    train_routes = {
+        "group_norm_leaky.onepass": group_norm_leaky.onepass_launches,
+        "group_norm_leaky_backward.onepass":
+            group_norm_leaky_backward.onepass_launches}
+    _add(totals, train_counts)
+    summaries = [d for d in (json.loads(ln) for ln in
+                             proto.getvalue().splitlines()
+                             if ln.startswith("{"))
+                 if d["type"] == "epoch_summary"]
+    want = dict.fromkeys(train_counts, 0)
+    want.update(group_norm_leaky=20 * (steps + vals),
+                group_norm_leaky_backward=20 * steps,
+                conv3x3=2 * (steps + vals), ssim_per_sample=steps + vals)
+    want_routes = {
+        "group_norm_leaky.onepass": want["group_norm_leaky"],
+        "group_norm_leaky_backward.onepass":
+            want["group_norm_leaky_backward"]}
+    losses = [s["train_loss"] for s in summaries]
+    log("extract_train", pairs=n_train, epochs=EXTRACT_EPOCHS, steps=steps,
+        val_batches=vals, seconds=train_s, launches=train_counts,
+        expected=want, routes=train_routes, expected_routes=want_routes,
+        train_losses=losses, val_losses=[s["val_loss"] for s in summaries],
+        checkpoint=final)
+    if train_counts != want or train_routes != want_routes or \
+            len(losses) != EXTRACT_EPOCHS or \
+            not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training on the extracted pairs: launches "
+                             f"{train_counts}, expected {want}; routes "
+                             f"{train_routes}, expected {want_routes}; "
+                             f"train losses {losses}")
+
+    # the final checkpoint served over the held-out pairs
+    pairs = quality.held_out_pairs(str(EXTRACT_DIR / "lr_test"),
+                                   str(EXTRACT_DIR / "hr_test"))
+    lrs = quality.read_pngs([a for a, _ in pairs])
+    hrs = quality.read_pngs([b for _, b in pairs])
+    calib = quality.read_pngs(sorted(
+        str(p) for p in (EXTRACT_DIR / "lr_train").iterdir()))
+    scales = EXTRACT_DIR / "int8_scales.json"
+    kernels.reset_launch_counts()
+    rows, outs = quality.checkpoint_rows(final, "unet", lrs, hrs, calib,
+                                         dev, str(scales))
+    rows.update(quality.baseline_rows(lrs, hrs, dev, rows["unet/bf16"],
+                                      "unet/bf16"))
+    torch.cuda.synchronize()
+    serve_counts = kernels.launch_counts()
+    serve_routes = {
+        "group_norm_leaky.onepass": group_norm_leaky.onepass_launches,
+        "leaky_quantize.stream": leaky_quantize.stream_launches}
+    _add(totals, serve_counts)
+    n = len(pairs)
+    served = rows["unet/int8"]["served"]
+    n_int8 = served["int8"]
+    n_bf16 = rows["unet/int8"]["calibration_forwards"] + n - n_int8
+    want = dict.fromkeys(serve_counts, 0)
+    want.update(group_norm_leaky=20 * n + 13 * n_int8 + 20 * n_bf16
+                + 160 * n,
+                conv3x3=2 * n + 2 * n_bf16 + 16 * n, gn_quantize=7 * n_int8,
+                leaky_quantize=13 * n_int8,
+                ssim_per_sample=len(quality.MODES) + 3)
+    # one image a forward: B1 all one-pass, B4 all on the stream route
+    want_routes = {"group_norm_leaky.onepass": want["group_norm_leaky"],
+                   "leaky_quantize.stream": want["leaky_quantize"]}
+    log("extract_serve", pairs=n, lr=list(lrs.shape[1:]),
+        hr=list(hrs.shape[1:]), rows=rows, launches=serve_counts,
+        expected=want, routes=serve_routes, expected_routes=want_routes,
+        scales=scales.exists())
+    if serve_counts != want or serve_routes != want_routes or \
+            n != EXTRACT_VOLUMES["test"] * EXTRACT_SLICES or not n_int8 \
+            or not scales.exists():
+        raise AssertionError(f"serving the extracted pairs: {n} pairs, "
+                             f"{served} served int8/bf16, launches "
+                             f"{serve_counts}, expected {want}; routes "
+                             f"{serve_routes}, expected {want_routes}")
+    for name, out in outs.items():
+        if out.shape != hrs.shape or not np.isfinite(out).all() or \
+                out.min() < 0 or out.max() > 1:
+            raise AssertionError(f"{name}: bad output {out.shape}")
+
+    # bf16 and int8 on the card against the CPU port: the first 2
+    # held-out pairs with content that int8 serves (LR foreground at least
+    # the engine's routing threshold; black pairs measure only the
+    # output's offset from 0, where bf16 rounding moves PSNR and SSIM most)
+    fg = np.abs(lrs).reshape(len(lrs), -1) > FOREGROUND_INTENSITY
+    pick = np.flatnonzero(quality.content_pairs(hrs) & (
+        fg.mean(axis=1) >= InferConfig().quant_min_foreground))[:2]
+    gates = {}
+    for mode in ("bf16", "int8"):
+        cpu = quality.load_mode_engine(final, "unet", mode, "cpu",
+                                       scales_path=str(scales))
+        out_cpu = quality.serve(cpu, lrs[pick])
+        g = quality.summarize(outs[mode][pick], hrs[pick], "cpu")
+        c = quality.summarize(out_cpu, hrs[pick], "cpu")
+        d = {"d_psnr_db": abs(g["psnr"] - c["psnr"]),
+             "d_ssim": abs(g["ssim"] - c["ssim"])}
+        d["ok"] = len(pick) == 2 and d["d_psnr_db"] <= 0.1 and \
+            d["d_ssim"] <= 1e-3
+        log("extract_cpu_vs_gpu", precision=mode,
+            pairs=[os.path.basename(pairs[i][0]) for i in pick],
+            card=g, cpu=c,
+            max_abs_diff=float(np.abs(outs[mode][pick] - out_cpu).max()),
+            cpu_served=dict(cpu._quant_batches), **d)
+        if not d["ok"] or (mode == "int8" and cpu._quant_batches["int8"]
+                           != 2):
+            raise AssertionError(f"{mode}: the card and the CPU port differ "
+                                 f"beyond the bf16 budget {d} "
+                                 f"({cpu.quant_summary()})")
+        gates[mode] = d
+
+    # the black pairs (an empty slice's: LR all zero, where B1's groups
+    # have zero variance, rstd 1/sqrt(eps)) on max abs difference, bf16 on
+    # the card against the CPU port; beside it the control, the CPU port's
+    # bf16 against its fp32 on the same pairs (what the precision alone
+    # moves)
+    black = np.flatnonzero(~quality.content_pairs(hrs))
+    cpu = {m: quality.serve(quality.load_mode_engine(final, "unet", m,
+                                                     "cpu"), lrs[black])
+           for m in ("bf16", "fp32")}
+    d = {"pairs": len(black),
+         "max_abs_diff": float(np.abs(outs["bf16"][black]
+                                      - cpu["bf16"]).max()),
+         "control_bf16_vs_fp32": float(np.abs(cpu["bf16"]
+                                              - cpu["fp32"]).max()),
+         "limit": BLACK_MAX_ABS}
+    d["ok"] = len(black) > 0 and not lrs[black].any() and \
+        d["max_abs_diff"] <= BLACK_MAX_ABS
+    log("extract_black_pairs", precision="bf16",
+        names=[os.path.basename(pairs[i][0]) for i in black],
+        card_max=float(outs["bf16"][black].max()),
+        cpu_max=float(cpu["bf16"].max()), **d)
+    if not d["ok"]:
+        raise AssertionError(f"the black pairs: the card and the CPU port "
+                             f"differ beyond {BLACK_MAX_ABS} ({d})")
+    gates["black"] = d
+    log("extract_path", launches=totals,
+        seconds=time.perf_counter() - start)
+    return {"launches": totals, "extract": runs, "unsynced": plain,
+            "check": check, "rows": rows, "gates": gates}
+
+
 def perceptual_path(dev) -> dict:
     """The unet's training with the perceptual term (``perceptual_weight``
     0.1, VGG19 to relu5_4 on seeded random weights, as the trainer falls
@@ -2261,6 +2660,7 @@ def main(argv=None) -> int:
     probe, counts_probe = probe_path(dev)
     trained = train_path(dev, lr)
     zoo = zoo_path(dev, lr, hr, c64)
+    extract = extract_path(dev)
     perc = perceptual_path(dev)
 
     torch_root = "mri_superresolution_torch/csrc/"
@@ -2299,6 +2699,7 @@ def main(argv=None) -> int:
         # forward in each precision) and the perceptual training run
         rows[-1]["zoo_launches"] = zoo["launches"][name]
         rows[-1]["perceptual_launches"] = perc["launches"][name]
+        rows[-1]["extract_launches"] = extract["launches"][name]
         if key in ("B1", "B1 backward"):
             rows[-1]["c64"] = c64["forward" if key == "B1" else "backward"]
         if key == "B2":
@@ -2326,7 +2727,8 @@ def main(argv=None) -> int:
                      "ms": r["us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
                      "bound_ms": probe_bound_ms(), "bound_by": "bytes",
                      "library_ms": None if r["library_us"] is None
-                     else r["library_us"] / 1e3})
+                     else r["library_us"] / 1e3,
+                     "extract_launches": extract["launches"][wrapper]})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

@@ -3,10 +3,11 @@
 An own copy of the JAX package's ``config.py`` for the slices ported so
 far: ``ModelConfig`` (with every field of the JAX one, so that a
 checkpoint's JSON sidecar has the same ``config`` block whichever package
-wrote it), and ``LossConfig``, ``AugmentConfig``, ``TrainConfig`` and
-``InferConfig`` whole. Options that later slices port keep their names and
-defaults here; ``train.trainer.check_supported`` and the serving engine
-reject them when they are set, naming the ROADMAP item that ports each.
+wrote it), and ``LossConfig``, ``AugmentConfig``, ``TrainConfig``,
+``ExtractConfig`` and ``InferConfig`` whole. Options that later slices
+port keep their names and defaults here; ``train.trainer.check_supported``
+and the serving engine reject them when they are set, naming the ROADMAP
+item that ports each.
 ``model_config_from_dict`` and ``train_config_from_dict`` read a
 sidecar's blocks and ignore keys this copy does not know.
 """
@@ -115,6 +116,22 @@ class TrainConfig:
     # every N optimizer steps a step_model_<type> checkpoint with the
     # epoch's batch cursor, for a bit-identical mid-epoch --resume
     save_every_steps: int = 0
+
+
+@dataclass
+class ExtractConfig:
+    """Paired-slice extraction config, the defaults of the reference's
+    scripts/extract_paired_slices.py:98-122 (``cli/extract.py``)."""
+    datasets_dir: str = "./datasets"
+    hr_output_dir: str = "./training_data"
+    lr_output_dir: str = "./training_data_1.5T"
+    n_slices: int = 10
+    lower_percent: float = 0.2
+    upper_percent: float = 0.8
+    target_size: Tuple[int, int] = (256, 256)  # (width, height)
+    noise_std: float = 5.0
+    kspace_crop_factor: float = 0.5
+    seed: int = 0
 
 
 @dataclass

@@ -132,15 +132,7 @@ def load_bytes(buf: bytes, raw: bool = False,
     decodes uploads with this, no temp files."""
     if _gunzip and buf[:2] == b"\x1f\x8b":
         buf = gzip.decompress(buf)
-    hdr, order = read_header(buf)
-    if hdr.datatype not in _DTYPES:
-        raise ValueError(f"Unsupported NIfTI datatype code {hdr.datatype}")
-    dtype = np.dtype(_DTYPES[hdr.datatype]).newbyteorder(order)
-    shape = hdr.shape
-    count = int(np.prod(shape)) if shape else 0
-    off = int(hdr.vox_offset)
-    data = np.frombuffer(buf, dtype=dtype, count=count, offset=off)
-    data = data.reshape(shape, order="F")
+    data, hdr = _stored(buf)
     if raw:
         slope = hdr.scl_slope
         if np.isfinite(slope) and slope < 0:
@@ -148,14 +140,43 @@ def load_bytes(buf: bytes, raw: bool = False,
                 "raw=True requires a non-negative scl_slope (a negative "
                 "slope flips intensity order, which scale-invariant "
                 "normalizes do not absorb)")
-        if dtype.byteorder == ">":
-            data = data.astype(dtype.newbyteorder("<"))
+        if data.dtype.byteorder == ">":
+            data = data.astype(data.dtype.newbyteorder("<"))
         return data, hdr
-    data = data.astype(np.float64)
+    return apply_scaling(data, hdr), hdr
+
+
+def _stored(buf: bytes) -> Tuple[np.ndarray, NiftiHeader]:
+    """The voxels of an uncompressed NIfTI-1 byte string as stored (the
+    file's dtype and byte order, F-order view of ``buf``), and its header."""
+    hdr, order = read_header(buf)
+    if hdr.datatype not in _DTYPES:
+        raise ValueError(f"Unsupported NIfTI datatype code {hdr.datatype}")
+    dtype = np.dtype(_DTYPES[hdr.datatype]).newbyteorder(order)
+    count = int(np.prod(hdr.shape)) if hdr.shape else 0
+    data = np.frombuffer(buf, dtype=dtype, count=count,
+                         offset=int(hdr.vox_offset))
+    return data.reshape(hdr.shape, order="F"), hdr
+
+
+def apply_scaling(stored: np.ndarray, hdr: NiftiHeader) -> np.ndarray:
+    """Stored voxel values -> float64 physical values, as :func:`load`
+    gives them: ``data * scl_slope + scl_inter`` when the slope is finite
+    and not the identity (0 means no scaling). Elementwise, so scaling a
+    selection of slices equals selecting them from the scaled volume."""
+    data = np.asarray(stored).astype(np.float64)
     slope, inter = hdr.scl_slope, hdr.scl_inter
     if np.isfinite(slope) and slope != 0 and (slope, inter) != (1.0, 0.0):
         data = data * slope + inter
-    return data, hdr
+    return data
+
+
+def load_stored(path: str) -> Tuple[np.ndarray, NiftiHeader]:
+    """The stored voxel values (native dtype, no scaling, a slope of any
+    sign) and the header: for callers that take a few slices and scale
+    only those with :func:`apply_scaling` (``data/extraction.py``)."""
+    with _open(path) as f:
+        return _stored(f.read())
 
 
 def save(path: str, data: np.ndarray,

@@ -1,13 +1,14 @@
 """Intensity normalization of a batch of slices, on any device.
 
-The port's own copy of the JAX package's ``ops/normalize.py`` serving half
-(``robust_normalize``, ``percentile_window``, ``minmax_normalize``), which
-reproduces the reference's NumPy intensity pipeline
-(utils/preprocessing.py:126-163, 335-343). JAX vmaps the per-slice
-functions over a batch; here each function takes a batch of slices, one
-slice a row: (N, h, w) -> (N, h, w) fp32, on the tensor's device.
-``apply_windowing``, ``clahe`` and ``histogram_equalization`` wait for the
-data pipeline (ROADMAP A13).
+The port's own copy of the JAX package's ``ops/normalize.py``, which
+reproduces the reference's NumPy/cv2 intensity pipeline
+(utils/preprocessing.py:126-223, 335-343): ``robust_normalize``,
+``percentile_window`` and ``minmax_normalize`` for serving and extraction,
+``apply_windowing``, ``clahe`` and ``histogram_equalization`` for
+``ops/pipeline.preprocess_slice``. JAX vmaps the per-slice functions over
+a batch; here each function takes a batch of slices, one slice a row:
+(N, h, w) -> (N, h, w) fp32, on the tensor's device (``clahe`` and
+``histogram_equalization`` also take one (h, w) slice).
 """
 
 from __future__ import annotations
@@ -101,3 +102,141 @@ def normalize_slices(x: torch.Tensor) -> torch.Tensor:
     """The serving normalize: ``minmax_normalize(percentile_window(x))``
     per slice, as the reference's inference does (scripts/infer.py:97-130)."""
     return minmax_normalize(percentile_window(x))
+
+
+def apply_windowing(x: torch.Tensor, window_center: float,
+                    window_width: float,
+                    output_range: Tuple[float, float] = (0.0, 1.0)
+                    ) -> torch.Tensor:
+    """Manual intensity windowing: clip to the window, then rescale it to
+    ``output_range`` unless it is empty (reference
+    utils/preprocessing.py:193-223)."""
+    mn, mx = output_range
+    w_min = window_center - window_width / 2.0
+    w_max = window_center + window_width / 2.0
+    windowed = x.float().clamp(w_min, w_max)
+    if w_max > w_min:
+        windowed = (windowed - w_min) / (w_max - w_min)
+        windowed = windowed * (mx - mn) + mn
+    return windowed
+
+
+def _codes(image: torch.Tensor) -> torch.Tensor:
+    """The reference's uint8 quantization before cv2, truncating
+    (utils/preprocessing.py:182-183 ``astype(np.uint8)``), as int64."""
+    return (image.float() * 255.0).clamp(0, 255).to(torch.int64)
+
+
+def _reflect101(n: int, size: int, device) -> torch.Tensor:
+    """Indices of ``n`` positions of an axis of ``size`` extended past its
+    end by reflection without repeating the edge (cv2's BORDER_REFLECT_101,
+    ``jnp.pad(mode="reflect")``)."""
+    i = torch.arange(n, device=device)
+    if size == 1:
+        return torch.zeros_like(i)
+    period = 2 * (size - 1)
+    i = i % period
+    return torch.where(i < size, i, period - i)
+
+
+def _batched(fn):
+    """Run a per-batch function on one (h, w) slice too."""
+    def wrapper(image: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        if image.dim() == 2:
+            return fn(image[None], *args, **kwargs)[0]
+        return fn(image, *args, **kwargs)
+    wrapper.__name__, wrapper.__doc__ = fn.__name__, fn.__doc__
+    return wrapper
+
+
+@_batched
+def clahe(image: torch.Tensor, clip_limit: float = 2.0,
+          tile_grid_size: Tuple[int, int] = (8, 8)) -> torch.Tensor:
+    """Contrast-limited adaptive histogram equalization of [0, 1] slices,
+    cv2.createCLAHE(...).apply's semantics (the reference's adaptive
+    branch, utils/preprocessing.py:185-188): truncating uint8 codes,
+    256-bin histograms of each tile of a ``tile_grid_size`` (width,
+    height) grid over the slice extended by reflection to a divisible
+    size, clipped with cv2's residual redistribution, one LUT a tile, and
+    bilinear interpolation between the four nearest tiles' LUTs. Returns
+    fp32 codes / 255. Histograms are int64 sums by ``scatter_add_``, exact
+    in any order."""
+    x8 = _codes(image)
+    n, h, w = x8.shape
+    dev = x8.device
+    gh, gw = tile_grid_size[1], tile_grid_size[0]
+    th, tw = -(-h // gh), -(-w // gw)
+    rows = _reflect101(th * gh, h, dev)
+    cols = _reflect101(tw * gw, w, dev)
+    padded = x8[:, rows][:, :, cols]
+    n_tiles, tile_area = gh * gw, th * tw
+    tiles = padded.reshape(n, gh, th, gw, tw).permute(0, 1, 3, 2, 4)
+    tiles = tiles.reshape(n, n_tiles, tile_area)
+
+    base = torch.arange(n * n_tiles, device=dev).view(n, n_tiles, 1) * 256
+    hist = torch.zeros(n * n_tiles * 256, dtype=torch.int64, device=dev)
+    hist.scatter_add_(0, (base + tiles).reshape(-1),
+                      torch.ones(1, dtype=torch.int64,
+                                 device=dev).expand(tiles.numel()))
+    hist = hist.view(n, n_tiles, 256)
+
+    # clip, then cv2's residual redistribution
+    clip = max(int(clip_limit * tile_area / 256), 1)
+    clipped_amt = (hist - clip).clamp_min(0).sum(-1, keepdim=True)
+    hist = hist.clamp_max(clip)
+    redist = clipped_amt // 256
+    residual = clipped_amt - redist * 256
+    hist = hist + redist
+    # cv2: step = max(256 // residual, 1); +1 at bins k * step, k < residual
+    step = (256 // residual.clamp_min(1)).clamp_min(1)
+    bins = torch.arange(256, device=dev)
+    hist = hist + ((bins % step == 0) & (bins // step < residual)
+                   & (residual > 0)).to(torch.int64)
+
+    lut = torch.round(hist.cumsum(-1).float() * (255.0 / tile_area))
+    lut = lut.clamp(0, 255).reshape(n, n_tiles * 256)
+
+    yy = torch.arange(h, dtype=torch.float32, device=dev)
+    xx = torch.arange(w, dtype=torch.float32, device=dev)
+    tyf = yy / th - 0.5
+    txf = xx / tw - 0.5
+    ty1 = torch.floor(tyf).to(torch.int64)
+    tx1 = torch.floor(txf).to(torch.int64)
+    ya = (tyf - ty1)[:, None]
+    xa = (txf - tx1)[None, :]
+    ty1c = ty1.clamp(0, gh - 1)[:, None]
+    ty2c = (ty1 + 1).clamp(0, gh - 1)[:, None]
+    tx1c = tx1.clamp(0, gw - 1)[None, :]
+    tx2c = (tx1 + 1).clamp(0, gw - 1)[None, :]
+
+    def look(ty, tx):
+        idx = (ty * gw + tx) * 256 + x8                      # (n, h, w)
+        return torch.gather(lut, 1, idx.reshape(n, -1)).view(n, h, w)
+
+    out = (look(ty1c, tx1c) * (1 - xa) * (1 - ya)
+           + look(ty1c, tx2c) * xa * (1 - ya)
+           + look(ty2c, tx1c) * (1 - xa) * ya
+           + look(ty2c, tx2c) * xa * ya)
+    return torch.round(out).clamp(0, 255) / 255.0
+
+
+@_batched
+def histogram_equalization(image: torch.Tensor,
+                           n_bins: int = 256) -> torch.Tensor:
+    """Global histogram equalization of [0, 1] slices with cv2.equalizeHist's
+    LUT rule on the reference's truncating uint8 codes
+    (utils/preprocessing.py:181-191): lut = round((cdf - cdf_min) * 255 /
+    (total - cdf_min)), cdf_min the count of the first occupied bin.
+    Returns fp32 codes / 255."""
+    flat = _codes(image).reshape(image.shape[0], -1)
+    n, total = flat.shape
+    hist = torch.zeros(n, n_bins, dtype=torch.int64, device=flat.device)
+    hist.scatter_add_(1, flat, torch.ones_like(flat))
+    cdf = hist.cumsum(-1)
+    # the first occupied bin (argmax takes no bool tensor)
+    first = (hist > 0).to(torch.int32).argmax(-1, keepdim=True)
+    cdf_min = torch.gather(cdf, 1, first)
+    denom = (total - cdf_min).clamp_min(1)
+    lut = torch.round((cdf - cdf_min).float() * 255.0 / denom.float())
+    lut = lut.clamp(0, 255).to(torch.uint8)
+    return torch.gather(lut, 1, flat).reshape(image.shape).float() / 255.0

@@ -5,8 +5,12 @@ OpenCV's ``cv2.resize`` float path (coordinate convention
 ``fx = (dst + 0.5) * scale - 0.5``, replicate borders, Catmull-Rom cubic
 with A = -0.75, 8-tap normalized Lanczos4, area averaging for downscale and
 OpenCV's 2-tap rule for AREA upscale). ``resize`` serves the bicubic target
-resize of ``InferenceEngine.calculate_metrics``; the model uses
-``upsample_bilinear_align_corners``.
+resize of ``InferenceEngine.calculate_metrics``, the extraction's letterbox
+(``letterbox_resize``, with ``center_crop`` and ``pad_to_size`` beside it
+for ``ops/pipeline.py``) and the baselines; the model uses
+``upsample_bilinear_align_corners``. Matrices are fp32 and the products
+run in fp32: nothing here turns on TF32, which would move a LANCZOS
+letterbox by several 8-bit codes.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 class Interp(enum.Enum):
@@ -190,3 +195,65 @@ def _align_corners_matrix(in_size: int, out_size: int) -> np.ndarray:
     np.add.at(mat, (np.arange(out_size), i0), 1.0 - f)
     np.add.at(mat, (np.arange(out_size), i1), f)
     return mat.astype(np.float32)
+
+
+def letterbox_geometry(in_hw: Tuple[int, int],
+                       target_size: Tuple[int, int]
+                       ) -> Tuple[int, int, int, int]:
+    """(new_h, new_w, y_offset, x_offset) of an aspect-preserving fit of
+    ``in_hw`` into ``target_size``, which is (width, height) as in the
+    reference (utils/preprocessing.py:23-57)."""
+    h, w = in_hw
+    target_w, target_h = target_size
+    scale = min(target_w / w, target_h / h)
+    new_w, new_h = int(w * scale), int(h * scale)
+    return new_h, new_w, (target_h - new_h) // 2, (target_w - new_w) // 2
+
+
+def letterbox_resize(image: torch.Tensor, target_size: Tuple[int, int],
+                     method: Interp = Interp.LANCZOS,
+                     pad_value: float = 0.0) -> torch.Tensor:
+    """Aspect-preserving resize of the trailing (H, W) axes onto a
+    ``target_size`` (width, height) canvas filled with ``pad_value``,
+    centred (reference ``letterbox_resize``, utils/preprocessing.py:23-57).
+    """
+    h, w = image.shape[-2], image.shape[-1]
+    target_w, target_h = target_size
+    new_h, new_w, y_off, x_off = letterbox_geometry((h, w), target_size)
+    resized = resize(image, (new_h, new_w), method)
+    return F.pad(resized, (x_off, target_w - new_w - x_off,
+                           y_off, target_h - new_h - y_off), value=pad_value)
+
+
+def center_crop(image: torch.Tensor,
+                target_size: Tuple[int, int]) -> torch.Tensor:
+    """Centre crop of the trailing (H, W) axes to ``target_size`` (width,
+    height); an axis smaller than its target is zero-padded, centred
+    (reference ``center_crop``, utils/preprocessing.py:59-91)."""
+    h, w = image.shape[-2], image.shape[-1]
+    target_w, target_h = target_size
+    start_x = max(0, (w - target_w) // 2)
+    start_y = max(0, (h - target_h) // 2)
+    cropped = image[..., start_y:min(h, start_y + target_h),
+                    start_x:min(w, start_x + target_w)]
+    ch, cw = cropped.shape[-2], cropped.shape[-1]
+    if ch < target_h or cw < target_w:
+        py, px = (target_h - ch) // 2, (target_w - cw) // 2
+        return F.pad(cropped, (px, target_w - cw - px,
+                               py, target_h - ch - py), value=0.0)
+    return cropped
+
+
+def pad_to_size(image: torch.Tensor, target_size: Tuple[int, int],
+                pad_value: float = 0.0) -> torch.Tensor:
+    """Pad the trailing (H, W) axes, centred and without resizing, to
+    ``target_size`` (width, height); an axis larger than its target keeps
+    its first rows or columns (reference ``pad_to_size``,
+    utils/preprocessing.py:93-124)."""
+    h, w = image.shape[-2], image.shape[-1]
+    target_w, target_h = target_size
+    paste_h, paste_w = min(h, target_h), min(w, target_w)
+    py, px = max(0, (target_h - h) // 2), max(0, (target_w - w) // 2)
+    return F.pad(image[..., :paste_h, :paste_w],
+                 (px, target_w - paste_w - px, py, target_h - paste_h - py),
+                 value=pad_value)

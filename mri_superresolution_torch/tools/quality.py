@@ -1,0 +1,357 @@
+"""Trained-model quality of the port, on the card: synthesize -> extract ->
+train -> serve -> metrics.
+
+    python -m mri_superresolution_torch.tools.quality [--workdir DIR]
+        [--epochs 30] [--n_train_volumes 6] [--n_test_volumes 2]
+        [--n_slices 25] [--hr_size 128] [--seed 42] [--batch_size 8]
+        [--models unet unet_tpu edsr simple] [--no-augmentation]
+        [--skip_train] [--cpu]
+
+The protocol of the JAX package's quality harnesses (``tools/
+quality_parity.py``, ``tools/quant_quality.py``, ``tools/tta_quality.py``),
+with their flags and defaults, run by the port alone:
+1. synthesize seeded BIDS volumes of structured anatomy (``make_volume``:
+   ellipsoids and multi-scale texture, so that 2x SR is learnable), a train
+   set and a held-out test set;
+2. extract HR/LR pairs from both with the port's extract CLI (k-space LR
+   simulation);
+3. train each family in ``--models`` with the port's train CLI (augmented,
+   as ``tta_quality.py`` trains, unless ``--no-augmentation``);
+4. serve every held-out pair from each family's best checkpoint through
+   ``load_engine``, one image a call as the JAX harness does: bf16, int8
+   PTQ (calibrated on the first 8 content-rich train-split LR slices, so
+   that every held-out pair is served by the frozen int8 path) and the
+   dihedral TTA;
+5. the bilinear, sharp-bilinear and bicubic baselines on the same pairs;
+6. ``metric_suites`` on each row's outputs (one launch of B2 a row), the
+   means of SSIM, PSNR, RMSE and MAE, and each row's deltas against its
+   family's bf16 row (the baselines' against the first family's); the
+   same over the content pairs alone (``content_pairs``: an empty slice's
+   black pair scores the baselines' 100 dB sentinel).
+
+The report is ``<workdir>/quality.json``, and a markdown table on stdout.
+Everything runs on the card unless ``--cpu``. QAT rows wait for the QAT
+half of ROADMAP A11 (the train CLI refuses ``--qat``); the report says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import time
+from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+FAMILIES = ("unet", "unet_tpu", "edsr", "simple")
+MODES = ("bf16", "int8", "tta")
+METRICS = ("ssim", "psnr", "rmse", "mae")
+CALIB_SLICES = 8
+QAT_WAIT = ("QAT rows wait for the QAT half of ROADMAP A11: the port's "
+            "train CLI refuses --qat")
+DEFAULT_WORKDIR = Path(__file__).resolve().parents[2] / "build" / "quality"
+
+
+def make_volume(rng: np.random.Generator,
+                shape: Tuple[int, int, int] = (160, 160, 40)) -> np.ndarray:
+    """A structured synthetic (H, W, D) 'anatomy' volume, values 0-780: a
+    few smooth ellipsoids of distinct intensities plus band-limited
+    texture at three scales (coarse noise upsampled by the port's
+    cv2-parity bicubic ``resize``), so that 2x SR is learnable. The
+    generator's draws are those of the JAX package's
+    ``tools/quality_parity.make_volume``."""
+    from mri_superresolution_torch.ops.resize import Interp, resize
+
+    h, w, d = shape
+    # the JAX harness's meshgrid, as broadcast axes: the same values
+    zz = np.linspace(-1, 1, d)[:, None, None]
+    yy = np.linspace(-1, 1, h)[None, :, None]
+    xx = np.linspace(-1, 1, w)[None, None, :]
+    vol = np.zeros((d, h, w), np.float32)
+    for _ in range(rng.integers(4, 8)):
+        c = rng.uniform(-0.5, 0.5, 3)
+        r = rng.uniform(0.15, 0.55, 3)
+        level = rng.uniform(0.25, 1.0)
+        mask = (((zz - c[0]) / r[0]) ** 2 + ((yy - c[1]) / r[1]) ** 2
+                + ((xx - c[2]) / r[2]) ** 2) < 1.0
+        vol[mask] = level
+    for scale, amp in ((8, 0.10), (24, 0.06), (64, 0.03)):
+        coarse = rng.standard_normal((d, scale, scale)).astype(np.float32)
+        tex = resize(torch.from_numpy(coarse), (h, w), Interp.CUBIC).numpy()
+        vol = vol + amp * tex * (vol > 0)
+    vol = np.clip(vol, 0, 1.3)
+    return np.ascontiguousarray(vol.transpose(1, 2, 0)) * 600.0
+
+
+def synthesize(root: str, n_volumes: int, seed: int) -> None:
+    """``n_volumes`` float32 volumes as ``set1/sub-XX/anat/sub-XX_T1w.nii.gz``
+    under ``root``."""
+    from mri_superresolution_torch import nifti
+
+    rng = np.random.default_rng(seed)
+    for i in range(n_volumes):
+        sub = os.path.join(root, f"set1/sub-{i:02d}/anat")
+        os.makedirs(sub, exist_ok=True)
+        nifti.save(os.path.join(sub, f"sub-{i:02d}_T1w.nii.gz"),
+                   make_volume(rng).astype(np.float32))
+
+
+def read_pngs(paths: Sequence[str]) -> np.ndarray:
+    """Grayscale PNGs of one size as an (N, H, W) float32 [0, 1] stack."""
+    from mri_superresolution_torch import native
+
+    return np.stack([native.imread_gray(p) for p in paths]).astype(
+        np.float32) / 255.0
+
+
+def held_out_pairs(lr_dir: str, hr_dir: str) -> List[Tuple[str, str]]:
+    """(LR, HR) paths of every LR file with an HR file of the same name."""
+    return [(os.path.join(lr_dir, f), os.path.join(hr_dir, f))
+            for f in sorted(os.listdir(lr_dir))
+            if os.path.exists(os.path.join(hr_dir, f))]
+
+
+def load_mode_engine(ckpt_path: str, model_type: str, mode: str, device,
+                     calib_lrs: np.ndarray = (), scales_path: str = None):
+    """The checkpoint's engine for ``mode`` (``MODES``, or ``fp32``: the
+    fp32 model, a control of bf16's precision). int8 serves the
+    scales frozen in ``scales_path`` if that file exists; otherwise it
+    calibrates on ``calib_lrs`` in order, one image a call, until
+    CALIB_SLICES of them were content-rich enough to count (the engine's
+    foreground routing skips near-empty ones) and its scales freeze
+    (written to ``scales_path`` if given), so that no held-out pair is
+    served during calibration."""
+    from mri_superresolution_torch.config import InferConfig, ModelConfig
+    from mri_superresolution_torch.infer import load_engine
+
+    engine = load_engine(InferConfig(
+        model=ModelConfig(model_type=model_type),
+        checkpoint_dir=os.path.dirname(ckpt_path),
+        checkpoint_path=ckpt_path,
+        bf16=mode != "fp32", quant="int8" if mode == "int8" else "none",
+        quant_calib_slices=CALIB_SLICES,
+        quant_calib_path=scales_path if mode == "int8" else None,
+        tta=mode == "tta"), device=device)
+    for lr in calib_lrs:
+        if not engine.quant_calibrating:
+            break
+        engine.upscale_image(lr)
+    if engine.quant_calibrating:
+        raise RuntimeError(f"int8 calibration did not complete on "
+                           f"{len(calib_lrs)} slices: "
+                           f"{engine.quant_summary()}")
+    return engine
+
+
+def serve(engine, lrs: np.ndarray) -> np.ndarray:
+    """Each LR image through the engine alone, as the JAX harness serves
+    (the int8 foreground routing decides image by image)."""
+    return np.stack([engine.upscale_image(lr) for lr in lrs])
+
+
+def content_pairs(hrs: np.ndarray) -> np.ndarray:
+    """(N,) True for each pair whose HR image is not constant. A black
+    pair (an empty slice past the anatomy) has no content: its PSNR and
+    SSIM measure only the output's offset from 0, and the interpolation
+    baselines score the 100 dB sentinel on it."""
+    flat = hrs.reshape(len(hrs), -1)
+    return flat.max(axis=1) > flat.min(axis=1)
+
+
+def summarize(outputs: np.ndarray, hrs: np.ndarray, device) -> Dict:
+    """Means over the pairs of ``metric_suites`` (one B2 launch), the
+    JAX protocol's row, and under ``content`` the means over the pairs
+    that ``content_pairs`` keeps."""
+    from mri_superresolution_torch.ops.metrics import metric_suites
+
+    per = metric_suites(torch.from_numpy(np.ascontiguousarray(
+        outputs, np.float32)).to(device), torch.from_numpy(hrs).to(device))
+    keep = content_pairs(hrs)
+    row = {k: float(np.mean([m[k] for m in per])) for k in METRICS}
+    row["content"] = {k: float(np.mean([m[k] for m, c in zip(per, keep)
+                                        if c])) for k in METRICS}
+    return row
+
+
+def with_deltas(row: Dict, base: Dict, base_name: str) -> Dict:
+    """``row`` with its ``delta_<metric>`` against ``base``, over all
+    pairs and over the content pairs."""
+    out = dict(row)
+    out.update({f"delta_{k}": row[k] - base[k] for k in METRICS})
+    out["content"] = dict(row["content"])
+    out["content"].update({f"delta_{k}": row["content"][k]
+                           - base["content"][k] for k in METRICS})
+    out["delta_vs"] = base_name
+    return out
+
+
+def checkpoint_rows(ckpt_path: str, model_type: str, lrs: np.ndarray,
+                    hrs: np.ndarray, calib_lrs: np.ndarray, device,
+                    scales_path: str = None) -> Tuple[Dict, Dict]:
+    """Rows ``<family>/<mode>`` of one checkpoint served in every mode,
+    with deltas against its bf16 row, and the outputs by mode. The int8
+    row gives its calibration forwards and how many pairs were served
+    int8 and bf16 (near-empty ones)."""
+    rows, outs = {}, {}
+    for mode in MODES:
+        engine = load_mode_engine(ckpt_path, model_type, mode, device,
+                                  calib_lrs, scales_path)
+        before = dict(engine._quant_batches)
+        outs[mode] = serve(engine, lrs)
+        rows[f"{model_type}/{mode}"] = summarize(outs[mode], hrs, device)
+        if mode == "int8":
+            rows[f"{model_type}/{mode}"].update(
+                calibration_forwards=sum(before.values()),
+                served={k: v - before[k]
+                        for k, v in engine._quant_batches.items()})
+    base = f"{model_type}/bf16"
+    return ({k: with_deltas(v, rows[base], base) for k, v in rows.items()},
+            outs)
+
+
+def baseline_rows(lrs: np.ndarray, hrs: np.ndarray, device, base: Dict,
+                  base_name: str) -> Dict:
+    """The three interpolation baselines on the pairs, with deltas
+    against ``base``."""
+    from mri_superresolution_torch.evalsuite.baselines import (
+        INTERP_METHODS, upscale_with_interpolation)
+
+    x = torch.from_numpy(lrs).to(device)
+    rows = {}
+    for method in INTERP_METHODS:
+        up = upscale_with_interpolation(x, method).clamp(0.0, 1.0)
+        rows[f"baseline/{method}"] = with_deltas(
+            summarize(up.cpu().numpy(), hrs, device), base, base_name)
+    return rows
+
+
+def table(rows: Dict) -> str:
+    """The rows as a markdown table: every pair, then the content pairs."""
+    lines = ["| row | SSIM | PSNR (dB) | dSSIM | dPSNR (dB) | content SSIM "
+             "| content PSNR (dB) | content dSSIM | content dPSNR (dB) | vs |",
+             "|---|---|---|---|---|---|---|---|---|---|"]
+    for name, m in rows.items():
+        c = m["content"]
+        lines.append(f"| {name} | {m['ssim']:.4f} | {m['psnr']:.3f} | "
+                     f"{m['delta_ssim']:+.4f} | {m['delta_psnr']:+.3f} | "
+                     f"{c['ssim']:.4f} | {c['psnr']:.3f} | "
+                     f"{c['delta_ssim']:+.4f} | {c['delta_psnr']:+.3f} | "
+                     f"{m['delta_vs']} |")
+    return "\n".join(lines)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Trained-model quality of the "
+                                 "port: bf16, int8 PTQ and TTA")
+    ap.add_argument("--workdir", default=str(DEFAULT_WORKDIR))
+    ap.add_argument("--epochs", type=int, default=30)
+    ap.add_argument("--n_train_volumes", type=int, default=6)
+    ap.add_argument("--n_test_volumes", type=int, default=2)
+    ap.add_argument("--n_slices", type=int, default=25,
+                    help="slices per volume")
+    ap.add_argument("--hr_size", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--skip_train", action="store_true",
+                    help="reuse the data and checkpoints in --workdir")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run every step on the CPU")
+    ap.add_argument("--augmentation", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="train with flip/rotate augmentation (TTA assumes "
+                         "approximate flip-equivariance)")
+    ap.add_argument("--models", nargs="+", default=list(FAMILIES),
+                    choices=FAMILIES)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> Dict:
+    """Run the protocol; returns the report written to
+    ``<workdir>/quality.json``."""
+    from mri_superresolution_torch.cli import extract as extract_cli
+    from mri_superresolution_torch.cli import train as train_cli
+    from mri_superresolution_torch.utils.device import resolve_device
+
+    args = parse_args(argv)
+    device = resolve_device("cpu" if args.cpu else None)
+    cpu = ["--cpu"] if args.cpu else []
+    wd = os.path.abspath(args.workdir)
+    os.makedirs(wd, exist_ok=True)
+    p = {k: os.path.join(wd, k) for k in
+         ("data_train", "data_test", "hr_train", "lr_train", "hr_test",
+          "lr_test", "ckpt")}
+    seconds = {}
+
+    if not args.skip_train:
+        t0 = time.perf_counter()
+        synthesize(p["data_train"], args.n_train_volumes, args.seed)
+        synthesize(p["data_test"], args.n_test_volumes, args.seed + 1)
+        seconds["synthesize"] = time.perf_counter() - t0
+        for split in ("train", "test"):
+            t0 = time.perf_counter()
+            with open(os.path.join(wd, f"extract_{split}.log"), "w") as f, \
+                    contextlib.redirect_stdout(f):
+                rc = extract_cli.main([
+                    "--datasets_dir", p[f"data_{split}"],
+                    "--hr_output_dir", p[f"hr_{split}"],
+                    "--lr_output_dir", p[f"lr_{split}"],
+                    "--n_slices", str(args.n_slices),
+                    "--target_size", str(args.hr_size), str(args.hr_size),
+                    "--seed", str(args.seed), *cpu])
+            if rc != 0:
+                raise RuntimeError(f"extraction of the {split} split failed "
+                                   f"(see {wd}/extract_{split}.log)")
+            seconds[f"extract_{split}"] = time.perf_counter() - t0
+        for mt in args.models:
+            print(f"[quality] training {mt}", flush=True)
+            t0 = time.perf_counter()
+            with open(os.path.join(wd, f"train_{mt}.jsonl"), "w") as f, \
+                    contextlib.redirect_stdout(f):
+                train_cli.main([
+                    "--full_res_dir", p["hr_train"],
+                    "--low_res_dir", p["lr_train"],
+                    "--epochs", str(args.epochs),
+                    "--batch_size", str(args.batch_size),
+                    "--ssim_weight", "0.3", "--validation_split", "0.2",
+                    "--seed", str(args.seed), "--model_type", mt,
+                    *(["--augmentation"] if args.augmentation else []),
+                    "--checkpoint_dir", p["ckpt"],
+                    "--log_dir", os.path.join(wd, "logs"), *cpu])
+            seconds[f"train_{mt}"] = time.perf_counter() - t0
+
+    pairs = held_out_pairs(p["lr_test"], p["hr_test"])
+    lrs = read_pngs([a for a, _ in pairs])
+    hrs = read_pngs([b for _, b in pairs])
+    calib = read_pngs([os.path.join(p["lr_train"], f) for f in
+                       sorted(os.listdir(p["lr_train"]))])
+    print(f"[quality] {len(pairs)} held-out pairs, LR {lrs.shape[1:]} -> "
+          f"HR {hrs.shape[1:]}", flush=True)
+
+    rows = {}
+    t0 = time.perf_counter()
+    for mt in args.models:
+        ckpt_path = os.path.join(p["ckpt"], f"best_model_{mt}.ckpt")
+        rows.update(checkpoint_rows(ckpt_path, mt, lrs, hrs, calib,
+                                    device)[0])
+    base = f"{args.models[0]}/bf16"
+    rows.update(baseline_rows(lrs, hrs, device, rows[base], base))
+    seconds["serve_and_metrics"] = time.perf_counter() - t0
+
+    report = {"config": vars(args), "device": (
+        torch.cuda.get_device_name(device) if device.type == "cuda"
+        else "cpu"), "n_test_pairs": len(pairs),
+        "n_content_pairs": int(content_pairs(hrs).sum()), "rows": rows,
+        "qat": QAT_WAIT, "seconds": seconds}
+    with open(os.path.join(wd, "quality.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    print(table(rows))
+    print(f"\n{QAT_WAIT}\nReport: {os.path.join(wd, 'quality.json')}")
+    return report
+
+
+if __name__ == "__main__":
+    main()

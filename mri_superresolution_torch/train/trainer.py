@@ -175,19 +175,38 @@ def loss_and_grads(model: torch.nn.Module, loss_fn: CombinedLoss,
                             "ssim_clip_micros": n_sat}, grads
 
 
+def informative(model: torch.nn.Module, lo: torch.Tensor) -> torch.Tensor:
+    """(B,) weights of a batch's pairs by their LR image: 0.0 for an
+    all-zero image (an empty slice, which extraction writes as a black
+    pair) where ``model`` normalizes with GroupNorm (the unets), 1.0 for
+    every other image and family. The unets' convs have no bias, so such
+    an image's activations stay 0 through the net and every GroupNorm
+    scales its gradient by 1/sqrt(eps) = 316, which overflows within the
+    depth: one such pair with a non-zero weight makes the gradient
+    non-finite, in the JAX package too. Weight 0 makes its gradient
+    exactly 0; elsewhere the pairs weigh as in JAX."""
+    ones = torch.ones(lo.shape[0], device=lo.device)
+    if not any(isinstance(m, torch.nn.GroupNorm) for m in model.modules()):
+        return ones
+    return ones * (lo.reshape(lo.shape[0], -1) != 0).any(dim=1)
+
+
 def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
                      grad_accum: int = 1, ema_decay: float = 0.0):
     """train_step(state, batch, lr, generator) -> metrics, updating the
     state in place: augmentation (when ``augment_cfg.enabled``, from
     ``generator``), the loss's gradient, the Adam step at ``lr``, and the
     EMA ``ema = ema * d + params * (1 - d)`` after it. ``batch`` holds
-    ``hr``, ``lr``, ``weight`` tensors on the model's device; metrics are
+    ``hr``, ``lr``, ``weight`` tensors on the model's device; in the
+    unets a pair whose LR image is all zero takes weight 0
+    (:func:`informative`); metrics are
     device scalars (``loss``, ``ssim``, and ``ssim_clip_micros`` with
     grad_accum)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: float, generator: Optional[torch.Generator] = None):
-        hr, lo, w = batch["hr"], batch["lr"], batch["weight"]
+        hr, lo = batch["hr"], batch["lr"]
+        w = batch["weight"] * informative(state.model, lo)
         if augment_cfg is not None and augment_cfg.enabled:
             hr, lo = augment_pair(hr, lo, generator, augment_cfg)
         loss, comps, grads = loss_and_grads(state.model, loss_fn, hr, lo, w,

@@ -1140,3 +1140,83 @@ def test_perceptual_loss_on_card_matches_cpu(dev):
     assert abs(pg - pc) <= 1e-4 * abs(pc) and abs(tg - tc) <= 1e-4 * abs(tc)
     torch.testing.assert_close(gg, gc, rtol=1e-4,
                                atol=1e-4 * float(gc.abs().max()))
+
+
+def _extract_stack(shape=(6, 90, 70), seed=0):
+    """A seeded (n, H, W) float32 stack of anatomy-like slices, non-square
+    so that the letterbox pads."""
+    return (phantom_batch(np.random.default_rng(seed), shape[0],
+                          max(shape[1:]))[:, :shape[1], :shape[2]] * 700.0
+            + np.random.default_rng(seed + 1).random(shape) * 30.0
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("target", [64, 256])
+def test_extract_pipelines_on_card_match_cpu_port(dev, target):
+    """The HR and LR pipelines of a stack on the card against the CPU port,
+    the LR one with the card's noise draws passed to both: floats within
+    1e-5, and the PNG codes identical on at least 99.9% of the pixels and
+    never more than one apart."""
+    from mri_superresolution_torch.data.extraction import (
+        hr_pipeline, lr_pipeline, to_uint8)
+    from mri_superresolution_torch.ops.kspace import draw_kspace_noise
+    x = torch.from_numpy(_extract_stack())
+    noise = draw_kspace_noise(tuple(x.shape),
+                              torch.Generator(device=dev).manual_seed(3))
+    size = (target, target)
+    got = {"hr": hr_pipeline(x.to(dev), size),
+           "lr": lr_pipeline(x.to(dev), noise, size)}
+    want = {"hr": hr_pipeline(x, size),
+            "lr": lr_pipeline(x, tuple(n.cpu() for n in noise), size)}
+    for key in got:
+        g, w = got[key].cpu(), want[key]
+        assert g.device.type == "cpu" and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+        d = np.abs(to_uint8(g.numpy()).astype(int)
+                   - to_uint8(w.numpy()).astype(int))
+        assert (d == 0).mean() >= 0.999 and d.max() <= 1
+
+
+def test_extract_cli_same_seed_same_pngs_on_card(dev, tmp_path):
+    """The extract CLI on the card twice with the same --seed writes the
+    same PNG bytes; another seed moves the LR files only."""
+    from mri_superresolution_torch import nifti
+    from mri_superresolution_torch.cli import extract
+    anat = tmp_path / "data" / "set1" / "sub-01" / "anat"
+    anat.mkdir(parents=True)
+    vol = np.transpose(_extract_stack((12, 90, 70)), (1, 2, 0))
+    nifti.save(str(anat / "sub-01_T1w.nii.gz"),
+               np.round(vol * 4).astype(np.int16), scl_slope=0.25)
+    outs = {}
+    for run, seed in (("a", 3), ("b", 3), ("c", 4)):
+        rc = extract.main(["--datasets_dir", str(tmp_path / "data"),
+                           "--hr_output_dir", str(tmp_path / run / "hr"),
+                           "--lr_output_dir", str(tmp_path / run / "lr"),
+                           "--n_slices", "5", "--target_size", "64", "64",
+                           "--seed", str(seed)])
+        assert rc == 0
+        outs[run] = {f"{d}/{p.name}": p.read_bytes() for d in ("hr", "lr")
+                     for p in sorted((tmp_path / run / d).iterdir())}
+    assert len(outs["a"]) == 10 and outs["a"] == outs["b"]
+    assert all(outs["c"][k] == v for k, v in outs["a"].items()
+               if k.startswith("hr/"))
+    assert any(outs["c"][k] != v for k, v in outs["a"].items()
+               if k.startswith("lr/"))
+
+
+def test_metric_suites_launch_b2_once_per_batch(dev):
+    """``metric_suites`` of a batch of pairs on the card: one launch of B2
+    for the batch, every value within rtol 1e-5 of the CPU port's."""
+    from mri_superresolution_torch.ops.metrics import metric_suites
+    rng = np.random.default_rng(0)
+    o = rng.random((5, 64, 48), np.float32)
+    t = np.clip(o + 0.05 * rng.standard_normal(o.shape), 0, 1).astype(
+        np.float32)
+    kernels.reset_launch_counts()
+    got = metric_suites(torch.from_numpy(o).to(dev),
+                        torch.from_numpy(t).to(dev))
+    assert kernels.launch_counts()["ssim_per_sample"] == 1
+    want = metric_suites(torch.from_numpy(o), torch.from_numpy(t))
+    for g, w in zip(got, want):
+        for k in w:
+            assert g[k] == pytest.approx(w[k], rel=1e-5)

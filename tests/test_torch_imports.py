@@ -20,7 +20,7 @@ bad = sorted(m for m in sys.modules
                                     "mri_superresolution_tpu", "triton"))
 assert not bad, bad
 assert not torch.cuda.is_initialized()
-print("OK", len(names))
+print("OK", " ".join(names), len(names))
 """
 
 
@@ -31,5 +31,10 @@ def test_port_imports_are_clean():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "OK" in r.stdout, (r.stdout,
                                                     r.stderr[-2000:])
-    # every module of the port was walked, the kernels and the CLI included
+    # every module of the port was walked, the kernels and the CLIs
+    # included
     assert int(r.stdout.split()[-1]) >= 20
+    walked = set(r.stdout.split())
+    for name in ("cli.extract", "data.extraction", "ops.kspace",
+                 "ops.pipeline", "evalsuite.baselines", "tools.quality"):
+        assert f"mri_superresolution_torch.{name}" in walked

@@ -6,6 +6,7 @@ convs and the zero biases carry information) go to the port through
 ``utils.weights``; inputs come from numpy seeds."""
 
 import dataclasses
+import logging
 import os
 import re
 
@@ -270,11 +271,21 @@ def test_int8_engine_serves_every_family(family, tmp_path):
 
 def test_unet_tpu_int8_warning_states_no_figure(caplog):
     """The engine warns on ``unet_tpu`` int8, as the JAX engine does, but
-    states no time or rate (the JAX message's figure was a TPU's)."""
-    with caplog.at_level("WARNING", logger="mri_superresolution_torch"):
-        InferenceEngine(ModelConfig(**_cfg("unet_tpu")),
-                        _port("unet_tpu").state_dict(), device="cpu",
-                        quant="int8")
+    states no time or rate (the JAX message's figure was a TPU's). caplog
+    listens on the package logger itself: once a CLI in the same process
+    has set up logging, that logger no longer propagates to the root."""
+    logger = logging.getLogger("mri_superresolution_torch")
+    propagate = logger.propagate
+    logger.addHandler(caplog.handler)
+    logger.propagate = False
+    try:
+        with caplog.at_level("WARNING", logger="mri_superresolution_torch"):
+            InferenceEngine(ModelConfig(**_cfg("unet_tpu")),
+                            _port("unet_tpu").state_dict(), device="cpu",
+                            quant="int8")
+    finally:
+        logger.removeHandler(caplog.handler)
+        logger.propagate = propagate
     msgs = [r.getMessage() for r in caplog.records if "unet_tpu" in
             r.getMessage()]
     assert len(msgs) == 1
