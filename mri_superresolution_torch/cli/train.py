@@ -7,11 +7,12 @@
 
 Takes the flags of the JAX package's ``scripts/train.py`` (reference
 scripts/train.py:486-548), with the same defaults and meanings, and
-writes the same checkpoints and JSON-line protocol. Runs on the card;
-``--cpu`` runs on the CPU. Flags of training modes the port does not run
-yet (``--qat``, ``--spatial_shards`` > 1, ``--opt_shard``, ``--multihost``,
-``--remat``, ``--num_devices`` > 1, ``--profile_dir``) raise an error that
-names the ROADMAP item that ports each.
+writes the same checkpoints and JSON-line protocol (``--qat``: with the
+int8 calibration sidecars). Runs on the card; ``--cpu`` runs on the CPU.
+Flags of training modes the port does not run yet (``--spatial_shards``
+> 1, ``--opt_shard``, ``--multihost``, ``--remat``, ``--num_devices`` >
+1, ``--profile_dir``) raise an error that names the ROADMAP item that
+ports each.
 """
 
 from __future__ import annotations
@@ -72,8 +73,13 @@ def parse_args(argv=None):
                         'validation, best-model selection and the '
                         'checkpointed params use it. 0 = off')
     p.add_argument('--qat', action='store_true',
-                   help='not ported yet (ROADMAP A11)')
-    p.add_argument('--qat_decay', type=float, default=0.98)
+                   help='Quantization-aware training for int8 serving: '
+                        'the int8 arithmetic simulated in float with '
+                        'straight-through gradients; validation scores it, '
+                        'and every checkpoint gets a <base>.calib.json of '
+                        'frozen scales that --quant int8 serves')
+    p.add_argument('--qat_decay', type=float, default=0.98,
+                   help='EMA decay of the running activation ranges')
     p.add_argument('--save_every_steps', type=int, default=0,
                    help='Every N optimizer steps write '
                         'step_model_<type>.ckpt with the batch cursor; '

@@ -3,17 +3,25 @@
 An own port of the JAX package's ``models/quant_forward.py`` for the four
 families (``unet``, ``unet_tpu``, ``edsr``, ``simple``). It takes the
 port's state_dict (fp32 tensors on the serving device) and runs every conv
-site in one of three modes that share one code path:
+site in one of four modes that share one code path:
 
-- ``ref``   the bf16 forward, bit-identical to the module's forward (the
-            same functions and kernels in the same order;
-            tests/test_torch_quant.py and tests/test_torch_zoo.py assert
-            it);
-- ``calib`` ``ref`` plus each conv input's per-channel max |x|, from which
-            the static activation scales come;
-- ``int8``  s8 x s8 -> s32 convs (``ops/quant.int8_conv``) with the
-            per-input-channel activation scales folded into per-Cout weight
-            scales.
+- ``ref``       the bf16 forward, bit-identical to the module's forward
+                (the same functions and kernels in the same order;
+                tests/test_torch_quant.py and tests/test_torch_zoo.py
+                assert it);
+- ``calib``     ``ref`` plus each conv input's per-channel max |x| (or its
+                ``percentile``), from which the static activation scales
+                come;
+- ``int8``      s8 x s8 -> s32 convs (``ops/quant.int8_conv``) with the
+                per-input-channel activation scales folded into per-Cout
+                weight scales;
+- ``fakequant`` quantization-aware training (:func:`build_fakequant_forward`):
+                ``ref``'s dataflow, every quantized site's input and weight
+                through the float simulation of ``int8``
+                (``ops/quant.fake_quant_*``) with straight-through
+                gradients. It runs the kernels ``ref`` runs (B1 forward,
+                and its backward under autograd, at every GroupNorm; B3 at
+                the unet's two narrow sites), not the int8 routes.
 
 The output head (site ``__out__``: the unet's ``final_conv.3``,
 ``unet_tpu``'s ``head_out``, edsr's ``tail``, simple's ``reconstruct``)
@@ -57,7 +65,11 @@ from mri_superresolution_torch.kernels import (conv3x3, gn_quantize,
 from mri_superresolution_torch.models.unet import CL, _conv, _upsample2
 from mri_superresolution_torch.ops.functional import (GN_EPS, max_pool2,
                                                       pixel_shuffle)
-from mri_superresolution_torch.ops.quant import int8_conv, weight_qparams
+from mri_superresolution_torch.ops.normalize import _percentile_weights
+from mri_superresolution_torch.ops.quant import (FOREGROUND_INTENSITY,
+                                                 fake_quant_act,
+                                                 fake_quant_kernel, int8_conv,
+                                                 ste, weight_qparams)
 from mri_superresolution_torch.utils.weights import edsr_num_blocks
 
 SCALES_FORMAT = "int8-ptq-scales-v1"
@@ -67,16 +79,28 @@ OUT_SITE = "__out__"
 
 
 class _Ctx:
-    """Per-forward context: mode, frozen scales and int8 weights, and the
-    calibration maxima this forward records."""
+    """Per-forward context: mode, frozen scales and int8 weights, the
+    statistics this forward records, the calibration percentile and, in
+    ``fakequant``, the (B, 1, 1, 1) mask of the samples that quantize."""
 
-    def __init__(self, mode: str = "ref", scales=None, qweights=None):
-        if mode not in ("ref", "calib", "int8"):
+    def __init__(self, mode: str = "ref", scales=None, qweights=None,
+                 percentile: float = 100.0, fg_mask=None):
+        if mode not in ("ref", "calib", "int8", "fakequant"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
         self.scales = scales or {}
         self.qweights = qweights or {}
         self.amax: Dict[str, torch.Tensor] = {}
+        self.percentile = percentile
+        self.fg_mask = fg_mask
+
+
+def _channel_percentile(a: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.percentile(a, q, axis=0)`` of an (N, C) fp32 matrix, rounded as
+    XLA rounds it (``ops/normalize._percentile_weights``)."""
+    s = torch.sort(a, dim=0).values
+    low, high, w_low, w_high = _percentile_weights(q, s.shape[0])
+    return (s[low].double() * w_low + (s[high] * w_high).double()).float()
 
 
 def _gn(sd, prefix, x, residual=None):
@@ -91,6 +115,25 @@ def _int8_site(ctx, site, q, dtype, bias=None, padding=1):
     return int8_conv(q, qk, sk, bias=bias, padding=padding, out_dtype=dtype)
 
 
+def _fakequant(ctx, site, x, weight):
+    """QAT at ``site``: the int8 arithmetic simulated in float (the site's
+    per-input-channel activation scale folded into per-Cout weight
+    quantization) with straight-through gradients, on the samples of
+    ``ctx.fg_mask``; the others keep their full-precision input, as the
+    engine serves a near-empty batch in bf16. Records the site's
+    per-channel max |x| over those samples (zeros when there are none).
+    Returns the (input, weight) the conv then runs on."""
+    ax = x.detach().float().abs()
+    if ctx.fg_mask is not None:
+        ax = torch.where(ctx.fg_mask, ax, 0.0)
+    ctx.amax[site] = ax.amax(dim=(0, 2, 3))
+    s_a = ctx.scales[site]
+    xq = ste(x, fake_quant_act(x, s_a))
+    if ctx.fg_mask is not None:
+        xq = torch.where(ctx.fg_mask, xq, x)
+    return xq, ste(weight, fake_quant_kernel(weight, s_a))
+
+
 def _site(ctx, site, x, weight, dtype, bias=None, padding=1, narrow=False):
     """The conv at ``site`` on its input ``x``; ``narrow`` sites run kernel
     B3 in bf16 (padding 1, no bias)."""
@@ -98,10 +141,18 @@ def _site(ctx, site, x, weight, dtype, bias=None, padding=1, narrow=False):
         q = leaky_quantize(x.contiguous(memory_format=CL), ctx.scales[site],
                            1.0)
         return _int8_site(ctx, site, q, x.dtype, bias, padding)
+    if ctx.mode == "fakequant" and site in ctx.scales:
+        x, weight = _fakequant(ctx, site, x, weight)
     if ctx.mode == "calib" and site != OUT_SITE:
-        ctx.amax[site] = x.abs().amax(dim=(0, 2, 3)).float()
+        if ctx.percentile < 100.0:
+            a = x.detach().float().abs().permute(0, 2, 3, 1).reshape(
+                -1, x.shape[1])
+            ctx.amax[site] = _channel_percentile(a, ctx.percentile)
+        else:
+            ctx.amax[site] = x.abs().amax(dim=(0, 2, 3)).float()
     if narrow:
-        return conv3x3(x, weight.to(dtype, memory_format=CL))
+        return conv3x3(x.contiguous(memory_format=CL),
+                       weight.to(dtype, memory_format=CL))
     return _conv(x, weight, dtype, bias, padding=padding)
 
 
@@ -251,18 +302,102 @@ def reference_forward(params, x, model_type: str = "unet",
     return _FORWARDS[model_type](_Ctx("ref"), params, x, dtype)
 
 
-def build_calib_forward(model_type: str = "unet", dtype=torch.bfloat16):
+def build_calib_forward(model_type: str = "unet", dtype=torch.bfloat16,
+                        percentile: float = 100.0):
     """``fn(params, x) -> (y, amax)``: the exact bf16 forward plus each
-    quantizable site's per-input-channel max |x| (fp32 tensors on x's
+    quantizable site's per-input-channel max |x|, or with ``percentile`` <
+    100 that percentile of |x| over the batch's pixels (fp32 tensors on x's
     device), so a server can calibrate while it serves bf16."""
     fwd = _FORWARDS[model_type]
 
     def run(params, x):
-        ctx = _Ctx("calib")
+        ctx = _Ctx("calib", percentile=percentile)
         y = fwd(ctx, params, x, dtype)
         return y, ctx.amax
 
     return run
+
+
+def build_fakequant_forward(model_type: str = "unet", dtype=torch.bfloat16,
+                            min_foreground: float = 0.05):
+    """The quantization-aware-training forward: ``fn(params, amax, x) ->
+    (y, batch_amax, any_fg)``.
+
+    Every site the int8 forward quantizes (all but the output head) runs on
+    the float simulation of the int8 arithmetic (``_fakequant``) with the
+    scales ``amax / 127`` (1 where amax is 0), so that the weights learn to
+    absorb the quantization noise. ``amax`` is the trainer's running
+    ``{site: (Cin,)}`` estimate (:func:`calib_amax`'s structure).
+
+    A sample quantizes when at least ``min_foreground`` of its pixels are
+    above ``FOREGROUND_INTENSITY``, the engine's routing rule; the others
+    keep full-precision activations and stay out of the statistic.
+    Quantized, an all-background sample is constant within each GroupNorm
+    group at every layer, and its gradient overflows through the
+    GroupNorms' 1/sqrt(eps). ``batch_amax`` is the per-site max |x| over
+    the quantizing samples, exact zeros when there are none, and
+    ``any_fg`` (a bool tensor) says whether there were any: the trainer
+    updates its running amax only then, and zeros stay neutral under
+    gradient accumulation's max over microbatches. ``params`` is a
+    state_dict; with ``model.state_dict(keep_vars=True)`` the gradients
+    reach the model's parameters."""
+    fwd = _FORWARDS[model_type]
+
+    def run(params, amax, x):
+        scales = {}
+        for k, v in amax.items():
+            v = torch.as_tensor(v, dtype=torch.float32, device=x.device)
+            scales[k] = torch.where(v > 0, v / 127.0, torch.ones_like(v))
+        fg = (x.float().abs() > FOREGROUND_INTENSITY).float().mean(
+            dim=tuple(range(1, x.dim())))
+        mask = (fg >= min_foreground).reshape(
+            (x.shape[0],) + (1,) * (x.dim() - 1))
+        ctx = _Ctx("fakequant", scales=scales, fg_mask=mask)
+        y = fwd(ctx, params, x, dtype)
+        return y, dict(ctx.amax), mask.any()
+
+    return run
+
+
+@torch.no_grad()
+def calib_amax(params, x, model_type: str = "unet", dtype=torch.bfloat16
+               ) -> Dict[str, torch.Tensor]:
+    """One batch's per-site per-input-channel max |x| through the
+    full-precision forward: the start of QAT's running statistic."""
+    _, amax = build_calib_forward(model_type, dtype)(params, x)
+    return {k: v for k, v in amax.items() if k != OUT_SITE}
+
+
+def amax_template(params, model_type: str = "unet"
+                  ) -> Dict[str, Tuple[int]]:
+    """``{site: (Cin,)}``: the shapes of :func:`calib_amax`'s output, from
+    the weights' shapes alone (no forward, no device work). The trainer
+    checks a restored QAT statistic against it."""
+    return {site: (int(w.shape[1]),)
+            for site, w in quant_sites(params, model_type)}
+
+
+@torch.no_grad()
+def calibrate(params, batches, model_type: str = "unet",
+              dtype=torch.bfloat16, percentile: float = 100.0
+              ) -> Dict[str, np.ndarray]:
+    """Per-site static activation scales ``{site: (Cin,) clip / 127}`` over
+    calibration ``batches`` ((B, H, W, C) float arrays or tensors on the
+    params' device), clip the max over the batches of each site's
+    per-channel ``percentile`` of |x|. With ``percentile`` < 100 the
+    statistic runs over every pixel of a batch: calibrate on unpadded
+    inputs, since zero padding pulls a percentile toward 0 (the max, the
+    default, is immune to it)."""
+    fn = build_calib_forward(model_type, dtype, percentile)
+    dev = next(iter(params.values())).device
+    amax: Dict[str, np.ndarray] = {}
+    for b in batches:
+        _, out = fn(params, torch.as_tensor(b, dtype=torch.float32,
+                                            device=dev))
+        for k, v in out.items():
+            v = v.cpu().numpy().astype(np.float32)
+            amax[k] = np.maximum(amax[k], v) if k in amax else v
+    return scales_from_amax(amax)
 
 
 def scales_from_amax(amax: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -1,7 +1,8 @@
 """int8 post-training-quantization primitives for serving on the GPU.
 
-An own copy of the JAX package's ``ops/quant.py`` serving half (the QAT
-parts, ``fake_quant_*`` and ``ste``, come with the training slice).
+An own copy of the JAX package's ``ops/quant.py``: the serving half, and
+the float simulation of it that quantization-aware training runs
+(``ste``, ``fake_quant_act``, ``fake_quant_kernel``).
 
 Scheme (symmetric PTQ):
 - weights: per-output-channel symmetric int8, scale = amax(|w|)/127 over
@@ -64,6 +65,50 @@ def weight_qparams(weight: torch.Tensor, act_scale=None
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.round(k / scale).clamp(-127.0, 127.0).to(torch.int8)
     return q.contiguous(), scale
+
+
+def ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the value of ``q``, the gradient of
+    ``x``. The JAX package's expression, ``x + stop_gradient(q - x)``, in
+    x's dtype (in bf16 each of its two ops rounds)."""
+    return x + (q.to(x.dtype) - x).detach()
+
+
+def _channel_view(s: torch.Tensor, dim: int, ndim: int) -> torch.Tensor:
+    """A (C,) vector shaped to broadcast over axis ``dim`` of ``ndim``."""
+    if s.dim() == 0:
+        return s
+    shape = [1] * ndim
+    shape[dim] = -1
+    return s.reshape(shape)
+
+
+def fake_quant_act(x: torch.Tensor, scale) -> torch.Tensor:
+    """Quantize-dequantize simulation of :func:`quantize_tensor`: the value
+    the int8 conv effectively consumes (round half to even, clip to +-127,
+    re-scale), in x's dtype. ``scale``: a scalar or a (C,) vector over the
+    channel axis (dim 1) of an NCHW-indexed tensor."""
+    s = _channel_view(torch.as_tensor(scale, dtype=torch.float32,
+                                      device=x.device), 1, x.dim())
+    q = torch.round(x.float() / s).clamp(-127.0, 127.0)
+    return (q * s).to(x.dtype)
+
+
+def fake_quant_kernel(weight: torch.Tensor, act_scale) -> torch.Tensor:
+    """Float simulation of the weights the int8 conv multiplies by, for an
+    OIHW weight: :func:`weight_qparams`'s fold of ``act_scale`` (per input
+    channel), per-output-channel quantize, dequantize, unfold. So
+    ``conv(fake_quant_act(x, s), fake_quant_kernel(w, s))`` is
+    ``int8_conv(quantize_tensor(x, s), *weight_qparams(w, s))`` up to the
+    order of the fp32 sums. All-zero output channels get weight scale 1,
+    as in :func:`weight_qparams`."""
+    s_a = _channel_view(torch.as_tensor(act_scale, dtype=torch.float32,
+                                        device=weight.device), 1, 4)
+    kf = weight.float() * s_a
+    amax = kf.abs().amax(dim=(1, 2, 3), keepdim=True)
+    s_w = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(kf / s_w).clamp(-127.0, 127.0)
+    return ((q * s_w) / s_a).to(weight.dtype)
 
 
 def _round_up(n: int, m: int) -> int:

@@ -5,11 +5,13 @@ train -> serve -> metrics.
         [--epochs 30] [--n_train_volumes 6] [--n_test_volumes 2]
         [--n_slices 25] [--hr_size 128] [--seed 42] [--batch_size 8]
         [--models unet unet_tpu edsr simple] [--no-augmentation]
+        [--qat_decay 0.98] [--ft_epochs 8]
         [--skip_train] [--cpu]
 
 The protocol of the JAX package's quality harnesses (``tools/
-quality_parity.py``, ``tools/quant_quality.py``, ``tools/tta_quality.py``),
-with their flags and defaults, run by the port alone:
+quality_parity.py``, ``tools/quant_quality.py``, ``tools/tta_quality.py``,
+``tools/qat_quality.py``, ``tools/qat_ft_quality.py``), with their flags
+and defaults, run by the port alone:
 1. synthesize seeded BIDS volumes of structured anatomy (``make_volume``:
    ellipsoids and multi-scale texture, so that 2x SR is learnable), a train
    set and a held-out test set;
@@ -22,16 +24,23 @@ with their flags and defaults, run by the port alone:
    PTQ (calibrated on the first 8 content-rich train-split LR slices, so
    that every held-out pair is served by the frozen int8 path) and the
    dihedral TTA;
-5. the bilinear, sharp-bilinear and bicubic baselines on the same pairs;
-6. ``metric_suites`` on each row's outputs (one launch of B2 a row), the
+5. quantization-aware training: each family trained
+   again with ``--qat`` from scratch (``qat_quality.py``), and its bf16
+   run's final checkpoint fine-tuned with ``--qat --resume`` for
+   ``--ft_epochs`` more epochs (``qat_ft_quality.py``); each best
+   checkpoint served int8 with the sidecar it exported (no calibration
+   forward) and bf16: rows ``qat-int8``, ``qat-bf16``, ``qat-ft-int8``,
+   ``qat-ft-bf16``. The ``int8`` row is the JAX protocol's ``ptq-int8``;
+6. the bilinear, sharp-bilinear and bicubic baselines on the same pairs;
+7. ``metric_suites`` on each row's outputs (one launch of B2 a row), the
    means of SSIM, PSNR, RMSE and MAE, and each row's deltas against its
    family's bf16 row (the baselines' against the first family's); the
    same over the content pairs alone (``content_pairs``: an empty slice's
    black pair scores the baselines' 100 dB sentinel).
 
 The report is ``<workdir>/quality.json``, and a markdown table on stdout.
-Everything runs on the card unless ``--cpu``. QAT rows wait for the QAT
-half of ROADMAP A11 (the train CLI refuses ``--qat``); the report says so.
+Everything runs on the card unless ``--cpu``. The rows are guards of
+quality, not gains.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
@@ -51,8 +61,6 @@ FAMILIES = ("unet", "unet_tpu", "edsr", "simple")
 MODES = ("bf16", "int8", "tta")
 METRICS = ("ssim", "psnr", "rmse", "mae")
 CALIB_SLICES = 8
-QAT_WAIT = ("QAT rows wait for the QAT half of ROADMAP A11: the port's "
-            "train CLI refuses --qat")
 DEFAULT_WORKDIR = Path(__file__).resolve().parents[2] / "build" / "quality"
 
 
@@ -213,6 +221,54 @@ def checkpoint_rows(ckpt_path: str, model_type: str, lrs: np.ndarray,
             outs)
 
 
+def qat_rows(ckpt_path: str, model_type: str, tag: str, lrs: np.ndarray,
+             hrs: np.ndarray, device) -> Dict:
+    """Rows ``<family>/<tag>-int8`` and ``<tag>-bf16`` of a QAT checkpoint:
+    int8 with the scales of its sidecar (``calibration_forwards`` must be
+    0) and bf16, without deltas yet."""
+    rows = {}
+    for mode in ("int8", "bf16"):
+        engine = load_mode_engine(ckpt_path, model_type, mode, device)
+        before = dict(engine._quant_batches)
+        row = summarize(serve(engine, lrs), hrs, device)
+        if mode == "int8":
+            row.update(calibration_forwards=sum(before.values()),
+                       served={k: v - before[k]
+                               for k, v in engine._quant_batches.items()})
+        rows[f"{model_type}/{tag}-{mode}"] = row
+    return rows
+
+
+def train_qat(train_cli, p: Dict, wd: str, mt: str, args, common) -> Dict:
+    """The two QAT runs of family ``mt``: --qat from scratch into
+    ``ckpt_qat``, then the bf16 run's final checkpoint copied into
+    ``ckpt_ft_<mt>`` and resumed with --qat for ``--ft_epochs`` epochs past
+    the epochs it completed. Returns their seconds."""
+    seconds = {}
+    qat = ["--qat", "--qat_decay", str(args.qat_decay)]
+    t0 = time.perf_counter()
+    with open(os.path.join(wd, f"train_{mt}_qat.jsonl"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        train_cli.main([*common, "--epochs", str(args.epochs),
+                        "--checkpoint_dir", p["ckpt_qat"], *qat])
+    seconds[f"train_{mt}_qat"] = time.perf_counter() - t0
+    base = os.path.join(p["ckpt"], f"final_model_{mt}")
+    with open(base + ".json") as f:
+        done = int(json.load(f)["epoch"]) + 1
+    ft_dir = os.path.join(wd, f"ckpt_ft_{mt}")
+    os.makedirs(ft_dir, exist_ok=True)
+    for ext in (".ckpt", ".json"):
+        shutil.copy(base + ext, os.path.join(ft_dir,
+                                             f"final_model_{mt}{ext}"))
+    t0 = time.perf_counter()
+    with open(os.path.join(wd, f"train_{mt}_qat_ft.jsonl"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        train_cli.main([*common, "--epochs", str(done + args.ft_epochs),
+                        "--checkpoint_dir", ft_dir, "--resume", *qat])
+    seconds[f"train_{mt}_qat_ft"] = time.perf_counter() - t0
+    return seconds
+
+
 def baseline_rows(lrs: np.ndarray, hrs: np.ndarray, device, base: Dict,
                   base_name: str) -> Dict:
     """The three interpolation baselines on the pairs, with deltas
@@ -266,6 +322,10 @@ def parse_args(argv=None):
                          "approximate flip-equivariance)")
     ap.add_argument("--models", nargs="+", default=list(FAMILIES),
                     choices=FAMILIES)
+    ap.add_argument("--qat_decay", type=float, default=0.98)
+    ap.add_argument("--ft_epochs", type=int, default=8,
+                    help="epochs of the --qat --resume fine-tune past the "
+                         "bf16 run's")
     return ap.parse_args(argv)
 
 
@@ -283,7 +343,7 @@ def main(argv=None) -> Dict:
     os.makedirs(wd, exist_ok=True)
     p = {k: os.path.join(wd, k) for k in
          ("data_train", "data_test", "hr_train", "lr_train", "hr_test",
-          "lr_test", "ckpt")}
+          "lr_test", "ckpt", "ckpt_qat")}
     seconds = {}
 
     if not args.skip_train:
@@ -308,20 +368,22 @@ def main(argv=None) -> Dict:
             seconds[f"extract_{split}"] = time.perf_counter() - t0
         for mt in args.models:
             print(f"[quality] training {mt}", flush=True)
+            common = ["--full_res_dir", p["hr_train"],
+                      "--low_res_dir", p["lr_train"],
+                      "--batch_size", str(args.batch_size),
+                      "--ssim_weight", "0.3", "--validation_split", "0.2",
+                      "--seed", str(args.seed), "--model_type", mt,
+                      *(["--augmentation"] if args.augmentation else []),
+                      "--log_dir", os.path.join(wd, "logs"), *cpu]
             t0 = time.perf_counter()
             with open(os.path.join(wd, f"train_{mt}.jsonl"), "w") as f, \
                     contextlib.redirect_stdout(f):
-                train_cli.main([
-                    "--full_res_dir", p["hr_train"],
-                    "--low_res_dir", p["lr_train"],
-                    "--epochs", str(args.epochs),
-                    "--batch_size", str(args.batch_size),
-                    "--ssim_weight", "0.3", "--validation_split", "0.2",
-                    "--seed", str(args.seed), "--model_type", mt,
-                    *(["--augmentation"] if args.augmentation else []),
-                    "--checkpoint_dir", p["ckpt"],
-                    "--log_dir", os.path.join(wd, "logs"), *cpu])
+                train_cli.main([*common, "--epochs", str(args.epochs),
+                                "--checkpoint_dir", p["ckpt"]])
             seconds[f"train_{mt}"] = time.perf_counter() - t0
+            print(f"[quality] training {mt} with --qat, and the --qat "
+                  f"--resume fine-tune", flush=True)
+            seconds.update(train_qat(train_cli, p, wd, mt, args, common))
 
     pairs = held_out_pairs(p["lr_test"], p["hr_test"])
     lrs = read_pngs([a for a, _ in pairs])
@@ -335,8 +397,15 @@ def main(argv=None) -> Dict:
     t0 = time.perf_counter()
     for mt in args.models:
         ckpt_path = os.path.join(p["ckpt"], f"best_model_{mt}.ckpt")
-        rows.update(checkpoint_rows(ckpt_path, mt, lrs, hrs, calib,
-                                    device)[0])
+        fam = checkpoint_rows(ckpt_path, mt, lrs, hrs, calib, device)[0]
+        base = f"{mt}/bf16"
+        for tag, d in (("qat", p["ckpt_qat"]),
+                       ("qat-ft", os.path.join(wd, f"ckpt_ft_{mt}"))):
+            fam.update({k: with_deltas(v, fam[base], base)
+                        for k, v in qat_rows(
+                            os.path.join(d, f"best_model_{mt}.ckpt"), mt,
+                            tag, lrs, hrs, device).items()})
+        rows.update(fam)
     base = f"{args.models[0]}/bf16"
     rows.update(baseline_rows(lrs, hrs, device, rows[base], base))
     seconds["serve_and_metrics"] = time.perf_counter() - t0
@@ -345,11 +414,11 @@ def main(argv=None) -> Dict:
         torch.cuda.get_device_name(device) if device.type == "cuda"
         else "cpu"), "n_test_pairs": len(pairs),
         "n_content_pairs": int(content_pairs(hrs).sum()), "rows": rows,
-        "qat": QAT_WAIT, "seconds": seconds}
+        "seconds": seconds}
     with open(os.path.join(wd, "quality.json"), "w") as f:
         json.dump(report, f, indent=2)
     print(table(rows))
-    print(f"\n{QAT_WAIT}\nReport: {os.path.join(wd, 'quality.json')}")
+    print(f"\nReport: {os.path.join(wd, 'quality.json')}")
     return report
 
 

@@ -13,7 +13,9 @@ is imported only when such a file is read or written. The blob holds
 else the caller's),
 ``opt_state`` as optax's ``(add_decayed_weights, scale_by_adam)`` state
 ``{"0": {}, "1": {"count", "mu", "nu"}}`` with the moments mapped like the
-params, and extras such as ``raw_params`` (the live weights under EMA), so
+params, and extras such as ``raw_params`` (the live weights under EMA,
+mapped like the params) and ``qat_amax`` (QAT's running ranges, a flat
+``{site: (Cin,) float32}`` tree as the JAX trainer writes it), so
 checkpoints move both ways between the packages. Discovery precedence
 mirrors the reference: ``best_model_{type}`` -> ``final_model_{type}`` ->
 any file naming the type (scripts/infer.py:74-95).
@@ -34,6 +36,8 @@ from mri_superresolution_torch.utils.weights import (
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+# extras stored as flat {name: float32 array} trees, not as model params
+FLAT_EXTRAS = ("qat_amax",)
 
 
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:
@@ -121,9 +125,10 @@ def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
     params: the port's state_dict of ``model_type`` (default: the family
     the meta names, else the unet); opt_state: ``{"count": int, "mu": sd,
     "nu": sd}`` (Adam's step and moments keyed like the params, see
-    ``train.trainer.adam_state``); extras: further state_dicts stored
-    beside them (the trainer stores the live weights as ``raw_params``
-    under EMA)."""
+    ``train.trainer.adam_state``); extras: further trees stored
+    beside them: state_dicts (the trainer stores the live weights as
+    ``raw_params`` under EMA), and the flat trees of ``FLAT_EXTRAS``
+    (``qat_amax``, ``{site: (Cin,)}``), stored as float32 arrays."""
     family = model_type or model_type_of(meta)
 
     def tree(sd):
@@ -137,7 +142,9 @@ def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
     for key, sd in (extras or {}).items():
         if key in state:
             raise ValueError(f"extras key {key!r} collides with {list(state)}")
-        state[key] = tree(sd)
+        state[key] = ({k: np.asarray(torch.as_tensor(v).detach().cpu(),
+                                     np.float32) for k, v in sd.items()}
+                      if key in FLAT_EXTRAS else tree(sd))
     base = path[:-5] if path.endswith(".ckpt") else path
     _atomic_write(base + ".ckpt", msgpack_serialize(state), "wb")
     _atomic_write(base + ".json", meta or {}, "w")
@@ -148,8 +155,9 @@ def load_checkpoint(path: str, return_extras: bool = False,
     """Read a ``.ckpt`` of either package -> (params state_dict, opt_state
     ``{"count", "mu", "nu"}`` or None, meta dict), and with
     ``return_extras`` a fourth element: the other stored trees (e.g.
-    ``raw_params``) as state_dicts. The trees are mapped as the family the
-    meta names, else as ``model_type``; a tree of another family
+    ``raw_params``) as state_dicts, and those of ``FLAT_EXTRAS`` as flat
+    ``{name: float32 tensor}`` dicts. The trees are mapped as the family
+    the meta names, else as ``model_type``; a tree of another family
     raises ValueError."""
     base = path[:-5] if path.endswith(".ckpt") else path
     with open(base + ".ckpt", "rb") as f:
@@ -167,7 +175,9 @@ def load_checkpoint(path: str, return_extras: bool = False,
                "nu": sd(adam["nu"])}
     out = (sd(state["params"]), opt, meta)
     if return_extras:
-        extras = {k: sd(v) for k, v in state.items()
+        extras = {k: ({n: torch.from_numpy(np.array(a, np.float32))
+                       for n, a in v.items()} if k in FLAT_EXTRAS else sd(v))
+                  for k, v in state.items()
                   if k not in ("params", "opt_state")}
         return out + (extras,)
     return out

@@ -20,8 +20,17 @@ loss's SSIM kernel B2 (``kernels/``: each wrapper is an
 device from a ``torch.Generator`` seeded from (seed, epoch, batch), as the
 JAX trainer folds its key, so a resumed run replays the same draws.
 Checkpoints are the JAX package's format (``train/checkpoint.py``), the
-optimizer state included, so runs resume across packages. The JAX
-trainer's mesh, multi-host, spatial sharding, ZeRO-1, remat, QAT and
+optimizer state included, so runs resume across packages.
+
+``--qat`` (quantization-aware training) trains through the int8 serving
+arithmetic simulated in float (``models/quant_forward.
+build_fakequant_forward``): a running per-site activation range
+(``TrainState.qat_amax``) feeds the quantizers and follows each batch's
+statistic as an EMA (``qat_decay``); validation, the plateau, early
+stopping and best-model selection score that forward; every checkpoint
+stores the range and writes the frozen scales beside it
+(``<base>.calib.json``), which ``load_engine`` serves int8 with. The
+JAX trainer's mesh, multi-host, spatial sharding, ZeRO-1, remat and
 profiler are not ported: :func:`check_supported` names the ROADMAP item
 that ports each.
 """
@@ -44,6 +53,7 @@ from mri_superresolution_torch.data import (BatchLoader, PairedSliceDataset,
 from mri_superresolution_torch.losses import CombinedLoss
 from mri_superresolution_torch.losses.combined import _weighted_mean
 from mri_superresolution_torch.models import build_model
+from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.models import vgg as vgg_mod
 from mri_superresolution_torch.ops.augment import augment_pair
 from mri_superresolution_torch.train import checkpoint as ckpt
@@ -57,7 +67,6 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for a training mode of the JAX trainer
     that the port does not run yet, naming the ROADMAP item that ports it."""
     later = [
-        (cfg.qat, "--qat (quantization-aware training)", "A11"),
         (cfg.spatial_shards > 1, "--spatial_shards > 1", "A14"),
         (cfg.opt_shard, "--opt_shard (ZeRO-1)", "A14"),
         (cfg.remat, "--remat", "A14"),
@@ -106,6 +115,19 @@ def load_adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam,
             "exp_avg_sq": state["nu"][name].to(p).reshape(p.shape).clone()}
 
 
+def check_qat(cfg: TrainConfig) -> None:
+    """Raise ValueError for a ``--qat`` run the trainer cannot do."""
+    if not cfg.qat:
+        return
+    if not quant_forward.supported(cfg.model.model_type):
+        raise ValueError(
+            f"--qat supports the int8 serving families "
+            f"{quant_forward.supported_types()} (models/quant_forward.py), "
+            f"not {cfg.model.model_type!r}")
+    if not 0.0 < cfg.qat_decay < 1.0:
+        raise ValueError(f"qat_decay must be in (0, 1), got {cfg.qat_decay}")
+
+
 def step_seed(seed: int, epoch: int, batch_idx: int) -> int:
     """The augmentation generator's seed of one step, from (seed, epoch,
     batch): a resumed run draws what an uninterrupted one would."""
@@ -116,11 +138,14 @@ def step_seed(seed: int, epoch: int, batch_idx: int) -> int:
 @dataclass
 class TrainState:
     """The model holds the fp32 master params; ``ema`` their Polyak
-    average (a state_dict-keyed dict, None when ema_decay == 0)."""
+    average (a state_dict-keyed dict, None when ema_decay == 0);
+    ``qat_amax`` QAT's running per-site per-input-channel max |x|
+    (``{site: (Cin,) fp32}`` on the device, None without QAT)."""
     model: torch.nn.Module
     optimizer: torch.optim.Adam
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = None
+    qat_amax: Optional[Dict[str, torch.Tensor]] = None
 
 
 def _ssim_metric(loss_fn: CombinedLoss, out, hr, w) -> torch.Tensor:
@@ -130,17 +155,34 @@ def _ssim_metric(loss_fn: CombinedLoss, out, hr, w) -> torch.Tensor:
         return _weighted_mean(loss_fn.ssim_per_sample(out.detach(), hr), w)
 
 
-def _loss(model, loss_fn, hr, lo, w):
-    out = model(lo)
+def _forward(model, lo, qat=None):
+    """(output, QAT comps) of ``model`` on ``lo``: the module's forward, or
+    with ``qat`` = (fakequant forward, running amax) the fakequant forward
+    on the model's parameters, whose batch statistic and foreground flag
+    come back as ``qat_batch_amax`` and ``qat_any_fg``."""
+    if qat is None:
+        return model(lo), {}
+    fq, amax = qat
+    out, batch_amax, any_fg = fq(model.state_dict(keep_vars=True), amax, lo)
+    return out, {"qat_batch_amax": batch_amax, "qat_any_fg": any_fg}
+
+
+def _loss(model, loss_fn, hr, lo, w, qat=None):
+    out, extra = _forward(model, lo, qat)
     total, comps = loss_fn(out, hr, sample_weights=w)
     if "ssim_metric" not in comps:   # ssim_weight == 0: metric only
         comps = dict(comps, ssim_metric=_ssim_metric(loss_fn, out, hr, w))
-    return total, comps
+    return total, dict(comps, **extra)
+
+
+def _detached(comps):
+    return {k: ({s: a.detach() for s, a in v.items()} if isinstance(v, dict)
+                else v.detach()) for k, v in comps.items()}
 
 
 def loss_and_grads(model: torch.nn.Module, loss_fn: CombinedLoss,
                    hr: torch.Tensor, lo: torch.Tensor, w: torch.Tensor,
-                   grad_accum: int = 1):
+                   grad_accum: int = 1, qat=None):
     """(loss, comps, grads in ``model.parameters()`` order) of one batch.
 
     ``grad_accum > 1`` runs that many sequential microbatches, as the JAX
@@ -149,19 +191,29 @@ def loss_and_grads(model: torch.nn.Module, loss_fn: CombinedLoss,
     the batch's, which is exact because every loss term is a weighted
     mean. The one batch-nonlinear point, the SSIM clip at the batch mean,
     is applied per microbatch; ``comps["ssim_clip_micros"]`` counts the
-    microbatches that saturate it."""
+    microbatches that saturate it. With ``qat`` (see :func:`_forward`)
+    every microbatch quantizes with the same running amax, and the batch
+    statistic is the max over the microbatches' (background ones give
+    zeros, the neutral element), their foreground flags or-ed: the
+    full batch's statistic."""
     params = list(model.parameters())
     if grad_accum == 1:
-        total, comps = _loss(model, loss_fn, hr, lo, w)
+        total, comps = _loss(model, loss_fn, hr, lo, w, qat)
         grads = torch.autograd.grad(total, params)
-        return total.detach(), {k: v.detach() for k, v in comps.items()}, \
-            grads
+        return total.detach(), _detached(comps), grads
     a = grad_accum
     g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
     num_loss = num_ssim = n_sat = torch.zeros((), device=hr.device)
+    amax_acc, fg_acc = None, None
     for hr_i, lo_i, w_i in zip(hr.chunk(a), lo.chunk(a), w.chunk(a)):
-        loss_i, comps_i = _loss(model, loss_fn, hr_i, lo_i, w_i)
+        loss_i, comps_i = _loss(model, loss_fn, hr_i, lo_i, w_i, qat)
         g_i = torch.autograd.grad(loss_i, params)
+        if qat is not None:
+            b = {k: v.detach() for k, v in comps_i["qat_batch_amax"].items()}
+            amax_acc = b if amax_acc is None else {
+                k: torch.maximum(amax_acc[k], v) for k, v in b.items()}
+            f = comps_i["qat_any_fg"]
+            fg_acc = f if fg_acc is None else fg_acc | f
         den_i = w_i.float().sum()
         ssim_i = comps_i["ssim_metric"].detach()
         n_sat = n_sat + ((den_i > 0) & ((ssim_i <= 0.0) | (ssim_i >= 1.0))
@@ -171,8 +223,10 @@ def loss_and_grads(model: torch.nn.Module, loss_fn: CombinedLoss,
         num_ssim = num_ssim + den_i * ssim_i
     den = w.float().sum().clamp_min(1e-12)
     grads = [(g / den).to(p.dtype) for g, p in zip(g_acc, params)]
-    return num_loss / den, {"ssim_metric": num_ssim / den,
-                            "ssim_clip_micros": n_sat}, grads
+    comps = {"ssim_metric": num_ssim / den, "ssim_clip_micros": n_sat}
+    if qat is not None:
+        comps.update(qat_batch_amax=amax_acc, qat_any_fg=fg_acc)
+    return num_loss / den, comps, grads
 
 
 def informative(model: torch.nn.Module, lo: torch.Tensor) -> torch.Tensor:
@@ -191,8 +245,20 @@ def informative(model: torch.nn.Module, lo: torch.Tensor) -> torch.Tensor:
     return ones * (lo.reshape(lo.shape[0], -1) != 0).any(dim=1)
 
 
+def update_qat_amax(amax: Dict[str, torch.Tensor], comps, decay: float
+                    ) -> Dict[str, torch.Tensor]:
+    """QAT's moving-range observer after a step: ``decay * amax + (1 -
+    decay) * batch_amax`` if the batch had a foreground sample
+    (``comps["qat_any_fg"]``), else ``amax`` unchanged: a background batch
+    records zeros, toward which the range must not decay."""
+    fg, b = comps["qat_any_fg"], comps["qat_batch_amax"]
+    return {k: torch.where(fg, decay * a + (1.0 - decay) * b[k].to(a.dtype),
+                           a) for k, a in amax.items()}
+
+
 def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
-                     grad_accum: int = 1, ema_decay: float = 0.0):
+                     grad_accum: int = 1, ema_decay: float = 0.0,
+                     qat_fwd=None, qat_decay: float = 0.0):
     """train_step(state, batch, lr, generator) -> metrics, updating the
     state in place: augmentation (when ``augment_cfg.enabled``, from
     ``generator``), the loss's gradient, the Adam step at ``lr``, and the
@@ -201,7 +267,13 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
     unets a pair whose LR image is all zero takes weight 0
     (:func:`informative`); metrics are
     device scalars (``loss``, ``ssim``, and ``ssim_clip_micros`` with
-    grad_accum)."""
+    grad_accum).
+
+    With ``qat_fwd`` (``quant_forward.build_fakequant_forward``) the loss
+    runs that forward with ``state.qat_amax``, and after the step the
+    running amax moves to ``d * amax + (1 - d) * batch_amax`` (d =
+    ``qat_decay``) if the batch had a foreground sample, and stays as it
+    is otherwise."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: float, generator: Optional[torch.Generator] = None):
@@ -209,8 +281,9 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
         w = batch["weight"] * informative(state.model, lo)
         if augment_cfg is not None and augment_cfg.enabled:
             hr, lo = augment_pair(hr, lo, generator, augment_cfg)
+        qat = None if qat_fwd is None else (qat_fwd, state.qat_amax)
         loss, comps, grads = loss_and_grads(state.model, loss_fn, hr, lo, w,
-                                            grad_accum)
+                                            grad_accum, qat)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         for p, g in zip(state.model.parameters(), grads):
@@ -224,6 +297,9 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
                 for name, p in state.model.named_parameters():
                     state.ema[name] = (state.ema[name] * ema_decay
                                        + p.detach() * (1.0 - ema_decay))
+        if qat is not None:
+            state.qat_amax = update_qat_amax(state.qat_amax, comps,
+                                             qat_decay)
         metrics = {"loss": loss, "ssim": comps["ssim_metric"]}
         if "ssim_clip_micros" in comps:
             metrics["ssim_clip_micros"] = comps["ssim_clip_micros"]
@@ -232,17 +308,25 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
     return train_step
 
 
-def build_eval_step(model: torch.nn.Module, loss_fn: CombinedLoss):
+def build_eval_step(model: torch.nn.Module, loss_fn: CombinedLoss,
+                    qat_fwd=None):
     """eval_step(params, batch) -> (metrics, output) under no_grad;
     ``params`` (a state_dict-keyed dict, e.g. the EMA) replaces the
-    model's own for the call, None keeps them."""
+    model's own for the call, None keeps them. With ``qat_fwd``,
+    ``params`` is the pair (params or None, amax) and the step scores the
+    fakequant forward: the metric of int8 serving."""
 
     @torch.no_grad()
-    def eval_step(params: Optional[Dict[str, torch.Tensor]],
-                  batch: Dict[str, torch.Tensor]):
+    def eval_step(params, batch: Dict[str, torch.Tensor]):
         hr, lo, w = batch["hr"], batch["lr"], batch["weight"]
-        out = model(lo) if params is None else \
-            torch.func.functional_call(model, params, (lo,))
+        if qat_fwd is not None:
+            params, amax = params
+            sd = model.state_dict()
+            out, _, _ = qat_fwd(sd if params is None else {**sd, **params},
+                                amax, lo)
+        else:
+            out = model(lo) if params is None else \
+                torch.func.functional_call(model, params, (lo,))
         total, comps = loss_fn(out, hr, sample_weights=w)
         ssim = comps.get("ssim_metric")
         if ssim is None:
@@ -324,6 +408,7 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     """Run training; returns the final checkpoint path. On the card unless
     ``device`` says otherwise (``"cpu"``)."""
     check_supported(cfg)
+    check_qat(cfg)
     os.makedirs(cfg.log_dir, exist_ok=True)
     setup_logging(os.path.join(cfg.log_dir, "training.log"))
     dev = resolve_device(device)
@@ -391,6 +476,19 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
             f"best-model selection, and checkpointed serving params use the "
             f"averaged weights; live weights stored under 'raw_params' for "
             f"--resume")
+    qat_on = cfg.qat
+    qat_fwd = None
+    if qat_on:
+        qat_fwd = quant_forward.build_fakequant_forward(
+            cfg.model.model_type, dtype)
+        log_message(
+            f"QAT enabled (amax EMA decay {cfg.qat_decay}): training "
+            f"simulates the int8 serving quantizers (per-input-channel "
+            f"activation scales, per-output-channel weights) with "
+            f"straight-through gradients; validation/best-model selection "
+            f"score the quantized forward; checkpoints export a frozen "
+            f"calibration sidecar (<checkpoint>.calib.json) — serve with "
+            f"--quant int8 (the sidecar is found beside the checkpoint)")
     optimizer = make_optimizer(model.parameters(), cfg.learning_rate,
                                cfg.weight_decay)
     state = TrainState(model, optimizer, 0, None)
@@ -424,9 +522,35 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                 log_message("Resuming with EMA enabled from a checkpoint "
                             "without EMA state: initializing the average "
                             "from the restored weights")
+        if qat_on and "qat_amax" in extras:
+            want = quant_forward.amax_template(model.state_dict(),
+                                               cfg.model.model_type)
+            got = {k: tuple(v.shape) for k, v in extras["qat_amax"].items()}
+            if got != want:
+                raise ValueError(f"{resume_base}.ckpt: its QAT ranges "
+                                 f"{got} do not fit the model's sites "
+                                 f"{want}")
+            state.qat_amax = {k: v.to(dev)
+                              for k, v in extras["qat_amax"].items()}
+        elif qat_on:
+            log_message("Resuming with QAT enabled from a checkpoint "
+                        "without QAT state: the running activation ranges "
+                        "will be re-initialized from one batch through the "
+                        "RESTORED weights")
         state.step = int(meta.get("step", 0))
-        scheduler.load_state_dict(meta["scheduler"])
-        early.load_state_dict(meta["early_stopping"])
+        prev_qat = bool((meta.get("config") or {}).get("qat", False))
+        if qat_on != prev_qat:
+            # validation now scores another forward: the plateau and
+            # early-stopping histories (and the best value a best
+            # checkpoint must beat) belong to the old one
+            log_message(
+                f"Resumed checkpoint was trained with qat={prev_qat}; this "
+                f"run uses qat={qat_on}. Validation now scores a different "
+                f"forward, so the LR-plateau and early-stopping histories "
+                f"are reset (weights and optimizer state still resume).")
+        else:
+            scheduler.load_state_dict(meta["scheduler"])
+            early.load_state_dict(meta["early_stopping"])
         start_cursor = int(meta.get("batch_cursor", 0))
         if start_cursor >= len(train_loader) > 0:
             log_message(f"Step-checkpoint batch cursor {start_cursor} >= "
@@ -450,10 +574,31 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         state.ema = {k: p.detach().clone()
                      for k, p in model.named_parameters()}
 
+    def calib(params, x):
+        return quant_forward.calib_amax({**model.state_dict(), **params}, x,
+                                        cfg.model.model_type, dtype)
+
+    qat_serving_calib = None
+    if qat_on and (state.qat_amax is None or ema_on):
+        # one retained calibration batch, the first of epoch 0
+        calib_x = torch.from_numpy(np.asarray(
+            next(iter(train_loader.epoch(0)))["lr"])).to(dev)
+        if state.qat_amax is None:
+            # after the resume on purpose: a --qat --resume fine-tune
+            # measures the restored weights' ranges, not the random init's
+            log_message("QAT: initializing the running activation ranges "
+                        "from one batch through the current weights")
+            state.qat_amax = calib({}, calib_x)
+        if ema_on:
+            # the checkpoint serves the EMA weights: its sidecar and the
+            # validation are measured on them, each epoch
+            def qat_serving_calib(ema):
+                return calib(ema, calib_x)
+
     loss_fn = CombinedLoss(cfg.loss, load_vgg(cfg, dev))
     train_step = build_train_step(loss_fn, cfg.augment, cfg.grad_accum,
-                                  cfg.ema_decay)
-    eval_step = build_eval_step(model, loss_fn)
+                                  cfg.ema_decay, qat_fwd, cfg.qat_decay)
+    eval_step = build_eval_step(model, loss_fn, qat_fwd)
 
     writer = None
     if cfg.use_tensorboard:
@@ -487,13 +632,36 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
 
     def save_state(base: str, meta: Dict[str, Any]) -> None:
         """Checkpoint the current state: serving params (the EMA when on),
-        the live weights under ``raw_params``, and Adam's state."""
+        the live weights under ``raw_params``, Adam's state, and under QAT
+        the running ranges (``qat_amax``) and the frozen int8 scales
+        beside the checkpoint (``<base>.calib.json``): measured on the EMA
+        weights when they are served, else the running ranges. Without
+        QAT a sidecar left by an earlier QAT run is removed: it describes
+        weights this save overwrites."""
         live = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         serve = ({k: v.cpu() for k, v in state.ema.items()} if ema_on
                  else live)
+        extras = {}
+        if ema_on:
+            extras["raw_params"] = live
+        if qat_on:
+            extras["qat_amax"] = {k: v.cpu()
+                                  for k, v in state.qat_amax.items()}
         ckpt.save_checkpoint(base, serve, adam_state(model, optimizer),
                              meta=meta, model_type=cfg.model.model_type,
-                             extras={"raw_params": live} if ema_on else None)
+                             extras=extras or None)
+        sidecar = ckpt.calib_sidecar_path(base)
+        if qat_on:
+            amax = serving_amax if serving_amax is not None \
+                else state.qat_amax
+            quant_forward.save_scales(
+                sidecar, quant_forward.scales_from_amax(
+                    {k: v.cpu().numpy() for k, v in amax.items()}),
+                cfg.model.model_type)
+        elif os.path.exists(sidecar):
+            os.remove(sidecar)
+            log_message(f"Removed stale QAT calibration sidecar {sidecar} "
+                        f"(its checkpoint was overwritten by a non-QAT run)")
 
     def put(batch):
         return {k: torch.from_numpy(v).to(dev, non_blocking=True)
@@ -503,6 +671,12 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     n_train_batches = len(train_loader)
     hyper_meta = {"config": to_dict(cfg)}
     final_val_loss, final_val_ssim = float("inf"), 0.0
+    # QAT with EMA: the ranges of the served (averaged) weights, measured
+    # before each validation; a run whose epoch loop does not run measures
+    # them here, so that its re-save exports them
+    serving_amax = (qat_serving_calib(state.ema)
+                    if qat_serving_calib is not None
+                    and start_epoch >= cfg.epochs else None)
     grids = True
     epoch = start_epoch - 1
     for epoch in range(start_epoch, cfg.epochs):
@@ -555,8 +729,16 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         # EMA weights when they are on: they are what the checkpoint serves
         val_losses, val_ssims = [], []
         vis_batch, vis_out = None, None
+        eval_params = state.ema
+        if qat_on:
+            # scored on the fakequant forward, with the scales the
+            # checkpoint would export
+            if qat_serving_calib is not None:
+                serving_amax = qat_serving_calib(state.ema)
+            eval_params = (state.ema, serving_amax if serving_amax
+                           is not None else state.qat_amax)
         for batch in val_loader.epoch():
-            metrics, out = eval_step(state.ema, put(batch))
+            metrics, out = eval_step(eval_params, put(batch))
             val_losses.append(metrics["loss"])
             val_ssims.append(metrics["ssim"])
             vis_batch, vis_out = batch, out

@@ -36,5 +36,6 @@ def test_port_imports_are_clean():
     assert int(r.stdout.split()[-1]) >= 20
     walked = set(r.stdout.split())
     for name in ("cli.extract", "data.extraction", "ops.kspace",
-                 "ops.pipeline", "evalsuite.baselines", "tools.quality"):
+                 "ops.pipeline", "evalsuite.baselines", "tools.quality",
+                 "infer.server", "cli.serve"):
         assert f"mri_superresolution_torch.{name}" in walked

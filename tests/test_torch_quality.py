@@ -119,17 +119,23 @@ def test_make_volume_matches_the_jax_harness():
 
 def test_quality_harness_reports_every_row(tmp_path, package_logger):
     """A tiny CPU run of the whole protocol (volumes of 160 x 160 x 40, 6
-    slices each, LR 16^2 -> HR 32^2, one epoch of ``simple``): the report
-    holds the bf16, int8 and TTA rows, the three baselines and the QAT
-    note, each row with its metrics and deltas; int8 served every
-    held-out pair after its calibration (int8, or bf16 where near-empty).
+    slices each, LR 16^2 -> HR 32^2, one epoch of ``simple``, and one
+    epoch of each QAT run): the report holds the bf16, int8 (PTQ) and TTA
+    rows, the QAT rows (trained with --qat, and the --qat --resume
+    fine-tune of the bf16 run, each served int8 from its sidecar and
+    bf16) and the three baselines, each row with its metrics and deltas;
+    int8 served every held-out pair after its calibration (int8, or bf16
+    where near-empty), the QAT int8 rows with no calibration forward.
     """
     report = quality.main([
         "--workdir", str(tmp_path), "--cpu", "--hr_size", "32",
         "--n_slices", "6", "--n_train_volumes", "2", "--n_test_volumes", "1",
-        "--epochs", "1", "--models", "simple", "--batch_size", "4"])
+        "--epochs", "1", "--models", "simple", "--batch_size", "4",
+        "--ft_epochs", "1"])
     rows = report["rows"]
     assert list(rows) == ["simple/bf16", "simple/int8", "simple/tta",
+                          "simple/qat-int8", "simple/qat-bf16",
+                          "simple/qat-ft-int8", "simple/qat-ft-bf16",
                           "baseline/bilinear", "baseline/sharp_bilinear",
                           "baseline/bicubic"]
     for name, row in rows.items():
@@ -140,6 +146,13 @@ def test_quality_harness_reports_every_row(tmp_path, package_logger):
     assert rows["simple/int8"]["served"]["int8"] + \
         rows["simple/int8"]["served"]["bf16"] == report["n_test_pairs"] == 6
     assert rows["simple/int8"]["calibration_forwards"] >= quality.CALIB_SLICES
-    assert "A11" in report["qat"] and report["device"] == "cpu"
+    for tag in ("qat", "qat-ft"):
+        q = rows[f"simple/{tag}-int8"]
+        assert q["calibration_forwards"] == 0
+        assert q["served"]["int8"] + q["served"]["bf16"] == 6
+        assert os.path.exists(tmp_path / ("ckpt_qat" if tag == "qat" else
+                                          "ckpt_ft_simple")
+                              / "best_model_simple.calib.json")
+    assert report["device"] == "cpu"
     with open(tmp_path / "quality.json") as f:
         assert json.load(f)["rows"] == rows

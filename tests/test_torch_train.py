@@ -514,7 +514,8 @@ def test_cli_trains_every_family_and_the_perceptual_loss(
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--qat",), "A11"), (("--spatial_shards", "2"), "A14"),
+    (("--qat", "--spatial_shards", "2"), "A14"),
+    (("--spatial_shards", "2"), "A14"),
     (("--opt_shard",), "A14"), (("--multihost",), "A14"),
     (("--remat",), "A14"), (("--num_devices", "2"), "A14"),
     (("--profile_dir", "p"), "A14")])
