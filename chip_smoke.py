@@ -95,8 +95,9 @@ the last line is printed:
    B4 18; simple int8 B4 2), slices/s of both in turns with peak memory,
    and 2 of those slices and slices 48-49 of each volume against the CPU
    port at the bf16 budget (edsr and simple in bf16 also all 16 slices
-   together, and each alone logged beside the CPU port's bf16 against
-   its fp32); then one training step of the family
+   together at the budget, and each slice alone with its |dSSIM| within
+   the larger of 1e-3 and twice the CPU port's bf16 against its fp32 on
+   that slice, both logged); then one training step of the family
    counted and timed. Every launch count is exact, and so are B1's
    one-pass and B4's stream launches, from the routes the kernel checks
    found. Before the paths, B1 at unet_tpu's C = 64 sites, forward at
@@ -177,7 +178,28 @@ the last line is printed:
    ``cli/serve.py`` as a process of its own: /healthz, one /upscale at
    the bf16 budget, and a SIGTERM while a request waits in the batch
    window: the request completes, the process exits 0.
-13. the ``kernels`` JSON line, the card's name and power limit, and the
+13. portable serving artifacts (``artifact_path``, after phase 12): the
+   training phase's train CLI run again from its seed and pairs, its
+   checkpoints against that phase's byte for byte (``train_repeat``);
+   the export CLI, one process a mode, all started together (plain at
+   256^2 and 256 x 192, tta at 256^2 and raw int16 at the volume's 256^2
+   from the volume phase's checkpoint; int8 from the QAT checkpoint's
+   sidecar): seconds and MiB each; a fresh process loads each and
+   serves the phantom batch through it (int8 also a black batch, raw
+   the volume's first 16 stored slices), with each load's seconds and
+   first call's ms and no module of the model zoo, the trainer or the
+   engine imported; each output against the port's engine on the same
+   checkpoint bit for bit (tta against the engine's on-card TTA), and
+   the launches a batch (plain B1 20 and B3 2; int8 B1 13,
+   ``gn_quantize`` 7, B4 13; the black batch the fallback's B1 20 and
+   B3 2); ``cli.infer_volume --artifact`` on the volume voxel for voxel
+   against the volume phase's run (b) from the checkpoint;
+   ``upscale_batch`` slices/s of the artifact beside the engine's in
+   turns; ``cli.serve --artifact`` over HTTP (a stack of 4 and one
+   slice at the bf16 budget against the artifact, exit 0 on SIGTERM);
+   the card-made artifact on the CPU against the CPU port at the bf16
+   budget.
+14. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -195,8 +217,10 @@ the last line is printed:
    (``volume_launches``); every row the zoo phase's (``zoo_launches``),
    the extraction phase's (``extract_launches``, B5's rows too), the
    perceptual training run's (``perceptual_launches``), the QAT phase's
-   two train CLI runs' (``qat_launches``) and the serving phase's three
-   in-process daemons' (``serve_launches``), and B1's
+   two train CLI runs' (``qat_launches``), the serving phase's three
+   in-process daemons' (``serve_launches``) and the artifact phase's
+   (``artifact_launches``: a plain and an int8 batch and the volume
+   through the raw artifact), and B1's
    and its backward's rows their C = 64 times (``c64``). A ``wall`` line
    before it gives the script's seconds.
 
@@ -318,9 +342,12 @@ C64_BWD = (TRAIN_BATCH, 2 * BASE_FILTERS, TRAIN_LR, TRAIN_LR)
 ZOO_DIR = SCALES_PATH.parent / "zoo"
 ZOO_FAMILIES = ("unet_tpu", "edsr", "simple")
 EDSR_BLOCKS = 8
-# the families held to the bf16 budget slice by slice over the whole
-# serving batch (their bf16 convs sat closest to it on 2 slices, PR 10)
+# the families held slice by slice over the whole serving batch (their
+# bf16 convs sat closest to the budget on 2 slices, PR 10): each slice's
+# |dSSIM| card against CPU port within the larger of the budget's 1e-3
+# and twice the CPU port's own bf16 against fp32 on that slice
 ZOO_ALL_SLICES = ("edsr", "simple")
+ZOO_SLICE_SSIM_FLOOR, ZOO_SLICE_CONTROL_FACTOR = 1e-3, 2.0
 ZOO_BF16_LAUNCHES = {"unet_tpu": {"group_norm_leaky": 20}, "edsr": {},
                      "simple": {}}
 ZOO_INT8_LAUNCHES = {
@@ -349,8 +376,7 @@ B2_CHECK_SHAPES = ((8, 256, 256), (EXTRACT_VOLUMES["test"] * EXTRACT_SLICES,
 # the port's kernels swapped for their plain versions against the CPU
 # port (what PyTorch's own CUDA ops move), and the CPU port's bf16
 # against its fp32 (what the precision moves). The reading follows the
-# checkpoint, and the phase's training is not bit-reproducible on the
-# card (atomics in B1's backward and B2, cuDNN): read on an NVIDIA H100
+# checkpoint, which moved between chip calls: read on an NVIDIA H100
 # 80GB HBM3 at 700 W over ten checkpoints, 3.2e-3 to 1.51e-2, with the
 # precision control 2.3e-3 to 1.1e-2 and, on two, ratios of 0.50 and
 # 0.77 to the larger control; a fault in B1's zero-variance groups is
@@ -375,6 +401,23 @@ QAT_AMAX_START, QAT_RULE_RTOL = 0.5, 1e-6
 SERVE_DIR = SCALES_PATH.parent / "serve"
 SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_SEED = 16, 8, 6
 NONSQ_W = 192
+# the artifact phase: what each mode exports, from which phase's
+# checkpoint, and the inputs the fresh process serves through it (the
+# phantom serving batch, its 256 x 192 crop, a black batch, the volume
+# phase's first 16 stored slices in the transposed layout)
+ART_DIR = SCALES_PATH.parent / "artifact"
+ART_MODES = {
+    "plain": ("vol", [f"--shapes={LR}x{LR},{LR}x{NONSQ_W}"],
+              ("phantom", "phantom_192")),
+    "tta": ("vol", [f"--shapes={LR}x{LR}", "--mode=tta"], ("phantom",)),
+    "int8": ("qat", [f"--shapes={LR}x{LR}", "--mode=int8"],
+             ("phantom", "black")),
+    "raw": ("vol", [f"--shapes={VOL_HW}x{VOL_HW}", "--serve_raw",
+                    "--out_dtype=int16"], ("raw",))}
+ART_LAUNCHES = {"plain": {"group_norm_leaky": 20, "conv3x3": 2},
+                "int8": {"group_norm_leaky": 13, "gn_quantize": 7,
+                         "leaky_quantize": 13}}
+ART_RATE_ITERS = 30
 
 
 def log(phase: str, **fields) -> None:
@@ -1922,7 +1965,8 @@ def train_path(dev, lr_serve) -> dict:
                              f"{served}, output range [{out.min()}, "
                              f"{out.max()}]")
     return {"counts": counts, "backward_onepass_launches": bwd_onepass,
-            "step_ms": ms, "gate": gate}
+            "step_ms": ms, "gate": gate, "digests": _ckpt_digests(
+                TRAIN_DIR / "ckpt")}
 
 
 # ------------------------------------------------ QAT and the serving daemon
@@ -2538,6 +2582,318 @@ def serve_path(dev, cfg, params, qat_final: str) -> dict:
     return {"launches": totals, "rates": bf16["rates"]}
 
 
+# ---------------------------------------------------- serving artifacts
+
+ARTIFACT_CLIENT = r"""
+import json, sys, time
+import numpy as np
+import torch
+from mri_superresolution_torch import kernels, nifti
+from mri_superresolution_torch.infer.export import load_artifact
+from mri_superresolution_torch.utils.phantom import phantom_batch
+args = json.loads(sys.argv[1])
+lr = phantom_batch(np.random.default_rng(0), args["batch"], args["size"])
+raw = nifti.load(args["volume"], raw=True)[0].T[:args["batch"]]
+inputs = {"phantom": lr, "phantom_192": lr[:, :, :args["width"]],
+          "black": np.zeros_like(lr), "raw": np.ascontiguousarray(raw)}
+res, outs = {}, {}
+for name, path, batches in args["artifacts"]:
+    t0 = time.perf_counter()
+    art = load_artifact(path)
+    torch.cuda.synchronize()
+    res[name] = {"load_s": time.perf_counter() - t0}
+    for b in batches:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[name + "." + b] = art.upscale_batch(inputs[b])
+        res[name][b] = {"first_call_ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": {k: v for k, v in
+                                     kernels.launch_counts().items() if v}}
+np.savez(args["out"], **outs)
+print(json.dumps({"artifacts": res, "model_modules": sorted(
+    m for m in sys.modules if m.startswith((
+        "mri_superresolution_torch.models", "mri_superresolution_torch.train",
+        "mri_superresolution_torch.infer.engine")))}))
+"""
+
+
+def _files_digest(*dirs: Path) -> str:
+    """SHA-256 over the names and bytes of every file in ``dirs``, in
+    sorted order: the same digest in two calls means the same data."""
+    import hashlib
+    h = hashlib.sha256()
+    for d in dirs:
+        for f in sorted(d.iterdir()):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()
+
+
+def _ckpt_digests(ck: Path) -> dict:
+    """SHA-256 of the best and final checkpoints' bytes in ``ck``."""
+    import hashlib
+    return {n: hashlib.sha256((ck / f"{n}.ckpt").read_bytes()).hexdigest()
+            for n in ("best_model_unet", "final_model_unet")}
+
+
+def _export_all(qat_final: str):
+    """The export CLI in a process of its own a mode, all started
+    together; returns a function that waits for them and gives each one's
+    seconds, the artifact's MiB and its path, and the wall time of all."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    ck = {"vol": ["--checkpoint_dir", str(VOL_DIR / "ckpt")],
+          "qat": ["--checkpoint_dir", str(Path(qat_final).parent),
+                  "--checkpoint_path", qat_final]}
+    procs = {}
+    for mode, (src, flags, _) in ART_MODES.items():
+        out = ART_DIR / f"{mode}.mrisrt"
+        procs[mode] = (out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "mri_superresolution_torch.cli."
+             "export_serving", "--out", str(out), "--base_filters",
+             str(BASE_FILTERS), *ck[src], *flags], cwd=str(ART_DIR), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    def wait() -> dict:
+        res = {}
+        for mode, (out, t0, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("Wrote ")]
+            if proc.returncode or not line:
+                raise AssertionError(f"export {mode}: exit "
+                                     f"{proc.returncode}: {stderr[-3000:]}")
+            res[mode] = {"path": str(out),
+                         "seconds": time.perf_counter() - t0,
+                         "mib": os.path.getsize(out) / 2 ** 20,
+                         "line": line[0]}
+        return res
+
+    return wait
+
+
+def _start_artifact_daemon(path: str):
+    """``cli/serve.py --artifact`` started as a process of its own, with
+    ``--bucket`` (named as ignored); returns (process, base URL)."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    with open(ART_DIR / "serve_cli.log", "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mri_superresolution_torch.cli.serve",
+             "--artifact", path, "--port", str(port), "--bucket", "8",
+             "--max_batch", str(BATCH)], cwd=str(ART_DIR), env=env,
+            stdout=logf, stderr=logf)
+    return proc, f"http://127.0.0.1:{port}"
+
+
+def _artifact_daemon(proc, base: str, lrs: np.ndarray, hrs: np.ndarray,
+                     want: np.ndarray) -> dict:
+    """The daemon of :func:`_start_artifact_daemon`: /healthz describes
+    the artifact; a stack of 4 slices and one slice alone over HTTP, each
+    against the artifact's ``upscale_batch`` of the stack at the bf16
+    budget (the daemon coalesces other batch sizes, at which cuDNN may sum
+    in another order), bit-equality logged; a SIGTERM ends it with exit
+    0."""
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            try:
+                health = json.loads(_http(base, "/healthz", timeout=5))
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"serve CLI --artifact did not come up (exit "
+                        f"{proc.poll()}); see {ART_DIR}/serve_cli.log")
+                time.sleep(0.25)
+        stack = _from_npy(_http(base, "/upscale", _npy(lrs[:4])))
+        one = _from_npy(_http(base, "/upscale", _npy(lrs[4])))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    got = np.concatenate([stack, one[None]])
+    checks = [_budget_quiet(_quality(got[i:i + 1], hrs[i:i + 1]),
+                            _quality(want[i:i + 1], hrs[i:i + 1]))
+              for i in range(5)]
+    logged = (ART_DIR / "serve_cli.log").read_text()
+    ok = rc == 0 and health.get("artifact", {}).get("mode") == "plain" \
+        and "--bucket is IGNORED" in logged and all(c["ok"] for c in checks)
+    log("artifact_daemon", health=health, sigterm_exit=rc,
+        bit_equal=[bool(np.array_equal(got[i], want[i])) for i in range(5)],
+        worst={k: max(c[k] for c in checks)
+               for k in ("d_psnr_db", "d_ssim")}, ok=ok)
+    if not ok:
+        raise AssertionError(f"serve CLI --artifact: exit {rc}, health "
+                             f"{health}, {checks}")
+    return {"rc": rc}
+
+
+def _rates(fns: dict, batch: np.ndarray) -> dict:
+    """slices/s of each ``fn(batch)`` (it returns a host array, so a call
+    ends synchronized), in turns a, b, b, a after two warm-up calls."""
+    for fn in fns.values():
+        for _ in range(2):
+            fn(batch)
+    names = list(fns)
+    out = {k: [] for k in names}
+    for k in names + names[::-1]:
+        t0 = time.perf_counter()
+        for _ in range(ART_RATE_ITERS):
+            fns[k](batch)
+        out[k].append(len(batch) * ART_RATE_ITERS
+                      / (time.perf_counter() - t0))
+    return out
+
+
+def artifact_path(dev, lr, hr, qat_final: str, train_digests: dict) -> dict:
+    """Portable serving artifacts through their entry points, on the
+    full-width unet in bf16: the export CLI a process a mode (plain at
+    256^2 and 256 x 192 and raw int16 at the volume's 256^2 from the volume
+    phase's checkpoint, tta at 256^2, int8 from the QAT checkpoint's
+    sidecar); a fresh process that loads each, serves the phantom batch
+    (and a black one, and the volume's slices) and imports none of the
+    model zoo, the trainer or the engine; each output against the port's
+    engine on the same checkpoint, bit for bit (tta: the engine's on-card
+    TTA; the black batch: int8's fallback, by its launches); the launches
+    a batch; the artifact's slices/s beside the engine's; the volume
+    through ``cli.infer_volume --artifact`` voxel for voxel against the
+    volume phase's run from the checkpoint; the daemon on the plain
+    artifact; the card-made artifact on the CPU against the CPU port at
+    the bf16 budget; and the training phase's train CLI run again, its
+    checkpoints against that phase's, byte for byte."""
+    from mri_superresolution_torch.infer.export import load_artifact
+    shutil.rmtree(ART_DIR, ignore_errors=True)
+    ART_DIR.mkdir(parents=True)
+    retrain = _train_cli(ART_DIR / "retrain", epochs=TRAIN_EPOCHS)
+    again = _ckpt_digests(ART_DIR / "retrain")
+    log("train_repeat", first=train_digests, again=again,
+        bit_equal=again == train_digests, seconds=retrain["seconds"])
+    if again != train_digests:
+        raise AssertionError(f"the train CLI from one seed and data gave "
+                             f"other checkpoints: {train_digests} then "
+                             f"{again}")
+
+    t_phase = time.perf_counter()
+    # the engines' outputs on the same checkpoints, while the exports run
+    # (they trace on the host)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    exporting = _export_all(qat_final)
+    vol_ck = InferConfig(checkpoint_dir=str(VOL_DIR / "ckpt"))
+    plain_eng = load_engine(vol_ck, device=dev)
+    int8_eng = load_engine(InferConfig(checkpoint_path=qat_final,
+                                       quant="int8"), device=dev)
+    raw = np.ascontiguousarray(nifti.load(str(VOL_DIR / "vol.nii"),
+                                          raw=True)[0].T[:BATCH])
+    engines = {
+        "plain.phantom": (plain_eng, lr),
+        "plain.phantom_192": (plain_eng, np.ascontiguousarray(
+            lr[:, :, :NONSQ_W])),
+        "tta.phantom": (load_engine(dataclasses.replace(vol_ck, tta=True),
+                                    device=dev), lr),
+        "raw.raw": (load_engine(dataclasses.replace(
+            vol_ck, normalize_inputs=True, transpose_io=True,
+            out_dtype="int16"), device=dev), raw),
+        "int8.phantom": (int8_eng, lr),
+        "int8.black": (int8_eng, np.zeros_like(lr))}
+    engine_outs = {k: eng.upscale_batch(x) for k, (eng, x) in
+                   engines.items()}
+    exported = exporting()
+    arts = {m: exported[m]["path"] for m in ART_MODES}
+
+    # a fresh process loads and serves each; the daemon starts beside it
+    daemon = _start_artifact_daemon(arts["plain"])
+    try:
+        spec = {"batch": BATCH, "size": LR, "width": NONSQ_W,
+                "volume": str(VOL_DIR / "vol.nii"),
+                "out": str(ART_DIR / "outs.npz"),
+                "artifacts": [[m, arts[m], list(ART_MODES[m][2])]
+                              for m in ART_MODES]}
+        r = subprocess.run([sys.executable, "-c", ARTIFACT_CLIENT,
+                            json.dumps(spec)], cwd=str(ART_DIR), env=env,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode:
+            raise AssertionError(f"artifact loader: {r.stderr[-3000:]}")
+        fresh = json.loads(r.stdout.strip().splitlines()[-1])
+        outs = dict(np.load(ART_DIR / "outs.npz"))
+        equal = {k: bool(np.array_equal(outs[k], engine_outs[k]))
+                 for k in engines}
+        res = fresh["artifacts"]
+        launches = {f"{m}.{b}": res[m][b]["launches"]
+                    for m in ART_MODES for b in ART_MODES[m][2]}
+        want = {"plain.phantom": ART_LAUNCHES["plain"],
+                "plain.phantom_192": ART_LAUNCHES["plain"],
+                "int8.phantom": ART_LAUNCHES["int8"],
+                # a black batch routes to the plain fallback
+                "int8.black": ART_LAUNCHES["plain"],
+                "tta.phantom": {k: 8 * v for k, v in
+                                ART_LAUNCHES["plain"].items()},
+                "raw.raw": ART_LAUNCHES["plain"]}
+        ok = all(equal.values()) and launches == want and \
+            not fresh["model_modules"]
+        log("artifact_export", **{
+            m: {k: exported[m][k] for k in ("seconds", "mib", "line")}
+            for m in ART_MODES})
+        log("artifact_serve", same_bits_as_engine=equal, launches=launches,
+            expected=want, model_modules=fresh["model_modules"],
+            load_s={m: res[m]["load_s"] for m in ART_MODES},
+            first_call_ms={k: res[m][b]["first_call_ms"] for m in ART_MODES
+                           for b in ART_MODES[m][2]
+                           for k in [f"{m}.{b}"]}, ok=ok)
+        if not ok:
+            raise AssertionError(f"artifacts: bits {equal}, launches "
+                                 f"{launches} (want {want}), model modules "
+                                 f"{fresh['model_modules']}")
+
+        plain = load_artifact(arts["plain"], device=dev)
+        int8 = load_artifact(arts["int8"], device=dev)
+        kernels.reset_launch_counts()
+        plain.upscale_batch(lr)
+        int8.upscale_batch(lr)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        volume = _serve_volume([
+            "--input", str(VOL_DIR / "vol.nii"), "--output",
+            str(ART_DIR / "sr_raw.nii"), "--artifact", arts["raw"],
+            "--batch_size", str(VOL_BATCH), "--serve_raw", "--out_dtype",
+            "int16"])
+        batches = -(-VOL_SLICES // VOL_BATCH)
+        vol_want = {k: v * batches for k, v in ART_LAUNCHES["plain"].items()}
+        same = bool(np.array_equal(
+            nifti.load(str(ART_DIR / "sr_raw.nii"), raw=True)[0],
+            nifti.load(str(VOL_DIR / "sr_b.nii"), raw=True)[0]))
+        log("artifact_volume", rc=volume["rc"], seconds=volume["seconds"],
+            launches=volume["launches"], expected=vol_want,
+            voxel_equal_to_checkpoint_run=same)
+        if volume["rc"] or not same or volume["launches"] != vol_want:
+            raise AssertionError(f"infer_volume --artifact: {volume}, voxel "
+                                 f"equal {same}")
+        for k, v in volume["launches"].items():
+            counts[k] += v
+        rates = _rates({"engine": plain_eng.upscale_batch,
+                        "artifact": plain.upscale_batch}, lr)
+        log("artifact_throughput", slices=BATCH, hw=LR, iters=ART_RATE_ITERS,
+            slices_per_s=rates, dtype="bf16")
+        _artifact_daemon(*daemon, lr, hr, np.concatenate(
+            [plain.upscale_batch(lr[:4]), plain.upscale_batch(lr[4:5])]))
+    finally:
+        if daemon[0].poll() is None:      # a failure before the daemon's leg
+            daemon[0].kill()
+            daemon[0].wait(30)
+
+    cpu_art = load_artifact(arts["plain"], device="cpu")
+    got = cpu_art.upscale_batch(lr[:2])
+    cpu = load_engine(vol_ck, device="cpu").upscale_batch(lr[:2])
+    d = _budget_quiet(_quality(got, hr[:2]), _quality(cpu, hr[:2]))
+    log("artifact_cpu_vs_cpu_port", bit_equal=bool(np.array_equal(got, cpu)),
+        **d)
+    if not d["ok"]:
+        raise AssertionError(f"the card-made artifact on the CPU: {d}")
+    log("artifact_path", launches={k: v for k, v in counts.items() if v},
+        seconds=time.perf_counter() - t_phase)
+    return {"launches": counts}
+
+
 def b1_c64_check(shape, dev, gen) -> tuple:
     """B1 at one of unet_tpu's final-stage shapes through the wrapper, on
     the route its plan gives (logged, not assumed), against the plain
@@ -2903,10 +3259,13 @@ def _zoo_serve(family: str, final: str, dev, lr, hr, c64: dict) -> dict:
 def _zoo_all_slices(family: str, cfg, cpu, out: np.ndarray,
                     lr: np.ndarray, hr: np.ndarray) -> dict:
     """All the serving batch's slices, card against the CPU port, bf16:
-    the 16 together at the bf16 budget (the gate, as on 2 slices), and
-    each slice alone, logged beside a control, the CPU port's bf16
-    against its fp32 on the same slice. The slices that break the budget
-    alone are listed (ROADMAP C records them)."""
+    the 16 together at the bf16 budget, and each slice alone, its |dSSIM|
+    (against one truth) within ``ZOO_SLICE_SSIM_FLOOR`` or
+    ``ZOO_SLICE_CONTROL_FACTOR`` times a control on the same slice, the
+    CPU port's bf16 against its fp32, whichever is larger: one slice's
+    SSIM moves more under bf16's rounding than the budget allows (the
+    control breaks 1e-3 alone on some slices), and the card sums in
+    another order than the CPU. Both numbers are logged a slice."""
     out_cpu = cpu.upscale_batch(lr)
     fp32 = load_engine(dataclasses.replace(cfg, bf16=False),
                        device="cpu").upscale_batch(lr)
@@ -2915,19 +3274,31 @@ def _zoo_all_slices(family: str, cfg, cpu, out: np.ndarray,
            for i in range(len(lr))]
     control = [_budget_quiet(one(out_cpu, i), one(fp32, i))
                for i in range(len(lr))]
+    limits = [max(ZOO_SLICE_SSIM_FLOOR,
+                  ZOO_SLICE_CONTROL_FACTOR * c["d_ssim"]) for c in control]
+    over = [i for i, (d, lim) in enumerate(zip(per, limits))
+            if d["d_ssim"] > lim]
     whole = _budget_quiet(_quality(out, hr), _quality(out_cpu, hr))
     worst = {k: max(d[k] for d in per) for k in ("d_psnr_db", "d_ssim")}
+    ratios = [d["d_ssim"] / c["d_ssim"] if c["d_ssim"] > 0 else None
+              for d, c in zip(per, control)]
+    ok = whole["ok"] and not over
     log("zoo_cpu_vs_gpu_all_slices", family=family, precision="bf16",
         slices=len(lr), whole_batch=whole, worst_slice=worst,
         d_ssim=[d["d_ssim"] for d in per],
         control_cpu_bf16_vs_fp32_d_ssim=[d["d_ssim"] for d in control],
+        slice_limit=limits, ratio_to_control=ratios,
+        d_psnr_db=[d["d_psnr_db"] for d in per],
+        slices_beyond_limit=over,
         slices_beyond_budget=[i for i, d in enumerate(per) if not d["ok"]],
         control_slices_beyond_budget=[i for i, d in enumerate(control)
-                                      if not d["ok"]], ok=whole["ok"])
-    if not whole["ok"]:
-        raise AssertionError(f"{family} bf16: the 16 slices beyond the bf16 "
-                             f"budget against the CPU port: {whole}")
+                                      if not d["ok"]], ok=ok)
+    if not ok:
+        raise AssertionError(f"{family} bf16 against the CPU port: the 16 "
+                             f"slices {whole}, slices beyond their limit "
+                             f"{over}")
     return {"whole_batch": whole, "worst_slice": worst,
+            "slices_beyond_limit": over,
             "slices_beyond_budget": [i for i, d in enumerate(per)
                                      if not d["ok"]]}
 
@@ -3175,7 +3546,9 @@ def extract_path(dev) -> dict:
         val_batches=vals, seconds=train_s, launches=train_counts,
         expected=want, routes=train_routes, expected_routes=want_routes,
         train_losses=losses, val_losses=[s["val_loss"] for s in summaries],
-        checkpoint=final)
+        checkpoint=final, pairs_sha256=_files_digest(
+            EXTRACT_DIR / "hr_train", EXTRACT_DIR / "lr_train"),
+        checkpoint_sha256=_ckpt_digests(ck)["final_model_unet"])
     if train_counts != want or train_routes != want_routes or \
             len(losses) != EXTRACT_EPOCHS or \
             not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -3444,6 +3817,7 @@ def main(argv=None) -> int:
     # checkpoint; the daemon serves the QAT checkpoint
     qat = qat_path(dev, lr, hr)
     served = serve_path(dev, cfg, params, qat["final"])
+    art = artifact_path(dev, lr, hr, qat["final"], trained["digests"])
     zoo = zoo_path(dev, lr, hr, c64)
     extract = extract_path(dev)
     perc = perceptual_path(dev)
@@ -3487,6 +3861,7 @@ def main(argv=None) -> int:
         rows[-1]["extract_launches"] = extract["launches"][name]
         rows[-1]["qat_launches"] = qat["launches"][name]
         rows[-1]["serve_launches"] = served["launches"][name]
+        rows[-1]["artifact_launches"] = art["launches"][name]
         if key in ("B1", "B1 backward"):
             rows[-1]["c64"] = c64["forward" if key == "B1" else "backward"]
         if key == "B2":
@@ -3517,7 +3892,8 @@ def main(argv=None) -> int:
                      else r["library_us"] / 1e3,
                      "extract_launches": extract["launches"][wrapper],
                      "qat_launches": qat["launches"][wrapper],
-                     "serve_launches": served["launches"][wrapper]})
+                     "serve_launches": served["launches"][wrapper],
+                     "artifact_launches": art["launches"][wrapper]})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

@@ -7,8 +7,10 @@
 Takes the flags of the JAX package's ``scripts/infer.py`` (reference
 scripts/infer.py:452-486). Runs on the card; ``--cpu`` runs on the CPU.
 Checkpoints carry their hyperparams, so ``--base_filters`` is only a
-fallback for bare weight files. Flags of serving modes this port does not
-serve yet exit with status 1 and say which ROADMAP item brings them.
+fallback for bare weight files. ``--artifact`` serves a portable artifact
+(``cli/export_serving.py``) instead of a checkpoint, with no model code:
+as in JAX, ``--tta`` and ``--quant`` that the artifact does not export,
+and ``--bucket``, are named as ignored.
 """
 
 from __future__ import annotations
@@ -60,41 +62,57 @@ def parse_args(argv=None):
                         help='Test-time augmentation: average the forward '
                              'over the dihedral flips (8 transforms for '
                              'square inputs, 4 otherwise)')
-    parser.add_argument('--artifact', type=str, default=None)
+    parser.add_argument('--artifact', type=str, default=None,
+                        help='Serve from a portable artifact '
+                             '(python -m mri_superresolution_torch.cli.'
+                             'export_serving) instead of a checkpoint: '
+                             'weights and exported programs in one file, '
+                             'no model code needed. The input size must be '
+                             'among the exported shapes.')
     return parser.parse_args(argv)
-
-
-def unsupported(args) -> list:
-    """Messages for the flags this port does not serve yet."""
-    msgs = []
-    if args.artifact:
-        msgs.append("--artifact is not ported yet (ROADMAP A12)")
-    return msgs
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
 
-    from mri_superresolution_torch.config import InferConfig, ModelConfig
-    from mri_superresolution_torch.infer import load_engine
     from mri_superresolution_torch.utils.logging import setup_logging
 
     logger = setup_logging("inference.log")
-    msgs = unsupported(args)
-    if msgs:
-        for m in msgs:
-            logger.error(m)
-        return 1
+    device = "cpu" if args.cpu else None
     try:
-        cfg = InferConfig(
-            model=ModelConfig(model_type=args.model_type,
-                              base_filters=args.base_filters),
-            checkpoint_dir=args.checkpoint_dir,
-            checkpoint_path=args.checkpoint_path,
-            bf16=not args.no_bf16, bucket=args.bucket, quant=args.quant,
-            quant_calib_slices=args.quant_calib_slices,
-            quant_calib_path=args.quant_calib, tta=args.tta)
-        engine = load_engine(cfg, device="cpu" if args.cpu else None)
+        if args.artifact:
+            from mri_superresolution_torch.infer.export import load_artifact
+            engine = load_artifact(args.artifact, device=device)
+            ignored = [name for name, on in
+                       (("--tta", args.tta and engine.mode != "tta"),
+                        ("--quant", args.quant != "none"
+                         and engine.mode != "int8"),
+                        ("--bucket", args.bucket != 1))
+                       if on]
+            if ignored:
+                logger.warning(
+                    f"--artifact serves its exported program "
+                    f"(mode={engine.mode}); {', '.join(ignored)} are "
+                    "IGNORED: export a dedicated artifact (cli."
+                    "export_serving --mode tta|int8) or serve from a "
+                    "checkpoint for those modes")
+            logger.info(f"Serving from artifact {args.artifact}: "
+                        f"{engine.model_type} mode={engine.mode}, shapes "
+                        f"{engine.shapes} on {engine.device} (no model "
+                        "code loaded)")
+        else:
+            from mri_superresolution_torch.config import (InferConfig,
+                                                          ModelConfig)
+            from mri_superresolution_torch.infer import load_engine
+            cfg = InferConfig(
+                model=ModelConfig(model_type=args.model_type,
+                                  base_filters=args.base_filters),
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_path=args.checkpoint_path,
+                bf16=not args.no_bf16, bucket=args.bucket, quant=args.quant,
+                quant_calib_slices=args.quant_calib_slices,
+                quant_calib_path=args.quant_calib, tta=args.tta)
+            engine = load_engine(cfg, device=device)
         fig_path = args.save_figure
         if (args.show_comparison or args.show_diff) and not fig_path:
             fig_path = os.path.splitext(args.output)[0] + "_comparison.png"
@@ -105,7 +123,7 @@ def main(argv=None) -> int:
             show_comparison=args.show_comparison,
             show_diff=args.show_diff,
             save_figures_to=fig_path)
-        if args.quant != 'none':
+        if args.quant != 'none' and not args.artifact:
             logger.info(engine.quant_summary())
         logger.info("Inference completed successfully!")
         return 0

@@ -14,9 +14,14 @@ that decodes them to [0, 1]. Slices larger than ``--tile`` take
 normalizes them on the card with no host copy (the engine's
 ``transpose_io``). ``--input`` may be a directory: every volume in it is
 served through one loaded engine, and a volume that fails is counted, not
-fatal. Runs on the card; ``--cpu`` runs on the CPU. Flags of serving modes
-this port does not serve yet exit with status 1 and name their ROADMAP
-item.
+fatal. Runs on the card; ``--cpu`` runs on the CPU. ``--artifact`` serves
+a portable artifact (``cli/export_serving.py``) with no model code,
+under the JAX CLI's policy: a flag the artifact exports is satisfied, one
+that conflicts with it exits 1, ``--bucket`` and ``--num_devices`` are
+named as ignored, and a volume whose shape has no program is padded to
+the smallest exported shape that fits, or refused for raw and tta
+artifacts. Flags of serving modes this port does not serve yet exit with
+status 1 and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ def parse_args(argv=None):
                              'directory when --input is a directory)')
     parser.add_argument('--checkpoint_dir', type=str, default='./checkpoints')
     parser.add_argument('--checkpoint_path', type=str, default=None)
-    parser.add_argument('--artifact', type=str, default=None)
+    parser.add_argument('--artifact', type=str, default=None,
+                        help='Serve from a portable artifact (cli.'
+                             'export_serving) instead of a checkpoint')
     parser.add_argument('--model_type', type=str,
                         choices=['unet', 'unet_tpu', 'edsr', 'simple'],
                         default='unet')
@@ -96,15 +103,31 @@ def parse_args(argv=None):
 
 
 def unsupported(args) -> list:
-    """Messages for the flags this port does not serve yet."""
+    """Messages for the flags this port does not serve yet (from a
+    checkpoint; ``artifact_conflicts`` holds an artifact's policy)."""
     msgs = []
-    if args.artifact:
-        msgs.append("--artifact is not ported yet (ROADMAP A12)")
     if args.spatial_shards != 1:
         msgs.append("--spatial_shards > 1 is not ported yet (ROADMAP A14)")
     if args.num_devices > 1:
         msgs.append("--num_devices > 1 is not ported yet (ROADMAP A14)")
     return msgs
+
+
+def artifact_conflicts(args, art) -> tuple:
+    """(refused, ignored) flag names beside a loaded artifact: a mode the
+    artifact exports is satisfied, one it cannot serve is refused, and
+    the flags it has no use for are ignored (the JAX CLI's policy)."""
+    refused = [name for name, on in (
+        ("--quant", args.quant != "none" and art.mode != "int8"),
+        ("--spatial_shards", args.spatial_shards != 1),
+        ("--serve_raw", args.serve_raw and not art.normalize_inputs),
+        ("--out_dtype", args.out_dtype != "float32"
+         and np.dtype(args.out_dtype) != art.out_dtype),
+        ("--tta", args.tta and art.mode != "tta")) if on]
+    ignored = [name for name, on in (("--bucket", args.bucket != 1),
+                                     ("--num_devices", args.num_devices != 0))
+               if on]
+    return refused, ignored
 
 
 def _normalize_stack(stack: np.ndarray, device) -> np.ndarray:
@@ -123,14 +146,44 @@ def _normalize_stack(stack: np.ndarray, device) -> np.ndarray:
         return out.numpy()
 
 
+def _artifact_shape_ok(art, h: int, w: int, logger) -> bool:
+    """Whether the artifact serves an h x w volume: exactly, or padded to
+    an exported shape, which raw and tta artifacts refuse."""
+    if (h, w) in art.shapes:
+        return True
+    if art.normalize_inputs:
+        logger.error(
+            f"serve_raw artifact has no program for {h}x{w} and cannot "
+            "pad (zero pads would dilute the device-side normalize); "
+            f"re-export with this exact shape (exported: {art.shapes})")
+        return False
+    if art.mode == "tta":
+        logger.error(
+            f"tta-mode artifact has no program for {h}x{w} and cannot "
+            "serve it by padding (the exported ensemble would transform "
+            "the zero margin); re-export with this exact shape "
+            f"(exported: {art.shapes})")
+        return False
+    logger.warning(
+        f"No exact program for {h}x{w}; slices will be zero-padded to the "
+        "smallest fitting exported shape (the engine's bucket padding, "
+        "with its GroupNorm-statistics caveat)")
+    return True
+
+
 def _serve_one(args, engine, logger, input_path: str,
-               output_path: str) -> int:
-    """Serve one volume through the loaded engine; 0 or 1, as a CLI."""
+               output_path: str, art=None) -> int:
+    """Serve one volume through the loaded engine or artifact ``art``
+    (``engine`` None); 0 or 1, as a CLI."""
     from mri_superresolution_torch import nifti
     from mri_superresolution_torch.ops.functional import unit_slope
 
-    transposed = args.serve_raw and not args.tta
-    data, hdr = nifti.load(input_path, raw=args.serve_raw)
+    # a raw artifact exports the raw transposed contract; the host path
+    # is then the engine's --serve_raw path
+    serve_raw = args.serve_raw or (art is not None and art.normalize_inputs)
+    transposed = serve_raw and not args.tta
+    backend = engine if art is None else art
+    data, hdr = nifti.load(input_path, raw=serve_raw)
     if data.ndim == 4:
         logger.info("4D input: super-resolving timepoint 0")
         data = data[:, :, :, 0]
@@ -139,20 +192,37 @@ def _serve_one(args, engine, logger, input_path: str,
         return 1
     h, w, n_slices = data.shape
     logger.info(f"Volume {input_path}: {h}x{w}, {n_slices} slices"
-                + (f" (raw {data.dtype} served)" if args.serve_raw else ""))
+                + (f" (raw {data.dtype} served)" if serve_raw else ""))
+    if art is not None and not _artifact_shape_ok(art, h, w, logger):
+        return 1
 
     if transposed:
         # the volume's F-order (h, w, n) buffer is a C-order (n, w, h)
         # array: data.T is contiguous already, and the engine swaps the
         # axes on the card both ways
         norm = np.ascontiguousarray(data.T)
-    elif args.serve_raw:
+    elif serve_raw:
         norm = np.ascontiguousarray(np.transpose(data, (2, 0, 1)))
     else:
         stack = np.ascontiguousarray(np.transpose(data, (2, 0, 1)))
-        norm = _normalize_stack(stack.astype(np.float32), engine.device)
+        norm = _normalize_stack(stack.astype(np.float32), backend.device)
 
-    if max(h, w) > args.tile:
+    if art is not None:
+        starts = list(range(0, n_slices, args.batch_size))
+        outs = []
+        try:
+            with art.page_locked(norm):
+                for start, out in zip(starts, art.upscale_batches(
+                        (norm[s:s + args.batch_size] for s in starts),
+                        pad=True)):
+                    outs.append(out)
+                    logger.info(f"Upscaled slices {start}.."
+                                f"{start + len(out) - 1}")
+        except ValueError as e:
+            logger.error(str(e))
+            return 1
+        sr = np.concatenate(outs, axis=0)
+    elif max(h, w) > args.tile:
         logger.info(f"Slice {h}x{w} exceeds tile={args.tile}; "
                     "using halo-tiled inference")
         if args.serve_raw:
@@ -203,36 +273,66 @@ def _serve_one(args, engine, logger, input_path: str,
     return 0
 
 
+def _load_engine(args, device):
+    """The engine the flags ask for, from the checkpoint they name."""
+    from mri_superresolution_torch.config import InferConfig, ModelConfig
+    from mri_superresolution_torch.infer import load_engine
+    return load_engine(
+        InferConfig(model=ModelConfig(model_type=args.model_type,
+                                      base_filters=args.base_filters),
+                    checkpoint_dir=args.checkpoint_dir,
+                    checkpoint_path=args.checkpoint_path,
+                    bf16=not args.no_bf16, bucket=args.bucket,
+                    quant=args.quant,
+                    quant_calib_slices=args.quant_calib_slices,
+                    quant_calib_path=args.quant_calib, tta=args.tta,
+                    normalize_inputs=args.serve_raw,
+                    transpose_io=args.serve_raw and not args.tta,
+                    out_dtype=args.out_dtype),
+        device=device)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
-    from mri_superresolution_torch.config import InferConfig, ModelConfig
-    from mri_superresolution_torch.infer import load_engine
     from mri_superresolution_torch.utils.logging import setup_logging
 
     logger = setup_logging("inference.log")
-    msgs = unsupported(args)
-    if msgs:
-        for m in msgs:
-            logger.error(m)
-        return 1
-    try:
-        engine = load_engine(
-            InferConfig(model=ModelConfig(model_type=args.model_type,
-                                          base_filters=args.base_filters),
-                        checkpoint_dir=args.checkpoint_dir,
-                        checkpoint_path=args.checkpoint_path,
-                        bf16=not args.no_bf16, bucket=args.bucket,
-                        quant=args.quant,
-                        quant_calib_slices=args.quant_calib_slices,
-                        quant_calib_path=args.quant_calib, tta=args.tta,
-                        normalize_inputs=args.serve_raw,
-                        transpose_io=args.serve_raw and not args.tta,
-                        out_dtype=args.out_dtype),
-            device="cpu" if args.cpu else None)
-    except Exception as e:  # the CLI boundary: report and exit 1
-        logger.exception(f"Cannot load the engine: {e}")
-        return 1
+    device = "cpu" if args.cpu else None
+    engine = art = None
+    if args.artifact:
+        from mri_superresolution_torch.infer.export import load_artifact
+        try:
+            art = load_artifact(args.artifact, device=device)
+        except Exception as e:  # the CLI boundary: report and exit 1
+            logger.exception(f"Cannot load the artifact: {e}")
+            return 1
+        refused, ignored = artifact_conflicts(args, art)
+        if refused:
+            logger.error(
+                f"--artifact is incompatible with {', '.join(refused)}; "
+                "export those modes into the artifact (cli.export_serving "
+                "--mode tta|int8, --serve_raw, --out_dtype) or serve from "
+                "a checkpoint")
+            return 1
+        if ignored:
+            logger.warning(f"{', '.join(ignored)} are IGNORED with "
+                           "--artifact (programs run at their exported "
+                           "shapes on one device)")
+        logger.info(f"Serving from artifact {args.artifact}: "
+                    f"{art.model_type} mode={art.mode}, shapes "
+                    f"{art.shapes} on {art.device} (no model code loaded)")
+    else:
+        msgs = unsupported(args)
+        if msgs:
+            for m in msgs:
+                logger.error(m)
+            return 1
+        try:
+            engine = _load_engine(args, device)
+        except Exception as e:  # the CLI boundary: report and exit 1
+            logger.exception(f"Cannot load the engine: {e}")
+            return 1
     is_dir = os.path.isdir(args.input)
     inputs = [args.input]
     if is_dir:
@@ -259,7 +359,7 @@ def main(argv=None) -> int:
                          else (os.path.splitext(base)[0], ".nii"))
             op = os.path.join(args.output, stem + "_sr" + ext)
         try:
-            failed += _serve_one(args, engine, logger, ip, op) != 0
+            failed += _serve_one(args, engine, logger, ip, op, art) != 0
         except Exception as e:
             # one corrupt or unreadable volume must not abort a directory
             # batch: count it failed and serve the rest
@@ -267,7 +367,7 @@ def main(argv=None) -> int:
             failed += 1
             if not is_dir:
                 return 1
-    if args.quant != "none":
+    if args.quant != "none" and engine is not None:
         logger.info(engine.quant_summary())
     if failed:
         logger.error(f"{failed}/{len(inputs)} volume(s) failed")

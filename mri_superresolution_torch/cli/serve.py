@@ -17,9 +17,14 @@ NIfTI layout: /upscale reads a posted (W, H) array as the transpose of
 the (H, W) image it upscales and returns (2W, 2H), the transpose of the
 output (``infer/server.serve_http``). SIGTERM or SIGINT stops the
 server: it stops accepting, finishes the requests in flight, then closes
-the batcher, and exits 0. ``--artifact`` (ROADMAP A12) and more than one
-device (``--spatial_shards``, ``--num_devices``: A14) are not ported and
-exit 1.
+the batcher, and exits 0. ``--artifact`` serves a portable artifact
+(``cli/export_serving.py``) with no model code, under the JAX CLI's
+policy: a flag the artifact exports is satisfied, one it cannot serve
+(``--quant``, ``--tta``, ``--serve_raw``, ``--out_dtype`` it does not
+export, ``--spatial_shards``, ``--num_devices``) exits 1, and
+``--bucket`` is named as ignored. More than one device
+(``--spatial_shards``, ``--num_devices``: ROADMAP A14) is not ported and
+exits 1.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ def parse_args(argv=None):
     ap.add_argument("--checkpoint_dir", default="./checkpoints")
     ap.add_argument("--checkpoint_path", default=None)
     ap.add_argument("--artifact", default=None,
-                    help="not ported yet (ROADMAP A12)")
+                    help="serve a portable artifact (cli.export_serving) "
+                         "instead of a checkpoint")
     ap.add_argument("--model_type", default="unet",
                     choices=["unet", "unet_tpu", "edsr", "simple"])
     ap.add_argument("--base_filters", type=int, default=32)
@@ -91,10 +97,9 @@ def parse_args(argv=None):
 
 
 def unsupported(args) -> list:
-    """Messages for the flags this port does not serve yet."""
+    """Messages for the flags this port does not serve yet (from a
+    checkpoint; ``artifact_conflicts`` holds an artifact's policy)."""
     msgs = []
-    if args.artifact:
-        msgs.append("--artifact is not ported yet (ROADMAP A12)")
     if args.spatial_shards > 1:
         msgs.append("--spatial_shards > 1 is not ported yet (ROADMAP A14)")
     if args.num_devices > 1:
@@ -102,20 +107,53 @@ def unsupported(args) -> list:
     return msgs
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
+def artifact_conflicts(args, art) -> list:
+    """The flags a loaded artifact cannot serve: a mode it exports is
+    satisfied, anything else is refused (the JAX CLI's policy)."""
+    import numpy as np
+    return [name for name, on in (
+        ("--quant", args.quant != "none" and art.mode != "int8"),
+        ("--tta", args.tta and art.mode != "tta"),
+        ("--spatial_shards", args.spatial_shards != 1),
+        ("--num_devices", args.num_devices != 0),
+        ("--serve_raw", args.serve_raw and not art.normalize_inputs),
+        ("--out_dtype", args.out_dtype != "float32"
+         and np.dtype(args.out_dtype) != art.out_dtype)) if on]
 
-    from mri_superresolution_torch.config import InferConfig, ModelConfig
-    from mri_superresolution_torch.infer import load_engine, serve_http
-    from mri_superresolution_torch.utils.logging import setup_logging
 
-    logger = setup_logging("serving.log")
+def _backend(args, logger):
+    """(backend, description) for the flags, or (None, None) after a
+    logged refusal."""
+    device = "cpu" if args.cpu else None
+    if args.artifact:
+        import os
+        from mri_superresolution_torch.infer.export import load_artifact
+        art = load_artifact(args.artifact, device=device)
+        bad = artifact_conflicts(args, art)
+        if bad:
+            logger.error(
+                f"--artifact is incompatible with {', '.join(bad)}; "
+                "export those modes into the artifact (cli.export_serving "
+                "--mode tta|int8, --serve_raw, --out_dtype) or serve from "
+                "a checkpoint")
+            return None, None
+        if args.bucket != 1:
+            logger.warning("--bucket is IGNORED with --artifact (programs "
+                           "run at their exported shapes)")
+        describe = (f"artifact {os.path.basename(args.artifact)} "
+                    f"{art.model_type} mode={art.mode} shapes={art.shapes} "
+                    f"raw={art.normalize_inputs} out={art.out_dtype} "
+                    f"device={art.device}")
+        logger.info(f"Serving from artifact: {describe}")
+        return art, describe
     msgs = unsupported(args)
     if msgs:
         for m in msgs:
             logger.error(m)
-        return 1
-    backend = load_engine(InferConfig(
+        return None, None
+    from mri_superresolution_torch.config import InferConfig, ModelConfig
+    from mri_superresolution_torch.infer import load_engine
+    engine = load_engine(InferConfig(
         model=ModelConfig(model_type=args.model_type,
                           base_filters=args.base_filters),
         checkpoint_dir=args.checkpoint_dir,
@@ -126,12 +164,24 @@ def main(argv=None) -> int:
         # the ensemble's transforms are defined on (N, h, w): raw TTA
         # normalizes on the card in the standard layout
         transpose_io=args.serve_raw and not args.tta,
-        out_dtype=args.out_dtype), device="cpu" if args.cpu else None)
-    describe = (f"checkpoint {backend.model_cfg.model_type} "
-                f"bf={backend.model_cfg.base_filters} "
-                f"quant={args.quant} tta={args.tta} "
-                f"raw={args.serve_raw} out={args.out_dtype} "
-                f"device={backend.device}")
+        out_dtype=args.out_dtype), device=device)
+    return engine, (f"checkpoint {engine.model_cfg.model_type} "
+                    f"bf={engine.model_cfg.base_filters} "
+                    f"quant={args.quant} tta={args.tta} "
+                    f"raw={args.serve_raw} out={args.out_dtype} "
+                    f"device={engine.device}")
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+
+    from mri_superresolution_torch.infer.server import serve_http
+    from mri_superresolution_torch.utils.logging import setup_logging
+
+    logger = setup_logging("serving.log")
+    backend, describe = _backend(args, logger)
+    if backend is None:
+        return 1
     server = serve_http(backend, host=args.host, port=args.port,
                         max_batch=args.max_batch,
                         batch_window_ms=args.batch_window_ms,

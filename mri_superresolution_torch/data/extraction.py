@@ -262,7 +262,13 @@ def find_nifti_files(datasets_dir: str, anat_only: bool = True) -> List[str]:
     """Walk the dataset's set folders, descending only into ``anat/``
     directories (scripts/extract_paired_slices.py:148-158). A missing root
     gives [] like an empty one, so that the CLI prints its "No NIfTI files
-    found" message."""
+    found" message.
+
+    The folders are walked in sorted order, so the list, and with it each
+    file's noise seed (``sub_seed(seed, index)``), is the same on every
+    machine. The JAX package walks a set's subject folders in the order
+    the filesystem lists them, which differs from one filesystem to
+    another: there the same seed gives other pairs on another machine."""
     if not os.path.isdir(datasets_dir):
         return []
     found = []
@@ -270,7 +276,8 @@ def find_nifti_files(datasets_dir: str, anat_only: bool = True) -> List[str]:
         set_path = os.path.join(datasets_dir, set_name)
         if not os.path.isdir(set_path):
             continue
-        for root, _dirs, files in os.walk(set_path):
+        for root, dirs, files in os.walk(set_path):
+            dirs.sort()
             if anat_only and os.path.basename(root).lower() != "anat":
                 continue
             for file in sorted(files):

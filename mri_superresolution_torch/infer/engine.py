@@ -42,11 +42,9 @@ given, or loaded from it), and near-empty batches on the bf16 model.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import os
-import warnings
 from collections import deque
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -56,6 +54,7 @@ import torch.nn.functional as F
 
 from mri_superresolution_torch.config import (InferConfig, ModelConfig,
                                               model_config_from_dict)
+from mri_superresolution_torch.infer.transfer import HostTransfers
 from mri_superresolution_torch.kernels import ssim_per_sample
 from mri_superresolution_torch.models import build_model
 from mri_superresolution_torch.models import quant_forward
@@ -92,17 +91,7 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _host_tensor(arr: np.ndarray) -> torch.Tensor:
-    """A tensor over the C-contiguous host array ``arr``, no copy. The
-    engine only reads its inputs, so a read-only buffer (a volume straight
-    from ``nifti.load``) is taken as it is."""
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", "The given NumPy array is not "
-                                "writable")
-        return torch.from_numpy(arr)
-
-
-class InferenceEngine:
+class InferenceEngine(HostTransfers):
     """Holds a model with its params on one device and serves padded,
     bucketed forwards."""
 
@@ -293,59 +282,6 @@ class InferenceEngine:
         (the int8 routing's measure, taken on the host)."""
         return float((np.abs(batch) > FOREGROUND_INTENSITY).mean())
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """The host array on the engine's device, in its own dtype. On the
-        card the copy is asynchronous from page-locked memory: straight
-        from the caller's buffer when it is page-locked (see
-        :meth:`page_locked`), so the caller must leave it unchanged until
-        the batch's result is returned; otherwise through a page-locked
-        copy (:meth:`_staged`). A copy from pageable memory may wait for
-        the compute stream, which would hold the host back while the
-        previous batch runs."""
-        src = _host_tensor(np.ascontiguousarray(arr))
-        if self._d2h is None:
-            return src
-        if not src.is_pinned():
-            src = self._staged(src)
-        return src.to(self.device, non_blocking=True)
-
-    @staticmethod
-    def _staged(src: torch.Tensor) -> torch.Tensor:
-        """A page-locked host copy of ``src``."""
-        staged = torch.empty_like(src, pin_memory=True)
-        staged.copy_(src)
-        return staged
-
-    @contextlib.contextmanager
-    def page_locked(self, arr: np.ndarray):
-        """Page-lock the C-contiguous host array ``arr`` for the duration
-        (``cudaHostRegister``), so that batches that are views of it upload
-        from it with no host copy. A volume served in batches is
-        registered once around its ``upscale_batches`` loop. Nothing to do
-        on the CPU, or when ``arr`` is page-locked already."""
-        src = _host_tensor(arr)
-        if self._d2h is None or src.numel() == 0 or src.is_pinned():
-            yield arr
-            return
-        if not arr.flags.c_contiguous:
-            raise ValueError("page_locked needs a C-contiguous array")
-        cudart = torch.cuda.cudart()
-        with torch.cuda.device(self.device):
-            err = cudart.cudaHostRegister(src.data_ptr(), arr.nbytes, 0)
-        if int(err) != 0:
-            raise RuntimeError(f"cudaHostRegister of {arr.nbytes} bytes "
-                               f"failed: cudaError {int(err)}")
-        try:
-            yield arr
-        finally:
-            # the uploads from ``arr`` are done before it is unlocked
-            torch.cuda.synchronize(self.device)
-            with torch.cuda.device(self.device):
-                err = cudart.cudaHostUnregister(src.data_ptr())
-            if int(err) != 0:
-                raise RuntimeError(f"cudaHostUnregister failed: cudaError "
-                                   f"{int(err)}")
-
     def _device_input(self, batch: np.ndarray, bh: int,
                       bw: int) -> torch.Tensor:
         """The (n, h, w) batch — (n, w, h) under ``transpose_io`` — as the
@@ -455,40 +391,6 @@ class InferenceEngine:
     def _dispatch(self, batch: np.ndarray) -> torch.Tensor:
         return (self._tta_dispatch(batch) if self.tta
                 else self._dispatch_once(batch))
-
-    def _start_fetch(self, y: torch.Tensor):
-        """Queue the copy of the device result ``y`` to the host; returns a
-        handle for :meth:`_collect`. On the card, ``y`` is made contiguous
-        on the compute stream, and the copy into a fresh page-locked buffer
-        runs on the side stream once an event recorded after it has fired,
-        so the compute stream goes on with the next batch meanwhile. The
-        buffer comes from PyTorch's caching host allocator, which does not
-        hand it out again before the copy's event has fired and the
-        returned array is gone."""
-        with torch.inference_mode():
-            y = y.contiguous()
-            if self._d2h is None:
-                return y, None
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-            out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-            with torch.cuda.stream(self._d2h):
-                self._d2h.wait_event(ready)
-                out.copy_(y, non_blocking=True)
-                # y's memory stays with y until the side stream is done
-                y.record_stream(self._d2h)
-                done = torch.cuda.Event()
-                done.record(self._d2h)
-        return out, done
-
-    @staticmethod
-    def _collect(handle) -> np.ndarray:
-        """Wait for a fetch queued by :meth:`_start_fetch` and return the
-        host array, the sole view of its buffer."""
-        out, done = handle
-        if done is not None:
-            done.synchronize()
-        return out.numpy()
 
     def upscale_batch(self, batch: np.ndarray) -> np.ndarray:
         """(N, h, w) float [0,1] -> (N, 2h, 2w) in ``out_dtype``; with

@@ -48,6 +48,7 @@ answered).
 
 from __future__ import annotations
 
+import inspect
 import io
 import json
 import logging
@@ -101,6 +102,12 @@ class DynamicBatcher:
     (``quant_calibrating``): pad rows would count as calibration data. Zero
     rows lower the int8 routing's foreground fraction, which can only send
     a batch to bf16, the side that keeps quality.
+
+    A backend whose ``upscale_batch`` takes ``pad`` (a serving artifact,
+    ``infer/export.py``) is called with ``pad=True``, so that a slice of a
+    shape it has no program for is padded to one it has, as the JAX
+    batcher does; its programs take any batch size, so its groups go at
+    their own size.
     """
 
     def __init__(self, backend, max_batch: int = 64,
@@ -108,6 +115,8 @@ class DynamicBatcher:
         if int(max_batch) < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self._backend = backend
+        self._kwargs = ({"pad": True} if "pad" in inspect.signature(
+            backend.upscale_batch).parameters else {})
         # engines that normalize on the card take any integer or float
         # dtype; everything else gets float32 at submit
         self._raw_input = bool(getattr(backend, "normalize_inputs", False))
@@ -252,15 +261,16 @@ class DynamicBatcher:
             for (shape, _dt), group in groups.items():
                 try:
                     batch = np.stack([r.image for r in group])
-                    if not getattr(self._backend, "quant_calibrating",
-                                   False):
+                    if not self._kwargs and not getattr(
+                            self._backend, "quant_calibrating", False):
                         target = min(1 << (len(group) - 1).bit_length(),
                                      self.max_batch)
                         if target > len(group):
                             batch = np.concatenate(
                                 [batch, np.zeros((target - len(group),)
                                                  + shape, batch.dtype)])
-                    out = self._backend.upscale_batch(batch)
+                    out = self._backend.upscale_batch(batch,
+                                                      **self._kwargs)
                     for r, y in zip(group, out):
                         r.result = np.asarray(y)
                 except BaseException as e:  # delivered to the callers
@@ -556,7 +566,8 @@ def serve_http(backend, host: str = "127.0.0.1", port: int = 8476,
       was, packed int16/uint8 with the decoding ``scl_slope`` when the
       engine packs).
     - ``GET /healthz``: JSON of the backend's description and the batcher's
-      stats.
+      stats, and for a serving artifact its header's mode, shapes, model
+      type, routing, raw input and output dtype under ``artifact``.
     - ``GET /metrics``: JSON of the stats, the queue depth, the batch-size
       histogram, the engine's int8 routing counts (``quant_batches``) and
       the server's limits.
@@ -616,8 +627,15 @@ def serve_http(backend, host: str = "127.0.0.1", port: int = 8476,
         def do_GET(self):
             if self.path == "/healthz":
                 stats, _, _ = batcher.snapshot()
-                return self._json(200, {"status": "ok", "backend": describe,
-                                        "stats": stats})
+                payload = {"status": "ok", "backend": describe,
+                           "stats": stats}
+                header = getattr(backend, "header", None)
+                if header is not None:   # a serving artifact
+                    payload["artifact"] = {
+                        k: header[k] for k in (
+                            "model_type", "mode", "shapes", "routed",
+                            "serve_raw", "raw_dtype", "out_dtype", "bf16")}
+                return self._json(200, payload)
             if self.path == "/metrics":
                 stats, hist, depth = batcher.snapshot()
                 payload = {

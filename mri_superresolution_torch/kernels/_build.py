@@ -193,6 +193,24 @@ def counters(device, n: int, what: str):
     return buf
 
 
+def channels_last(t) -> bool:
+    """Whether the 4-D ``t`` is channels_last contiguous: the tensor's own
+    flag. While ``torch.export`` traces with a symbolic batch, the flag of
+    a fake tensor that a CUDA meta function made can read False for
+    channels_last strides (the unet's first GroupNorm input, on an H100),
+    so there its strides decide, size-1 dimensions skipped as the flag
+    skips them."""
+    import torch
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return True
+    if not torch.compiler.is_compiling():
+        return False
+    _, c, h, w = t.shape
+    want = (h * w * c, 1, w * c, c)
+    return all(s == e or n == 1
+               for s, e, n in zip(t.stride(), want, t.shape))
+
+
 def needs_grad(*tensors) -> bool:
     """Whether autograd will differentiate a call on ``tensors`` (None
     entries allowed): grad mode on and one of them requires grad. A

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mri_superresolution_torch.kernels import _build
+from mri_superresolution_torch.kernels import _build, _ops
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_COUT = 64
@@ -61,14 +61,15 @@ def _check(x, weight):
                          f"got {co}")
     if weight.dtype != x.dtype or weight.device != x.device:
         raise ValueError("weight must share x's dtype and device")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+    if not _build.channels_last(x):
         raise ValueError("x must be channels_last contiguous (make the layout "
                          "right at the call site)")
 
 
 def _forward(x, weight):
     if x.device.type == "cpu":
-        return conv3x3_plain(x, weight)
+        return conv3x3_plain(x, weight).contiguous(
+            memory_format=torch.channels_last)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b, ci, h, w = x.shape
@@ -122,12 +123,28 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     (Co, Ci, 3, 3), Co a multiple of 8 up to 64. Returns (B, Co, H, W) in
     x's dtype, channels_last. A kernel on a CUDA tensor (tensor cores for
     bf16, CUDA cores for fp32), the plain version on a CPU tensor.
-    Differentiable: see the module's note.
+    Differentiable: see the module's note. Without a gradient to keep, it
+    is the operator ``torch.ops.mri_sr.conv3x3`` to ``torch.export``
+    (``kernels/_ops.py``).
     """
-    _check(x, weight)
     if _build.needs_grad(x, weight):
+        _check(x, weight)
         return _Conv3x3.apply(x, weight)
+    return _ops.call(_OP, _op_forward, x, weight)
+
+
+def _op_forward(x, weight):
+    _check(x, weight)
     return _forward(x, weight)
 
 
+def _fake(x, weight):
+    _check(x, weight)
+    b, _, h, w = x.shape
+    return torch.empty((b, weight.shape[0], h, w), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
+
+
+_OP = _ops.register("conv3x3(Tensor x, Tensor weight) -> Tensor",
+                    _op_forward, _fake)
 conv3x3.launches = 0

@@ -54,9 +54,10 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from mri_superresolution_torch.kernels import _build
+from mri_superresolution_torch.kernels import _build, _ops
 from mri_superresolution_torch.kernels.leaky_quantize import (
-    _check as _check_quantize, leaky_quantize, leaky_quantize_plain)
+    _check as _check_quantize, _empty_codes, leaky_quantize,
+    leaky_quantize_plain)
 from mri_superresolution_torch.ops.functional import GN_EPS, group_norm_fp32
 
 # Elements each block of the two-pass kernel streams (its pixel chunk):
@@ -95,7 +96,7 @@ def _check(x, scale, bias, residual, n_groups):
     c = x.shape[1]
     if c % n_groups:
         raise ValueError(f"{c} channels do not split into {n_groups} groups")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+    if not _build.channels_last(x):
         raise ValueError("x must be channels_last contiguous (make the layout "
                          "right at the call site)")
     for name, p in (("scale", scale), ("bias", bias)):
@@ -106,7 +107,7 @@ def _check(x, scale, bias, residual, n_groups):
     if residual is not None and (
             residual.shape != x.shape or residual.dtype != x.dtype
             or residual.device != x.device
-            or not residual.is_contiguous(memory_format=torch.channels_last)):
+            or not _build.channels_last(residual)):
         raise ValueError("residual must match x in shape, dtype, device and "
                          "channels_last layout")
 
@@ -285,7 +286,8 @@ def group_norm_leaky_twopass(x: torch.Tensor, scale: torch.Tensor,
 def _forward(x, scale, bias, residual, n_groups, negative_slope, eps):
     if x.device.type == "cpu":
         return group_norm_leaky_plain(x, scale, bias, residual, n_groups,
-                                      negative_slope, eps)
+                                      negative_slope, eps).contiguous(
+            memory_format=torch.channels_last)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     y = torch.empty_like(x, memory_format=torch.channels_last)
@@ -317,6 +319,22 @@ class _GroupNormLeaky(torch.autograd.Function):
                 None, None)
 
 
+def _op_forward(x, scale, bias, residual, n_groups, negative_slope, eps):
+    _check(x, scale, bias, residual, n_groups)
+    return _forward(x, scale, bias, residual, n_groups, negative_slope, eps)
+
+
+def _fake_forward(x, scale, bias, residual, n_groups, negative_slope, eps):
+    _check(x, scale, bias, residual, n_groups)
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
+_GN_OP = _ops.register(
+    "group_norm_leaky(Tensor x, Tensor scale, Tensor bias, "
+    "Tensor? residual, int n_groups, float negative_slope, float eps) "
+    "-> Tensor", _op_forward, _fake_forward)
+
+
 def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      residual: Optional[torch.Tensor] = None,
                      n_groups: int = 8, negative_slope: float = 0.2,
@@ -327,13 +345,16 @@ def group_norm_leaky(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     bias: (C,) float32; residual: like x. Returns x's dtype and layout.
     On a CUDA tensor the one-pass kernel where :func:`onepass_plan` gives a
     plan, else the two-pass kernel; the plain version on a CPU tensor.
-    Differentiable: see the module's note.
+    Differentiable: see the module's note. Without a gradient to keep, it
+    is the operator ``torch.ops.mri_sr.group_norm_leaky`` to
+    ``torch.export`` (``kernels/_ops.py``).
     """
-    _check(x, scale, bias, residual, n_groups)
     if _build.needs_grad(x, scale, bias, residual):
+        _check(x, scale, bias, residual, n_groups)
         return _GroupNormLeaky.apply(x, scale, bias, residual, n_groups,
                                      negative_slope, eps)
-    return _forward(x, scale, bias, residual, n_groups, negative_slope, eps)
+    return _ops.call(_GN_OP, _op_forward, x, scale, bias, residual,
+                     n_groups, negative_slope, eps)
 
 
 group_norm_leaky.launches = 0
@@ -540,18 +561,25 @@ def gn_quantize(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     bias, qscale: (C,) float32. Returns int8 (B, C, H, W), channels_last.
     On a CUDA tensor the one-pass kernel with its int8 output where x is
     bf16 and :func:`onepass_plan` gives a plan, else the two kernels in
-    turn; the plain version on a CPU tensor.
+    turn; the plain version on a CPU tensor. The operator
+    ``torch.ops.mri_sr.gn_quantize`` to ``torch.export``
+    (``kernels/_ops.py``).
     """
+    return _ops.call(_GNQ_OP, _gn_quantize, x, scale, bias, qscale,
+                     negative_slope, n_groups, eps)
+
+
+def _gn_quantize(x, scale, bias, qscale, negative_slope, n_groups, eps):
     _check(x, scale, bias, None, n_groups)
     _check_quantize(x, qscale)
     if x.device.type == "cpu":
         return gn_quantize_plain(x, scale, bias, qscale, negative_slope,
-                                 n_groups, eps)
+                                 n_groups, eps).contiguous(
+            memory_format=torch.channels_last)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype == torch.bfloat16:
-        y = torch.empty(x.shape, dtype=torch.int8, device=x.device,
-                        memory_format=torch.channels_last)
+        y = _empty_codes(x)
         plan = onepass_plan(x, y, None, n_groups)
         if plan is not None:
             return _onepass(x, scale, bias, None, y, plan, n_groups,
@@ -561,4 +589,14 @@ def gn_quantize(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         negative_slope)
 
 
+def _fake_gn_quantize(x, scale, bias, qscale, negative_slope, n_groups, eps):
+    _check(x, scale, bias, None, n_groups)
+    _check_quantize(x, qscale)
+    return _empty_codes(x)
+
+
+_GNQ_OP = _ops.register(
+    "gn_quantize(Tensor x, Tensor scale, Tensor bias, Tensor qscale, "
+    "float negative_slope, int n_groups, float eps) -> Tensor",
+    _gn_quantize, _fake_gn_quantize)
 gn_quantize.launches = 0

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mri_superresolution_torch.kernels import _build
+from mri_superresolution_torch.kernels import _build, _ops
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the stream kernel's threads a block and elements a thread
@@ -50,7 +50,7 @@ def _check(x, scale):
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+    if not _build.channels_last(x):
         raise ValueError("x must be channels_last contiguous (make the layout "
                          "right at the call site)")
     c = x.shape[1]
@@ -100,11 +100,18 @@ def leaky_quantize(x: torch.Tensor, scale: torch.Tensor,
     x: (B, C, H, W) bfloat16 or float32 in channels_last memory; scale:
     (C,) float32. Returns int8 (B, C, H, W), channels_last. On a CUDA
     tensor the stream kernel where :func:`_route` allows it, else the
-    element kernel; the plain version on a CPU tensor.
+    element kernel; the plain version on a CPU tensor. The operator
+    ``torch.ops.mri_sr.leaky_quantize`` to ``torch.export``
+    (``kernels/_ops.py``).
     """
+    return _ops.call(_OP, _leaky_quantize, x, scale, negative_slope)
+
+
+def _leaky_quantize(x, scale, negative_slope):
     _check(x, scale)
     if x.device.type == "cpu":
-        return leaky_quantize_plain(x, scale, negative_slope)
+        return leaky_quantize_plain(x, scale, negative_slope).contiguous(
+            memory_format=torch.channels_last)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     y = _empty_codes(x)
@@ -136,5 +143,12 @@ def leaky_quantize_generic(x: torch.Tensor, scale: torch.Tensor,
                     negative_slope)
 
 
+def _fake(x, scale, negative_slope):
+    _check(x, scale)
+    return _empty_codes(x)
+
+
+_OP = _ops.register("leaky_quantize(Tensor x, Tensor scale, "
+                    "float negative_slope) -> Tensor", _leaky_quantize, _fake)
 leaky_quantize.launches = 0
 leaky_quantize.stream_launches = 0

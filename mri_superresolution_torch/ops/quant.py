@@ -140,8 +140,11 @@ def int8_conv(qx: torch.Tensor, qk: torch.Tensor, k_scale: torch.Tensor,
     with the activation scale folded in (:func:`weight_qparams`); k_scale:
     (Cout,) float32. The conv is one ``torch._int_mm`` over im2col rows,
     exact in int32; then y = s32 * k_scale [+ bias]. ``_int_mm`` on the
-    card wants more than 16 rows and K, N multiples of 8: rows, K and N are
-    zero-padded to that on every device (exact) and cropped after.
+    card wants more than 16 rows and K, N multiples of 8: K and N are
+    zero-padded to that on every device (exact) and cropped after, and so
+    are the rows, by 17 where one image has fewer than 17 output pixels.
+    That rule reads the image's size and not the batch, so the conv
+    exports with a symbolic batch (``infer/export.py``).
     Returns (B, Cout, Ho, Wo) channels_last.
     """
     kh, kw, cin, cout = qk.shape
@@ -152,9 +155,10 @@ def int8_conv(qx: torch.Tensor, qk: torch.Tensor, k_scale: torch.Tensor,
     ho = qx.shape[2] + 2 * padding - kh + 1
     wo = qx.shape[3] + 2 * padding - kw + 1
     m, k = cols.shape
-    mp, kp, np_ = max(m, 17), _round_up(k, 8), _round_up(cout, 8)
-    if (mp, kp) != (m, k):
-        cols = F.pad(cols, (0, kp - k, 0, mp - m))
+    pad_m = 0 if ho * wo >= 17 else 17
+    kp, np_ = _round_up(k, 8), _round_up(cout, 8)
+    if pad_m or kp != k:
+        cols = F.pad(cols, (0, kp - k, 0, pad_m))
     wmat = qk.reshape(k, cout)
     if (kp, np_) != (k, cout):
         wmat = F.pad(wmat, (0, np_ - cout, 0, kp - k))

@@ -37,6 +37,7 @@ that ports each.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -61,6 +62,28 @@ from mri_superresolution_torch.train.plateau import (EarlyStopping,
                                                      ReduceLROnPlateau)
 from mri_superresolution_torch.utils.device import resolve_device
 from mri_superresolution_torch.utils.logging import log_message, setup_logging
+
+
+@contextlib.contextmanager
+def repeatable():
+    """Training's numerics kept repeatable for the duration: cuDNN takes
+    only deterministic algorithms and no autotuned ones
+    (``torch.backends.cudnn.deterministic`` on, ``benchmark`` off); the
+    flags the caller had are restored after. cuDNN may otherwise pick, for
+    a convolution's gradient, an algorithm that sums with atomics in an
+    order that changes from run to run, or time its candidates and keep
+    another on the next run. On the H100 it picked none such at the zoo's
+    training shapes (``tools/repeat_train.py``: the same bits with the
+    scope and without), so this is a guard, at no measured cost a step.
+    The step and the whole :func:`train` run inside it; serving keeps its
+    own algorithm choice."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -260,7 +283,7 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
                      grad_accum: int = 1, ema_decay: float = 0.0,
                      qat_fwd=None, qat_decay: float = 0.0):
     """train_step(state, batch, lr, generator) -> metrics, updating the
-    state in place: augmentation (when ``augment_cfg.enabled``, from
+    state in place, inside :func:`repeatable`: augmentation (when ``augment_cfg.enabled``, from
     ``generator``), the loss's gradient, the Adam step at ``lr``, and the
     EMA ``ema = ema * d + params * (1 - d)`` after it. ``batch`` holds
     ``hr``, ``lr``, ``weight`` tensors on the model's device; in the
@@ -277,6 +300,10 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: float, generator: Optional[torch.Generator] = None):
+        with repeatable():
+            return _step(state, batch, lr, generator)
+
+    def _step(state, batch, lr, generator):
         hr, lo = batch["hr"], batch["lr"]
         w = batch["weight"] * informative(state.model, lo)
         if augment_cfg is not None and augment_cfg.enabled:
@@ -316,8 +343,11 @@ def build_eval_step(model: torch.nn.Module, loss_fn: CombinedLoss,
     ``params`` is the pair (params or None, amax) and the step scores the
     fakequant forward: the metric of int8 serving."""
 
-    @torch.no_grad()
     def eval_step(params, batch: Dict[str, torch.Tensor]):
+        with torch.no_grad(), repeatable():
+            return _eval(params, batch)
+
+    def _eval(params, batch):
         hr, lo, w = batch["hr"], batch["lr"], batch["weight"]
         if qat_fwd is not None:
             params, amax = params
@@ -406,7 +436,13 @@ def _mean(values) -> float:
 
 def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     """Run training; returns the final checkpoint path. On the card unless
-    ``device`` says otherwise (``"cpu"``)."""
+    ``device`` says otherwise (``"cpu"``). Runs inside :func:`repeatable`:
+    one seed and one data set give the same checkpoint bits."""
+    with repeatable():
+        return _train(cfg, progress_cb, device)
+
+
+def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     check_supported(cfg)
     check_qat(cfg)
     os.makedirs(cfg.log_dir, exist_ok=True)

@@ -88,6 +88,24 @@ def test_slice_indices_match_jax(num, lo, hi, n):
     assert got.max() < num          # the clamp at upper_percent 1.0
 
 
+def test_find_nifti_files_walks_subjects_in_sorted_order(tmp_path):
+    """A set of many subject folders is listed in sorted order whatever
+    order the filesystem lists them in, so that each file's noise seed
+    (its index) is the same on every machine; the JAX package lists the
+    same files in the filesystem's walk order."""
+    for i in (3, 0, 7, 1, 5, 2, 6, 4, 10, 9, 8, 11):
+        d = tmp_path / "set1" / f"sub-{i:02d}" / "anat"
+        d.mkdir(parents=True)
+        nifti.save(str(d / f"sub-{i:02d}_T1w.nii"), np.zeros((4, 4, 2),
+                                                          np.float32))
+    got = tx.find_nifti_files(str(tmp_path))
+    assert got == sorted(got) and len(got) == 12
+    walk = [os.path.join(r, f) for r, _, fs in os.walk(tmp_path / "set1")
+            for f in sorted(fs)]
+    assert jx.find_nifti_files(str(tmp_path)) == walk
+    assert sorted(walk) == got
+
+
 def test_find_nifti_files_matches_jax(tmp_path):
     for rel in ("set1/sub-01/anat/a.nii.gz", "set1/sub-01/anat/b.nii",
                 "set1/sub-01/func/c.nii.gz", "set2/sub-02/ANAT/d.nii",

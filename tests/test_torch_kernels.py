@@ -232,3 +232,79 @@ def test_cpu_calls_do_not_count_as_launches():
         "conv3x3": 0, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
         "taps3": 0}
+
+
+# ------------------------------------------- the served kernels as operators
+
+def _op_calls():
+    """(name, wrapper call, plain result) of each served kernel on one
+    small channels_last batch."""
+    from mri_superresolution_torch.kernels.groupnorm import (
+        gn_quantize_plain, group_norm_leaky_plain)
+    from mri_superresolution_torch.kernels.conv3x3 import conv3x3_plain
+    from mri_superresolution_torch.kernels.leaky_quantize import (
+        leaky_quantize_plain)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, 8, 8, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    s, b = torch.rand(16, generator=g) + 0.5, torch.randn(16, generator=g)
+    q = torch.rand(16, generator=g) * 0.05 + 0.01
+    w = torch.randn(8, 16, 3, 3, generator=g)
+    return [
+        ("group_norm_leaky", lambda t: group_norm_leaky(t, s, b, t),
+         group_norm_leaky_plain(x, s, b, x)),
+        ("conv3x3", lambda t: conv3x3(t, w), conv3x3_plain(x, w)),
+        ("leaky_quantize", lambda t: kernels.leaky_quantize(t, q, 0.2),
+         leaky_quantize_plain(x, q, 0.2)),
+        ("gn_quantize", lambda t: kernels.gn_quantize(t, s, b, q),
+         gn_quantize_plain(x, s, b, q))], x
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_served_kernels_are_dispatcher_operators(i):
+    """Each served kernel is ``torch.ops.mri_sr.<name>``. Without a
+    gradient to keep, its wrapper gives on the CPU the plain version in
+    channels_last memory, as the kernels write it (eagerly it calls the
+    operator's implementation directly); ``torch.export`` records the
+    operator with a symbolic batch (its fake implementation), and the
+    program, which runs the operator, gives the wrapper's bits."""
+    calls, x = _op_calls()
+    name, call, want = calls[i]
+    assert hasattr(torch.ops.mri_sr, name)
+    with torch.no_grad():
+        got = call(x)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want.contiguous(
+        memory_format=torch.channels_last))
+
+    class M(torch.nn.Module):
+        def forward(self, t):
+            return call(t)
+
+    with torch.no_grad():
+        ep = torch.export.export(M(), (x,), dynamic_shapes=(
+            {0: torch.export.Dim("batch", min=1)},))
+    ops = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    assert f"mri_sr.{name}.default" in ops
+    out = [n for n in ep.graph.nodes if n.op == "output"][0].args[0][0]
+    val = out.meta["val"]
+    assert not isinstance(val.shape[0], int)          # the batch symbolic
+    assert val.dtype == want.dtype
+    x3 = torch.cat([x, x[:1]]).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        assert torch.equal(ep.module()(x3), call(x3))
+
+
+def test_kernels_with_a_gradient_stay_autograd_functions():
+    """Training does not go through the operators: B1 and B3 with inputs
+    that require grad run their ``autograd.Function`` and give gradients;
+    without, the same values through the operator."""
+    calls, x = _op_calls()
+    for name, call, _ in calls[:2]:
+        xg = x.clone().requires_grad_()
+        y = call(xg)
+        assert isinstance(y.grad_fn, torch.autograd.function.BackwardCFunction)
+        y.float().square().sum().backward()
+        assert xg.grad is not None and torch.isfinite(xg.grad).all(), name
+        with torch.no_grad():
+            assert torch.equal(call(x), y.detach()), name

@@ -422,6 +422,38 @@ def test_cli_two_epochs_equal_one_plus_resume(pngs, tmp_path, capsys):
     _assert_same(_final(a), _final(b))
 
 
+def test_cli_runs_from_one_seed_are_bit_equal(pngs, tmp_path):
+    """Two train CLI runs from one seed on the same pairs, with other work
+    between them, give the same parameters and Adam moments bit for bit:
+    the repeatability the card's phase checks (``chip_smoke.py``
+    ``train_repeat``), as the JAX trainer is seed-deterministic."""
+    a = cli.main(_argv(pngs, tmp_path / "a", "--epochs", "1"))
+    with torch.no_grad():
+        build_model(ModelConfig(base_filters=16))(torch.rand(3, 24, 24, 1))
+    b = cli.main(_argv(pngs, tmp_path / "b", "--epochs", "1"))
+    _assert_same(_final(a), _final(b))
+
+
+def test_repeatable_scopes_the_cudnn_flags():
+    """The trainer's step runs with cuDNN restricted to deterministic,
+    untuned algorithms and gives the caller's flags back after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    seen = []
+    try:
+        cudnn.deterministic, cudnn.benchmark = False, True
+        with trainer.repeatable():
+            seen.append((cudnn.deterministic, cudnn.benchmark))
+        assert seen == [(True, False)]
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+        with pytest.raises(RuntimeError):
+            with trainer.repeatable():
+                raise RuntimeError("inside")
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def test_cli_step_checkpoint_resumes_mid_epoch(pngs, tmp_path, capsys):
     """A --save_every_steps checkpoint resumes inside the epoch bit for bit,
     augmentation on (tests/test_train.py:465 pins the same for JAX)."""

@@ -8,6 +8,7 @@ JAX package's tests/test_infer.py and tests/test_cli.py."""
 
 import dataclasses
 import importlib.util
+import logging
 import os
 import sys
 
@@ -411,12 +412,40 @@ def test_infer_volume_serves_other_families_as_jax_does(
     assert got.shape == (48, 40, 6)
 
 
+class _Logs(logging.Handler):
+    """The port's log lines while attached (its logger does not
+    propagate to pytest's caplog)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.text = ""
+
+    def emit(self, record):
+        self.text += record.getMessage() + "\n"
+
+    def __enter__(self):
+        logging.getLogger("mri_superresolution_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("mri_superresolution_torch").removeHandler(self)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--artifact", "m.mrisrx"], "A12"), (["--spatial_shards", "2"], "A14"),
-    (["--num_devices", "2"], "A14")])
+    (["--artifact", "m.mrisrx"], "JAX package"),
+    (["--spatial_shards", "2"], "A14"), (["--num_devices", "2"], "A14")])
 def test_infer_volume_refuses_unported_flags(tmp_path, flags, item):
+    """Multi-device serving waits for ROADMAP A14; ``--artifact`` is
+    served since A12, but not a JAX package's artifact (jax.export
+    programs): exit 1, naming the package."""
+    if flags[0] == "--artifact":
+        (tmp_path / flags[1]).write_bytes(b"MRISRX1\n" + b"\0" * 16)
+        flags = [flags[0], str(tmp_path / flags[1])]
     argv = ["--input", "v.nii", "--output", str(tmp_path / "o.nii"), "--cpu",
             *flags]
-    assert cli.main(argv) == 1
-    msgs = cli.unsupported(cli.parse_args(argv))
-    assert len(msgs) == 1 and item in msgs[0]
+    with _Logs() as logs:
+        assert cli.main(argv) == 1
+    assert item in logs.text
+    if item == "A14":
+        msgs = cli.unsupported(cli.parse_args(argv))
+        assert len(msgs) == 1 and item in msgs[0]
