@@ -83,6 +83,18 @@ the last line is printed:
    median 2e-3; bf16: loss 1e-2,
    gradient cosines >= 0.99), and the final checkpoint served through
    ``load_engine`` with serving's launch counts.
+   Then its ``--remat`` and ``--profile_dir`` legs (``remat_profile_path``):
+   the train CLI with ``--remat`` on the same pairs and seed (every
+   remat block's forward runs again in the backward: a step launches B1
+   40, its backward 20, B3 4, B2 1), its best and final checkpoints the
+   same bytes as the run without it and its sidecar the same but for
+   ``remat``; one step with and without remat at batch 8 of 128^2 and
+   16 of 256^2 (launches, the same params after it, step ms and peak
+   memory); the train CLI with ``--profile_dir`` (epoch 1's Chrome trace
+   names B1's forward and backward kernels and B2's; the same
+   checkpoints; epoch 1's seconds beside the run without it). B1's
+   backward is checked against its twin at the larger crop's 20 sites
+   before any of it.
 8. the zoo: ``unet_tpu``, ``edsr`` (8 blocks) and ``simple`` at base
    filters 32. For each, the train CLI for one epoch on the training
    phase's PNGs (unet_tpu: B1 20 and its backward 20 a step; every
@@ -132,6 +144,24 @@ the last line is printed:
    the same pairs: the card with the port's kernels swapped for their
    plain versions (no kernel launched) against the CPU port, and the
    CPU port's bf16 against its fp32.
+9b. evaluation (``eval_path``, after phase 9, on its 50 held-out pairs,
+   test volumes and checkpoints): ``cli.evaluate --checkpoint`` under
+   PyTorch's default TF32 flags (metrics.csv of 200 rows with the JAX
+   columns, report.json with the card's name and power limit, exact
+   launches: B1 20 and B3 2 a forward, warm-up and the 5 qualitative
+   pairs included, B2 once a pair's four methods and once a figure;
+   each method's median ms/image), bf16 and the baselines on 2 content
+   pairs against the CPU port at the bf16 budget; ``--quant int8`` and
+   ``--tta`` over EVAL_SUBSET content pairs; ``--ablation_checkpoints_dir``
+   over best and final; ``--ablation_train_configs`` with two loss
+   configurations trained for one epoch on the train split in child
+   processes on the card; ``cli.test_model`` on the test volumes (square
+   canvases, the average metrics); ``cli.test_comparison --seed 0
+   --tta`` (the CPU port's pair); the SSIM sweep (two weights, one epoch)
+   and ``cli.compare_ssim_detailed`` over its runs; ``cli.visualise_res``
+   over the eight volumes (one row); the final checkpoint exported to a
+   reference ``.pth`` that serves the same bits, and converted back; the
+   TUI under a pty, and its infer command run on the card.
 10. the perceptual leg: the unet trained for one epoch with
    ``--perceptual_weight 0.1`` (seeded random VGG19, the trainer's
    warning), one step counted alone, the step's time with cuDNN's TF32
@@ -220,7 +250,8 @@ the last line is printed:
    two train CLI runs' (``qat_launches``), the serving phase's three
    in-process daemons' (``serve_launches``) and the artifact phase's
    (``artifact_launches``: a plain and an int8 batch and the volume
-   through the raw artifact), and B1's
+   through the raw artifact), the eval phase's (``eval_launches``), and
+   B1's
    and its backward's rows their C = 64 times (``c64``). A ``wall`` line
    before it gives the script's seconds.
 
@@ -235,6 +266,7 @@ import dataclasses
 import gzip
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -256,7 +288,15 @@ import torch.nn.functional as F
 # the port itself, from the checkout this script sits in: without it the
 # script fails here, before it prints anything
 from mri_superresolution_torch import kernels, native, nifti
+from mri_superresolution_torch.cli import compare_ssim_detailed as \
+    detailed_cli
+from mri_superresolution_torch.cli import evaluate as eval_cli
 from mri_superresolution_torch.cli import extract as extract_cli
+from mri_superresolution_torch.cli import test_comparison as comparison_cli
+from mri_superresolution_torch.cli import test_model as test_model_cli
+from mri_superresolution_torch.cli import test_ssim_weights as sweep_cli
+from mri_superresolution_torch.cli import ui as tui
+from mri_superresolution_torch.cli import visualise_res as res_cli
 from mri_superresolution_torch.cli import infer_volume as volume_cli
 from mri_superresolution_torch.cli import train as train_cli
 from mri_superresolution_torch.data.extraction import (
@@ -288,11 +328,14 @@ from mri_superresolution_torch.ops.normalize import normalize_slices
 from mri_superresolution_torch.ops.quant import FOREGROUND_INTENSITY
 from mri_superresolution_torch.ops.ssim import ssim
 from mri_superresolution_torch.losses import CombinedLoss
-from mri_superresolution_torch.tools import grad_gap, quality, roll_probe
+from mri_superresolution_torch.tools import (convert_torch_checkpoint,
+                                             export_torch_checkpoint,
+                                             grad_gap, quality, roll_probe)
 from mri_superresolution_torch.tools.profile_step import trace_calls
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.train import trainer
 from mri_superresolution_torch.utils.phantom import phantom_batch
+from mri_superresolution_torch.utils.subproc import child_env
 from mri_superresolution_torch.utils.timing import (cuda_ms, cuda_ms_cold,
                                                     l2_cold_copies)
 
@@ -366,10 +409,37 @@ EXTRACT_SHAPE, EXTRACT_SLOPE = (192, 256, 160), 0.25
 EXTRACT_VOLUMES = {"train": 6, "test": 2}
 EXTRACT_SLICES, EXTRACT_TARGET, EXTRACT_SEED = 25, 256, 0
 EXTRACT_EPOCHS = 20
-# B2 checked, not timed: the training phases' batch (8 of 256^2) and the
-# extraction phase's metric batch (its 50 held-out pairs of 256^2)
+# B2 checked, not timed: the training phases' batch (8 of 256^2), the
+# extraction phase's metric batch (its 50 held-out pairs of 256^2) and the
+# eval phase's: the four methods of a pair (cli.evaluate,
+# cli.test_comparison), bicubic and the model of a qualitative figure, and
+# one image (cli.test_model's calculate_metrics)
 B2_CHECK_SHAPES = ((8, 256, 256), (EXTRACT_VOLUMES["test"] * EXTRACT_SLICES,
-                                   EXTRACT_TARGET, EXTRACT_TARGET))
+                                   EXTRACT_TARGET, EXTRACT_TARGET),
+                   (4, EXTRACT_TARGET, EXTRACT_TARGET),
+                   (2, EXTRACT_TARGET, EXTRACT_TARGET),
+                   (1, EXTRACT_TARGET, EXTRACT_TARGET))
+# the training phase's --remat leg: peak memory and step time with and
+# without it at the training batch and at a larger crop (the serving
+# batch, 16 of 256^2 -> 512^2), whose B1 backward sites are checked too;
+# the --profile_dir leg's trace must name B1's two kernels and B2's
+REMAT_SHAPES = ((TRAIN_BATCH, TRAIN_LR), (BATCH, LR))
+PROFILE_KERNELS = ("gn_onepass_kernel", "gn_onepass_bwd_kernel",
+                   "ssim_band_kernel")
+# the eval phase, on the extraction phase's held-out pairs, test volumes
+# and checkpoints: --quant int8, --tta, the two ablation modes and the
+# SSIM sweep over EVAL_SUBSET content pairs; the sweep's weights; the
+# metrics.csv columns of the JAX package's evaluate.py (the metrics, the
+# method, its time, the image, the checkpoint's label and details)
+EVAL_DIR = SCALES_PATH.parent / "eval"
+EVAL_SUBSET = 8
+EVAL_WEIGHTS = ("0.3", "0.7")
+EVAL_COLUMNS = ["ssim", "psnr", "mse", "rmse", "mae", "method", "time",
+                "image", "checkpoint", "epochs", "batch_size",
+                "learning_rate", "weight_decay", "ssim_weight",
+                "perceptual_weight", "base_filters", "val_loss", "val_ssim",
+                "epoch"]
+EVAL_METHODS = ("bicubic", "bilinear", "sharp_bilinear", "unet")
 # the extraction phase's black pairs (LR all zero): card against CPU port
 # bf16 outputs, max abs difference, held to BLACK_CONTROL_FACTOR times
 # the larger of two controls on the same checkpoint: the card's bf16 with
@@ -1138,6 +1208,38 @@ def check_b1_backward(dev, gen) -> dict:
     check_b1_backward_fourpass_route(dev, gen)
     return {**tot, "max_abs_err": worst, "bound_by": bound_by,
             "device_kernels_a_call": kernels_a_call}
+
+
+def check_b1_backward_sites(dev, gen, n: int, lr: int,
+                            served_by: str) -> dict:
+    """B1's backward through its wrapper at the unet's 20 sites of a batch
+    of ``n`` LR images of ``lr``^2 (bf16), whatever route the wrapper
+    takes there, against the plain twin (``_b1_bwd_gates``) and run to
+    run, not timed; the one-pass launches by shape."""
+    onepass = {}
+    for shape, _ in gn_sites(n, lr, BASE_FILTERS):
+        xg, gam, bet = _bwd_inputs(shape, dev, gen)
+        x, gy = xg[:n], xg[n:]
+        want = group_norm_leaky_backward_plain(x, gam, bet, gy)
+        before = group_norm_leaky_backward.onepass_launches
+        got = group_norm_leaky_backward(x, gam, bet, gy)
+        onepass[str(list(shape))] = \
+            group_norm_leaky_backward.onepass_launches - before
+        ok, err, err_s, err_b = _b1_bwd_gates(got, want)
+        same = all(torch.equal(u, v) for u, v in zip(
+            got, group_norm_leaky_backward(x, gam, bet, gy)))
+        log("kernel_check", kernel="B1 backward", route="wrapper",
+            shape=list(shape), served_by=served_by, dtype="bf16",
+            onepass=bool(onepass[str(list(shape))]), max_abs_err_dx=err,
+            max_abs_err_dscale=err_s, max_abs_err_dbias=err_b,
+            run_to_run_equal=same, ok=ok)
+        if not (ok and same):
+            raise AssertionError(f"B1's backward disagrees with its plain "
+                                 f"twin at {shape} ({served_by}: dx {err}, "
+                                 f"dscale {err_s}, dbias {err_b}) or from "
+                                 f"run to run ({same})")
+        del xg, x, gy, got, want
+    return onepass
 
 
 def check_b1_backward_graph(dev, gen) -> None:
@@ -1966,7 +2068,152 @@ def train_path(dev, lr_serve) -> dict:
                              f"{out.max()}]")
     return {"counts": counts, "backward_onepass_launches": bwd_onepass,
             "step_ms": ms, "gate": gate, "digests": _ckpt_digests(
-                TRAIN_DIR / "ckpt")}
+                TRAIN_DIR / "ckpt"), "seconds": run["seconds"],
+            "epoch_s": [e["elapsed"] for e in summaries]}
+
+
+def _meta_but(path: str, keys) -> dict:
+    """A checkpoint's JSON sidecar without the ``config`` fields in
+    ``keys``."""
+    meta = ckpt.read_meta(path)
+    for k in keys:
+        meta["config"].pop(k, None)
+    return meta
+
+
+def _remat_step(dev, cfg, batch, remat: bool) -> dict:
+    """One bf16 unet training step from the training seed, with or
+    without ``remat``: its launches counted alone, then its step ms (CUDA
+    events, STEP_ITERS steps after 2 warm-up) and the peak memory
+    allocated over them beside what was allocated before; the params
+    after the first step."""
+    torch.cuda.empty_cache()
+    model = build_model(cfg, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(TRAIN_SEED),
+                        remat=remat).to(dev)
+    state = trainer.TrainState(model, trainer.make_optimizer(
+        model.parameters(), 1e-4, 1e-5))
+    step = trainer.build_train_step(CombinedLoss(LossConfig()))
+    counts = _step_counts(lambda: step(state, batch, 1e-4))
+    after_one = {k: v.detach().clone() for k, v in
+                 model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: step(state, batch, 1e-4), iters=STEP_ITERS,
+                 warmup=2)
+    return {"launches": counts, "step_ms": ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "allocated_before_gb": before / 1e9, "params": after_one}
+
+
+def remat_profile_path(dev, trained: dict) -> dict:
+    """The training phase's ``--remat`` and ``--profile_dir`` legs, on its
+    pairs and seed: the train CLI with ``--remat`` (exact launches: every
+    remat block's forward again in the backward, which is every B1 and B3
+    site of the unet; the best and final checkpoints the same bytes as
+    the training phase's, the sidecar the same but for ``remat``); one
+    step with and without remat at the training batch and at the larger
+    crop (launches, the same params after it, step ms, peak memory); the
+    train CLI with ``--profile_dir`` (the trace of epoch 1, naming B1's
+    forward and backward kernels and B2's; the same checkpoints; epoch
+    1's seconds beside the training phase's)."""
+    run = _train_cli(TRAIN_DIR / "ckpt_remat", ["--remat"],
+                     epochs=TRAIN_EPOCHS)
+    steps, vals = run["steps"], run["vals"]
+    want = dict(run["expected"])
+    want.update(group_norm_leaky=20 * (steps + vals) + 20 * steps,
+                conv3x3=2 * (steps + vals) + 2 * steps)
+    digests = _ckpt_digests(TRAIN_DIR / "ckpt_remat")
+    finals = [str(d / "final_model_unet.ckpt")
+              for d in (TRAIN_DIR / "ckpt", TRAIN_DIR / "ckpt_remat")]
+    flags = [ckpt.read_meta(f)["config"]["remat"] for f in finals]
+    paths = ("checkpoint_dir", "log_dir")
+    same_meta = _meta_but(finals[0], ("remat",) + paths) == \
+        _meta_but(finals[1], ("remat",) + paths)
+    log("remat_train", launches=run["launches"], expected=want,
+        backward_onepass=run["backward_onepass"], seconds=run["seconds"],
+        plain_seconds=trained["seconds"], checkpoint_sha256=digests,
+        plain_sha256=trained["digests"],
+        same_bytes=digests == trained["digests"], sidecar_remat=flags,
+        sidecar_equal_but_remat=same_meta,
+        note="sidecars compared without the remat field and the paths "
+             "the caller gave (checkpoint_dir, log_dir)")
+    if run["launches"] != want or run["backward_onepass"] != 20 * steps \
+            or digests != trained["digests"] or flags != [False, True] \
+            or not same_meta:
+        raise AssertionError(f"--remat training: launches {run['launches']}"
+                             f", expected {want}; checkpoints {digests} "
+                             f"against {trained['digests']}; sidecar remat "
+                             f"{flags}, equal otherwise {same_meta}")
+
+    cfg = ModelConfig(base_filters=BASE_FILTERS)
+    steps_ms = {}
+    for n, lr in REMAT_SHAPES:
+        batch = _train_batch(dev, n, lr)
+        plain = _remat_step(dev, cfg, batch, False)
+        remat = _remat_step(dev, cfg, batch, True)
+        same = all(torch.equal(v, remat["params"][k])
+                   for k, v in plain["params"].items())
+        key = f"{n}x{lr}"
+        base = {k: v for k, v in plain["launches"].items()
+                if not k.endswith("onepass")}
+        want = dict(base, group_norm_leaky=2 * base["group_norm_leaky"],
+                    conv3x3=2 * base["conv3x3"])
+        got = {k: v for k, v in remat["launches"].items()
+               if not k.endswith("onepass")}
+        onepass = [r["launches"].get("group_norm_leaky_backward.onepass", 0)
+                   for r in (plain, remat)]
+        steps_ms[key] = {m: {k: r[k] for k in ("step_ms", "peak_mem_gb",
+                                              "allocated_before_gb")}
+                         for m, r in (("plain", plain), ("remat", remat))}
+        log("remat_step", batch=n, lr=[lr, lr], hr=[2 * lr, 2 * lr],
+            launches={"plain": plain["launches"],
+                      "remat": remat["launches"]}, expected_remat=want,
+            params_equal_after_one_step=same, **steps_ms[key],
+            peak_mem_ratio=remat["peak_mem_gb"] / plain["peak_mem_gb"],
+            step_ms_ratio=remat["step_ms"] / plain["step_ms"],
+            timing="CUDA events around 10 steps after 2 warm-up steps; "
+                   "peak: torch.cuda.max_memory_allocated over them")
+        if base != {"group_norm_leaky": 20, "group_norm_leaky_backward": 20,
+                    "conv3x3": 2, "ssim_per_sample": 1} or got != want or \
+                onepass[0] != onepass[1] or not same:
+            raise AssertionError(f"remat step at {key}: launches {got}, "
+                                 f"expected {want} (plain {base}); one-pass "
+                                 f"backward {onepass}; params equal {same}")
+        del batch, plain, remat
+
+    prof = TRAIN_DIR / "profile"
+    shutil.rmtree(prof, ignore_errors=True)
+    run = _train_cli(TRAIN_DIR / "ckpt_prof", ["--profile_dir", str(prof)],
+                     epochs=TRAIN_EPOCHS)
+    files = sorted(p.name for p in prof.iterdir()) if prof.exists() else []
+    trace = prof / "trace_epoch1.json"
+    text = trace.read_text() if trace.exists() else ""
+    named = {k: k in text for k in PROFILE_KERNELS}
+    said = any(f"Wrote profiler trace to {prof}" in ln.get("message", "")
+               for ln in run["by_type"].get("info", []))
+    epoch_s = [e["elapsed"] for e in run["by_type"].get("epoch_summary", [])]
+    digests = _ckpt_digests(TRAIN_DIR / "ckpt_prof")
+    log("profile_train", files=files,
+        trace_mb=trace.stat().st_size / 2**20 if trace.exists() else None,
+        kernels_named=named, logged=said, launches=run["launches"],
+        expected=run["expected"], epoch_s=epoch_s,
+        plain_epoch_s=trained["epoch_s"],
+        traced_epoch_overhead_s=epoch_s[1] - trained["epoch_s"][1],
+        traced_epoch_ratio=epoch_s[1] / trained["epoch_s"][1],
+        same_bytes=digests == trained["digests"],
+        timing="host clock of each epoch (the protocol's elapsed), the "
+               "traced epoch 1 against the training phase's epoch 1")
+    if files != ["trace_epoch1.json"] or not all(named.values()) or \
+            not said or run["launches"] != run["expected"] or \
+            digests != trained["digests"]:
+        raise AssertionError(f"--profile_dir: files {files}, kernels named "
+                             f"{named}, logged {said}, launches "
+                             f"{run['launches']} (expected "
+                             f"{run['expected']}), same checkpoints "
+                             f"{digests == trained['digests']}")
+    return {"step": steps_ms, "profile_epoch_s": epoch_s}
 
 
 # ------------------------------------------------ QAT and the serving daemon
@@ -2591,6 +2838,7 @@ import torch
 from mri_superresolution_torch import kernels, nifti
 from mri_superresolution_torch.infer.export import load_artifact
 from mri_superresolution_torch.utils.phantom import phantom_batch
+from mri_superresolution_torch.utils.subproc import child_env
 args = json.loads(sys.argv[1])
 lr = phantom_batch(np.random.default_rng(0), args["batch"], args["size"])
 raw = nifti.load(args["volume"], raw=True)[0].T[:args["batch"]]
@@ -3682,7 +3930,506 @@ def extract_path(dev) -> dict:
     log("extract_path", launches=totals,
         seconds=time.perf_counter() - start)
     return {"launches": totals, "extract": runs, "unsynced": plain,
-            "check": check, "rows": rows, "gates": gates}
+            "check": check, "rows": rows, "gates": gates, "roots": roots}
+
+
+@contextlib.contextmanager
+def _cwd(path: Path):
+    prev = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(prev)
+
+
+@contextlib.contextmanager
+def _fds_to(path: Path):
+    """This process's stdout and stderr, and its children's, into
+    ``path`` for the duration (the train CLI's children print their
+    protocol lines there, not among this script's)."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = [os.dup(1), os.dup(2)]
+    with open(path, "ab") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.dup2(saved[0], 1)
+        os.dup2(saved[1], 2)
+        for fd in saved:
+            os.close(fd)
+
+
+def _json_lines(path: Path) -> list:
+    out = []
+    for ln in path.read_text(errors="replace").splitlines():
+        if ln.startswith("{"):
+            try:
+                out.append(json.loads(ln))
+            except ValueError:
+                pass
+    return out
+
+
+def _counted_run(fn, totals: dict) -> tuple:
+    """``fn()`` with every launch count set to 0 just before and read
+    just after (added to ``totals``): its result, seconds, the counts,
+    and B1's and B4's routes."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    routes = {"group_norm_leaky.onepass": group_norm_leaky.onepass_launches,
+              "leaky_quantize.stream": leaky_quantize.stream_launches}
+    _add(totals, counts)
+    return res, seconds, counts, routes
+
+
+def _eval_main(argv, engines: list):
+    """``cli.evaluate.main(argv)`` with its printout captured, keeping
+    each engine it loads in ``engines``."""
+    made = eval_cli._load_engine_for
+
+    def keep(*a, **k):
+        engines.append(made(*a, **k))
+        return engines[-1]
+    eval_cli._load_engine_for = keep
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            return eval_cli.main(argv)
+    finally:
+        eval_cli._load_engine_for = made
+
+
+def _csv_rows(path: Path) -> tuple:
+    import csv
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return rows[0], [dict(zip(rows[0], r)) for r in rows[1:]]
+
+
+def _want(forwards_bf16: int = 0, forwards_int8: int = 0, b2: int = 0,
+          keys=()) -> dict:
+    """Launches of ``forwards_bf16`` bf16 unet forwards (B1 20, B3 2),
+    ``forwards_int8`` int8 ones (B1 13, gn_quantize 7, B4 13) and ``b2``
+    metric calls, with every other wrapper at 0."""
+    want = dict.fromkeys(keys, 0)
+    want.update(group_norm_leaky=20 * forwards_bf16 + 13 * forwards_int8,
+                conv3x3=2 * forwards_bf16, gn_quantize=7 * forwards_int8,
+                leaky_quantize=13 * forwards_int8, ssim_per_sample=b2)
+    return want
+
+
+def _gate(name: str, counts: dict, want: dict, routes: dict,
+          extra_ok: bool = True, **fields) -> None:
+    want_routes = {"group_norm_leaky.onepass": want["group_norm_leaky"],
+                   "leaky_quantize.stream": want["leaky_quantize"]}
+    ok = counts == want and routes == want_routes and extra_ok
+    log(name, launches=counts, expected=want, routes=routes,
+        expected_routes=want_routes, ok=ok, **fields)
+    if not ok:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}; "
+                             f"routes {routes}, expected {want_routes}; "
+                             f"{fields}")
+
+
+def _png_hw(path) -> tuple:
+    return tuple(native.imread_gray(str(path)).shape)
+
+
+def _median_ms(rows: list) -> dict:
+    return {m: float(np.median([float(r["time"]) for r in rows
+                                if r["method"] == m])) * 1e3
+            for m in EVAL_METHODS}
+
+
+def _copy_pairs(names, root: Path) -> tuple:
+    for d in ("hr", "lr"):
+        (root / d).mkdir(parents=True)
+        for n in names:
+            shutil.copy(EXTRACT_DIR / f"{d}_test" / n, root / d / n)
+    return str(root / "hr"), str(root / "lr")
+
+
+def _tui_renders() -> dict:
+    """``python -m mri_superresolution_torch.cli.ui`` under a pty: its main
+    menu rendered, then ``q``; the seconds to the menu and the exit."""
+    import pty
+    import select
+    t0 = time.perf_counter()
+    pid, fd = pty.fork()
+    if pid == 0:
+        env = dict(child_env(), TERM="xterm")
+        os.execvpe(sys.executable, [sys.executable, "-m",
+                                    "mri_superresolution_torch.cli.ui"], env)
+    out, menu_s, code = b"", None, None
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline and \
+                b"Start Inference Server" not in out:
+            if select.select([fd], [], [], 0.3)[0]:
+                try:
+                    out += os.read(fd, 65536)
+                except OSError:
+                    break
+        menu_s = time.perf_counter() - t0
+        os.write(fd, b"q")
+        deadline = time.time() + 20
+        while time.time() < deadline:
+            done, status = os.waitpid(pid, os.WNOHANG)
+            if done:
+                pid, code = 0, os.waitstatus_to_exitcode(status)
+                break
+            time.sleep(0.1)
+    finally:
+        if pid:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        os.close(fd)
+    return {"menu": all(t in out for t in (
+        b"MRI Super-Resolution Tool", b"Extract Paired Slices",
+        b"Train Super-Resolution Model", b"Start Inference Server")),
+        "menu_s": menu_s, "exit_code": code}
+
+
+def eval_path(dev, smi: str, roots: dict) -> dict:
+    """The evaluation tooling through its entry points on the card, on
+    the extraction phase's 50 held-out pairs (256^2 HR, 128^2 LR), its two
+    test volumes and its trained full-width checkpoints:
+    ``cli.evaluate --checkpoint`` over the 50 pairs under PyTorch's
+    default TF32 flags (metrics.csv of 200 rows with the JAX columns,
+    report.json naming the card and its power limit, exact launches, each
+    method's median ms/image; bf16 and the baselines on 2 content pairs
+    against the CPU port at the bf16 budget), again with ``--quant int8``
+    and with ``--tta`` over EVAL_SUBSET content pairs; both ablation modes
+    (best and final; two loss configurations trained for one epoch on the
+    train split in child processes); ``cli.test_model`` on the test
+    volumes; ``cli.test_comparison --seed 0 --tta`` against the CPU
+    port's pick; the SSIM sweep (``cli.test_ssim_weights``, two weights,
+    one epoch each) and ``cli.compare_ssim_detailed`` over its runs;
+    ``cli.visualise_res`` over the eight volumes; the final checkpoint
+    exported to a reference ``.pth`` that serves the same bits, and back;
+    the TUI under a pty, and the infer command its menu builds run on the
+    card. Every launch of the phase is counted, each run's exactly."""
+    start = time.perf_counter()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    EVAL_DIR.mkdir(parents=True)
+    ck = EXTRACT_DIR / "ckpt"
+    final = str(ck / "final_model_unet.ckpt")
+    hr_dir, lr_dir = str(EXTRACT_DIR / "hr_test"), str(EXTRACT_DIR / "lr_test")
+    pairs = quality.held_out_pairs(lr_dir, hr_dir)
+    n = len(pairs)
+    lrs = quality.read_pngs([a for a, _ in pairs])
+    hrs = quality.read_pngs([b for _, b in pairs])
+    fg = np.abs(lrs).reshape(n, -1) > FOREGROUND_INTENSITY
+    content = np.flatnonzero(quality.content_pairs(hrs) & (
+        fg.mean(axis=1) >= InferConfig().quant_min_foreground))
+    subset = [os.path.basename(pairs[i][0]) for i in content[:EVAL_SUBSET]]
+    hr8, lr8 = _copy_pairs(subset, EVAL_DIR / "subset")
+    keys = kernels.launch_counts()
+    totals = dict.fromkeys(keys, 0)
+    res = {}
+
+    # cli.evaluate --checkpoint over the 50 pairs, as users run it
+    # (PyTorch's default flags: cuDNN's TF32 on; matmul TF32 off)
+    engines = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rc, secs, counts, routes = _counted_run(lambda: _eval_main(
+            ["--hr_dir", hr_dir, "--lr_dir", lr_dir, "--checkpoint", final,
+             "--output_dir", str(EVAL_DIR / "single")], engines), totals)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    header, rows = _csv_rows(EVAL_DIR / "single" / "metrics.csv")
+    with open(EVAL_DIR / "single" / "report.json") as f:
+        report = json.load(f)
+    hw = report["hardware"]
+    fwd = 1 + n + 5      # warm-up, the pairs, the 5 qualitative pairs
+    ms = _median_ms(rows)
+    ok = rc == 0 and header == EVAL_COLUMNS and len(rows) == 4 * n and \
+        all(sorted(r["method"] for r in rows if r["image"] == img) ==
+            sorted(EVAL_METHODS) for img in {r["image"] for r in rows}) and \
+        hw["accelerator"] == torch.cuda.get_device_name(0) and \
+        hw["nvidia_smi"] == smi and \
+        hw["power_limit"] == smi.split(",")[-1].strip() and \
+        report["implementation"]["base_filters"] == BASE_FILTERS
+    _gate("eval_checkpoint", counts, _want(fwd, 0, n + 5, keys), routes, ok,
+          rc=rc, pairs=n, rows=len(rows), columns=header, seconds=secs,
+          hardware=hw, median_ms_per_image=ms, forwards=fwd,
+          timing="host clock of each method per image, ending when its "
+                 "output is on the host (evaluate.py's window); cuDNN "
+                 "TF32 at PyTorch's default (on)")
+    res["checkpoint"] = {"seconds": secs, "median_ms": ms}
+
+    # bf16 and the baselines on 2 content pairs against the CPU port
+    two = [pairs[i] for i in content[:2]]
+    cpu_rows = eval_cli.run_benchmarks(two, load_engine(
+        InferConfig(checkpoint_path=final), device="cpu"))
+    card = {(r["image"], r["method"]): r for r in rows}
+    deltas = {}
+    for r in cpu_rows:
+        c = card[(r["image"], r["method"])]
+        d = deltas.setdefault(r["method"], {"d_psnr_db": 0.0, "d_ssim": 0.0,
+                                            "d_mae": 0.0})
+        for k, m in (("d_psnr_db", "psnr"), ("d_ssim", "ssim"),
+                     ("d_mae", "mae")):
+            d[k] = max(d[k], abs(float(c[m]) - r[m]))
+    ok = len(cpu_rows) == 8 and all(d["d_psnr_db"] <= 0.1 and
+                                    d["d_ssim"] <= 1e-3
+                                    for d in deltas.values())
+    log("eval_cpu_vs_gpu", pairs=[r["image"] for r in cpu_rows[::4]],
+        deltas=deltas, budget="|dPSNR| <= 0.1 dB, |dSSIM| <= 1e-3",
+        baselines="fp32: bilinear and bicubic by resampling matmuls, the "
+                  "sharpen by nine fp32 taps (no convolution, so cuDNN's "
+                  "TF32 cannot reach it)", ok=ok)
+    if not ok:
+        raise AssertionError(f"evaluate on the card against the CPU port: "
+                             f"{deltas}")
+    res["cpu_vs_gpu"] = deltas
+
+    # --quant int8 and --tta over the content subset
+    m = len(subset)
+    fwd = 1 + m + 5
+    engines = []
+    rc, secs, counts, routes = _counted_run(lambda: _eval_main(
+        ["--hr_dir", hr8, "--lr_dir", lr8, "--checkpoint", final,
+         "--output_dir", str(EVAL_DIR / "int8"), "--quant", "int8"],
+        engines), totals)
+    served = dict(engines[0]._quant_batches)
+    _, rows = _csv_rows(EVAL_DIR / "int8" / "metrics.csv")
+    _gate("eval_int8", counts, _want(served["bf16"], served["int8"], m + 5,
+                                     keys), routes,
+          rc == 0 and len(rows) == 4 * m and served["int8"] > 0 and
+          sum(served.values()) == fwd, rc=rc, pairs=m, served=served,
+          seconds=secs, median_ms_per_image=_median_ms(rows))
+    res["int8"] = {"seconds": secs, "median_ms": _median_ms(rows),
+                   "served": served}
+    rc, secs, counts, routes = _counted_run(lambda: _eval_main(
+        ["--hr_dir", hr8, "--lr_dir", lr8, "--checkpoint", final,
+         "--output_dir", str(EVAL_DIR / "tta"), "--tta"], []), totals)
+    _, rows = _csv_rows(EVAL_DIR / "tta" / "metrics.csv")
+    _gate("eval_tta", counts, _want(8 * fwd, 0, m + 5, keys), routes,
+          rc == 0 and len(rows) == 4 * m, rc=rc, pairs=m, members=8,
+          seconds=secs, median_ms_per_image=_median_ms(rows))
+    res["tta"] = {"seconds": secs, "median_ms": _median_ms(rows)}
+
+    # --ablation_checkpoints_dir over best and final
+    abl = EVAL_DIR / "ckpts"
+    abl.mkdir()
+    for name in ("best_model_unet", "final_model_unet"):
+        for suffix in (".ckpt", ".json"):
+            shutil.copy(ck / f"{name}{suffix}", abl / f"{name}{suffix}")
+    rc, secs, counts, routes = _counted_run(lambda: _eval_main(
+        ["--hr_dir", hr8, "--lr_dir", lr8, "--ablation_checkpoints_dir",
+         str(abl), "--output_dir", str(EVAL_DIR / "ablation")], []), totals)
+    _, rows = _csv_rows(EVAL_DIR / "ablation" / "metrics_ablation.csv")
+    with open(EVAL_DIR / "ablation" / "ablation_summary.json") as f:
+        summary = json.load(f)
+    _gate("eval_ablation_dir", counts, _want(2 * fwd, 0, 2 * (m + 5), keys),
+          routes, rc == 0 and [r["checkpoint"] for r in rows] ==
+          ["best_model_unet"] * (4 * m) + ["final_model_unet"] * (4 * m) and
+          sorted(summary) == ["best_model_unet.ckpt", "final_model_unet.ckpt"]
+          and (EVAL_DIR / "ablation" / "report_base.json").exists(),
+          rc=rc, rows=len(rows), summary=summary, seconds=secs)
+
+    # --ablation_train_configs: two loss configurations, each trained for
+    # one epoch on the train split by the train CLI in a child process
+    configs = EVAL_DIR / "configs.json"
+    configs.write_text(json.dumps([{"ssim_weight": float(w)}
+                                   for w in EVAL_WEIGHTS]))
+    out_log = EVAL_DIR / "ablation_train.log"
+    with _cwd(EVAL_DIR), _fds_to(out_log):
+        rc, secs, counts, routes = _counted_run(lambda: _eval_main(
+            ["--hr_dir", hr8, "--lr_dir", lr8, "--ablation_train_configs",
+             str(configs), "--train_epochs", "1", "--train_full_res_dir",
+             str(EXTRACT_DIR / "hr_train"), "--train_low_res_dir",
+             str(EXTRACT_DIR / "lr_train"), "--output_dir",
+             str(EVAL_DIR / "ablation_train")], []), totals)
+    names = [f"ssim_{float(w)}_perc_0.0" for w in EVAL_WEIGHTS]
+    _, rows = _csv_rows(EVAL_DIR / "ablation_train" / "metrics_ablation.csv")
+    with open(EVAL_DIR / "ablation_train" / "ablation_summary.json") as f:
+        summary = json.load(f)
+    lines = _json_lines(out_log)
+    on_card = sum(ln.get("message", "").startswith("Training on cuda")
+                  for ln in lines)
+    trained = [(EVAL_DIR / "ablation_checkpoints" / nm /
+                "final_model_unet.ckpt").exists() for nm in names]
+    _gate("eval_ablation_train", counts, _want(2 * fwd, 0, 2 * (m + 5),
+                                               keys), routes,
+          rc == 0 and all(trained) and on_card == 2 and
+          sorted(summary) == sorted(names) and
+          [r["checkpoint"] for r in rows] == [names[0]] * (4 * m) +
+          [names[1]] * (4 * m), rc=rc, configs=names, trained=trained,
+          children_on_card=on_card, seconds=secs,
+          epochs=[ln for ln in lines if ln.get("type") == "epoch_summary"],
+          note="launches counted in this process: the evaluations; the "
+               "children's training is theirs")
+    res["ablation_train_s"] = secs
+
+    # cli.test_model on the two test volumes
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    pkg_logger = logging.getLogger("mri_superresolution_torch")
+    pkg_logger.addHandler(handler)
+    try:
+        with _cwd(EVAL_DIR):
+            rc, secs, counts, routes = _counted_run(lambda: test_model_cli.main(
+                ["--test_dataset", str(roots["test"]), "--output_dir",
+                 str(EVAL_DIR / "test_model"), "--checkpoint_dir", str(ck),
+                 "--n_slices", str(EVAL_SUBSET)]), totals)
+    finally:
+        pkg_logger.removeHandler(handler)
+    tm = EVAL_DIR / "test_model"
+    # the larger side of the volumes' slices, up to a multiple of 8
+    canvas = -(-max(EXTRACT_SHAPE[:2]) // 8) * 8
+    sizes = {d: sorted({_png_hw(p) for p in (tm / d).iterdir()})
+             for d in ("hr_slices", "lr_slices", "enhanced")}
+    averages = [r.getMessage() for r in records
+                if r.getMessage().startswith(("Average SSIM", "Average RMSE",
+                                              "Average MAE"))]
+    grid = (tm / "results_summary.png").exists()
+    _gate("eval_test_model", counts, _want(EVAL_SUBSET, 0, EVAL_SUBSET, keys),
+          routes, rc == 0 and len(list((tm / "enhanced").iterdir())) ==
+          EVAL_SUBSET and sizes == {"hr_slices": [(canvas, canvas)],
+                                    "lr_slices": [(canvas // 2,
+                                                   canvas // 2)],
+                                    "enhanced": [(canvas, canvas)]} and
+          len(averages) == 3, rc=rc, png_sizes=sizes, averages=averages,
+          summary_grid=grid, seconds=secs)
+
+    # cli.test_comparison --seed 0 --tta, and the CPU port's pick
+    argv = ["--test_dataset", str(roots["test"]), "--checkpoint_dir",
+            str(ck), "--seed", "0", "--tta"]
+    with _cwd(EVAL_DIR), contextlib.redirect_stdout(io.StringIO()):
+        rc, secs, counts, routes = _counted_run(lambda: comparison_cli.main(
+            argv + ["--output_dir", str(EVAL_DIR / "cmp")]), totals)
+        rc_cpu = comparison_cli.main(argv + ["--output_dir",
+                                             str(EVAL_DIR / "cmp_cpu"),
+                                             "--cpu"])
+    table = (EVAL_DIR / "cmp" / "metrics.txt").read_text().splitlines()
+    table_cpu = (EVAL_DIR / "cmp_cpu" / "metrics.txt").read_text(
+    ).splitlines()
+    _gate("eval_test_comparison", counts, _want(8, 0, 1, keys), routes,
+          rc == 0 and rc_cpu == 0 and table[2] == table_cpu[2] and
+          len(table) == len(table_cpu) == 10 and
+          [ln.split("|")[1].strip() for ln in table[6:]] ==
+          ["AI Model", "Bilinear", "Sharp Bilinear", "Bicubic"],
+          rc=rc, rc_cpu=rc_cpu, pair=table[2], cpu_pair=table_cpu[2],
+          rows=table[6:], cpu_rows=table_cpu[6:], seconds=secs,
+          note="the LR noise of the card's and the CPU's generators "
+               "differ, so the rows' values do")
+
+    # the SSIM sweep (two weights, one epoch each, in child processes),
+    # then the detailed comparison over its runs
+    sweep_log = EVAL_DIR / "sweep.log"
+    with _fds_to(sweep_log):
+        t0 = time.perf_counter()
+        sweep = sweep_cli.main(
+            ["--full_res_dir", str(EXTRACT_DIR / "hr_train"),
+             "--low_res_dir", str(EXTRACT_DIR / "lr_train"),
+             "--ssim_weights", *EVAL_WEIGHTS, "--epochs", "1",
+             "--output_dir", str(EVAL_DIR / "sweep")])
+        sweep_s = time.perf_counter() - t0
+    lines = _json_lines(sweep_log)
+    runs = {w: (Path(sweep) / f"ssim_weight_{float(w)}" /
+                "final_model_unet.ckpt").exists() for w in EVAL_WEIGHTS}
+    import importlib.util
+    plotting = importlib.util.find_spec("matplotlib") is not None
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc, secs, counts, routes = _counted_run(lambda: detailed_cli.main(
+            ["--weight_dirs", sweep, "--test_image_dir", lr_dir,
+             "--output_dir", str(EVAL_DIR / "detailed")]), totals)
+    images = sorted(p.name for p in (EVAL_DIR / "detailed").iterdir())
+    files = {i: sorted(p.name for p in (EVAL_DIR / "detailed" / i).iterdir())
+             for i in images}
+    want_files = sorted(["original.png"] + [f"weight_{float(w)}.png"
+                                            for w in EVAL_WEIGHTS] +
+                        ["comparison.png"] * plotting)
+    _gate("eval_sweep", counts, _want(2 * 5, 0, 0, keys), routes,
+          rc == 0 and all(runs.values()) and len(images) == 5 and
+          all(f == want_files for f in files.values()) and
+          sum(ln.get("message", "").startswith("Training on cuda")
+              for ln in lines) == 2, sweep_dir=sweep, runs=runs,
+          sweep_s=sweep_s, collage=(Path(sweep) /
+                                    "ssim_weight_comparison.png").exists(),
+          matplotlib=plotting, images=images, files=files,
+          detailed_seconds=secs)
+
+    # cli.visualise_res over the eight volumes
+    vols = EVAL_DIR / "volumes"
+    vols.mkdir()
+    for split, root in roots.items():
+        (vols / split).symlink_to(root / "set1")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = res_cli.main(["--root_dir", str(vols), "--output_png_dir",
+                           str(EVAL_DIR / "mid"), "--output_viz_file",
+                           str(EVAL_DIR / "resolutions.png")])
+    mids = sorted({_png_hw(p) for p in (EVAL_DIR / "mid").iterdir()})
+    row = (EXTRACT_SHAPE[1], EXTRACT_SHAPE[0], sum(EXTRACT_VOLUMES.values()))
+    from mri_superresolution_torch.evalsuite.resolution import format_table
+    ok = rc == 0 and format_table([row]) in printed.getvalue() and \
+        mids == [(EXTRACT_SHAPE[0], EXTRACT_SHAPE[1])] and \
+        len(list((EVAL_DIR / "mid").iterdir())) == len(
+            find_nifti_files(str(vols)))
+    log("eval_visualise_res", rc=rc, table=format_table([row]),
+        mid_png_sizes=mids, ok=ok)
+    if not ok:
+        raise AssertionError(f"visualise_res: rc {rc}, printed "
+                             f"{printed.getvalue()[-500:]}, sizes {mids}")
+
+    # the final checkpoint to a reference .pth, served; and back
+    pth = str(EVAL_DIR / "final_model_unet.pth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_torch_checkpoint.main(["--ckpt", final, "--out", pth])
+        convert_torch_checkpoint.main(["--pth", pth, "--out",
+                                       str(EVAL_DIR / "back.ckpt")])
+    batch = lrs[content[:EVAL_SUBSET]]
+    outs, _, counts, routes = _counted_run(lambda: [
+        load_engine(InferConfig(checkpoint_path=p), device=dev)
+        .upscale_batch(batch) for p in (final, pth)], totals)
+    back, _ = ckpt.load_params_any(str(EVAL_DIR / "back.ckpt"))
+    orig, _ = ckpt.load_params_any(final)
+    _gate("eval_export", counts, _want(2, 0, 0, keys), routes,
+          np.array_equal(outs[0], outs[1]) and
+          all(torch.equal(back[k], v) for k, v in orig.items()),
+          same_bits=bool(np.array_equal(outs[0], outs[1])),
+          round_trip_equal=all(torch.equal(back[k], v)
+                               for k, v in orig.items()),
+          pth_mib=os.path.getsize(pth) / 2**20)
+
+    # the TUI, and the infer command its menu builds, on the card
+    t = _tui_renders()
+    p = dict(tui.DEFAULT_PARAMS, input_image=pairs[content[0]][0],
+             target_image=pairs[content[0]][1],
+             output_image=str(EVAL_DIR / "tui_sr.png"),
+             checkpoint_dir=str(ck), checkpoint_file=final)
+    cmd = tui.build_command("infer", p)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=child_env(), capture_output=True, text=True,
+                       timeout=300, cwd=EVAL_DIR)
+    t["infer_s"] = time.perf_counter() - t0
+    out_png = _png_hw(p["output_image"]) \
+        if os.path.exists(p["output_image"]) else None
+    ok = t["menu"] and t["exit_code"] == 0 and r.returncode == 0 and \
+        out_png == (EXTRACT_TARGET, EXTRACT_TARGET) and "--cpu" not in cmd
+    log("eval_tui", **t, command=cmd[1:], infer_rc=r.returncode,
+        output=out_png, infer_log=r.stderr.splitlines()[-4:], ok=ok)
+    if not ok:
+        raise AssertionError(f"the TUI: {t}, infer rc {r.returncode}, "
+                             f"output {out_png}; {r.stderr[-2000:]}")
+    log("eval_path", launches=totals, seconds=time.perf_counter() - start)
+    return {"launches": totals, **res,
+            "seconds": time.perf_counter() - start}
 
 
 def perceptual_path(dev) -> dict:
@@ -3802,6 +4549,8 @@ def main(argv=None) -> int:
                "B4": check_b4(dev, gen),
                "B4 fused": check_fused(dev, gen),
                "B1 backward": check_b1_backward(dev, gen)}
+    # the remat leg's larger crop: B1's backward at its 20 sites
+    check_b1_backward_sites(dev, gen, BATCH, LR, "remat leg's larger crop")
     c64 = check_b1_c64(dev, gen)
     cfg = ModelConfig(base_filters=BASE_FILTERS)
     params = build_model(cfg, generator=torch.Generator().manual_seed(0)
@@ -3813,6 +4562,7 @@ def main(argv=None) -> int:
     counts_int8 = int8_path(dev, cfg, params, lr, hr, bf16_engine)
     probe, counts_probe = probe_path(dev)
     trained = train_path(dev, lr)
+    remat_profile_path(dev, trained)
     # QAT trains on the training phase's pairs and fine-tunes its
     # checkpoint; the daemon serves the QAT checkpoint
     qat = qat_path(dev, lr, hr)
@@ -3820,6 +4570,7 @@ def main(argv=None) -> int:
     art = artifact_path(dev, lr, hr, qat["final"], trained["digests"])
     zoo = zoo_path(dev, lr, hr, c64)
     extract = extract_path(dev)
+    evaluated = eval_path(dev, smi, extract["roots"])
     perc = perceptual_path(dev)
 
     torch_root = "mri_superresolution_torch/csrc/"
@@ -3859,6 +4610,7 @@ def main(argv=None) -> int:
         rows[-1]["zoo_launches"] = zoo["launches"][name]
         rows[-1]["perceptual_launches"] = perc["launches"][name]
         rows[-1]["extract_launches"] = extract["launches"][name]
+        rows[-1]["eval_launches"] = evaluated["launches"][name]
         rows[-1]["qat_launches"] = qat["launches"][name]
         rows[-1]["serve_launches"] = served["launches"][name]
         rows[-1]["artifact_launches"] = art["launches"][name]
@@ -3891,6 +4643,7 @@ def main(argv=None) -> int:
                      "library_ms": None if r["library_us"] is None
                      else r["library_us"] / 1e3,
                      "extract_launches": extract["launches"][wrapper],
+                     "eval_launches": evaluated["launches"][wrapper],
                      "qat_launches": qat["launches"][wrapper],
                      "serve_launches": served["launches"][wrapper],
                      "artifact_launches": art["launches"][wrapper]})

@@ -9,9 +9,11 @@ Takes the flags of the JAX package's ``scripts/train.py`` (reference
 scripts/train.py:486-548), with the same defaults and meanings, and
 writes the same checkpoints and JSON-line protocol (``--qat``: with the
 int8 calibration sidecars). Runs on the card; ``--cpu`` runs on the CPU.
-Flags of training modes the port does not run yet (``--spatial_shards``
-> 1, ``--opt_shard``, ``--multihost``, ``--remat``, ``--num_devices`` >
-1, ``--profile_dir``) raise an error that names the ROADMAP item that
+``--remat`` recomputes the model's blocks in the backward (the same
+update, less memory); ``--profile_dir`` writes a ``torch.profiler``
+Chrome trace of one epoch. Flags of training modes the port does not run
+yet (``--spatial_shards`` > 1, ``--opt_shard``, ``--multihost``,
+``--num_devices`` > 1) raise an error that names the ROADMAP item that
 ports each.
 """
 
@@ -59,7 +61,10 @@ def parse_args(argv=None):
     p.add_argument('--streaming_prefetch', type=int, default=2)
     p.add_argument('--streaming_threshold_mb', type=int, default=2048)
     p.add_argument('--remat', action='store_true',
-                   help='not ported yet (ROADMAP A14)')
+                   help='Rematerialize the forward in the backward '
+                        '(torch.utils.checkpoint around each block the JAX '
+                        'package remats): less activation memory for one '
+                        'more forward of those blocks; the same update')
     p.add_argument('--spatial_shards', type=int, default=1,
                    help='> 1 is not ported yet (ROADMAP A14)')
     p.add_argument('--grad_accum', type=int, default=1,
@@ -105,7 +110,8 @@ def parse_args(argv=None):
                    help='Resume from the final or step checkpoint')
     p.add_argument('--vgg_weights', type=str, default=None)
     p.add_argument('--profile_dir', type=str, default=None,
-                   help='not ported yet (ROADMAP A14)')
+                   help='Write a torch.profiler trace (Chrome JSON) of one '
+                        'epoch here')
     p.add_argument('--checkpoint_dir', type=str, default='./checkpoints')
     p.add_argument('--log_dir', type=str, default='./logs')
     return p.parse_args(argv)

@@ -97,14 +97,14 @@ class TrainConfig:
     num_data_devices: int = 0    # devices of the data mesh (ROADMAP A14)
     resume: bool = False
     vgg_weights: Optional[str] = None  # VGG19 .npz for the perceptual loss
-    profile_dir: Optional[str] = None  # profiler trace (A14)
+    profile_dir: Optional[str] = None  # torch.profiler trace of one epoch
     # "off": decode the whole dataset up front; "on": per-batch decode with
     # a background prefetch; "auto": stream past streaming_threshold_mb
     streaming: str = "auto"
     streaming_prefetch: int = 2
     streaming_threshold_mb: int = 2048
     spatial_shards: int = 1      # row sharding over devices (A14)
-    remat: bool = False          # recompute the forward in the backward (A14)
+    remat: bool = False          # recompute the forward in the backward
     # sequential microbatches a step, fp32 gradients recombined exactly
     grad_accum: int = 1
     # Polyak average of the weights after each step (0 = off); validation,

@@ -28,13 +28,19 @@ _SHARPEN = ((-1.0, -1.0, -1.0),
 
 def sharpen3x3(img: torch.Tensor) -> torch.Tensor:
     """cv2.filter2D(img, -1, sharpen_kernel) on the trailing (H, W) axes:
-    reflect-101 border, 3x3 kernel, fp32."""
+    reflect-101 border, 3x3 kernel, fp32. The nine taps are summed
+    elementwise in fp32, not by a convolution: cuDNN's convolutions take
+    TF32 on the card by default, which would round the inputs to 10
+    mantissa bits."""
     x = img.float()
     h, w = x.shape[-2:]
-    x4 = F.pad(x.reshape(-1, 1, h, w), (1, 1, 1, 1), mode="reflect")
-    kern = torch.tensor(_SHARPEN, dtype=torch.float32,
-                        device=x.device).view(1, 1, 3, 3)
-    return F.conv2d(x4, kern).reshape(x.shape)
+    xp = F.pad(x.reshape(-1, 1, h, w), (1, 1, 1, 1), mode="reflect")
+    out = None
+    for dy, row in enumerate(_SHARPEN):
+        for dx, k in enumerate(row):
+            tap = k * xp[..., dy:dy + h, dx:dx + w]
+            out = tap if out is None else out + tap
+    return out.reshape(x.shape)
 
 
 def upscale_with_interpolation(img01: torch.Tensor, method: str,

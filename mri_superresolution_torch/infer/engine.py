@@ -568,11 +568,13 @@ class InferenceEngine(HostTransfers):
     @staticmethod
     def _save_figures(inp01, out01, target01, metrics, show_diff,
                       save_path: str) -> None:
-        """Comparison/diff figure (parity: scripts/infer.py:173-228)."""
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
+        """Comparison/diff figure (parity: scripts/infer.py:173-228);
+        skipped, with a warning, without matplotlib."""
+        from mri_superresolution_torch.utils.figures import pyplot
 
+        plt = pyplot()
+        if plt is None:
+            return
         has_target = target01 is not None
         n_cols = 2 + int(has_target) + int(has_target and show_diff)
         plt.figure(figsize=(n_cols * 4, 5))

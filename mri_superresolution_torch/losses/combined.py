@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from mri_superresolution_torch.config import LossConfig
 from mri_superresolution_torch.kernels import ssim_per_sample
@@ -50,12 +51,16 @@ def _ssim(cfg: LossConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def compose_loss(cfg: LossConfig, out32: torch.Tensor, tgt32: torch.Tensor,
                  sample_weights: Optional[torch.Tensor],
-                 vgg: Optional[VGG19Features] = None
+                 vgg: Optional[VGG19Features] = None, remat: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The CombinedLoss composition on fp32 (B, H, W, 1) tensors. ``comps``
     holds ``l1_loss``, ``ssim_loss``, ``ssim_metric`` (the clipped SSIM)
     and ``perceptual_loss`` for the terms with a weight, as in the JAX
-    package."""
+    package. ``remat`` recomputes the VGG19 features of the output in the
+    backward instead of keeping them: the JAX trainer's loss-graph
+    checkpoint under ``--remat``. It is the only term with a tape to drop:
+    L1 keeps none, and B2's backward already recomputes the SSIM maps
+    inside its ``autograd.Function``."""
     total = torch.zeros((), dtype=torch.float32, device=out32.device)
     comps: Dict[str, torch.Tensor] = {}
     if cfg.l1_weight > 0:
@@ -70,7 +75,9 @@ def compose_loss(cfg: LossConfig, out32: torch.Tensor, tgt32: torch.Tensor,
         comps["ssim_loss"] = ssim_l
         comps["ssim_metric"] = ssim_val
     if cfg.perceptual_weight > 0:
-        fg = vgg(out32)
+        fg = (torch.utils.checkpoint.checkpoint(
+            vgg, out32, use_reentrant=False, preserve_rng_state=False)
+            if remat and torch.is_grad_enabled() else vgg(out32))
         with torch.no_grad():
             ft = vgg(tgt32)
         if cfg.perceptual_loss_type == "l1":
@@ -90,9 +97,11 @@ class CombinedLoss:
     """Callable loss bundle: ``loss(output, target, sample_weights) ->
     (total, comps)`` on (B, H, W, 1) tensors. ``vgg`` (a
     ``VGG19Features`` on the device of the tensors) is required iff
-    ``perceptual_weight > 0``."""
+    ``perceptual_weight > 0``; ``remat`` recomputes its features of the
+    output in the backward (:func:`compose_loss`)."""
 
-    def __init__(self, cfg: LossConfig, vgg: Optional[VGG19Features] = None):
+    def __init__(self, cfg: LossConfig, vgg: Optional[VGG19Features] = None,
+                 remat: bool = False):
         cfg.validate()
         if cfg.perceptual_weight > 0 and vgg is None:
             raise ValueError(
@@ -100,6 +109,7 @@ class CombinedLoss:
                 "see models/vgg.py for loading options)")
         self.cfg = cfg
         self.vgg = vgg
+        self.remat = remat
 
     def ssim_per_sample(self, a: torch.Tensor, b: torch.Tensor
                         ) -> torch.Tensor:
@@ -110,4 +120,4 @@ class CombinedLoss:
                  sample_weights: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return compose_loss(self.cfg, output.float(), target.float(),
-                            sample_weights, self.vgg)
+                            sample_weights, self.vgg, self.remat)

@@ -18,12 +18,15 @@ KNOWN_MODEL_TYPES = ("edsr", "simple", "unet", "unet_tpu")
 
 
 def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                generator: torch.Generator = None) -> nn.Module:
+                generator: torch.Generator = None,
+                remat: bool = False) -> nn.Module:
     """The ``cfg.model_type`` family with seeded initial weights (from
-    ``generator``), computing in ``dtype`` on fp32 params."""
+    ``generator``), computing in ``dtype`` on fp32 params; ``remat``
+    recomputes the JAX package's remat blocks in the backward (a no-op
+    for ``simple``)."""
     common = dict(in_channels=cfg.in_channels, out_channels=cfg.out_channels,
                   base_filters=cfg.base_filters, dtype=dtype,
-                  generator=generator)
+                  generator=generator, remat=remat)
     if cfg.model_type == "unet":
         return UNetSuperRes(initial_alpha=cfg.initial_alpha, **common)
     if cfg.model_type == "unet_tpu":

@@ -11,6 +11,9 @@ every block is the identity at init, which keeps an 8-block trunk
 trainable), and ``res_scale`` is 1.0, the value the functional forwards
 (``models/quant_forward.py``) assume.
 
+``remat=True`` recomputes each ``ResBlock`` in the backward, as the JAX
+package wraps each in ``nn.remat`` (``models/unet.segment``).
+
 State_dict names follow the flax tree: ``head``, ``block{i}.conv0`` and
 ``block{i}.conv1`` (flax ``block{i}/Conv_0``, ``Conv_1``), ``body_out``
 and ``tail``.
@@ -23,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mri_superresolution_torch.models.unet import (CL, _conv, _conv3,
-                                                   kaiming_init_)
+                                                   kaiming_init_, segment)
 from mri_superresolution_torch.ops.functional import pixel_shuffle
 
 
@@ -50,10 +53,11 @@ class EDSR(nn.Module):
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 64, num_blocks: int = 8,
                  res_scale: float = 1.0, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, remat: bool = False):
         super().__init__()
         f = base_filters
         self.dtype = dtype
+        self.remat = remat
         self.num_blocks = num_blocks
         self.head = _conv3(in_channels, f, bias=True)
         for i in range(num_blocks):
@@ -71,7 +75,7 @@ class EDSR(nn.Module):
         head = _conv(x, self.head.weight, dt, self.head.bias, padding=1)
         y = head
         for i in range(self.num_blocks):
-            y = getattr(self, f"block{i}")(y, dt)
+            y = segment(self, getattr(self, f"block{i}"), y, dt)
         y = _conv(y, self.body_out.weight, dt, self.body_out.bias, padding=1)
         y = _conv(y + head, self.tail.weight, dt, self.tail.bias, padding=1)
         y = pixel_shuffle(y, 2)

@@ -24,7 +24,9 @@ class SimpleSR(nn.Module):
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 64, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, remat: bool = False):
+        # remat is accepted and ignored, as in the JAX package: three
+        # convs hold nothing worth recomputing
         super().__init__()
         f = base_filters
         self.dtype = dtype

@@ -16,6 +16,11 @@ and a sigmoid-bounded one-channel output.
   (``kernels.group_norm_leaky``); ``final_up_conv`` and ``final_conv1``,
   the Cout = f/2 3x3 convs at 2H x 2W, run through kernel B3
   (``kernels.conv3x3``). The other convs are ``F.conv2d``.
+- ``remat=True`` (the train CLI's ``--remat``) recomputes the blocks
+  the JAX package wraps in ``nn.remat`` in the backward instead of
+  keeping their activations (:func:`segment`): ``inc``, the Downs and
+  Ups, ``final_up_pixelshuffle``, the bilinear branch and the head. The
+  parameters are unchanged, so checkpoints do not depend on it.
 - Module and parameter names are the reference's state_dict keys, so a
   reference ``.pth`` loads strictly. The ``nn.Sequential`` containers only
   hold the parameters under those keys; the forward calls the functions
@@ -29,6 +34,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mri_superresolution_torch.kernels import conv3x3, group_norm_leaky
 from mri_superresolution_torch.ops.functional import max_pool2, pixel_shuffle
@@ -57,6 +63,23 @@ def _upsample2(x):
     channels_last tensor; the result is channels_last again."""
     return upsample_bilinear_align_corners(x.permute(0, 2, 3, 1), 2).permute(
         0, 3, 1, 2)
+
+
+def segment(m: nn.Module, fn, *args):
+    """``fn(*args)``; with ``m.remat`` set and gradients on, as one
+    rematerialized segment (``torch.utils.checkpoint``, non-reentrant):
+    the backward runs the segment's forward again instead of keeping its
+    activations, the counterpart of the JAX package's ``nn.remat``. The
+    autograd graph is the one without it, so the gradients are the same
+    bits. The recomputation stops once the last tensor the backward needs
+    is saved (PyTorch's early stop), but each kernel's
+    ``autograd.Function`` saves its inputs only when its forward returns,
+    so every kernel of a segment runs again: a unet step launches B1 and
+    B3 twice over."""
+    if getattr(m, "remat", False) and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _conv3(cin, cout, bias=False):
@@ -179,30 +202,33 @@ class PixelShuffleUp(nn.Module):
 def backbone(m: nn.Module, x: torch.Tensor, dtype) -> torch.Tensor:
     """The encoder-decoder of ``unet`` and ``unet_tpu``: ``m.inc``, three
     Downs and three Ups with skips, on an NCHW-indexed channels_last
-    ``x``; 17 GroupNorm+LeakyReLU sites."""
-    x1 = m.inc(x, dtype)
-    x2 = m.down1(x1, dtype)
-    x3 = m.down2(x2, dtype)
-    x4 = m.down3(x3, dtype)
-    y = m.up1(x4, x3, dtype)
-    y = m.up2(y, x2, dtype)
-    return m.up3(y, x1, dtype)
+    ``x``; 17 GroupNorm+LeakyReLU sites. Each block is a segment of its
+    own under ``m.remat``."""
+    x1 = segment(m, m.inc, x, dtype)
+    x2 = segment(m, m.down1, x1, dtype)
+    x3 = segment(m, m.down2, x2, dtype)
+    x4 = segment(m, m.down3, x3, dtype)
+    y = segment(m, m.up1, x4, x3, dtype)
+    y = segment(m, m.up2, y, x2, dtype)
+    return segment(m, m.up3, y, x1, dtype)
 
 
 class UNetSuperRes(nn.Module):
     """2x super-resolution U-Net (reference models/unet_model.py:116-211).
 
     Input: (B, H, W, in_channels) in [0, 1]. Output: (B, 2H, 2W,
-    out_channels) in (0, 1), fp32. ``dtype`` is the compute dtype.
+    out_channels) in (0, 1), fp32. ``dtype`` is the compute dtype;
+    ``remat`` recomputes the JAX package's remat blocks in the backward.
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 32, initial_alpha: float = 0.0,
                  icnr_init: bool = False, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, remat: bool = False):
         super().__init__()
         f = base_filters
         self.dtype = dtype
+        self.remat = remat
         self.inc = DoubleConv(in_channels, f)
         self.down1 = Down(f, f * 2)
         self.down2 = Down(f * 2, f * 4)
@@ -236,14 +262,20 @@ class UNetSuperRes(nn.Module):
         y = backbone(self, x.permute(0, 3, 1, 2).to(dt).contiguous(
             memory_format=CL), dt)
 
-        # dual-branch final 2x upsample
-        _, up_conv, up_norm, _ = self.final_up_bilinear
-        up_w = up_conv.weight.to(dt, memory_format=CL)
-        yb = _gn_leaky(conv3x3(_upsample2(y), up_w), up_norm)
-        yp = self.final_up_pixelshuffle(y, dt)
+        # dual-branch final 2x upsample; each branch and the head a
+        # segment of its own under remat, as in the JAX package
+        yb = segment(self, self._bilinear_branch, y)
+        yp = segment(self, self.final_up_pixelshuffle, y, dt)
         w = torch.sigmoid(self.alpha).to(dt).reshape(())
-        y = w * yb + (1.0 - w) * yp
+        return segment(self, self._final_head, w * yb + (1.0 - w) * yp)
 
+    def _bilinear_branch(self, y):
+        _, up_conv, up_norm, _ = self.final_up_bilinear
+        up_w = up_conv.weight.to(self.dtype, memory_format=CL)
+        return _gn_leaky(conv3x3(_upsample2(y), up_w), up_norm)
+
+    def _final_head(self, y):
+        dt = self.dtype
         conv1, norm, _, conv2 = self.final_conv
         y = _gn_leaky(conv3x3(y.contiguous(memory_format=CL),
                               conv1.weight.to(dt, memory_format=CL)), norm)

@@ -18,6 +18,9 @@ Every GroupNorm+LeakyReLU (17 in the backbone, 3 here: 20 a forward) runs
 kernel B1 (``kernels.group_norm_leaky``); no conv has the narrow Cout at
 2H x 2W that kernel B3 serves, so all convs are ``F.conv2d``. Not weight-
 compatible with the unet (use ``unet`` for reference checkpoints).
+``remat=True`` recomputes, in the backward, the blocks the JAX package
+wraps in ``nn.remat``: the backbone's, both branches and the head
+(``models/unet.segment``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch.nn as nn
 from mri_superresolution_torch.models.unet import (CL, DoubleConv, Down, Up,
                                                    _conv, _conv3, _gn_leaky,
                                                    _norm, backbone, icnr_,
-                                                   kaiming_init_)
+                                                   kaiming_init_, segment)
 from mri_superresolution_torch.ops.functional import pixel_shuffle
 
 
@@ -39,10 +42,11 @@ class UNetSuperResTPU(nn.Module):
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 32, initial_alpha: float = 0.0,
                  icnr_init: bool = True, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, remat: bool = False):
         super().__init__()
         f = base_filters
         self.dtype = dtype
+        self.remat = remat
         self.inc = DoubleConv(in_channels, f)
         self.down1 = Down(f, f * 2)
         self.down2 = Down(f * 2, f * 4)
@@ -68,14 +72,24 @@ class UNetSuperResTPU(nn.Module):
         dt = self.dtype
         y = backbone(self, x.permute(0, 3, 1, 2).to(dt).contiguous(
             memory_format=CL), dt)
-        a = _gn_leaky(_conv(y, self.branch_a_conv.weight, dt, padding=1),
-                      self.branch_a_norm)
-        b = _gn_leaky(_conv(y, self.branch_b_conv.weight, dt,
-                            self.branch_b_conv.bias, padding=1),
-                      self.branch_b_norm)
+        a = segment(self, self._branch_a, y)
+        b = segment(self, self._branch_b, y)
         w = torch.sigmoid(self.alpha).to(dt).reshape(())
-        y = (w * a + (1.0 - w) * b).contiguous(memory_format=CL)
-        y = _gn_leaky(_conv(y, self.head_conv.weight, dt, padding=1),
+        return segment(self, self._head, w * a + (1.0 - w) * b)
+
+    def _branch_a(self, y):
+        return _gn_leaky(_conv(y, self.branch_a_conv.weight, self.dtype,
+                               padding=1), self.branch_a_norm)
+
+    def _branch_b(self, y):
+        return _gn_leaky(_conv(y, self.branch_b_conv.weight, self.dtype,
+                               self.branch_b_conv.bias, padding=1),
+                         self.branch_b_norm)
+
+    def _head(self, y):
+        dt = self.dtype
+        y = _gn_leaky(_conv(y.contiguous(memory_format=CL),
+                            self.head_conv.weight, dt, padding=1),
                       self.head_norm)
         y = _conv(y, self.head_out.weight, dt, self.head_out.bias)
         y = pixel_shuffle(y, 2)

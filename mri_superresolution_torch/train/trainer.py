@@ -29,10 +29,18 @@ build_fakequant_forward``): a running per-site activation range
 statistic as an EMA (``qat_decay``); validation, the plateau, early
 stopping and best-model selection score that forward; every checkpoint
 stores the range and writes the frozen scales beside it
-(``<base>.calib.json``), which ``load_engine`` serves int8 with. The
-JAX trainer's mesh, multi-host, spatial sharding, ZeRO-1, remat and
-profiler are not ported: :func:`check_supported` names the ROADMAP item
-that ports each.
+(``<base>.calib.json``), which ``load_engine`` serves int8 with.
+
+``--remat`` builds the model with the JAX package's remat blocks
+recomputed in the backward (``models/unet.segment``) and checkpoints the
+perceptual term's VGG19 features (``losses/combined.compose_loss``); the
+update is the same bits as without it. Under ``--qat`` the fake-quant
+forward is functional, so only the loss-side checkpoint applies, as in
+JAX. ``--profile_dir`` traces one epoch with ``torch.profiler`` (CPU and
+CUDA activities) into a Chrome trace there, the epoch the JAX trainer
+traces: ``min(start_epoch + 1, epochs - 1)``, its validation included.
+The JAX trainer's mesh, multi-host, spatial sharding and ZeRO-1 are not
+ported: :func:`check_supported` names the ROADMAP item that ports each.
 """
 
 from __future__ import annotations
@@ -92,9 +100,7 @@ def check_supported(cfg: TrainConfig) -> None:
     later = [
         (cfg.spatial_shards > 1, "--spatial_shards > 1", "A14"),
         (cfg.opt_shard, "--opt_shard (ZeRO-1)", "A14"),
-        (cfg.remat, "--remat", "A14"),
         (cfg.num_data_devices > 1, "--num_devices > 1", "A14"),
-        (cfg.profile_dir is not None, "--profile_dir", "A14"),
     ]
     for on, what, item in later:
         if on:
@@ -418,6 +424,34 @@ def load_vgg(cfg: TrainConfig, device) -> Optional[vgg_mod.VGG19Features]:
         params, cfg.loss.vgg_layer_idx).to(device)
 
 
+def start_profiler(dev: torch.device):
+    """A started ``torch.profiler`` of the CPU and, on the card, CUDA
+    activities; None where it cannot start (logged, as the JAX trainer
+    logs a backend that cannot trace)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+    except Exception as e:  # reported; training goes on untraced
+        log_message(f"Profiler unavailable on this backend: {e}")
+        return None
+    return prof
+
+
+def stop_profiler(prof, profile_dir: str, epoch: int) -> None:
+    """Stop ``prof`` and write its Chrome trace
+    (``<profile_dir>/trace_epoch<epoch>.json``)."""
+    try:
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(profile_dir, f"trace_epoch{epoch}.json"))
+        log_message(f"Wrote profiler trace to {profile_dir}")
+    except Exception as e:  # reported; the run's results stand
+        log_message(f"Profiler stop failed: {e}")
+
+
 def _meta_step(base: str) -> int:
     """Optimizer step count from a checkpoint's JSON sidecar; -1 when the
     pair is absent or unreadable (never resumed from)."""
@@ -499,9 +533,10 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
 
     # --- model / loss / optimizer ---
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    # remat: the same parameters, so checkpoints do not depend on it
     model = build_model(cfg.model, dtype=dtype,
-                        generator=torch.Generator().manual_seed(cfg.seed)
-                        ).to(dev)
+                        generator=torch.Generator().manual_seed(cfg.seed),
+                        remat=cfg.remat).to(dev)
     if not 0.0 <= cfg.ema_decay < 1.0:
         raise ValueError(f"ema_decay must be in [0, 1), got {cfg.ema_decay}")
     ema_on = cfg.ema_decay > 0.0
@@ -525,6 +560,10 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
             f"score the quantized forward; checkpoints export a frozen "
             f"calibration sidecar (<checkpoint>.calib.json) — serve with "
             f"--quant int8 (the sidecar is found beside the checkpoint)")
+        if cfg.remat:
+            log_message("QAT + remat: the fake-quant forward is functional, "
+                        "so the model-side remat segments do not apply; the "
+                        "loss-graph checkpoint still does")
     optimizer = make_optimizer(model.parameters(), cfg.learning_rate,
                                cfg.weight_decay)
     state = TrainState(model, optimizer, 0, None)
@@ -631,7 +670,7 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
             def qat_serving_calib(ema):
                 return calib(ema, calib_x)
 
-    loss_fn = CombinedLoss(cfg.loss, load_vgg(cfg, dev))
+    loss_fn = CombinedLoss(cfg.loss, load_vgg(cfg, dev), remat=cfg.remat)
     train_step = build_train_step(loss_fn, cfg.augment, cfg.grad_accum,
                                   cfg.ema_decay, qat_fwd, cfg.qat_decay)
     eval_step = build_eval_step(model, loss_fn, qat_fwd)
@@ -714,8 +753,13 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                     if qat_serving_calib is not None
                     and start_epoch >= cfg.epochs else None)
     grids = True
+    profiler = None
+    if cfg.profile_dir:
+        os.makedirs(cfg.profile_dir, exist_ok=True)
     epoch = start_epoch - 1
     for epoch in range(start_epoch, cfg.epochs):
+        if cfg.profile_dir and epoch == min(start_epoch + 1, cfg.epochs - 1):
+            profiler = start_profiler(dev)
         epoch_start = time.time()
         # metrics stay on the device until the epoch's end; only the
         # sparse batch_update lines synchronize
@@ -796,6 +840,10 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                 log_message(f"Saved best model with validation loss: "
                             f"{val_loss:.6f}")
             final_val_loss, final_val_ssim = val_loss, val_ssim
+
+        if profiler is not None:
+            stop_profiler(profiler, cfg.profile_dir, epoch)
+            profiler = None
 
         elapsed = time.time() - epoch_start
         # a mid-epoch-resumed epoch only ran its remaining batches

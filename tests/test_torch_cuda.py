@@ -1220,3 +1220,63 @@ def test_metric_suites_launch_b2_once_per_batch(dev):
     for g, w in zip(got, want):
         for k in w:
             assert g[k] == pytest.approx(w[k], rel=1e-5)
+
+
+def test_method_metrics_of_a_pair_are_one_b2_launch(dev):
+    """The eval CLIs' metrics of the four methods of one pair (256^2):
+    one ``metric_suites`` call over their (4, H, W) stack, one launch of
+    B2, each method's values within rtol 1e-5 of the CPU port's."""
+    from mri_superresolution_torch.cli.test_comparison import method_metrics
+    rng = np.random.default_rng(1)
+    hr = rng.random((256, 256), np.float32)
+    ups = {m: np.clip(hr + s * rng.standard_normal(hr.shape), 0, 1).astype(
+        np.float32) for m, s in (("AI Model", 0.02), ("Bilinear", 0.05),
+                                 ("Sharp Bilinear", 0.08),
+                                 ("Bicubic", 0.04))}
+    kernels.reset_launch_counts()
+    got = method_metrics(ups, hr, dev)
+    assert kernels.launch_counts()["ssim_per_sample"] == 1
+    want = method_metrics(ups, hr, torch.device("cpu"))
+    assert list(got) == list(want) == list(ups)
+    for m, w in want.items():
+        for k in w:
+            assert got[m][k] == pytest.approx(w[k], rel=1e-5), (m, k)
+
+
+def test_remat_step_is_bit_equal_on_card_with_its_launches(dev):
+    """Two bf16 unet steps (base filters 32, batch 2 of 64^2) with
+    ``remat`` give the parameters of the steps without it bit for bit; a
+    step launches B1 and B3 twice over (every site's forward again in the
+    backward), B1's backward and B2 once."""
+    from mri_superresolution_torch.config import LossConfig
+    from mri_superresolution_torch.losses import CombinedLoss
+    from mri_superresolution_torch.train import trainer
+    rng = np.random.default_rng(2)
+    batch = {"lr": torch.from_numpy(phantom_batch(rng, 2, 64)[..., None]),
+             "hr": torch.from_numpy(phantom_batch(rng, 2, 128)[..., None]),
+             "weight": torch.ones(2)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    out = {}
+    for remat in (False, True):
+        model = build_model(ModelConfig(base_filters=32),
+                            dtype=torch.bfloat16,
+                            generator=torch.Generator().manual_seed(0),
+                            remat=remat).to(dev)
+        state = trainer.TrainState(model, trainer.make_optimizer(
+            model.parameters(), 1e-4, 1e-5))
+        step = trainer.build_train_step(CombinedLoss(LossConfig()))
+        kernels.reset_launch_counts()
+        step(state, batch, 1e-4)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        step(state, batch, 1e-4)
+        out[remat] = (counts, {k: v.clone() for k, v in
+                               model.state_dict().items()})
+    assert out[False][0] == {"group_norm_leaky": 20,
+                             "group_norm_leaky_backward": 20, "conv3x3": 2,
+                             "ssim_per_sample": 1}
+    assert out[True][0] == {"group_norm_leaky": 40,
+                            "group_norm_leaky_backward": 20, "conv3x3": 4,
+                            "ssim_per_sample": 1}
+    for k, v in out[False][1].items():
+        assert torch.equal(v, out[True][1][k]), k

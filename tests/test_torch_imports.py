@@ -1,6 +1,8 @@
 """Importing any module of the port, or ``chip_smoke.py``, must pull in
 nothing of JAX or of the repo's ``tools/``, initialise no CUDA context and
-import no triton (kernels build at first use)."""
+import no triton (kernels build at first use). Nor pandas or psutil, which
+the card's machine may lack, nor matplotlib, which only the figure
+functions import."""
 
 import os
 import subprocess
@@ -17,7 +19,8 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tools",
-                                    "mri_superresolution_tpu", "triton"))
+                                    "mri_superresolution_tpu", "triton",
+                                    "pandas", "psutil", "matplotlib"))
 assert not bad, bad
 assert not torch.cuda.is_initialized()
 print("OK", " ".join(names), len(names))
@@ -37,5 +40,11 @@ def test_port_imports_are_clean():
     walked = set(r.stdout.split())
     for name in ("cli.extract", "data.extraction", "ops.kspace",
                  "ops.pipeline", "evalsuite.baselines", "tools.quality",
-                 "infer.server", "cli.serve"):
+                 "infer.server", "cli.serve", "cli.evaluate",
+                 "cli.test_comparison", "cli.test_model",
+                 "cli.compare_ssim_detailed", "cli.test_ssim_weights",
+                 "cli.visualise_res", "cli.ui", "evalsuite.resolution",
+                 "tools.export_torch_checkpoint",
+                 "tools.convert_torch_checkpoint", "utils.figures",
+                 "utils.subproc"):
         assert f"mri_superresolution_torch.{name}" in walked
