@@ -229,7 +229,38 @@ the last line is printed:
    slice at the bf16 budget against the artifact, exit 0 on SIGTERM);
    the card-made artifact on the CPU against the CPU port at the bf16
    budget.
-14. the ``kernels`` JSON line, the card's name and power limit, and the
+14. data parallelism and ``phase_final`` (``dp_phase_path``): (a) the
+   train CLI as the training phase ran it, with ``--multihost
+   --coordinator 127.0.0.1:<port> --num_processes 1 --process_id 0
+   --opt_shard``: NCCL on the card at a world of one, every collective
+   run, the checkpoints' SHA-256 those of the training phase's plain run;
+   (b) two rank processes on ``cuda:0`` over gloo (asked for by name:
+   NCCL refuses two ranks on one device) through
+   ``tools/dp_step.run_rank`` at the training batch (8 of 128^2, 4 a
+   rank): bf16 the same bits as the ranks run as threads of this process
+   (each rank's rows at its batch, the fp32 partial gradients added),
+   ``--opt_shard`` the replicated update's bits, the ranks' params
+   bit-identical, fp32 (TF32 off) within 1e-5 relative L2 a tensor of one
+   process on the same rows at the ranks' batch of 4, and its gradient
+   within 2x that process's own gap to one on the global batch of 8
+   (cuDNN's fp32 convs differ between the batch sizes), one rank-step's
+   launches (B1 20, backward
+   20, B3 2, B2 1), step and all-reduce ms a rank ("gloo, one card, not
+   representative"); (c) ``InferenceEngine(devices=[cuda:0, cuda:0])``
+   at 16 x 256^2 in bf16, frozen int8 and TTA: each half bit-equal to the
+   one-device engine at batch 8, launches a chunk B1 20 and B3 2 (int8:
+   B1 13, gn_quantize 7, B4 13; TTA eight times B1 20 and B3 2); (d)
+   ``UNetSuperRes(phase_final=True)`` at full width on 16 x 256^2: fp32
+   within rtol 1e-4 (atol 1e-5) of the dense forward, bf16 at the bf16
+   budget against it and against the CPU port's phase_final (two
+   slices), B1 19 launches a forward (its two aligned phase norms at
+   C = 64 among them) and no B3, forward ms beside the dense forward's.
+   Every kernel is first held against its plain version at the shapes
+   this phase adds: B1 and B3 at a rank's batch (4 of 128^2) and a
+   device's chunk (8 of 256^2), B1's backward and B2 (4 of 256^2) at a
+   rank's batch, B4 and its fused route at a chunk's 20 sites, B1 in
+   fp32 at the phase_final forward's five shapes.
+15. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -250,7 +281,10 @@ the last line is printed:
    two train CLI runs' (``qat_launches``), the serving phase's three
    in-process daemons' (``serve_launches``) and the artifact phase's
    (``artifact_launches``: a plain and an int8 batch and the volume
-   through the raw artifact), the eval phase's (``eval_launches``), and
+   through the raw artifact), the eval phase's (``eval_launches``), the
+   data-parallel phase's (``dp_launches``: the world-of-one training run,
+   both ranks' checked step and the two-device engine's three batches)
+   and ``phase_final``'s two forwards (``phase_launches``), and
    B1's
    and its backward's rows their C = 64 times (``c64``). A ``wall`` line
    before it gives the script's seconds.
@@ -328,7 +362,9 @@ from mri_superresolution_torch.ops.normalize import normalize_slices
 from mri_superresolution_torch.ops.quant import FOREGROUND_INTENSITY
 from mri_superresolution_torch.ops.ssim import ssim
 from mri_superresolution_torch.losses import CombinedLoss
+from mri_superresolution_torch.parallel import multihost as multihost_mod
 from mri_superresolution_torch.tools import (convert_torch_checkpoint,
+                                             dp_step,
                                              export_torch_checkpoint,
                                              grad_gap, quality, roll_probe)
 from mri_superresolution_torch.tools.profile_step import trace_calls
@@ -414,7 +450,8 @@ EXTRACT_EPOCHS = 20
 # eval phase's: the four methods of a pair (cli.evaluate,
 # cli.test_comparison), bicubic and the model of a qualitative figure, and
 # one image (cli.test_model's calculate_metrics)
-B2_CHECK_SHAPES = ((8, 256, 256), (EXTRACT_VOLUMES["test"] * EXTRACT_SLICES,
+B2_CHECK_SHAPES = ((8, 256, 256), (4, 256, 256),    # 2 ranks of the 8
+                   (EXTRACT_VOLUMES["test"] * EXTRACT_SLICES,
                                    EXTRACT_TARGET, EXTRACT_TARGET),
                    (4, EXTRACT_TARGET, EXTRACT_TARGET),
                    (2, EXTRACT_TARGET, EXTRACT_TARGET),
@@ -669,14 +706,16 @@ def check_b3(dev, gen) -> dict:
     return {**tot, "max_abs_err": worst, "bound_by": bound_by}
 
 
-def device_kernels(fn, tries: int = 3) -> list:
+def device_kernels(fn, tries: int = 8) -> list:
     """Names of the device kernels one call of ``fn`` runs, from
     ``torch.profiler``. Now and then the profiler records no device event
-    at all for a call (seen once in a run on the H100 machine, for B2); a
-    trace with none is taken again, each on one call of its own, up to
-    ``tries`` times."""
+    at all for a call (seen on the H100 machine for B2, and for B1's
+    backward three traces in a row); a trace with none is taken again,
+    each on one call of its own after a pause, up to ``tries`` times."""
     names = []
-    for _ in range(tries):
+    for i in range(tries):
+        if i:
+            time.sleep(0.2 * i)
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1553,7 +1592,7 @@ def _volume_times(dev, cfg, params, stack, vol, res, engine, eng_b,
         return lambda: [engine._upload(b) for b in paged]
 
     def fetch_ms(eng, bs):
-        ys = [eng._dispatch_once(b) for b in bs]
+        ys = [eng._dispatch_once(b)[0] for b in bs]   # one device
         torch.cuda.synchronize()
         return host_ms(lambda: [eng._collect(eng._start_fetch(y))
                                 for y in ys])
@@ -4507,6 +4546,347 @@ def perceptual_path(dev) -> dict:
             "gate": gate}
 
 
+# ------------------------------------------------ data parallel + phase
+
+DP_DIR = SCALES_PATH.parent / "dp"
+DP_RANK_BATCH = TRAIN_BATCH // 2     # a rank's rows of the training batch
+DP_CHUNK = BATCH // 2                # a device's chunk of the serving batch
+DP_TIME_STEPS = 5
+DP_GLOO_NOTE = "gloo, one card, not representative"
+
+
+def _b1_fp32_check(shape, dev, gen, served_by: str) -> float:
+    """B1 in fp32 at ``shape`` through its wrapper against the plain
+    version (rtol and atol 1e-5, tests/test_torch_cuda.py's fp32 gate),
+    and run to run."""
+    x = torch.randn(shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    g = torch.randn(shape[1], generator=gen, device=dev)
+    b = torch.randn(shape[1], generator=gen, device=dev)
+    got = group_norm_leaky(x, g, b)
+    ok, err = within(got, group_norm_leaky_plain(x, g, b), 1e-5, 1e-5)
+    same = torch.equal(got, group_norm_leaky(x, g, b))
+    log("kernel_check", kernel="B1", route="wrapper", shape=list(shape),
+        served_by=served_by, dtype="fp32", max_abs_err=err, rtol=1e-5,
+        atol=1e-5, run_to_run_equal=same, ok=ok)
+    if not (ok and same):
+        raise AssertionError(f"B1 (fp32) disagrees with its plain version "
+                             f"at {shape} ({err}) or from run to run")
+    return err
+
+
+def check_dp_phase_kernels(dev, gen) -> None:
+    """Every kernel against its plain version at the shapes the
+    data-parallel and phase_final phase adds: B1 (both routes) and B3 at a
+    rank's batch and a device's chunk, B1's backward at a rank's batch
+    (B2's (4, 256^2) is in ``B2_CHECK_SHAPES``), B4 and its fused route at
+    a chunk's 20 int8 sites, and B1 in fp32 at the five shapes of the
+    phase_final forward (its C = 64 phase norms in bf16 are C64_FWD's)."""
+    f = BASE_FILTERS
+    for n, lr, by in ((DP_RANK_BATCH, TRAIN_LR, "dp rank step"),
+                      (DP_CHUNK, LR, "dp engine chunk")):
+        for shape, _ in gn_sites(n, lr, f):
+            b1_check(*b1_inputs(shape, dev, gen), by)
+        for ci, co in ((f, f // 2), (f // 2, f // 2)):
+            b3_check(*b3_inputs(n, ci, co, 2 * lr, dev, gen), by)
+    check_b1_backward_sites(dev, gen, DP_RANK_BATCH, TRAIN_LR, "dp rank step")
+    for site, shape, slope in b4_sites(DP_CHUNK, LR, f):
+        b4_site_check(site, shape, slope, dev, gen)
+        if slope != 1.0:
+            fused_site_check(site, shape, slope, dev, gen)
+    for shape in [s for s, _ in gn_sites(BATCH, LR, f)[:4]] + \
+            [(BATCH, 2 * f, LR, LR)]:
+        _b1_fp32_check(shape, dev, gen, "phase_final fp32 forward")
+
+
+def _dp_world1_nccl(trained: dict) -> dict:
+    """The train CLI as the training phase ran it, as host 0 of a job of
+    one (NCCL on the card) with ZeRO-1: the same checkpoint bytes."""
+    ck = DP_DIR / "ckpt_world1"
+    port = multihost_mod.free_port()
+    run = _train_cli(ck, ["--multihost", "--coordinator",
+                          f"127.0.0.1:{port}", "--num_processes", "1",
+                          "--process_id", "0", "--opt_shard"],
+                     epochs=TRAIN_EPOCHS)
+    digests = _ckpt_digests(ck)
+    lines = [ln.get("message", "") for v in run["by_type"].values()
+             for ln in v]
+    zero1 = any("ZeRO-1 optimizer-state sharding" in m for m in lines)
+    group = [re.search(r"\((nccl|gloo)\)", m) for m in lines
+             if m.startswith("Multi-host training:")]
+    backend = group[0].group(1) if group and group[0] else None
+    params = run["by_type"].get("params", [{}])[0]
+    log("dp_world1_nccl", backend=backend, world=1, opt_shard=True,
+        seconds=run["seconds"], launches=run["launches"],
+        expected=run["expected"], checkpoints=digests,
+        plain_run=trained["digests"], zero1_logged=zero1,
+        num_devices=params.get("num_devices"))
+    if digests != trained["digests"] or run["launches"] != run["expected"] \
+            or not zero1 or params.get("num_devices") != 1 or \
+            backend != "nccl":
+        raise AssertionError(f"NCCL world of one ({backend}): checkpoints "
+                             f"{digests} "
+                             f"against the plain run's "
+                             f"{trained['digests']}, launches "
+                             f"{run['launches']} (expected "
+                             f"{run['expected']}), ZeRO-1 line {zero1}")
+    return run["launches"]
+
+
+def _drawn_zeros(sd: dict, seed: int) -> dict:
+    """``sd`` with its all-zero tensors (biases, alpha) drawn from N(0,
+    0.05): from zero a tensor's relative L2 after Adam's first step is its
+    update's alone, which moves by a large share wherever a gradient is
+    near eps."""
+    g = torch.Generator().manual_seed(seed)
+    return {k: (v if bool(v.any()) else
+                0.05 * torch.randn(v.shape, generator=g))
+            for k, v in sd.items()}
+
+
+def _rel_max(a: dict, b: dict) -> tuple:
+    return max((float((a[k].double() - b[k].double()).norm()
+                      / b[k].double().norm().clamp_min(1e-30)), k)
+               for k in b)
+
+
+def _dp_two_ranks(dev) -> dict:
+    """Two rank processes on cuda:0 over gloo through
+    ``tools/dp_step.run_rank`` at the training batch: bf16 against the
+    same ranks as threads of this process (bits), ZeRO-1 against the
+    replicated update (bits), the ranks' copies (bits); fp32 (TF32 off)
+    within 1e-5 relative L2 a tensor of one process that runs the same
+    rows at the ranks' batch of 4 (``grad_accum`` 2), params and first
+    moments; the gap to one process on the global batch of 8 is logged
+    beside that process's own gap between its batches of 4 and of 8,
+    with the parameter elements whose first Adam step, lr times the
+    gradient's sign where it is not near 0, went the other way (moved
+    by more than lr / 2); one rank-step's launches; step and all-reduce
+    ms a rank."""
+    sd = _drawn_zeros(build_model(
+        ModelConfig(base_filters=BASE_FILTERS),
+        generator=torch.Generator().manual_seed(TRAIN_SEED)).state_dict(), 1)
+    batch = {k: v.cpu().numpy() for k, v in
+             _train_batch("cpu", TRAIN_BATCH, TRAIN_LR).items()}
+
+    def case(name, **kw):
+        return {"name": name, "model": {"base_filters": BASE_FILTERS},
+                "state_dict": sd, "batch": batch, "lr": 1e-4,
+                "weight_decay": 1e-5, "dtype": "bfloat16", **kw}
+
+    cases = [case("bf16", time_steps=DP_TIME_STEPS),
+             case("bf16_zero1", opt_shard=True),
+             case("fp32", dtype="float32")]
+    out = DP_DIR / "ranks"
+    out.mkdir(parents=True)
+    torch.save({"cases": cases, "allow_tf32": False}, out / "spec.pt")
+    t0 = time.perf_counter()
+    rc = multihost_mod.launch(
+        "mri_superresolution_torch.tools.dp_step:run_rank",
+        [str(out / "spec.pt"), str(out)], [dev, dev],
+        f"127.0.0.1:{multihost_mod.free_port()}", 2, backend="gloo")
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the two gloo ranks on one card exited {rc}")
+    res = {c["name"]: [torch.load(out / f"{c['name']}.rank{r}.pt",
+                                  weights_only=False) for r in (0, 1)]
+           for c in cases}
+    threads = dp_step.run_threads(cases[0], 2, dev)
+    alone = dp_step.run_case(cases[2], dev)
+    alone4 = dp_step.run_case(dict(cases[2], grad_accum=2), dev)
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in b)
+
+    r0 = res["bf16"][0]
+    checks = {
+        "ranks_equal": all(same(res[n][0]["params"], res[n][1]["params"])
+                           for n in res),
+        "threads_equal": all(same(threads[r]["params"],
+                                  res["bf16"][r]["params"])
+                             and same(threads[r]["adam"]["nu"],
+                                      res["bf16"][r]["adam"]["nu"])
+                             for r in (0, 1)),
+        "zero1_equal": same(res["bf16_zero1"][0]["params"], r0["params"])
+        and same(res["bf16_zero1"][0]["adam"]["mu"], r0["adam"]["mu"])
+        and same(res["bf16_zero1"][0]["adam"]["nu"], r0["adam"]["nu"])}
+    fp32 = res["fp32"][0]
+    gaps = {"vs_batch4_params": _rel_max(fp32["params"], alone4["params"]),
+            "vs_batch4_mu": _rel_max(fp32["adam"]["mu"], alone4["adam"]["mu"]),
+            "vs_batch8_params": _rel_max(fp32["params"], alone["params"]),
+            "vs_batch8_mu": _rel_max(fp32["adam"]["mu"], alone["adam"]["mu"]),
+            "control_batch4_vs_8_mu": _rel_max(alone4["adam"]["mu"],
+                                               alone["adam"]["mu"]),
+            "control_batch4_vs_8_params": _rel_max(alone4["params"],
+                                                   alone["params"])}
+    fp32_ok = (gaps["vs_batch4_params"][0] <= 1e-5
+               and gaps["vs_batch4_mu"][0] <= 1e-5)
+    lr = cases[2]["lr"]
+    flips = {k: int(((fp32["params"][k].double()
+                      - alone["params"][k].double()).abs() > lr / 2).sum())
+             for k in alone["params"]}
+    flips = {k: n for k, n in flips.items() if n}
+    want = {"group_norm_leaky": 20, "group_norm_leaky_backward": 20,
+            "conv3x3": 2, "ssim_per_sample": 1}
+    launches = [res[n][r]["launches"] for n in ("bf16", "fp32")
+                for r in (0, 1)]
+    share = res["bf16_zero1"][0]["moment_bytes"] / r0["moment_bytes"]
+    log("dp_two_ranks_one_card", backend=r0["backend"], ranks=2,
+        device=str(dev), batch=TRAIN_BATCH, rank_batch=DP_RANK_BATCH,
+        lr=[TRAIN_LR, TRAIN_LR], **checks,
+        fp32_rel_l2={k: v[0] for k, v in gaps.items()},
+        fp32_rel_l2_tensor={k: v[1] for k, v in gaps.items()},
+        fp32_ok=fp32_ok, fp32_vs_batch8_sign_flips=flips,
+        zero1_moment_share=share, rank_step_launches=launches,
+        step_ms=[res["bf16"][r]["step_ms"] for r in (0, 1)],
+        allreduce_ms=[res["bf16"][r]["allreduce_ms"] for r in (0, 1)],
+        allreduce_bytes=r0["allreduce_bytes"], seconds=seconds,
+        timing=f"{DP_GLOO_NOTE}: host clock around {DP_TIME_STEPS} bf16 "
+               f"steps after one, and around {DP_TIME_STEPS} all-reduces "
+               f"of the fp32 gradient bucket alone, each synchronized")
+    if not all(checks.values()) or not fp32_ok or \
+            any(c != want for c in launches) or not 0.5 <= share <= 0.52:
+        raise AssertionError(f"two ranks on one card: {checks}, fp32 "
+                             f"{gaps}, launches {launches}, ZeRO-1 "
+                             f"moment share {share}")
+    total = {}
+    for n in ("bf16", "fp32", "bf16_zero1"):
+        for r in (0, 1):
+            _add(total, res[n][r]["launches"])
+    return {"launches": total,
+            "step_ms": [res["bf16"][r]["step_ms"] for r in (0, 1)],
+            "allreduce_ms": [res["bf16"][r]["allreduce_ms"] for r in (0, 1)]}
+
+
+def _dp_engine(dev, cfg, params, lr) -> dict:
+    """``InferenceEngine(devices=[cuda:0, cuda:0])`` on the serving batch
+    in bf16, frozen int8 and TTA: each half bit-equal to the one-device
+    engine's batch of 8, the launches two chunks make."""
+    path = DP_DIR / "scales.json"
+    one = InferenceEngine(cfg, params, device=dev)
+    x = torch.from_numpy(lr[..., None]).to(dev)
+    quant_forward.save_scales(str(path), quant_forward.calibrate(
+        one._params, [x], "unet", torch.bfloat16), "unet")
+    chunk = {"bf16": {"group_norm_leaky": 20, "conv3x3": 2},
+             "int8": {"group_norm_leaky": 13, "gn_quantize": 7,
+                      "leaky_quantize": 13},
+             "tta": {"group_norm_leaky": 160, "conv3x3": 16}}
+    modes = {"bf16": {}, "int8": {"quant": "int8",
+                                  "quant_calib_path": str(path)},
+             "tta": {"tta": True}}
+    total, out = {}, {}
+    for mode, kw in modes.items():
+        two = InferenceEngine(cfg, params, devices=[dev, dev], **kw)
+        ref = InferenceEngine(cfg, params, device=dev, **kw)
+        two.upscale_batch(lr[:2])                         # warm
+        before = dict(two._quant_batches)
+        kernels.reset_launch_counts()
+        got = two.upscale_batch(lr)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        routed = {k: v - before[k] for k, v in two._quant_batches.items()}
+        _add(total, counts)
+        halves = [ref.upscale_batch(lr[:DP_CHUNK]),
+                  ref.upscale_batch(lr[DP_CHUNK:])]
+        equal = [bool(np.array_equal(got[i * DP_CHUNK:(i + 1) * DP_CHUNK],
+                                     h)) for i, h in enumerate(halves)]
+        want = {k: 2 * v for k, v in chunk[mode].items()}
+        ms_two = cuda_ms(lambda: two.upscale_batch(lr), iters=5, warmup=1)
+        ms_one = cuda_ms(lambda: ref.upscale_batch(lr), iters=5, warmup=1)
+        out[mode] = {"two_devices_ms": ms_two, "one_device_ms": ms_one}
+        log("dp_engine", mode=mode, devices=[str(dev)] * 2,
+            slices=len(lr), chunk=DP_CHUNK, hw=[LR, LR],
+            halves_bit_equal=equal, launches=counts, expected=want,
+            quant_batches=routed if mode == "int8" else None,
+            two_devices_ms=ms_two, one_device_ms=ms_one,
+            timing="CUDA events around 5 upscale_batch calls after 1, "
+                   "upload and fetch included; one card named twice, so "
+                   "the two chunks share its SMs")
+        if not all(equal) or counts != want or (
+                mode == "int8" and routed != {"int8": 1, "bf16": 0}):
+            raise AssertionError(f"two-device engine ({mode}): halves "
+                                 f"equal {equal}, launches {counts} "
+                                 f"(expected {want})")
+    return {"launches": total, "ms": out}
+
+
+def _phase_final(dev, params, lr, hr) -> dict:
+    """The full-width unet with ``phase_final`` on the serving batch, fp32
+    and bf16, against the dense forward on the card (fp32: rtol 1e-4,
+    atol 1e-5; bf16: the bf16 budget against the ground truth) and the
+    CPU port's phase_final (two slices, bf16 budget); B1 19 launches a
+    forward, B3 none; forward ms beside the dense forward's."""
+    from mri_superresolution_torch.models.unet import UNetSuperRes
+    x = torch.from_numpy(lr[..., None]).to(dev)
+    gt = hr
+    res, launches = {}, {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        models = {}
+        for pf in (True, False):
+            m = UNetSuperRes(base_filters=BASE_FILTERS, dtype=dt,
+                             phase_final=pf)
+            m.load_state_dict(params)
+            models[pf] = m.to(dev).eval()
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            got = models[True](x)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            _add(launches, counts)
+            dense = models[False](x)
+            ms = cuda_ms(lambda: models[True](x), iters=10, warmup=2)
+            dense_ms = cuda_ms(lambda: models[False](x), iters=10, warmup=2)
+        g, d = got[..., 0].float().cpu().numpy(), dense[..., 0].float().cpu(
+            ).numpy()
+        if name == "fp32":
+            ok, err = within(got, dense, 1e-4, 1e-5)
+            gate = {"max_abs_err": err, "rtol": 1e-4, "atol": 1e-5}
+        else:
+            qa, qb = _quality(g, gt), _quality(d, gt)
+            ok = _budget_quiet(qa, qb)["ok"]
+            cpu = UNetSuperRes(base_filters=BASE_FILTERS, dtype=dt,
+                               phase_final=True)
+            cpu.load_state_dict(params)
+            with torch.no_grad():
+                c = cpu(torch.from_numpy(lr[:2, ..., None]))[..., 0].numpy()
+            qc, qg = _quality(c, gt[:2]), _quality(g[:2], gt[:2])
+            cpu_gate = _budget_quiet(qg, qc)
+            ok = ok and cpu_gate["ok"]
+            gate = {"card_phase": qa, "card_dense": qb,
+                    "card_vs_cpu_port": cpu_gate}
+        log("phase_final", dtype=name, batch=len(lr), lr=[LR, LR],
+            launches=counts, forward_ms=ms, dense_forward_ms=dense_ms,
+            ok=ok, **gate,
+            timing="CUDA events around 10 forwards after 2, input on "
+                   "the card")
+        if not ok or counts != {"group_norm_leaky": 19}:
+            raise AssertionError(f"phase_final ({name}): {gate}, launches "
+                                 f"{counts}")
+        res[name] = {"forward_ms": ms, "dense_forward_ms": dense_ms}
+    return {"launches": launches, "ms": res}
+
+
+def dp_phase_path(dev, cfg, params, lr, hr, trained) -> dict:
+    """Data parallelism on one card (NCCL at a world of one, two gloo
+    ranks, a two-device engine) and the phase_final forward; see the
+    module's phase 14."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    check_dp_phase_kernels(dev, torch.Generator(device=dev).manual_seed(7))
+    t0 = time.perf_counter()
+    launches = {}
+    _add(launches, _dp_world1_nccl(trained))
+    ranks = _dp_two_ranks(dev)
+    _add(launches, ranks["launches"])
+    engine = _dp_engine(dev, cfg, params, lr)
+    _add(launches, engine["launches"])
+    phase = _phase_final(dev, params, lr, hr)
+    log("dp_phase_path", seconds=time.perf_counter() - t0,
+        dp_launches=launches, phase_launches=phase["launches"])
+    return {"launches": launches, "phase_launches": phase["launches"],
+            "ranks": ranks, "engine": engine["ms"], "phase": phase["ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA GPU")
@@ -4563,6 +4943,7 @@ def main(argv=None) -> int:
     probe, counts_probe = probe_path(dev)
     trained = train_path(dev, lr)
     remat_profile_path(dev, trained)
+    dp = dp_phase_path(dev, cfg, params, lr, hr, trained)
     # QAT trains on the training phase's pairs and fine-tunes its
     # checkpoint; the daemon serves the QAT checkpoint
     qat = qat_path(dev, lr, hr)
@@ -4614,6 +4995,8 @@ def main(argv=None) -> int:
         rows[-1]["qat_launches"] = qat["launches"][name]
         rows[-1]["serve_launches"] = served["launches"][name]
         rows[-1]["artifact_launches"] = art["launches"][name]
+        rows[-1]["dp_launches"] = dp["launches"].get(name, 0)
+        rows[-1]["phase_launches"] = dp["phase_launches"].get(name, 0)
         if key in ("B1", "B1 backward"):
             rows[-1]["c64"] = c64["forward" if key == "B1" else "backward"]
         if key == "B2":
@@ -4646,7 +5029,10 @@ def main(argv=None) -> int:
                      "eval_launches": evaluated["launches"][wrapper],
                      "qat_launches": qat["launches"][wrapper],
                      "serve_launches": served["launches"][wrapper],
-                     "artifact_launches": art["launches"][wrapper]})
+                     "artifact_launches": art["launches"][wrapper],
+                     "dp_launches": dp["launches"].get(wrapper, 0),
+                     "phase_launches": dp["phase_launches"].get(wrapper,
+                                                                0)})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

@@ -20,8 +20,10 @@ under the JAX CLI's policy: a flag the artifact exports is satisfied, one
 that conflicts with it exits 1, ``--bucket`` and ``--num_devices`` are
 named as ignored, and a volume whose shape has no program is padded to
 the smallest exported shape that fits, or refused for raw and tta
-artifacts. Flags of serving modes this port does not serve yet exit with
-status 1 and name their ROADMAP item.
+artifacts. ``--num_devices`` (default 0: every visible GPU; with
+``--cpu`` that many CPU devices, 0 = 1) splits each batch over a copy of
+the model on each device. ``--spatial_shards`` > 1 (ROADMAP A14) is not
+ported and exits with status 1, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ def parse_args(argv=None):
     parser.add_argument('--tile', type=int, default=512,
                         help='Use halo-tiled inference above this slice size')
     parser.add_argument('--num_devices', type=int, default=0,
-                        help='Devices to serve on (0 = all; one GPU here)')
+                        help='Devices each batch is split over (0 = every '
+                             'visible GPU; with --cpu, CPU devices, 0 = 1)')
     parser.add_argument('--save_png_dir', type=str, default=None,
                         help='Optionally also dump per-slice PNGs here')
     parser.add_argument('--cpu', action='store_true',
@@ -108,8 +111,6 @@ def unsupported(args) -> list:
     msgs = []
     if args.spatial_shards != 1:
         msgs.append("--spatial_shards > 1 is not ported yet (ROADMAP A14)")
-    if args.num_devices > 1:
-        msgs.append("--num_devices > 1 is not ported yet (ROADMAP A14)")
     return msgs
 
 
@@ -277,6 +278,7 @@ def _load_engine(args, device):
     """The engine the flags ask for, from the checkpoint they name."""
     from mri_superresolution_torch.config import InferConfig, ModelConfig
     from mri_superresolution_torch.infer import load_engine
+    from mri_superresolution_torch.utils.device import pool_args
     return load_engine(
         InferConfig(model=ModelConfig(model_type=args.model_type,
                                       base_filters=args.base_filters),
@@ -289,7 +291,7 @@ def _load_engine(args, device):
                     normalize_inputs=args.serve_raw,
                     transpose_io=args.serve_raw and not args.tta,
                     out_dtype=args.out_dtype),
-        device=device)
+        device=device, **pool_args(args.num_devices, args.cpu))
 
 
 def main(argv=None) -> int:

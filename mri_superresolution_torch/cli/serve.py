@@ -22,9 +22,11 @@ the batcher, and exits 0. ``--artifact`` serves a portable artifact
 policy: a flag the artifact exports is satisfied, one it cannot serve
 (``--quant``, ``--tta``, ``--serve_raw``, ``--out_dtype`` it does not
 export, ``--spatial_shards``, ``--num_devices``) exits 1, and
-``--bucket`` is named as ignored. More than one device
-(``--spatial_shards``, ``--num_devices``: ROADMAP A14) is not ported and
-exits 1.
+``--bucket`` is named as ignored. ``--num_devices`` (default 0: every
+visible GPU; with ``--cpu`` that many CPU devices, 0 = 1) spreads each
+coalesced batch over a copy of the model on each device
+(``InferenceEngine``'s device pool). ``--spatial_shards`` > 1 (ROADMAP
+A14) is not ported and exits 1.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ def parse_args(argv=None):
                          "it)")
     ap.add_argument("--tta", action="store_true")
     ap.add_argument("--num_devices", type=int, default=0,
-                    help="> 1 is not ported yet (ROADMAP A14)")
+                    help="devices a batch is split over (0 = every "
+                         "visible GPU; with --cpu, CPU devices, 0 = 1)")
     ap.add_argument("--serve_raw", action="store_true",
                     help="the engine normalizes on the card: "
                          "/upscale_volume submits the stored voxels, and "
@@ -102,8 +105,6 @@ def unsupported(args) -> list:
     msgs = []
     if args.spatial_shards > 1:
         msgs.append("--spatial_shards > 1 is not ported yet (ROADMAP A14)")
-    if args.num_devices > 1:
-        msgs.append("--num_devices > 1 is not ported yet (ROADMAP A14)")
     return msgs
 
 
@@ -153,6 +154,7 @@ def _backend(args, logger):
         return None, None
     from mri_superresolution_torch.config import InferConfig, ModelConfig
     from mri_superresolution_torch.infer import load_engine
+    from mri_superresolution_torch.utils.device import pool_args
     engine = load_engine(InferConfig(
         model=ModelConfig(model_type=args.model_type,
                           base_filters=args.base_filters),
@@ -164,12 +166,13 @@ def _backend(args, logger):
         # the ensemble's transforms are defined on (N, h, w): raw TTA
         # normalizes on the card in the standard layout
         transpose_io=args.serve_raw and not args.tta,
-        out_dtype=args.out_dtype), device=device)
+        out_dtype=args.out_dtype), device=device,
+        **pool_args(args.num_devices, args.cpu))
     return engine, (f"checkpoint {engine.model_cfg.model_type} "
                     f"bf={engine.model_cfg.base_filters} "
                     f"quant={args.quant} tta={args.tta} "
                     f"raw={args.serve_raw} out={args.out_dtype} "
-                    f"device={engine.device}")
+                    f"device={engine.device} devices={engine.n_devices}")
 
 
 def main(argv=None) -> int:

@@ -11,16 +11,30 @@ writes the same checkpoints and JSON-line protocol (``--qat``: with the
 int8 calibration sidecars). Runs on the card; ``--cpu`` runs on the CPU.
 ``--remat`` recomputes the model's blocks in the backward (the same
 update, less memory); ``--profile_dir`` writes a ``torch.profiler``
-Chrome trace of one epoch. Flags of training modes the port does not run
-yet (``--spatial_shards`` > 1, ``--opt_shard``, ``--multihost``,
-``--num_devices`` > 1) raise an error that names the ROADMAP item that
-ports each.
+Chrome trace of one epoch.
+
+Data parallelism, one process a rank (``parallel/multihost.py``):
+
+- ``--num_devices N`` (N > 1, or 0 with more than one visible GPU)
+  starts N local ranks, rank i on ``cuda:i`` over NCCL; with ``--cpu``
+  N gloo ranks on the CPU. The launcher waits for them and exits
+  non-zero if any rank does;
+- ``--multihost --coordinator host:port --num_processes P --process_id
+  p`` makes this process host p of a job of P; its local ranks take the
+  global ranks ``p * local + i``. Without ``--coordinator`` it reads the
+  variables ``torchrun`` sets and is one rank;
+- ``--opt_shard`` shards Adam's moments over the ranks (ZeRO-1).
+
+With one rank and no ``--multihost`` no process group is made and the run
+is the single-device one. ``--spatial_shards`` > 1 raises an error that
+names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import argparse
 import random
+import sys
 
 
 def parse_args(argv=None):
@@ -72,7 +86,8 @@ def parse_args(argv=None):
                         'microbatches, accumulating fp32 gradients: the '
                         'exact full-batch update')
     p.add_argument('--opt_shard', action='store_true',
-                   help='not ported yet (ROADMAP A14)')
+                   help='ZeRO-1: shard Adam\'s moments over the '
+                        'data-parallel ranks (the same update)')
     p.add_argument('--ema_decay', type=float, default=0.0,
                    help='Polyak average of the weights after each step; '
                         'validation, best-model selection and the '
@@ -91,10 +106,19 @@ def parse_args(argv=None):
                         '--resume restarts inside the epoch '
                         'bit-identically. 0 = off')
     p.add_argument('--multihost', action='store_true',
-                   help='not ported yet (ROADMAP A14)')
-    p.add_argument('--coordinator', type=str, default=None)
-    p.add_argument('--num_processes', type=int, default=None)
-    p.add_argument('--process_id', type=int, default=None)
+                   help='Multi-host data-parallel training: this process '
+                        'is host --process_id of --num_processes, the '
+                        'process group\'s store at --coordinator (host 0 '
+                        'listens there); its --num_devices local ranks '
+                        'join it. Without --coordinator, torchrun\'s '
+                        'variables (one rank a process). Rank 0 owns '
+                        'checkpoints, logs and the stdout protocol')
+    p.add_argument('--coordinator', type=str, default=None,
+                   help='host:port of host 0 (multihost)')
+    p.add_argument('--num_processes', type=int, default=None,
+                   help='number of host processes (multihost)')
+    p.add_argument('--process_id', type=int, default=None,
+                   help='this host process\'s index (multihost)')
     p.add_argument('--seed', type=int, default=random.randint(1, 10000))
     p.add_argument('--augmentation', action='store_true')
     p.add_argument('--use_tensorboard', action='store_true')
@@ -105,7 +129,8 @@ def parse_args(argv=None):
     p.add_argument('--cpu', action='store_true',
                    help='Run on the CPU instead of the GPU')
     p.add_argument('--num_devices', type=int, default=0,
-                   help='> 1 is not ported yet (ROADMAP A14)')
+                   help='Local data-parallel ranks, one a GPU (0 = every '
+                        'visible GPU); with --cpu, ranks on the CPU (0 = 1)')
     p.add_argument('--resume', action='store_true',
                    help='Resume from the final or step checkpoint')
     p.add_argument('--vgg_weights', type=str, default=None)
@@ -148,18 +173,77 @@ def config_from_args(args):
         save_every_steps=args.save_every_steps)
 
 
+def local_devices(args) -> list:
+    """The devices of this process's ranks: ``--num_devices`` GPUs (0 =
+    every visible one, capped at the visible count), or with ``--cpu``
+    that many CPU ranks (0 = 1)."""
+    import torch
+    if args.cpu:
+        return [torch.device("cpu")] * max(1, args.num_devices)
+    n = torch.cuda.device_count()
+    if n == 0:
+        return [torch.device("cuda", 0)]   # the trainer raises, naming --cpu
+    k = min(args.num_devices, n) if args.num_devices > 0 else n
+    return [torch.device("cuda", i) for i in range(k)]
+
+
+def run_rank(argv, device) -> str:
+    """One rank's training (the target ``parallel.multihost`` runs in each
+    rank process, its process group joined)."""
+    from mri_superresolution_torch.train.trainer import train
+    return train(config_from_args(parse_args(argv)), device=device)
+
+
+def _final_path(cfg) -> str:
+    from mri_superresolution_torch.train.checkpoint import checkpoint_paths
+    return checkpoint_paths(cfg.checkpoint_dir,
+                            cfg.model.model_type)["final"] + ".ckpt"
+
+
 def main(argv=None) -> str:
     """Parse the flags and train; returns the final checkpoint's path.
-    An unported mode raises NotImplementedError before any work."""
+    An unported mode raises NotImplementedError before any work. With
+    more than one local rank this process starts them and waits; a rank
+    that fails ends the run with its exit code (SystemExit)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported to the PyTorch trainer yet (ROADMAP "
-            "A14); the JAX package's scripts/train.py runs it")
+    from mri_superresolution_torch.parallel import multihost
     from mri_superresolution_torch.train.trainer import check_supported, train
     cfg = config_from_args(args)
     check_supported(cfg)
-    return train(cfg, device="cpu" if args.cpu else None)
+    torchrun = args.multihost and args.coordinator is None
+    # under torchrun the process is one rank, on cuda:LOCAL_RANK
+    devices = [("cpu" if args.cpu else None)] if torchrun \
+        else local_devices(args)
+    if len(devices) == 1 and not args.multihost:
+        return train(cfg, device="cpu" if args.cpu else None)
+    backend = "gloo" if args.cpu else None
+    if len(devices) == 1:
+        # this process is the rank: host process_id of num_processes, or
+        # torchrun's rank
+        dev = multihost.initialize(args.coordinator, args.num_processes,
+                                   args.process_id, backend, devices[0])
+        try:
+            return train(cfg, device=dev)
+        finally:
+            multihost.shutdown()
+    if args.multihost:
+        if args.num_processes is None or args.process_id is None:
+            raise ValueError("--coordinator needs --num_processes and "
+                             "--process_id")
+        coordinator = args.coordinator
+        world = args.num_processes * len(devices)
+        base = args.process_id * len(devices)
+    else:
+        coordinator = f"127.0.0.1:{multihost.free_port()}"
+        world, base = len(devices), 0
+    # the local ranks share this process's seed (a default one included)
+    rc = multihost.launch("mri_superresolution_torch.cli.train:run_rank",
+                          argv + ["--seed", str(args.seed)], devices,
+                          coordinator, world, base, backend)
+    if rc != 0:
+        raise SystemExit(rc)
+    return _final_path(cfg)
 
 
 if __name__ == '__main__':

@@ -10,9 +10,11 @@ picker, and a launcher that suspends curses, streams the child's
 JSON-line protocol as readable progress and resumes the UI. Each menu
 launches ``python -m mri_superresolution_torch.cli.{extract,train,infer,
 serve}`` with the JAX TUI's flag lists, on the card unless the ``cpu``
-toggle is on. Modes the port does not run (``opt_shard``,
-``spatial_shards`` > 1) reach the CLI's refusal, which the launcher
-shows.
+toggle is on. The ``opt_shard`` toggle reaches a train CLI that runs it
+(ZeRO-1), and the CLIs' default device count (``--num_devices`` 0)
+trains data-parallel over, and serves on, every visible GPU. A
+``spatial_shards`` > 1 (ROADMAP A14) reaches the CLI's refusal, which the
+launcher shows.
 """
 
 import curses

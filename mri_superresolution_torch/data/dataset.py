@@ -171,15 +171,19 @@ class _LoaderBase:
     and ``weight`` (B,) — zeros mark padding rows of the final partial batch
     so losses/metrics stay exact with a fixed batch shape. Identical
     (seed, epoch_idx) produce identical batch orders in both classes, so the
-    trainer's resume determinism is loader-independent."""
+    trainer's resume determinism is loader-independent. With ``rows`` (a
+    data-parallel rank's, ``parallel.rank_rows``) each batch holds only
+    those rows of the global batch, which a streaming loader alone
+    decodes."""
 
     def __init__(self, indices: Sequence[int], batch_size: int,
-                 shuffle: bool, seed: int):
+                 shuffle: bool, seed: int, rows=None):
         self.indices = np.asarray(indices, dtype=np.int64)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self._seed = seed
         self._rng = np.random.default_rng(seed)
+        self.rows = None if rows is None else np.asarray(rows, np.int64)
 
     def __len__(self) -> int:
         return int(np.ceil(len(self.indices) / self.batch_size))
@@ -204,11 +208,19 @@ class _LoaderBase:
                 idx = np.concatenate([idx, np.repeat(idx[:1], bs - n_valid)])
             yield idx, n_valid
 
+    def _rows_of(self, idx: np.ndarray,
+                 n_valid: int) -> Tuple[np.ndarray, np.ndarray]:
+        """This loader's rows of a padded batch: their dataset indices and
+        weights (all rows, or the ``rows`` a data-parallel rank holds)."""
+        weight = np.zeros((len(idx),), np.float32)
+        weight[:n_valid] = 1.0
+        if self.rows is None:
+            return idx, weight
+        return idx[self.rows], weight[self.rows]
+
     @staticmethod
     def _assemble(lr: np.ndarray, hr: np.ndarray,
-                  n_valid: int) -> Dict[str, np.ndarray]:
-        weight = np.zeros((lr.shape[0],), np.float32)
-        weight[:n_valid] = 1.0
+                  weight: np.ndarray) -> Dict[str, np.ndarray]:
         return {"lr": lr.astype(np.float32)[..., None] / 255.0,
                 "hr": hr.astype(np.float32)[..., None] / 255.0,
                 "weight": weight}
@@ -220,15 +232,16 @@ class BatchLoader(_LoaderBase):
 
     def __init__(self, lr_array: np.ndarray, hr_array: np.ndarray,
                  indices: Sequence[int], batch_size: int,
-                 shuffle: bool = True, seed: int = 0):
-        super().__init__(indices, batch_size, shuffle, seed)
+                 shuffle: bool = True, seed: int = 0, rows=None):
+        super().__init__(indices, batch_size, shuffle, seed, rows)
         self.lr = lr_array
         self.hr = hr_array
 
     def epoch(self, epoch_idx: Optional[int] = None
               ) -> Iterator[Dict[str, np.ndarray]]:
         for idx, n_valid in self._epoch_index_batches(epoch_idx):
-            yield self._assemble(self.lr[idx], self.hr[idx], n_valid)
+            idx, weight = self._rows_of(idx, n_valid)
+            yield self._assemble(self.lr[idx], self.hr[idx], weight)
 
 
 class StreamingBatchLoader(_LoaderBase):
@@ -245,8 +258,8 @@ class StreamingBatchLoader(_LoaderBase):
 
     def __init__(self, dataset: PairedSliceDataset, indices: Sequence[int],
                  batch_size: int, shuffle: bool = True, seed: int = 0,
-                 prefetch: int = 2):
-        super().__init__(indices, batch_size, shuffle, seed)
+                 prefetch: int = 2, rows=None):
+        super().__init__(indices, batch_size, shuffle, seed, rows)
         self.dataset = dataset
         self.prefetch = max(1, prefetch)
         self.decode_batch_calls = 0     # accounting (tests/telemetry)
@@ -284,8 +297,9 @@ class StreamingBatchLoader(_LoaderBase):
             for idx, n_valid in batches:
                 if stop.is_set():
                     return
+                idx, weight = self._rows_of(idx, n_valid)
                 lr, hr = self._decode(idx)
-                item = self._assemble(lr, hr, n_valid)
+                item = self._assemble(lr, hr, weight)
                 while not stop.is_set():      # bounded put, abandon-safe
                     try:
                         q.put(item, timeout=0.1)

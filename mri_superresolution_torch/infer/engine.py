@@ -1,4 +1,4 @@
-"""Batched, shape-bucketed inference engine on one GPU.
+"""Batched, shape-bucketed inference engine on one GPU or several.
 
 Reference behaviour reproduced (scripts/infer.py): percentile-clip
 [0.5, 99.5] + min-max normalize of inputs (:97-130), outputs clamped to
@@ -31,7 +31,20 @@ The serving options are the JAX engine's (``infer/engine.py`` there):
 - ``page_locked``: a volume registered once, so that its batches upload
   from its own buffer with no host copy;
 - ``upscale_tiled``: halo-overlapped tiles for slices too large for one
-  forward.
+  forward;
+- ``num_devices`` / ``devices``: a copy of the params on each device of
+  the pool (``parallel.device_pool``: the first ``num_devices`` visible
+  GPUs, 0 = all, as the JAX engine's ``make_mesh`` caps; or every device
+  of ``devices``, the counterpart of ``make_mesh(devices=...)``, which may
+  name one card twice, or the CPU), each batch zero-padded to a multiple
+  of the device count and split in equal chunks, each chunk uploaded to,
+  run on and fetched from its device (its own staging and side stream),
+  all enqueued from the calling thread before any is waited for, and the
+  results gathered in order: the JAX engine's data-sharded forward in one
+  process. The TTA,
+  frozen and streaming int8 modes compose with it as in JAX (the
+  calibration max taken over every device's chunk, padding rows
+  included, as JAX's sharded calibration forward takes it).
 
 ``quant="int8"`` serves the int8 post-training-quantized model
 (``models/quant_forward.py``) with the JAX engine's state machine
@@ -42,11 +55,12 @@ given, or loaded from it), and near-empty batches on the bf16 model.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
 from collections import deque
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +78,8 @@ from mri_superresolution_torch.ops.normalize import normalize_slices
 from mri_superresolution_torch.ops.quant import FOREGROUND_INTENSITY
 from mri_superresolution_torch.ops.resize import Interp, resize
 from mri_superresolution_torch.ops.tta import dihedral_pairs, tta_ensemble
+from mri_superresolution_torch.parallel.mesh import (device_pool,
+                                                     pad_batch_to_devices)
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.utils.device import resolve_device
 from mri_superresolution_torch.utils.weights import edsr_num_blocks
@@ -91,9 +107,31 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+class _Replica:
+    """A model copy on one further device of an engine's pool, with the
+    attributes the engine keeps for its first device: ``device``,
+    ``model``, ``_params``, ``_d2h`` and ``_quant_fwd``."""
+
+    def __init__(self, device: torch.device, model: torch.nn.Module):
+        self.device = device
+        self.model = model
+        self._params = model.state_dict()
+        self._d2h = (torch.cuda.Stream(device) if device.type == "cuda"
+                     else None)
+        self._quant_fwd = None
+
+
+def _on(rep):
+    """The CUDA device context of ``rep`` (nothing on the CPU), so that
+    the kernels' launches find their device."""
+    if rep.device.type == "cuda":
+        return torch.cuda.device(rep.device)
+    return contextlib.nullcontext()
+
+
 class InferenceEngine(HostTransfers):
-    """Holds a model with its params on one device and serves padded,
-    bucketed forwards."""
+    """Holds a model with its params on each device of its pool and serves
+    padded, bucketed forwards."""
 
     def __init__(self, model_cfg: ModelConfig, params: Dict[str, torch.Tensor],
                  bf16: bool = True, bucket: int = 1, out_dtype=None,
@@ -102,7 +140,8 @@ class InferenceEngine(HostTransfers):
                  quant_min_foreground: float = 0.05,
                  quant_calib_path: Optional[str] = None,
                  spatial_shards: int = 1, normalize_inputs: bool = False,
-                 transpose_io: bool = False):
+                 transpose_io: bool = False, num_devices: int = 1,
+                 devices=None):
         if transpose_io and not normalize_inputs:
             raise ValueError("transpose_io requires normalize_inputs (the "
                              "card-side input path does the swap)")
@@ -138,7 +177,17 @@ class InferenceEngine(HostTransfers):
                     "slices/s against bf16 on your card before choosing "
                     "(chip_smoke.py's zoo phase measures both)")
         self.model_cfg = model_cfg
-        self.device = resolve_device(device)
+        # the device pool: ``devices`` as given, else the CPU when it is
+        # asked for, else num_devices GPUs (1: ``device``, the card)
+        if devices is not None:
+            pool = device_pool(0, devices)
+        elif num_devices == 1 or (device is not None
+                                  and torch.device(device).type == "cpu"):
+            pool = [resolve_device(device)]
+        else:
+            pool = device_pool(num_devices)
+        self.device = pool[0]
+        self.n_devices = len(pool)
         self.out_dtype = np.dtype(out_dtype if out_dtype is not None
                                   else np.float32)
         if self.out_dtype not in _OUT_DTYPES:
@@ -155,6 +204,17 @@ class InferenceEngine(HostTransfers):
         # results cross to the host on this stream, beside the next forward
         self._d2h = (torch.cuda.Stream(self.device)
                      if self.device.type == "cuda" else None)
+        # one holder a device of the pool, this engine the first
+        self._replicas = [self]
+        for dev in pool[1:]:
+            m = build_model(model_cfg, dtype=self._dtype)
+            m.load_state_dict(params, strict=True)
+            self._replicas.append(_Replica(dev, m.to(dev).eval()))
+        if self.n_devices > 1:
+            self._register_flags = 1          # cudaHostRegisterPortable
+            logger.info(f"Serving on {self.n_devices} devices: "
+                        f"{[str(d) for d in pool]} (each batch padded to a "
+                        f"multiple of {self.n_devices} and split)")
 
         self.quant = quant
         self.quant_calib_path = quant_calib_path
@@ -164,7 +224,8 @@ class InferenceEngine(HostTransfers):
         self._params = self.model.state_dict()
         self._quant_scales = None    # frozen per-site scales; None while
         #                              calibrating
-        self._quant_fwd = None       # int8 forward, built on freeze
+        self._quant_fwd = None       # int8 forward, built on freeze (one a
+        #                              device, on each replica)
         self._calib_amax: Dict[str, np.ndarray] = {}
         self._calib_seen = 0         # real (unpadded) slices calibrated on
         self._quant_batches = {"int8": 0, "bf16": 0}
@@ -183,11 +244,12 @@ class InferenceEngine(HostTransfers):
                         "the first batch")
 
     def _build_int8(self, scales) -> None:
-        """Freeze ``scales`` into the int8 forward (validates that they
-        cover every site)."""
-        self._quant_fwd = quant_forward.build_int8_forward(
-            self._params, scales, self.model_cfg.model_type,
-            dtype=self._dtype)
+        """Freeze ``scales`` into the int8 forward of each device
+        (validates that they cover every site)."""
+        for rep in self._replicas:
+            rep._quant_fwd = quant_forward.build_int8_forward(
+                rep._params, scales, self.model_cfg.model_type,
+                dtype=self._dtype)
         self._quant_scales = scales
 
     def _served(self, mode: str, count: bool) -> None:
@@ -196,10 +258,10 @@ class InferenceEngine(HostTransfers):
         if count:
             self._quant_batches[mode] += 1
 
-    def _quant_upscale(self, x: torch.Tensor, n_real_slices: int,
+    def _quant_upscale(self, xs: List[torch.Tensor], n_real_slices: int,
                        foreground_frac: float, calib_ok: bool = True,
                        count: bool = True,
-                       force_bf16: bool = False) -> torch.Tensor:
+                       force_bf16: bool = False) -> List[torch.Tensor]:
         """int8 PTQ serving with streaming self-calibration. Content-rich
         batches run the bf16 calib forward, which records each conv site's
         per-input-channel max |x|, until ``quant_calib_slices`` real slices
@@ -217,26 +279,36 @@ class InferenceEngine(HostTransfers):
         not 8 calibration slices); ``count=False`` leaves the batch count
         alone (one ensemble counts as one batch); ``force_bf16`` pins the
         bf16 model, so an ensemble whose identity pass was served bf16
-        stays bf16 even when that pass froze the scales."""
+        stays bf16 even when that pass froze the scales.
+
+        ``xs`` holds the batch's chunk on each device, and the result is
+        each chunk's output: one decision a batch, the calibration's max
+        taken over every chunk."""
+        reps = self._replicas
         if (force_bf16 or foreground_frac < self.quant_min_foreground
                 or (self._quant_scales is None and not calib_ok)):
             self._served("bf16", count)
-            return self.model(x)
+            return [r.model(x) for r, x in zip(reps, xs)]
         if self._quant_scales is None:
             first = self._calib_seen == 0
-            y, amax = quant_forward.build_calib_forward(
-                self.model_cfg.model_type, dtype=self._dtype)(self._params, x)
-            for k, v in amax.items():
-                v = v.cpu().numpy()
-                self._calib_amax[k] = (np.maximum(self._calib_amax[k], v)
-                                       if k in self._calib_amax else v)
+            calib = quant_forward.build_calib_forward(
+                self.model_cfg.model_type, dtype=self._dtype)
+            ys = []
+            for r, x in zip(reps, xs):
+                with _on(r):
+                    y, amax = calib(r._params, x)
+                ys.append(y)
+                for k, v in amax.items():
+                    v = v.cpu().numpy()
+                    self._calib_amax[k] = (np.maximum(self._calib_amax[k], v)
+                                           if k in self._calib_amax else v)
             self._calib_seen += max(n_real_slices, 1)
             if self._calib_seen < self.quant_calib_slices:
                 logger.info(f"int8 PTQ: calibrating "
                             f"({self._calib_seen}/{self.quant_calib_slices} "
                             "slices seen); serving bf16 meanwhile")
                 self._served("bf16", count)
-                return y
+                return ys
             scales = quant_forward.scales_from_amax(self._calib_amax)
             logger.info(f"int8 PTQ: froze {len(scales)} activation scales "
                         f"after {self._calib_seen} calibration slice(s)")
@@ -251,9 +323,13 @@ class InferenceEngine(HostTransfers):
                 # this batch has its bf16 result already; int8 starts
                 # with the next one
                 self._served("bf16", count)
-                return y
+                return ys
         self._served("int8", count)
-        return self._quant_fwd(self._params, x)
+        out = []
+        for r, x in zip(reps, xs):
+            with _on(r):
+                out.append(r._quant_fwd(r._params, x))
+        return out
 
     @property
     def quant_calibrating(self) -> bool:
@@ -282,17 +358,18 @@ class InferenceEngine(HostTransfers):
         (the int8 routing's measure, taken on the host)."""
         return float((np.abs(batch) > FOREGROUND_INTENSITY).mean())
 
-    def _device_input(self, batch: np.ndarray, bh: int,
-                      bw: int) -> torch.Tensor:
+    def _device_input(self, batch: np.ndarray, bh: int, bw: int,
+                      rep=None) -> torch.Tensor:
         """The (n, h, w) batch — (n, w, h) under ``transpose_io`` — as the
         forward's (max(n, 1), bh, bw, 1) fp32 input on the device. The raw
         batch is uploaded as it is; then, on the device: cast to fp32,
         swap the axes (``transpose_io``), normalize per slice
         (``normalize_inputs``) and zero-pad to (bh, bw), so that the
-        percentiles see only real pixels. Runs under inference mode."""
+        percentiles see only real pixels. Runs under inference mode, on
+        ``rep``'s device (default: the first)."""
         if batch.shape[0] == 0:
             batch = np.zeros((1,) + batch.shape[1:], batch.dtype)
-        x = self._upload(batch).float()
+        x = self._upload(batch, rep).float()
         if self.transpose_io:
             x = x.transpose(1, 2)
         if self.normalize_inputs:
@@ -302,33 +379,60 @@ class InferenceEngine(HostTransfers):
             x = F.pad(x, (0, bw - w, 0, bh - h))
         return x[..., None]
 
+    def _chunks(self, batch: np.ndarray) -> Tuple[list, List[int]]:
+        """The batch's chunk for each device and its count of real rows:
+        on one device the batch itself; on several the batch zero-padded
+        to a multiple of the device count and split in equal chunks, as
+        the JAX engine pads to its mesh (``_round_up(n, n_devices)``)."""
+        n, nd = batch.shape[0], self.n_devices
+        if nd == 1:
+            return [batch], [n]
+        nb = pad_batch_to_devices(max(n, 1), nd)
+        if nb != n:
+            padded = np.zeros((nb,) + batch.shape[1:], batch.dtype)
+            padded[:n] = batch
+            batch = padded
+        c = nb // nd
+        return ([batch[i * c:(i + 1) * c] for i in range(nd)],
+                [max(0, min(c, n - i * c)) for i in range(nd)])
+
     def _dispatch_once(self, batch: np.ndarray,
                        _quant_calib_ok: bool = True,
                        _quant_count: bool = True,
                        _quant_force_bf16: bool = False,
-                       _pack: bool = True) -> torch.Tensor:
+                       _pack: bool = True) -> List[torch.Tensor]:
         """Upload -> (normalize) -> pad -> forward -> clip -> crop ->
-        (transpose) -> pack, queued on the device; nothing is fetched.
-        The ``_quant_*`` arguments are :meth:`_quant_upscale`'s, for the
-        host TTA loop, which also fetches its members unpacked."""
+        (transpose) -> pack, queued on each device for its chunk (every
+        chunk uploaded before any forward); nothing is fetched. Returns
+        each device's result, the real rows of its chunk. The
+        ``_quant_*`` arguments are :meth:`_quant_upscale`'s, for the host
+        TTA loop, which also fetches its members unpacked."""
         n = batch.shape[0]
         h, w = ((batch.shape[2], batch.shape[1]) if self.transpose_io
                 else (batch.shape[1], batch.shape[2]))
         bh, bw = self._bucket_hw(h, w)
+        chunks, reals = self._chunks(batch)
         with torch.inference_mode():
-            x = self._device_input(batch, bh, bw)
+            xs = [self._device_input(c, bh, bw, r)
+                  for c, r in zip(chunks, self._replicas)]
             if self.quant == "int8":
-                y = self._quant_upscale(
-                    x, n, self._foreground(batch), calib_ok=_quant_calib_ok,
+                ys = self._quant_upscale(
+                    xs, n, self._foreground(batch), calib_ok=_quant_calib_ok,
                     count=_quant_count, force_bf16=_quant_force_bf16)
             else:
-                y = self.model(x)
-            y = y.clamp(0.0, 1.0)[:n, :2 * h, :2 * w, 0]
-            if self.transpose_io:
-                # (N, 2w, 2h): .T of the fetched batch is the F-order
-                # output volume
-                y = y.transpose(1, 2)
-            return pack_unit(y, self.out_dtype) if _pack else y
+                ys = []
+                for r, x in zip(self._replicas, xs):
+                    with _on(r):
+                        ys.append(r.model(x))
+            out = []
+            for y, k in zip(ys, reals):
+                y = y.clamp(0.0, 1.0)[:k, :2 * h, :2 * w, 0]
+                if self.transpose_io:
+                    # (N, 2w, 2h): .T of the fetched batch is the F-order
+                    # output volume
+                    y = y.transpose(1, 2)
+                out.append(pack_unit(y, self.out_dtype) if _pack else y)
+            return out
 
     def _tta_on_device(self) -> bool:
         """True when a --tta batch runs as one card-resident ensemble: bf16
@@ -337,30 +441,37 @@ class InferenceEngine(HostTransfers):
         host); the switch goes host -> device once, never back."""
         return self.quant != "int8" or self._quant_scales is not None
 
-    def _tta_dispatch(self, batch: np.ndarray) -> torch.Tensor:
+    def _tta_dispatch(self, batch: np.ndarray) -> List[torch.Tensor]:
         """The dihedral ensemble on the card (``ops/tta.py``): one upload,
         normalized once if ``normalize_inputs`` (the percentiles and the
         min/max do not change under a dihedral transform), each member
         padded to the bucket after its transform and cropped before its
         inverse, the members summed in fp32, the mean packed. Frozen int8
         takes one routing decision a batch (the transforms keep the
-        foreground fraction), counted as one batch."""
-        n, h, w = batch.shape
+        foreground fraction), counted as one batch. Each device runs the
+        ensemble on its chunk."""
         mode = "bf16"
         if self.quant == "int8":
             if self._foreground(batch) >= self.quant_min_foreground:
                 mode = "int8"
             self._served(mode, count=True)
-        if mode == "int8":
-            def forward(a):
-                return self._quant_fwd(self._params, a).clamp(0.0, 1.0)
-        else:
-            def forward(a):
-                return self.model(a).clamp(0.0, 1.0)
+
+        def forward_of(r):
+            if mode == "int8":
+                return lambda a: r._quant_fwd(r._params, a).clamp(0.0, 1.0)
+            return lambda a: r.model(a).clamp(0.0, 1.0)
+
+        h, w = batch.shape[1:]
+        chunks, reals = self._chunks(batch)
+        out = []
         with torch.inference_mode():
-            x = self._device_input(batch, h, w)
-            y = tta_ensemble(forward, x, self._bucket_hw)
-            return pack_unit(y[:n, :, :, 0], self.out_dtype)
+            xs = [self._device_input(c, h, w, r)
+                  for c, r in zip(chunks, self._replicas)]
+            for r, x, k in zip(self._replicas, xs, reals):
+                with _on(r):
+                    y = tta_ensemble(forward_of(r), x, self._bucket_hw)
+                out.append(pack_unit(y[:k, :, :, 0], self.out_dtype))
+        return out
 
     def _tta_host_loop(self, batch: np.ndarray) -> np.ndarray:
         """The ensemble member by member through :meth:`_dispatch_once`,
@@ -373,22 +484,35 @@ class InferenceEngine(HostTransfers):
         pairs = dihedral_pairs(square=(h == w))
         force_bf16 = False
         with torch.inference_mode():
-            acc = torch.zeros((n, 2 * h, 2 * w), dtype=torch.float32,
-                              device=self.device)
+            accs = [torch.zeros((k, 2 * h, 2 * w), dtype=torch.float32,
+                                device=r.device)
+                    for r, k in zip(self._replicas, self._chunks(batch)[1])]
             for i, (t, inv) in enumerate(pairs):
                 bf16_before = self._quant_batches["bf16"]
-                acc += inv(self._dispatch_once(
+                ys = self._dispatch_once(
                     np.ascontiguousarray(t(batch)), _quant_calib_ok=(i == 0),
                     _quant_count=(i == 0), _quant_force_bf16=force_bf16,
-                    _pack=False))
+                    _pack=False)
+                for acc, y in zip(accs, ys):
+                    acc += inv(y)
                 if i == 0:
                     # the identity pass alone is counted: it was served
                     # bf16 if it moved the bf16 count
                     force_bf16 = self._quant_batches["bf16"] > bf16_before
-            y = pack_unit(acc / len(pairs), self.out_dtype)
-        return self._collect(self._start_fetch(y))
+            ys = [pack_unit(acc / len(pairs), self.out_dtype) for acc in accs]
+        return self._collect_all(self._start_fetches(ys))
 
-    def _dispatch(self, batch: np.ndarray) -> torch.Tensor:
+    def _start_fetches(self, ys: List[torch.Tensor]) -> list:
+        """:meth:`_start_fetch` of each device's result on its device."""
+        return [self._start_fetch(y, r) for r, y in zip(self._replicas, ys)]
+
+    def _collect_all(self, handles: list) -> np.ndarray:
+        """The fetched results of one batch, its devices' rows in order."""
+        if len(handles) == 1:
+            return self._collect(handles[0])
+        return np.concatenate([self._collect(h) for h in handles])
+
+    def _dispatch(self, batch: np.ndarray) -> List[torch.Tensor]:
         return (self._tta_dispatch(batch) if self.tta
                 else self._dispatch_once(batch))
 
@@ -409,7 +533,7 @@ class InferenceEngine(HostTransfers):
         """
         if self.tta and not self._tta_on_device():
             return self._tta_host_loop(batch)
-        return self._collect(self._start_fetch(self._dispatch(batch)))
+        return self._collect_all(self._start_fetches(self._dispatch(batch)))
 
     def upscale_batches(self, batches,
                         depth: int = 2) -> Iterator[np.ndarray]:
@@ -421,20 +545,23 @@ class InferenceEngine(HostTransfers):
         asynchronous from page-locked buffers and each result crosses to
         the host on a side stream while the next batches compute. Host-loop
         TTA batches (int8 still calibrating) flush the window and run
-        alone; a freeze mid-stream re-opens it from the next batch."""
+        alone; a freeze mid-stream re-opens it from the next batch. On
+        several devices a batch's chunks are all queued before the oldest
+        batch is waited for, so no device idles while another's next chunk
+        could be queued."""
         depth = max(1, int(depth))
         window: deque = deque()
         for b in batches:
             if self.tta and not self._tta_on_device():
                 while window:
-                    yield self._collect(window.popleft())
+                    yield self._collect_all(window.popleft())
                 yield self.upscale_batch(b)
                 continue
-            window.append(self._start_fetch(self._dispatch(b)))
+            window.append(self._start_fetches(self._dispatch(b)))
             if len(window) > depth:
-                yield self._collect(window.popleft())
+                yield self._collect_all(window.popleft())
         while window:
-            yield self._collect(window.popleft())
+            yield self._collect_all(window.popleft())
 
     def upscale_image(self, image01: np.ndarray) -> np.ndarray:
         return self.upscale_batch(image01[None])[0]
@@ -612,10 +739,13 @@ class InferenceEngine(HostTransfers):
         plt.close()
 
 
-def load_engine(cfg: InferConfig, device=None) -> InferenceEngine:
+def load_engine(cfg: InferConfig, device=None, num_devices: int = 1,
+                devices=None) -> InferenceEngine:
     """Resolve the checkpoint (explicit path or best -> final -> any
     discovery, scripts/infer.py:74-95 + 416-423) and build an engine. The
-    checkpoint's own model config wins over the caller's defaults."""
+    checkpoint's own model config wins over the caller's defaults.
+    ``num_devices`` / ``devices``: the engine's device pool
+    (:class:`InferenceEngine`)."""
     path = ckpt.resolve_checkpoint(cfg.checkpoint_dir, cfg.model.model_type,
                                    cfg.checkpoint_path)
     logger.info(f"Using checkpoint: {path}")
@@ -648,4 +778,5 @@ def load_engine(cfg: InferConfig, device=None) -> InferenceEngine:
                            quant_calib_path=quant_calib_path, tta=cfg.tta,
                            normalize_inputs=cfg.normalize_inputs,
                            out_dtype=cfg.out_dtype,
-                           transpose_io=cfg.transpose_io)
+                           transpose_io=cfg.transpose_io,
+                           num_devices=num_devices, devices=devices)

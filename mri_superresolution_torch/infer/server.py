@@ -23,7 +23,9 @@ arrival counters are one buffer a device and kernel
 (``kernels/_build.counters``), which assumes one stream; PyTorch's
 current stream and ``inference_mode`` are per thread; and the engine's
 device-to-host side stream and its events are used by whichever thread
-calls it. A process runs one batcher's worker at a time on a card.
+calls it. A process runs one batcher's worker at a time on a card. An
+engine over several devices (``--num_devices``) is called from that one
+thread too: it enqueues each device's chunk of a batch itself.
 
 Raw serving (``--serve_raw``): when the engine normalizes its inputs on
 the card (``normalize_inputs``, with ``transpose_io``), /upscale_volume

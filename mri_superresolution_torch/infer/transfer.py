@@ -1,11 +1,15 @@
-"""Host-device transfers of a serving backend on one device.
+"""Host-device transfers of a serving backend.
 
 :class:`HostTransfers` is what ``InferenceEngine`` (``infer/engine.py``)
 and ``ServingArtifact`` (``infer/export.py``) share to move batches: on
 the card, uploads from page-locked memory (the caller's, or a staged
 copy) and results fetched on a side stream while the compute stream runs
 on. A subclass sets ``device`` and ``_d2h`` (the side stream, None on the
-CPU). No model code is imported here.
+CPU). A backend that spans several devices passes the device's own
+holder of those two attributes (``rep``) to :meth:`_upload` and
+:meth:`_start_fetch`, so that each device has its own side stream and
+staging, and sets ``_register_flags`` to page-lock for every device. No
+model code is imported here.
 """
 
 from __future__ import annotations
@@ -33,8 +37,11 @@ class HostTransfers:
 
     device: torch.device
     _d2h = None
+    # cudaHostRegister flags: 1 (cudaHostRegisterPortable) when the
+    # uploads go to more than one device
+    _register_flags = 0
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+    def _upload(self, arr: np.ndarray, rep=None) -> torch.Tensor:
         """The host array on the backend's device, in its own dtype. On the
         card the copy is asynchronous from page-locked memory: straight
         from the caller's buffer when it is page-locked (see
@@ -42,13 +49,15 @@ class HostTransfers:
         the batch's result is returned; otherwise through a page-locked
         copy (:meth:`_staged`). A copy from pageable memory may wait for
         the compute stream, which would hold the host back while the
-        previous batch runs."""
+        previous batch runs. ``rep`` names the device (default: this
+        backend's)."""
+        rep = self if rep is None else rep
         src = _host_tensor(np.ascontiguousarray(arr))
-        if self._d2h is None:
+        if rep._d2h is None:
             return src
         if not src.is_pinned():
             src = self._staged(src)
-        return src.to(self.device, non_blocking=True)
+        return src.to(rep.device, non_blocking=True)
 
     @staticmethod
     def _staged(src: torch.Tensor) -> torch.Tensor:
@@ -72,7 +81,8 @@ class HostTransfers:
             raise ValueError("page_locked needs a C-contiguous array")
         cudart = torch.cuda.cudart()
         with torch.cuda.device(self.device):
-            err = cudart.cudaHostRegister(src.data_ptr(), arr.nbytes, 0)
+            err = cudart.cudaHostRegister(src.data_ptr(), arr.nbytes,
+                                          self._register_flags)
         if int(err) != 0:
             raise RuntimeError(f"cudaHostRegister of {arr.nbytes} bytes "
                                f"failed: cudaError {int(err)}")
@@ -80,14 +90,16 @@ class HostTransfers:
             yield arr
         finally:
             # the uploads from ``arr`` are done before it is unlocked
-            torch.cuda.synchronize(self.device)
+            for dev in {r.device for r in getattr(self, "_replicas",
+                                                  [self])}:
+                torch.cuda.synchronize(dev)
             with torch.cuda.device(self.device):
                 err = cudart.cudaHostUnregister(src.data_ptr())
             if int(err) != 0:
                 raise RuntimeError(f"cudaHostUnregister failed: cudaError "
                                    f"{int(err)}")
 
-    def _start_fetch(self, y: torch.Tensor):
+    def _start_fetch(self, y: torch.Tensor, rep=None):
         """Queue the copy of the device result ``y`` to the host; returns a
         handle for :meth:`_collect`. On the card, ``y`` is made contiguous
         on the compute stream, and the copy into a fresh page-locked buffer
@@ -95,21 +107,23 @@ class HostTransfers:
         so the compute stream goes on with the next batch meanwhile. The
         buffer comes from PyTorch's caching host allocator, which does not
         hand it out again before the copy's event has fired and the
-        returned array is gone."""
+        returned array is gone. ``rep`` names ``y``'s device (default:
+        this backend's)."""
+        rep = self if rep is None else rep
         with torch.inference_mode():
             y = y.contiguous()
-            if self._d2h is None:
+            if rep._d2h is None:
                 return y, None
             ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
+            ready.record(torch.cuda.current_stream(rep.device))
             out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-            with torch.cuda.stream(self._d2h):
-                self._d2h.wait_event(ready)
+            with torch.cuda.stream(rep._d2h):
+                rep._d2h.wait_event(ready)
                 out.copy_(y, non_blocking=True)
                 # y's memory stays with y until the side stream is done
-                y.record_stream(self._d2h)
+                y.record_stream(rep._d2h)
                 done = torch.cuda.Event()
-                done.record(self._d2h)
+                done.record(rep._d2h)
         return out, done
 
     @staticmethod

@@ -12,11 +12,17 @@ convs in fp32, TF32 on the card unless ``torch.backends.cudnn.allow_tf32``
 is off), the target's features without a gradient (the reference's
 stop-gradient, utils/losses.py:146-147), and takes the per-sample mean of
 |dF| (``l1``) or dF^2 (``l2``/``mse``).
+
+Under data parallelism a rank holds part of the batch, and the SSIM clip
+is the one term that is not linear in the batch: JAX clips the mean over
+the global batch. ``ssim_reduce`` gives the loss the global weighted sum
+and weight sum, so that every rank takes the clip decision of the global
+mean (:func:`global_clip`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -49,9 +55,36 @@ def _ssim(cfg: LossConfig, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                            cfg.sigma, cfg.val_range)
 
 
+# (local weighted SSIM sum, local weight sum) -> the global pair
+SsimReduce = Callable[[torch.Tensor, torch.Tensor],
+                      Tuple[torch.Tensor, torch.Tensor]]
+
+
+def global_clip(mean: torch.Tensor, per_sample: torch.Tensor,
+                sample_weights: Optional[torch.Tensor],
+                reduce: SsimReduce) -> torch.Tensor:
+    """The SSIM term's clip(mean, 0, 1) decided on the global batch.
+
+    ``mean`` is this rank's weighted mean of ``per_sample``; ``reduce``
+    sums the detached local (weighted sum, weight sum) over the ranks. The
+    value is the global mean g clipped to [0, 1]; the gradient is the
+    local mean's where 0 <= g <= 1 (``torch.clamp``'s own mask) and 0
+    elsewhere, so that the ranks' gradients, each scaled by its share of
+    the weights, add up to the gradient of the global clip. At a world of
+    one g is ``mean`` to the bit, and value and gradient are
+    ``mean.clamp(0, 1)``'s."""
+    w = (torch.ones_like(per_sample) if sample_weights is None
+         else sample_weights.float())
+    num, den = reduce((per_sample.detach() * w).sum(), w.sum())
+    g = num / den.clamp_min(1e-12)
+    inside = (g >= 0.0) & (g <= 1.0)
+    return torch.where(inside, mean + (g - mean.detach()), g.clamp(0.0, 1.0))
+
+
 def compose_loss(cfg: LossConfig, out32: torch.Tensor, tgt32: torch.Tensor,
                  sample_weights: Optional[torch.Tensor],
-                 vgg: Optional[VGG19Features] = None, remat: bool = False
+                 vgg: Optional[VGG19Features] = None, remat: bool = False,
+                 ssim_reduce: Optional[SsimReduce] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The CombinedLoss composition on fp32 (B, H, W, 1) tensors. ``comps``
     holds ``l1_loss``, ``ssim_loss``, ``ssim_metric`` (the clipped SSIM)
@@ -60,7 +93,8 @@ def compose_loss(cfg: LossConfig, out32: torch.Tensor, tgt32: torch.Tensor,
     backward instead of keeping them: the JAX trainer's loss-graph
     checkpoint under ``--remat``. It is the only term with a tape to drop:
     L1 keeps none, and B2's backward already recomputes the SSIM maps
-    inside its ``autograd.Function``."""
+    inside its ``autograd.Function``. With ``ssim_reduce`` the SSIM clip
+    is decided on the global batch (:func:`global_clip`)."""
     total = torch.zeros((), dtype=torch.float32, device=out32.device)
     comps: Dict[str, torch.Tensor] = {}
     if cfg.l1_weight > 0:
@@ -68,8 +102,10 @@ def compose_loss(cfg: LossConfig, out32: torch.Tensor, tgt32: torch.Tensor,
         total = total + cfg.l1_weight * l1
         comps["l1_loss"] = l1
     if cfg.ssim_weight > 0:
-        ssim_val = _weighted_mean(_ssim(cfg, out32, tgt32),
-                                  sample_weights).clamp(0.0, 1.0)
+        per = _ssim(cfg, out32, tgt32)
+        ssim_val = _weighted_mean(per, sample_weights)
+        ssim_val = (ssim_val.clamp(0.0, 1.0) if ssim_reduce is None else
+                    global_clip(ssim_val, per, sample_weights, ssim_reduce))
         ssim_l = 1.0 - ssim_val               # reference utils/losses.py:221
         total = total + cfg.ssim_weight * ssim_l
         comps["ssim_loss"] = ssim_l
@@ -98,7 +134,8 @@ class CombinedLoss:
     (total, comps)`` on (B, H, W, 1) tensors. ``vgg`` (a
     ``VGG19Features`` on the device of the tensors) is required iff
     ``perceptual_weight > 0``; ``remat`` recomputes its features of the
-    output in the backward (:func:`compose_loss`)."""
+    output in the backward, and a call's ``ssim_reduce`` decides the SSIM
+    clip on the global batch (:func:`compose_loss`)."""
 
     def __init__(self, cfg: LossConfig, vgg: Optional[VGG19Features] = None,
                  remat: bool = False):
@@ -118,6 +155,8 @@ class CombinedLoss:
 
     def __call__(self, output: torch.Tensor, target: torch.Tensor,
                  sample_weights: Optional[torch.Tensor] = None,
+                 ssim_reduce: Optional[SsimReduce] = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return compose_loss(self.cfg, output.float(), target.float(),
-                            sample_weights, self.vgg, self.remat)
+                            sample_weights, self.vgg, self.remat,
+                            ssim_reduce)

@@ -21,6 +21,16 @@ and a sigmoid-bounded one-channel output.
   keeping their activations (:func:`segment`): ``inc``, the Downs and
   Ups, ``final_up_pixelshuffle``, the bilinear branch and the head. The
   parameters are unchanged, so checkpoints do not depend on it.
+- ``phase_final=True`` computes the final 2x stage in phase space at
+  H x W (``experiments/phase.py``, the JAX package's
+  ``_final_stage_phase``), with the same state_dict: the 3x3 convs at
+  2H x 2W become rescattered 2x2 convs (cuDNN; no B3), and the two
+  aligned phase-space norms, the bilinear branch's and
+  ``PixelShuffleUp``'s, are GroupNorm(8) over the 4 x f/2 c-major phase
+  channels with scale and bias repeated four times: kernel B1 with its
+  LeakyReLU. The misaligned norm after ``final_conv1`` stays in torch
+  ops, as JAX's is ``jnp`` views outside any Pallas kernel. As in JAX,
+  ``remat`` does not segment that stage.
 - Module and parameter names are the reference's state_dict keys, so a
   reference ``.pth`` loads strictly. The ``nn.Sequential`` containers only
   hold the parameters under those keys; the forward calls the functions
@@ -36,6 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from mri_superresolution_torch.experiments import phase
 from mri_superresolution_torch.kernels import conv3x3, group_norm_leaky
 from mri_superresolution_torch.ops.functional import max_pool2, pixel_shuffle
 from mri_superresolution_torch.ops.resize import upsample_bilinear_align_corners
@@ -55,6 +66,16 @@ def _conv(x, weight, dtype, bias=None, padding=0):
 
 def _gn_leaky(x, norm: nn.GroupNorm, residual=None):
     return group_norm_leaky(x, norm.weight, norm.bias, residual=residual,
+                            n_groups=norm.num_groups, eps=norm.eps)
+
+
+def _phase_gn_leaky(t, norm: nn.GroupNorm):
+    """``norm`` + LeakyReLU(0.2) of the (B, 4C, H, W) aligned phase form of
+    a (B, C, 2H, 2W) tensor (``experiments/phase.phase_group_norm``): the
+    same groups over 4C channels, the affine repeated 4x, on kernel B1."""
+    return group_norm_leaky(t.contiguous(memory_format=CL),
+                            norm.weight.repeat_interleave(4),
+                            norm.bias.repeat_interleave(4),
                             n_groups=norm.num_groups, eps=norm.eps)
 
 
@@ -193,8 +214,13 @@ class PixelShuffleUp(nn.Module):
         self.conv = _conv3(in_channels, out_channels * scale ** 2, bias=True)
         self.norm = _norm(out_channels)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, phase_out: bool = False):
+        """``phase_out``: the conv's output, in PixelShuffle's channel
+        order, already is the c-major phase space of the shuffled tensor:
+        skip the shuffle and normalize there (the same statistics)."""
         x = _conv(x, self.conv.weight, dtype, self.conv.bias, padding=1)
+        if phase_out:
+            return _phase_gn_leaky(x, self.norm)
         x = pixel_shuffle(x, self.scale).contiguous(memory_format=CL)
         return _gn_leaky(x, self.norm)
 
@@ -218,17 +244,21 @@ class UNetSuperRes(nn.Module):
 
     Input: (B, H, W, in_channels) in [0, 1]. Output: (B, 2H, 2W,
     out_channels) in (0, 1), fp32. ``dtype`` is the compute dtype;
-    ``remat`` recomputes the JAX package's remat blocks in the backward.
+    ``remat`` recomputes the JAX package's remat blocks in the backward;
+    ``phase_final`` computes the final stage in phase space (the same
+    parameters, so checkpoints do not depend on it).
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 32, initial_alpha: float = 0.0,
                  icnr_init: bool = False, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator = None, remat: bool = False):
+                 generator: torch.Generator = None, remat: bool = False,
+                 phase_final: bool = False):
         super().__init__()
         f = base_filters
         self.dtype = dtype
         self.remat = remat
+        self.phase_final = phase_final
         self.inc = DoubleConv(in_channels, f)
         self.down1 = Down(f, f * 2)
         self.down2 = Down(f * 2, f * 4)
@@ -261,6 +291,8 @@ class UNetSuperRes(nn.Module):
         dt = self.dtype
         y = backbone(self, x.permute(0, 3, 1, 2).to(dt).contiguous(
             memory_format=CL), dt)
+        if self.phase_final:
+            return self._final_stage_phase(y)
 
         # dual-branch final 2x upsample; each branch and the head a
         # segment of its own under remat, as in the JAX package
@@ -281,6 +313,37 @@ class UNetSuperRes(nn.Module):
                               conv1.weight.to(dt, memory_format=CL)), norm)
         y = _conv(y, conv2.weight, dt, conv2.bias)
         return torch.sigmoid(y.float()).permute(0, 2, 3, 1)
+
+    def _final_stage_phase(self, y):
+        """The dual-branch final 2x stage at y's resolution in c-major
+        phase space (the JAX package's ``_final_stage_phase``): the same
+        function as the dense path, its Cout = f/2 convs at 2H x 2W
+        replaced by Cout = 2f convs at H x W."""
+        dt = self.dtype
+        _, up_conv, up_norm, _ = self.final_up_bilinear
+        conv1, norm, _, conv2 = self.final_conv
+
+        # bilinear branch: phase-space upsample, rescattered 2x2 conv,
+        # the norm on the re-aligned grid
+        t_up = phase.upsample_bilinear_phases(y)               # (B,4f,H,W)
+        z_up = phase.phase_conv_2x2(
+            t_up, phase.phase_kernel_2x2(up_conv.weight).to(dt))
+        yb = _phase_gn_leaky(phase.align_phase(z_up), up_norm)  # (B,2f,H,W)
+        # PixelShuffle branch: its conv's output already is phase space
+        yp = self.final_up_pixelshuffle(y, dt, phase_out=True)
+        w = torch.sigmoid(self.alpha).to(dt).reshape(())
+        t = w * yb + (1.0 - w) * yp
+
+        # final_conv1 stays misaligned through the per-pixel tail; the
+        # offsets are absorbed by depth_to_space_rev_crop at the end
+        z1 = phase.phase_conv_2x2(
+            t, phase.phase_kernel_2x2(conv1.weight).to(dt))  # (B,2f,H+1,W+1)
+        z1 = F.leaky_relu(phase.phase_group_norm_misaligned(
+            z1, norm.weight, norm.bias, norm.num_groups, norm.eps, dt), 0.2)
+        z2 = F.conv2d(z1, phase.phase_kernel_1x1(conv2.weight).to(dt)) + \
+            conv2.bias.repeat_interleave(4).to(dt).view(1, -1, 1, 1)
+        return phase.depth_to_space_rev_crop(
+            torch.sigmoid(z2.float())).permute(0, 2, 3, 1)
 
 
 def param_count(model: nn.Module) -> int:

@@ -17,7 +17,7 @@ the JAX package ``vmap``s.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -186,9 +186,20 @@ def apply_augment(hr: torch.Tensor, lr: torch.Tensor,
 
 def augment_pair(hr: torch.Tensor, lr: torch.Tensor,
                  generator: torch.Generator, cfg: AugmentConfig,
-                 rotate_method: str = "nearest",
+                 rotate_method: str = "nearest", rows=None,
+                 global_batch: Optional[int] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Identical per-sample augmentation of an HR/LR batch, drawn from
-    ``generator`` (on the batch's device)."""
-    return apply_augment(hr, lr, draw_augment(hr.shape[0], lr.shape, cfg,
-                                              generator), cfg, rotate_method)
+    ``generator`` (on the batch's device). With ``rows`` the batch holds
+    those rows of a global batch of ``global_batch`` pairs (a
+    data-parallel rank's): the draws are made for the global batch, as a
+    single process makes them, and the rows' draws applied."""
+    if rows is None:
+        return apply_augment(hr, lr, draw_augment(hr.shape[0], lr.shape,
+                                                  cfg, generator),
+                             cfg, rotate_method)
+    d = draw_augment(global_batch, (global_batch,) + tuple(lr.shape[1:]),
+                     cfg, generator)
+    idx = torch.as_tensor(rows, dtype=torch.long, device=generator.device)
+    return apply_augment(hr, lr, {k: v[idx] for k, v in d.items()}, cfg,
+                         rotate_method)

@@ -1,7 +1,7 @@
-"""Single-device trainer of the model zoo: bf16 compute on fp32 master
-weights.
+"""Trainer of the model zoo: bf16 compute on fp32 master weights, on one
+device or data-parallel over ranks.
 
-An own copy of the JAX package's ``train/trainer.py`` for one device.
+An own copy of the JAX package's ``train/trainer.py``.
 Reference behaviour reproduced (scripts/train.py:142-484): Adam (lr 1e-4,
 weight decay 1e-5 as L2 added to the gradient before the moments),
 ReduceLROnPlateau (factor .5, patience patience//2), a seeded train/val
@@ -39,8 +39,27 @@ forward is functional, so only the loss-side checkpoint applies, as in
 JAX. ``--profile_dir`` traces one epoch with ``torch.profiler`` (CPU and
 CUDA activities) into a Chrome trace there, the epoch the JAX trainer
 traces: ``min(start_epoch + 1, epochs - 1)``, its validation included.
-The JAX trainer's mesh, multi-host, spatial sharding and ZeRO-1 are not
-ported: :func:`check_supported` names the ROADMAP item that ports each.
+
+Data parallelism (the JAX trainer's mesh and ``--multihost``): when this
+process is a rank of a process group (``parallel/multihost.py``; the
+train CLI's ``--num_devices`` and ``--multihost`` make one), every rank
+derives the global batch order from (seed, epoch) as one process does and
+takes its rows (``parallel.rank_rows``: its part of each microbatch, as
+GSPMD spreads JAX's), draws the augmentation for the global batch and
+keeps its rows' draws, and runs :func:`loss_and_grads` on its rows with
+the SSIM clip decided on the global (micro)batch. The fp32 gradient sums
+and weight sums are all-reduced as one bucket (the model is not wrapped
+in DDP: the step takes its gradients with ``torch.autograd.grad``); QAT's
+batch statistic is a global max and its foreground flag a global or;
+validation sums are all-reduced, so the plateau, early stopping and the
+best model decide the same on every rank; the EMA stays rank-local (the
+ranks' parameters are the same bits, so their EMAs are too).
+``--opt_shard`` shards Adam's moments over the ranks (``train/zero1.py``,
+ZeRO-1) with the replicated update's bits. Rank 0 alone speaks the stdout
+protocol and writes checkpoints, sidecars, figures, traces and
+``training.log``; rank r logs to ``training.p{r}.log``. Without a process
+group the path is the single-device one, unchanged. Spatial sharding is
+not ported: :func:`check_supported` names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -65,11 +84,15 @@ from mri_superresolution_torch.models import build_model
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.models import vgg as vgg_mod
 from mri_superresolution_torch.ops.augment import augment_pair
+from mri_superresolution_torch.parallel import multihost
+from mri_superresolution_torch.parallel.mesh import rank_rows, zero1_layout
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.train.plateau import (EarlyStopping,
                                                      ReduceLROnPlateau)
+from mri_superresolution_torch.train.zero1 import Zero1Adam
 from mri_superresolution_torch.utils.device import resolve_device
-from mri_superresolution_torch.utils.logging import log_message, setup_logging
+from mri_superresolution_torch.utils.logging import (log_message, set_quiet,
+                                                   setup_logging)
 
 
 @contextlib.contextmanager
@@ -99,8 +122,6 @@ def check_supported(cfg: TrainConfig) -> None:
     that the port does not run yet, naming the ROADMAP item that ports it."""
     later = [
         (cfg.spatial_shards > 1, "--spatial_shards > 1", "A14"),
-        (cfg.opt_shard, "--opt_shard (ZeRO-1)", "A14"),
-        (cfg.num_data_devices > 1, "--num_devices > 1", "A14"),
     ]
     for on, what, item in later:
         if on:
@@ -119,11 +140,13 @@ def make_optimizer(params, learning_rate: float,
                             eps=1e-8, weight_decay=weight_decay)
 
 
-def adam_state(model: torch.nn.Module,
-               optimizer: torch.optim.Adam) -> Dict[str, Any]:
+def adam_state(model: torch.nn.Module, optimizer) -> Dict[str, Any]:
     """Adam's step count and moments keyed like the model's state_dict
     (``{"count", "mu", "nu"}``, optax's ``ScaleByAdamState`` fields);
-    zeros before the first step."""
+    zeros before the first step. Of a :class:`Zero1Adam` the moments are
+    gathered from every rank: a collective."""
+    if isinstance(optimizer, Zero1Adam):
+        return optimizer.adam_state()
     mu, nu, count = {}, {}, 0
     for name, p in model.named_parameters():
         st = optimizer.state.get(p) or {}
@@ -134,9 +157,13 @@ def adam_state(model: torch.nn.Module,
     return {"count": count, "mu": mu, "nu": nu}
 
 
-def load_adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam,
+def load_adam_state(model: torch.nn.Module, optimizer,
                     state: Dict[str, Any]) -> None:
-    """Inverse of :func:`adam_state`."""
+    """Inverse of :func:`adam_state` (a :class:`Zero1Adam` takes its
+    rank's slices)."""
+    if isinstance(optimizer, Zero1Adam):
+        optimizer.load_adam_state(state)
+        return
     for name, p in model.named_parameters():
         optimizer.state[p] = {
             "step": torch.tensor(float(state["count"])),
@@ -171,7 +198,7 @@ class TrainState:
     ``qat_amax`` QAT's running per-site per-input-channel max |x|
     (``{site: (Cin,) fp32}`` on the device, None without QAT)."""
     model: torch.nn.Module
-    optimizer: torch.optim.Adam
+    optimizer: Any              # torch.optim.Adam, or a Zero1Adam
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = None
     qat_amax: Optional[Dict[str, torch.Tensor]] = None
@@ -196,9 +223,9 @@ def _forward(model, lo, qat=None):
     return out, {"qat_batch_amax": batch_amax, "qat_any_fg": any_fg}
 
 
-def _loss(model, loss_fn, hr, lo, w, qat=None):
+def _loss(model, loss_fn, hr, lo, w, qat=None, ssim_reduce=None):
     out, extra = _forward(model, lo, qat)
-    total, comps = loss_fn(out, hr, sample_weights=w)
+    total, comps = loss_fn(out, hr, sample_weights=w, ssim_reduce=ssim_reduce)
     if "ssim_metric" not in comps:   # ssim_weight == 0: metric only
         comps = dict(comps, ssim_metric=_ssim_metric(loss_fn, out, hr, w))
     return total, dict(comps, **extra)
@@ -209,9 +236,41 @@ def _detached(comps):
                 else v.detach()) for k, v in comps.items()}
 
 
+class _SsimSums:
+    """The ``ssim_reduce`` of one (micro)batch: all-reduces the loss's
+    local (weighted SSIM sum, weight sum) and keeps the global weight
+    sum; :meth:`den` all-reduces the weight sum alone when the loss had
+    no SSIM term to do it."""
+
+    def __init__(self, dp, den_local: torch.Tensor):
+        self.dp, self.den_local, self.den_global = dp, den_local, None
+
+    def __call__(self, num: torch.Tensor, den: torch.Tensor):
+        num_g, den_g = self.dp.sum_([num, den])
+        self.den_global = den_g
+        return num_g, den_g
+
+    def den(self) -> torch.Tensor:
+        if self.den_global is None:
+            self.den_global, = self.dp.sum_([self.den_local])
+        return self.den_global
+
+    def share(self) -> Optional[torch.Tensor]:
+        """This rank's share of the weights, den_r / den; None at a world
+        of one, where it is 1 by definition."""
+        if self.dp.world == 1:
+            return None
+        return self.den_local / self.den().clamp_min(1e-12)
+
+    def reduce(self) -> Optional["_SsimSums"]:
+        """The loss's ``ssim_reduce``: this, or None at a world of one,
+        where the local clip is the global one."""
+        return self if self.dp.world > 1 else None
+
+
 def loss_and_grads(model: torch.nn.Module, loss_fn: CombinedLoss,
                    hr: torch.Tensor, lo: torch.Tensor, w: torch.Tensor,
-                   grad_accum: int = 1, qat=None):
+                   grad_accum: int = 1, qat=None, dp=None):
     """(loss, comps, grads in ``model.parameters()`` order) of one batch.
 
     ``grad_accum > 1`` runs that many sequential microbatches, as the JAX
@@ -224,18 +283,34 @@ def loss_and_grads(model: torch.nn.Module, loss_fn: CombinedLoss,
     every microbatch quantizes with the same running amax, and the batch
     statistic is the max over the microbatches' (background ones give
     zeros, the neutral element), their foreground flags or-ed: the
-    full batch's statistic."""
+    full batch's statistic.
+
+    With ``dp`` (a ``multihost.Collectives``) the batch is this rank's
+    rows (``parallel.rank_rows``: its part of each microbatch), and the
+    result is the JAX mesh step's on the global batch, the same on every
+    rank. Each (micro)batch's forward runs first; the loss all-reduces the
+    detached weighted SSIM sum and weight sum and clips the global mean
+    (``losses.combined.global_clip``), then the backward runs. Without
+    accumulation each rank scales its gradients, loss and metric by its
+    share of the weights, den_r / den, and one fp32 bucket sums them over
+    the ranks (the other components stay the rank's); with accumulation
+    the den_j,r-weighted sums of every rank's microbatches are summed and
+    divided by the global weight sum. ``ssim_clip_micros`` counts global
+    microbatches. QAT's statistic is a max over the ranks, its foreground
+    flag an or. Without ``dp`` (``multihost.LOCAL``) every share is 1 and
+    every reduction returns its inputs."""
+    dp = multihost.LOCAL if dp is None else dp
     params = list(model.parameters())
-    if grad_accum == 1:
-        total, comps = _loss(model, loss_fn, hr, lo, w, qat)
-        grads = torch.autograd.grad(total, params)
-        return total.detach(), _detached(comps), grads
     a = grad_accum
-    g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params] \
+        if a > 1 else None
     num_loss = num_ssim = n_sat = torch.zeros((), device=hr.device)
     amax_acc, fg_acc = None, None
     for hr_i, lo_i, w_i in zip(hr.chunk(a), lo.chunk(a), w.chunk(a)):
-        loss_i, comps_i = _loss(model, loss_fn, hr_i, lo_i, w_i, qat)
+        den_i = w_i.float().sum()
+        sums = _SsimSums(dp, den_i)
+        loss_i, comps_i = _loss(model, loss_fn, hr_i, lo_i, w_i, qat,
+                                sums.reduce())
         g_i = torch.autograd.grad(loss_i, params)
         if qat is not None:
             b = {k: v.detach() for k, v in comps_i["qat_batch_amax"].items()}
@@ -243,19 +318,35 @@ def loss_and_grads(model: torch.nn.Module, loss_fn: CombinedLoss,
                 k: torch.maximum(amax_acc[k], v) for k, v in b.items()}
             f = comps_i["qat_any_fg"]
             fg_acc = f if fg_acc is None else fg_acc | f
-        den_i = w_i.float().sum()
         ssim_i = comps_i["ssim_metric"].detach()
-        n_sat = n_sat + ((den_i > 0) & ((ssim_i <= 0.0) | (ssim_i >= 1.0))
-                         ).float()
-        g_acc = [acc + den_i * g.float() for acc, g in zip(g_acc, g_i)]
-        num_loss = num_loss + den_i * loss_i.detach()
-        num_ssim = num_ssim + den_i * ssim_i
-    den = w.float().sum().clamp_min(1e-12)
-    grads = [(g / den).to(p.dtype) for g, p in zip(g_acc, params)]
-    comps = {"ssim_metric": num_ssim / den, "ssim_clip_micros": n_sat}
+        if a == 1:
+            share = sums.share()
+            loss_i = loss_i.detach()
+            if share is not None:
+                g_i = [g * share for g in g_i]
+                loss_i, ssim_i = loss_i * share, ssim_i * share
+            *grads, loss, ssim = dp.sum_(list(g_i) + [loss_i, ssim_i])
+            comps = dict(_detached(comps_i), ssim_metric=ssim)
+        else:
+            # the clip's decision is the global microbatch's (one value
+            # on every rank when the loss has an SSIM term)
+            n_sat = n_sat + ((sums.den() > 0) & ((ssim_i <= 0.0) |
+                                                 (ssim_i >= 1.0))).float()
+            g_acc = [acc + den_i * g.float() for acc, g in zip(g_acc, g_i)]
+            num_loss = num_loss + den_i * loss_i.detach()
+            num_ssim = num_ssim + den_i * ssim_i
+    if a > 1:
+        *g_acc, num_loss, num_ssim, den = dp.sum_(
+            g_acc + [num_loss, num_ssim, w.float().sum()])
+        den = den.clamp_min(1e-12)
+        grads = [(g / den).to(p.dtype) for g, p in zip(g_acc, params)]
+        loss = num_loss / den
+        comps = {"ssim_metric": num_ssim / den, "ssim_clip_micros": n_sat}
     if qat is not None:
-        comps.update(qat_batch_amax=amax_acc, qat_any_fg=fg_acc)
-    return num_loss / den, comps, grads
+        keys = list(amax_acc)
+        *vals, fg = dp.max_([amax_acc[k] for k in keys] + [fg_acc])
+        comps.update(qat_batch_amax=dict(zip(keys, vals)), qat_any_fg=fg)
+    return loss, comps, grads
 
 
 def informative(model: torch.nn.Module, lo: torch.Tensor) -> torch.Tensor:
@@ -287,7 +378,8 @@ def update_qat_amax(amax: Dict[str, torch.Tensor], comps, decay: float
 
 def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
                      grad_accum: int = 1, ema_decay: float = 0.0,
-                     qat_fwd=None, qat_decay: float = 0.0):
+                     qat_fwd=None, qat_decay: float = 0.0, dp=None,
+                     rows=None):
     """train_step(state, batch, lr, generator) -> metrics, updating the
     state in place, inside :func:`repeatable`: augmentation (when ``augment_cfg.enabled``, from
     ``generator``), the loss's gradient, the Adam step at ``lr``, and the
@@ -302,7 +394,13 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
     runs that forward with ``state.qat_amax``, and after the step the
     running amax moves to ``d * amax + (1 - d) * batch_amax`` (d =
     ``qat_decay``) if the batch had a foreground sample, and stays as it
-    is otherwise."""
+    is otherwise.
+
+    With ``dp`` (a ``multihost.Collectives``) ``batch`` holds the rows
+    ``rows`` of the global batch (``parallel.rank_rows``), the
+    augmentation is drawn for the global batch and the rows' draws kept,
+    and the gradients and metrics are the global batch's
+    (:func:`loss_and_grads`); the optimizer may be a :class:`Zero1Adam`."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: float, generator: Optional[torch.Generator] = None):
@@ -313,10 +411,12 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
         hr, lo = batch["hr"], batch["lr"]
         w = batch["weight"] * informative(state.model, lo)
         if augment_cfg is not None and augment_cfg.enabled:
-            hr, lo = augment_pair(hr, lo, generator, augment_cfg)
+            hr, lo = augment_pair(
+                hr, lo, generator, augment_cfg, rows=rows,
+                global_batch=None if rows is None else len(rows) * dp.world)
         qat = None if qat_fwd is None else (qat_fwd, state.qat_amax)
         loss, comps, grads = loss_and_grads(state.model, loss_fn, hr, lo, w,
-                                            grad_accum, qat)
+                                            grad_accum, qat, dp)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         for p, g in zip(state.model.parameters(), grads):
@@ -336,18 +436,24 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
         metrics = {"loss": loss, "ssim": comps["ssim_metric"]}
         if "ssim_clip_micros" in comps:
             metrics["ssim_clip_micros"] = comps["ssim_clip_micros"]
+        if qat is not None:
+            metrics["qat_any_fg"] = comps["qat_any_fg"]
         return metrics
 
     return train_step
 
 
 def build_eval_step(model: torch.nn.Module, loss_fn: CombinedLoss,
-                    qat_fwd=None):
+                    qat_fwd=None, dp=None):
     """eval_step(params, batch) -> (metrics, output) under no_grad;
     ``params`` (a state_dict-keyed dict, e.g. the EMA) replaces the
     model's own for the call, None keeps them. With ``qat_fwd``,
     ``params`` is the pair (params or None, amax) and the step scores the
-    fakequant forward: the metric of int8 serving."""
+    fakequant forward: the metric of int8 serving. With ``dp`` the batch
+    is this rank's rows, the SSIM clip is the global batch's, and the
+    metrics are the global batch's, the same on every rank (each rank's
+    weighted by its share of the weights, then summed); the output is the
+    rank's rows."""
 
     def eval_step(params, batch: Dict[str, torch.Tensor]):
         with torch.no_grad(), repeatable():
@@ -363,10 +469,17 @@ def build_eval_step(model: torch.nn.Module, loss_fn: CombinedLoss,
         else:
             out = model(lo) if params is None else \
                 torch.func.functional_call(model, params, (lo,))
-        total, comps = loss_fn(out, hr, sample_weights=w)
+        sums = _SsimSums(multihost.LOCAL if dp is None else dp,
+                         w.float().sum())
+        total, comps = loss_fn(out, hr, sample_weights=w,
+                               ssim_reduce=sums.reduce())
         ssim = comps.get("ssim_metric")
         if ssim is None:
             ssim = _ssim_metric(loss_fn, out, hr, w)
+        share = sums.share()
+        if share is not None:
+            total, ssim = total * share, ssim * share
+        total, ssim = sums.dp.sum_([total, ssim])
         return {"loss": total, "ssim": ssim}, out
 
     return eval_step
@@ -479,14 +592,40 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
 def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     check_supported(cfg)
     check_qat(cfg)
+    # data parallel: this process is one rank of a process group
+    # (parallel/multihost.py); the path below is the single-device one
+    # wherever coll is None
+    coll = multihost.Collectives() if multihost.active() else None
+    rank, world = multihost.rank(), multihost.world()
+    main = rank == 0
+    if not main:
+        set_quiet(True)
     os.makedirs(cfg.log_dir, exist_ok=True)
-    setup_logging(os.path.join(cfg.log_dir, "training.log"))
+    setup_logging(os.path.join(cfg.log_dir, "training.log" if main
+                               else f"training.p{rank}.log"))
     dev = resolve_device(device)
+    if coll is not None:
+        # every rank must derive the same data order and model init; an
+        # unseeded --seed default draws a seed in each process, so rank
+        # 0's wins
+        agreed = multihost.agree(cfg.seed)
+        if agreed != cfg.seed:
+            log_message(f"Multi-host: replacing this process's seed "
+                        f"{cfg.seed} with process 0's {agreed} (seeds must "
+                        f"agree; pass an explicit --seed to silence this)",
+                        message_type="warning")
+            cfg.seed = agreed
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     os.makedirs(os.path.join(cfg.checkpoint_dir, "samples"), exist_ok=True)
     log_message(f"Training on {dev}"
                 + (f" ({torch.cuda.get_device_name(dev)})"
                    if dev.type == "cuda" else ""))
+    if coll is not None:
+        log_message(f"Using mesh with {world} device(s): "
+                    f"{multihost.rank_devices()}")
+        log_message(f"Multi-host training: {world} processes x 1 local "
+                    f"device(s) ({multihost.backend()}); process 0 writes "
+                    f"checkpoints/logs/protocol (parallel/multihost.py)")
 
     # --- data ---
     dataset = PairedSliceDataset(cfg.full_res_dir, cfg.low_res_dir)
@@ -502,12 +641,24 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                                              cfg.validation_split, cfg.seed)
     if cfg.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
-    # the batch must split into grad_accum equal microbatches
-    batch_size = int(-(-cfg.batch_size // cfg.grad_accum) * cfg.grad_accum)
-    if batch_size != cfg.batch_size:
+    # the batch must split into grad_accum equal microbatches, and each of
+    # them across the ranks
+    quantum = world * cfg.grad_accum
+    batch_size = int(-(-cfg.batch_size // quantum) * quantum)
+    if batch_size != cfg.batch_size and coll is None:
         log_message(f"Rounding batch_size {cfg.batch_size} → {batch_size} "
                     f"to divide into {cfg.grad_accum} gradient-accumulation "
                     f"microbatches")
+    elif batch_size != cfg.batch_size:
+        log_message(f"Rounding batch_size {cfg.batch_size} → {batch_size} "
+                    f"to divide the {world}-way data axis"
+                    + (f" x {cfg.grad_accum} gradient-accumulation "
+                       f"microbatches" if cfg.grad_accum > 1 else ""))
+    # this rank's rows of each global batch (all of them without a group)
+    rows = val_rows = None
+    if coll is not None:
+        rows = rank_rows(batch_size, world, rank, cfg.grad_accum)
+        val_rows = rank_rows(batch_size, world, rank)
     if cfg.grad_accum > 1:
         log_message(f"Gradient accumulation: {cfg.grad_accum} sequential "
                     f"microbatches of {batch_size // cfg.grad_accum} per "
@@ -520,16 +671,16 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                     f"{cfg.streaming_prefetch} prefetched batch(es) in RAM")
         train_loader = StreamingBatchLoader(
             dataset, train_idx, batch_size, shuffle=True, seed=cfg.seed,
-            prefetch=cfg.streaming_prefetch)
+            prefetch=cfg.streaming_prefetch, rows=rows)
         val_loader = StreamingBatchLoader(
             dataset, val_idx, batch_size, shuffle=False, seed=cfg.seed,
-            prefetch=cfg.streaming_prefetch)
+            prefetch=cfg.streaming_prefetch, rows=val_rows)
     else:
         lr_arr, hr_arr = dataset.load_all()
         train_loader = BatchLoader(lr_arr, hr_arr, train_idx, batch_size,
-                                   shuffle=True, seed=cfg.seed)
+                                   shuffle=True, seed=cfg.seed, rows=rows)
         val_loader = BatchLoader(lr_arr, hr_arr, val_idx, batch_size,
-                                 shuffle=False, seed=cfg.seed)
+                                 shuffle=False, seed=cfg.seed, rows=val_rows)
 
     # --- model / loss / optimizer ---
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
@@ -564,8 +715,25 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
             log_message("QAT + remat: the fake-quant forward is functional, "
                         "so the model-side remat segments do not apply; the "
                         "loss-graph checkpoint still does")
-    optimizer = make_optimizer(model.parameters(), cfg.learning_rate,
-                               cfg.weight_decay)
+    if cfg.opt_shard and coll is not None:
+        # ZeRO-1: Adam's moments sharded over the ranks; params (and the
+        # EMA, which serving reads whole) stay replicated
+        optimizer = Zero1Adam(model.named_parameters(), cfg.learning_rate,
+                              cfg.weight_decay, coll)
+        n_sharded, n_leaves = optimizer.counts()
+    else:
+        optimizer = make_optimizer(model.parameters(), cfg.learning_rate,
+                                   cfg.weight_decay)
+        # one rank: every moment "sharded" over the 1-way axis, as JAX
+        # counts; the optimizer is the replicated one
+        n_sharded = 2 * sum(zero1_layout(tuple(p.shape), 1) is not None
+                            for p in model.parameters())
+        n_leaves = 2 * len(list(model.parameters())) + 1
+    if cfg.opt_shard:
+        log_message(f"ZeRO-1 optimizer-state sharding: {n_sharded}/"
+                    f"{n_leaves} moment tensors stored sharded over the "
+                    f"{world}-way data axis (~1/{world} per-device "
+                    f"optimizer memory)")
     state = TrainState(model, optimizer, 0, None)
     scheduler = ReduceLROnPlateau(cfg.learning_rate, factor=0.5,
                                   patience=cfg.patience // 2)
@@ -650,8 +818,12 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                      for k, p in model.named_parameters()}
 
     def calib(params, x):
-        return quant_forward.calib_amax({**model.state_dict(), **params}, x,
+        amax = quant_forward.calib_amax({**model.state_dict(), **params}, x,
                                         cfg.model.model_type, dtype)
+        if coll is not None:
+            # each rank saw its rows of the batch: the global max
+            amax = dict(zip(amax, coll.max_(list(amax.values()))))
+        return amax
 
     qat_serving_calib = None
     if qat_on and (state.qat_amax is None or ema_on):
@@ -672,11 +844,12 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
 
     loss_fn = CombinedLoss(cfg.loss, load_vgg(cfg, dev), remat=cfg.remat)
     train_step = build_train_step(loss_fn, cfg.augment, cfg.grad_accum,
-                                  cfg.ema_decay, qat_fwd, cfg.qat_decay)
-    eval_step = build_eval_step(model, loss_fn, qat_fwd)
+                                  cfg.ema_decay, qat_fwd, cfg.qat_decay,
+                                  coll, rows)
+    eval_step = build_eval_step(model, loss_fn, qat_fwd, coll)
 
     writer = None
-    if cfg.use_tensorboard:
+    if cfg.use_tensorboard and main:
         try:
             from torch.utils.tensorboard import SummaryWriter
             writer = SummaryWriter(cfg.log_dir)
@@ -692,7 +865,7 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         "initial_alpha": cfg.model.initial_alpha,
         "augmentation": cfg.augment.enabled,
         "validation_split": cfg.validation_split,
-        "patience": cfg.patience, "num_devices": 1, "device": str(dev),
+        "patience": cfg.patience, "num_devices": world, "device": str(dev),
         "bf16": cfg.bf16, "seed": cfg.seed, "ema_decay": cfg.ema_decay,
         "qat": cfg.qat,
     }, "params")
@@ -712,7 +885,12 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         beside the checkpoint (``<base>.calib.json``): measured on the EMA
         weights when they are served, else the running ranges. Without
         QAT a sidecar left by an earlier QAT run is removed: it describes
-        weights this save overwrites."""
+        weights this save overwrites. Data parallel, it is a collective
+        (ZeRO-1's moments are gathered from every rank) and rank 0
+        alone writes."""
+        opt_state = adam_state(model, optimizer)
+        if not main:
+            return
         live = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         serve = ({k: v.cpu() for k, v in state.ema.items()} if ema_on
                  else live)
@@ -722,8 +900,8 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         if qat_on:
             extras["qat_amax"] = {k: v.cpu()
                                   for k, v in state.qat_amax.items()}
-        ckpt.save_checkpoint(base, serve, adam_state(model, optimizer),
-                             meta=meta, model_type=cfg.model.model_type,
+        ckpt.save_checkpoint(base, serve, opt_state, meta=meta,
+                             model_type=cfg.model.model_type,
                              extras=extras or None)
         sidecar = ckpt.calib_sidecar_path(base)
         if qat_on:
@@ -758,7 +936,8 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         os.makedirs(cfg.profile_dir, exist_ok=True)
     epoch = start_epoch - 1
     for epoch in range(start_epoch, cfg.epochs):
-        if cfg.profile_dir and epoch == min(start_epoch + 1, cfg.epochs - 1):
+        if cfg.profile_dir and main and \
+                epoch == min(start_epoch + 1, cfg.epochs - 1):
             profiler = start_profiler(dev)
         epoch_start = time.time()
         # metrics stay on the device until the epoch's end; only the
@@ -782,7 +961,7 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                 log_message({"epoch": epoch, "batch": batch_idx,
                              "total_batches": n_train_batches,
                              "loss": loss_v}, "batch_update")
-                if progress_cb:
+                if progress_cb and main:
                     progress_cb(epoch, batch_idx, loss_v)
             if (cfg.save_every_steps > 0
                     and state.step % cfg.save_every_steps == 0):
@@ -856,7 +1035,7 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
             "val_ssim": val_ssim if n_val else "N/A",
             "elapsed": elapsed, "lr": scheduler.lr,
             "slices_per_sec": n_seen / max(elapsed, 1e-9),
-            "slices_per_sec_per_chip": n_seen / max(elapsed, 1e-9),
+            "slices_per_sec_per_chip": n_seen / max(elapsed, 1e-9) / world,
             "steps_per_sec": n_train_batches / max(elapsed, 1e-9),
         }, "epoch_summary")
         if writer:
@@ -866,7 +1045,9 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                 writer.add_scalar("Loss/val", val_loss, epoch)
                 writer.add_scalar("SSIM/val", val_ssim, epoch)
 
-        if grids and epoch % vis_frequency == 0 and vis_batch is not None:
+        # data parallel: rank 0's rows of the batch (its first B / world)
+        if grids and main and epoch % vis_frequency == 0 and \
+                vis_batch is not None:
             try:
                 save_example_images(vis_batch["lr"], vis_batch["hr"],
                                     vis_out.float().cpu().numpy(), epoch,
@@ -890,7 +1071,7 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     # a completed run supersedes its mid-epoch step checkpoint, which a
     # later --resume in this directory would otherwise prefer
     for suffix in (".ckpt", ".json"):
-        if os.path.exists(names["step"] + suffix):
+        if main and os.path.exists(names["step"] + suffix):
             os.remove(names["step"] + suffix)
     log_message(f"Training completed. Final model saved to "
                 f"{names['final']}.ckpt")

@@ -38,10 +38,24 @@ def setup_logging(logfile: str = "training.log",
 
 
 _logger = logging.getLogger("mri_superresolution_torch")
+_quiet = False
+
+
+def set_quiet(quiet: bool = True) -> None:
+    """Suppress the stdout protocol lines (data-parallel ranks other than
+    rank 0): their messages go to the logger alone."""
+    global _quiet
+    _quiet = quiet
 
 
 def log_message(message: Union[dict, str], message_type: str = "info") -> None:
     """Emit one protocol line on stdout and a human line on the logger."""
+    if _quiet:
+        if message_type != "batch_update":
+            text = message if isinstance(message, str) else json.dumps(message)
+            (_logger.warning if message_type == "warning"
+             else _logger.info)(text)
+        return
     if isinstance(message, dict):
         line = dict(message)
         for key, value in line.items():

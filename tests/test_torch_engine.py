@@ -221,3 +221,89 @@ def test_cli_serves_a_jax_checkpoint(tmp_path, jax_params):
     assert cli.main(["--input", os.path.join(d, "in.png"), "--output", out,
                      "--checkpoint_dir", str(tmp_path / "none"),
                      "--cpu"]) == 1
+
+
+# ------------------------------------------------ several devices (A14)
+
+def _eight(jax_params, **kw):
+    """The JAX engine on conftest.py's 8 host devices and the port's over
+    8 CPU devices, fp32, the same params."""
+    jeng = JaxEngine(JaxModelConfig(base_filters=16), jax_params, bf16=False,
+                     num_devices=8, **kw)
+    teng = InferenceEngine(ModelConfig(base_filters=16),
+                           state_dict_from_jax(jax_params), bf16=False,
+                           devices=[torch.device("cpu")] * 8, **kw)
+    assert jeng.n_devices == teng.n_devices == 8
+    return jeng, teng
+
+
+def _frozen(jax_params, tmp_path):
+    from mri_superresolution_tpu.models import quant_forward as jqf
+    calib = np.random.default_rng(3).random((4, 16, 16, 1), np.float32)
+    path = str(tmp_path / "scales.json")
+    jqf.save_scales(path, jqf.calibrate(jax_params, [calib], "unet",
+                                        dtype=jax.numpy.float32), "unet")
+    return path
+
+
+@pytest.mark.parametrize("mode", ["fp32", "tta", "int8"])
+def test_eight_devices_match_the_jax_mesh_engine(jax_params, tmp_path, mode):
+    """5 slices over 8 devices (padded to 8, one a device) against the JAX
+    engine with ``num_devices=8`` (tests/test_infer.py:49): fp32 and TTA
+    within atol 1e-5; frozen int8 at the cross-package budget of
+    tests/test_torch_quant.py (PSNR against the fp32 output at most 0.1
+    dB below JAX's), the counts equal. fp32 and TTA over the port's 8
+    devices also equal its one device to 1e-5 (batches of one against one
+    of five)."""
+    kw = {"tta": {"tta": True},
+          "int8": {"quant": "int8", "quant_min_foreground": 0.0,
+                   "quant_calib_path": _frozen(jax_params, tmp_path)}
+          }.get(mode, {})
+    jeng, teng = _eight(jax_params, **kw)
+    x = np.random.default_rng(4).random((5, 16, 16)).astype(np.float32)
+    got, want = teng.upscale_batch(x), jeng.upscale_batch(x)
+    assert got.shape == want.shape == (5, 32, 32)
+    if mode != "int8":
+        one = InferenceEngine(ModelConfig(base_filters=16),
+                              state_dict_from_jax(jax_params), bf16=False,
+                              device="cpu", **kw).upscale_batch(x)
+        np.testing.assert_allclose(got, one, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        return
+    assert teng._quant_batches == jeng._quant_batches == {"int8": 1,
+                                                          "bf16": 0}
+    ref = _engines(jax_params)[1].upscale_batch(x)
+
+    def db(a):
+        return 10 * np.log10(1.0 / np.mean((a - ref) ** 2))
+    assert db(got) >= db(want) - 0.1
+
+
+def test_eight_devices_calibrate_over_every_chunk_as_jax(jax_params):
+    """Streaming int8 calibration over 8 devices: the max runs over every
+    device's chunk, padding rows included, as JAX's sharded calibration
+    forward takes it; the frozen scales within rtol 1e-5 of JAX's, the
+    same counts; the pipelined int8 outputs at the cross-package budget
+    (PSNR against the fp32 output at most 0.1 dB below JAX's); tiled fp32
+    serving over 8 devices within 1e-5 of one device."""
+    kw = dict(quant="int8", quant_calib_slices=3, quant_min_foreground=0.0)
+    jeng, teng = _eight(jax_params, **kw)
+    rng = np.random.default_rng(6)
+    batches = [rng.random((3, 16, 16), dtype=np.float32) for _ in range(3)]
+    outs = list(teng.upscale_batches(iter(batches), depth=2))
+    jouts = [jeng.upscale_batch(b) for b in batches]
+    assert teng._quant_batches == jeng._quant_batches == {"int8": 3,
+                                                          "bf16": 0}
+    assert sorted(teng._quant_scales) == sorted(jeng._quant_scales)
+    for k, v in jeng._quant_scales.items():
+        np.testing.assert_allclose(teng._quant_scales[k], np.asarray(v),
+                                   rtol=1e-5, err_msg=k)
+    fp = _eight(jax_params)[1]
+    for b, y, want in zip(batches, outs, jouts):
+        ref = fp.upscale_batch(b)
+        assert 10 * np.log10(np.mean((want - ref) ** 2) /
+                             np.mean((y - ref) ** 2)) >= -0.1
+    img = rng.random((40, 52)).astype(np.float32)
+    np.testing.assert_allclose(fp.upscale_tiled(img, tile=24, halo=4),
+                               _engines(jax_params)[1].upscale_tiled(
+                                   img, tile=24, halo=4), atol=1e-5)

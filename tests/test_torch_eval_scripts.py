@@ -492,6 +492,26 @@ def test_tui_commands_are_the_jax_flags_after_the_module(menu):
         tui.build_command("nope", _param_sets()[0])
 
 
+def test_tui_opt_shard_reaches_a_train_cli_that_runs_it():
+    """The train menu with the ``opt_shard`` toggle on (and ``cpu``)
+    builds a command the port's train CLI takes as it is: no refusal,
+    ZeRO-1 on, one CPU rank at the CLIs' default device count; a
+    ``spatial_shards`` of 2 still reaches the refusal naming A14."""
+    from mri_superresolution_torch.cli import train as tcli
+    from mri_superresolution_torch.train.trainer import check_supported
+    p = dict(tui.DEFAULT_PARAMS, opt_shard=True, cpu=True,
+             full_res_dir="hr", low_res_dir="lr")
+    args = tcli.parse_args(tui.build_command("train", p)[3:])
+    cfg = tcli.config_from_args(args)
+    check_supported(cfg)
+    assert cfg.opt_shard and args.num_devices == 0
+    assert tcli.local_devices(args) == [torch.device("cpu")]
+    bad = tcli.config_from_args(tcli.parse_args(
+        tui.build_command("train", dict(p, spatial_shards=2))[3:]))
+    with pytest.raises(NotImplementedError, match="A14"):
+        check_supported(bad)
+
+
 @pytest.mark.parametrize("field,raw", [
     ("ssim_weight", "0.5"), ("ssim_weight", "0.9"), ("ssim_weight", "1.5"),
     ("perceptual_weight", "0.8"), ("kspace_crop_factor", "0"),

@@ -46,5 +46,7 @@ def test_port_imports_are_clean():
                  "cli.visualise_res", "cli.ui", "evalsuite.resolution",
                  "tools.export_torch_checkpoint",
                  "tools.convert_torch_checkpoint", "utils.figures",
-                 "utils.subproc"):
+                 "utils.subproc", "parallel", "parallel.mesh",
+                 "parallel.multihost", "train.zero1", "tools.dp_step",
+                 "experiments", "experiments.phase"):
         assert f"mri_superresolution_torch.{name}" in walked

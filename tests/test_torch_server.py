@@ -771,10 +771,9 @@ def test_serve_cli_help():
 
 @pytest.mark.parametrize("flags,item", [
     (("--artifact", "m.mrisrx"), "JAX package"),
-    (("--spatial_shards", "2"), "ROADMAP A14"),
-    (("--num_devices", "2"), "ROADMAP A14")])
+    (("--spatial_shards", "2"), "ROADMAP A14")])
 def test_serve_cli_refuses_unported_modes(flags, item, tmp_path):
-    """Multi-device serving waits for ROADMAP A14; ``--artifact`` is
+    """Spatially sharded serving waits for ROADMAP A14; ``--artifact`` is
     served since A12, but not a JAX package's artifact (jax.export
     programs): exit 1, naming the package."""
     if flags[0] == "--artifact":
@@ -783,6 +782,62 @@ def test_serve_cli_refuses_unported_modes(flags, item, tmp_path):
     r = _serve("--cpu", "--checkpoint_dir", str(tmp_path), *flags)
     assert r.returncode == 1
     assert item in r.stderr
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_healthy(proc, base):
+    deadline = time.monotonic() + 90
+    while True:
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                return json.loads(r.read())
+        except (urllib.error.URLError, ConnectionError):
+            assert proc.poll() is None and time.monotonic() < deadline
+            time.sleep(0.2)
+
+
+def test_serve_cli_num_devices_matches_the_jax_mesh_engine(tmp_path, rng):
+    """``--cpu --num_devices 8``: a posted batch of 5 slices is padded to
+    8 and split over 8 CPU devices; the answer within atol 1e-5 of the
+    JAX engine with ``num_devices=8`` on the same checkpoint (fp32)."""
+    jp = jax.tree_util.tree_map(np.asarray, init_params(
+        UNetSuperRes(base_filters=16), jax.random.key(0), (16, 16)))
+    ckpt.save_checkpoint(str(tmp_path / "final_model_unet"),
+                         state_dict_from_jax(jp),
+                         meta={"config": {"model": {"model_type": "unet",
+                                                    "base_filters": 16}}})
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mri_superresolution_torch.cli.serve",
+         "--checkpoint_dir", str(tmp_path), "--port", str(port), "--cpu",
+         "--no_bf16", "--num_devices", "8", "--max_batch", "8"],
+        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=ROOT,
+                                    OMP_NUM_THREADS="2"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        health = _wait_healthy(proc, base)
+        assert "devices=8" in json.dumps(health)
+        x = rng.random((5, 16, 16)).astype(np.float32)
+        got = _load(_post(base, "/upscale", _npy(x)))
+        want = JaxEngine(JaxModelConfig(base_filters=16), jp, bf16=False,
+                         num_devices=8).upscale_batch(x)
+        assert got.shape == want.shape == (5, 32, 32)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def test_serve_cli_serves_and_drains_on_sigterm(params, tmp_path, rng):

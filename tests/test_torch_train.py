@@ -547,9 +547,7 @@ def test_cli_trains_every_family_and_the_perceptual_loss(
 
 @pytest.mark.parametrize("flags,item", [
     (("--qat", "--spatial_shards", "2"), "A14"),
-    (("--spatial_shards", "2"), "A14"),
-    (("--opt_shard",), "A14"), (("--multihost",), "A14"),
-    (("--num_devices", "2"), "A14")])
+    (("--spatial_shards", "2"), "A14")])
 def test_cli_rejects_unported_modes(pngs, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(_argv(pngs, tmp_path, "--epochs", "1", *flags))

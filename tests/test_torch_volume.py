@@ -431,11 +431,21 @@ class _Logs(logging.Handler):
         logging.getLogger("mri_superresolution_torch").removeHandler(self)
 
 
+def test_infer_volume_num_devices_matches_jax(workspace, monkeypatch):
+    """``--num_devices 8`` on the CPU: each batch of 4 (and the last of
+    2) padded to 8 and split over 8 devices, as the JAX CLI's mesh of 8
+    host devices does; the volumes within rtol 1e-4, atol 1e-5."""
+    rc, jrc = _run_both(workspace, monkeypatch, ["--num_devices", "8"])
+    assert rc == jrc == 0
+    got, _ = _compare(workspace, "sr.nii", False)
+    assert got.shape == (48, 40, 6)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--artifact", "m.mrisrx"], "JAX package"),
-    (["--spatial_shards", "2"], "A14"), (["--num_devices", "2"], "A14")])
+    (["--spatial_shards", "2"], "A14")])
 def test_infer_volume_refuses_unported_flags(tmp_path, flags, item):
-    """Multi-device serving waits for ROADMAP A14; ``--artifact`` is
+    """Spatially sharded serving waits for ROADMAP A14; ``--artifact`` is
     served since A12, but not a JAX package's artifact (jax.export
     programs): exit 1, naming the package."""
     if flags[0] == "--artifact":
