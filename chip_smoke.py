@@ -260,7 +260,32 @@ the last line is printed:
    device's chunk (8 of 256^2), B1's backward and B2 (4 of 256^2) at a
    rank's batch, B4 and its fused route at a chunk's 20 sites, B1 in
    fp32 at the phase_final forward's five shapes.
-15. the ``kernels`` JSON line, the card's name and power limit, and the
+15. row-sharded serving (``spatial_path``, run after the perceptual
+   phase; its export and the artifact's client start in the background
+   after phase 14) on ``cuda:0`` named 2 and 4 times: (a) B3 on the 1-row haloed blocks of the unet's two narrow
+   sites (8 x 1024^2, bf16 and fp32) against its plain version, the
+   cropped rows gathered bit-equal to the dense kernel's, and B4's
+   stream route at every family's int8 sites on a shard (4 x 256^2 over
+   2), code for code; (b) the full-width unet at 8 x 512^2 over 2 and 4
+   shards through ``InferenceEngine(spatial_shards=n)`` against the
+   one-device engine: fp32 within rtol 1e-4, atol 3e-5; bf16 within 0.1
+   dB PSNR of dense bf16 against the HR truth and no more than 0.1 dB
+   below it against the fp32 truth; B3 2n launches a forward and no
+   other kernel; ms a batch beside the one-device engine's ("one card,
+   not representative"); (c) each family at full width on 4 x 256^2 over
+   2: a sidecar calibrated on the batch, spatial and dense int8 served
+   from it (unet and unet_tpu within the JAX quality contract against
+   the fp32 truth, edsr and simple bit-equal), B4 one stream launch a
+   site and shard, the fp32 calibration amax within rtol 1e-5, atol
+   1e-6 of the dense one; (d) streaming calibration on the spatial
+   engine and the bf16 TTA ensemble against the dense ensemble (bf16
+   budget); (e) ``cli.infer_volume --num_devices 2 --spatial_shards 2``
+   on a 128 x 128 x 8 volume against the run without them (bf16
+   budget), ``cli.serve`` with those flags answering one /upscale bit
+   for bit as the engine, and ``cli.export_serving --spatial_shards 2``
+   whose artifact a fresh process serves, with no model code, bit for
+   bit as the spatial engine.
+16. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -284,7 +309,9 @@ the last line is printed:
    through the raw artifact), the eval phase's (``eval_launches``), the
    data-parallel phase's (``dp_launches``: the world-of-one training run,
    both ranks' checked step and the two-device engine's three batches)
-   and ``phase_final``'s two forwards (``phase_launches``), and
+   and ``phase_final``'s two forwards (``phase_launches``), the spatial
+   phase's counted forwards (``spatial_launches``: its engines' bf16
+   and fp32 batches and the four families' int8 batches), and
    B1's
    and its backward's rows their C = 64 times (``c64``). A ``wall`` line
    before it gives the script's seconds.
@@ -295,6 +322,7 @@ Needs one CUDA card; without one it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gzip
@@ -4887,6 +4915,463 @@ def dp_phase_path(dev, cfg, params, lr, hr, trained) -> dict:
             "ranks": ranks, "engine": engine["ms"], "phase": phase["ms"]}
 
 
+# the row-sharded (spatial) phase: the full-width unet at 8 x 512^2 over 2
+# and 4 shards of one card; int8, TTA and the CLIs at 4 x 256^2 over 2
+SP_DIR = SCALES_PATH.parent / "spatial"
+SP_BATCH, SP_LR, SP_SHARDS = 8, 512, (2, 4)
+SP_SMALL, SP_SMALL_LR, SP_SMALL_SHARDS = 4, 256, 2
+SP_FAMILIES = ("unet", "unet_tpu", "edsr", "simple")
+SP_VOL = (128, 128, 8)
+
+SPATIAL_CLIENT = r"""
+import json, sys
+import numpy as np
+import torch
+from mri_superresolution_torch import kernels
+from mri_superresolution_torch.infer.export import load_artifact
+from mri_superresolution_torch.utils.phantom import phantom_batch
+args = json.loads(sys.argv[1])
+lr = phantom_batch(np.random.default_rng(0), args["batch"], args["size"])
+art = load_artifact(args["path"], devices=[torch.device("cuda", 0)]
+                    * args["devices"])
+kernels.reset_launch_counts()
+np.save(args["out"], art.upscale_batch(lr))
+torch.cuda.synchronize()
+print(json.dumps({"spatial": art.spatial, "launches": {
+    k: v for k, v in kernels.launch_counts().items() if v},
+    "model_modules": sorted(m for m in sys.modules if m.startswith((
+        "mri_superresolution_torch.models", "mri_superresolution_torch.train",
+        "mri_superresolution_torch.infer.engine")))}))
+"""
+
+
+def _sp_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def _psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return 10.0 * math.log10(1.0 / mse) if mse > 0 else float("inf")
+
+
+def _int8_quality(sp, dense, truth) -> dict:
+    """The JAX package's contract between two int8 paths of a GroupNorm
+    family (``tests/test_spatial.py``): as close to the fp32 truth as the
+    other, within 1.1x in mean and 1.2x at the 0.999 quantile."""
+    e_sp, e_d = np.abs(sp - truth), np.abs(dense - truth)
+    q_sp, q_d = float(np.quantile(e_sp, 0.999)), float(np.quantile(e_d,
+                                                                    0.999))
+    return {"mean_err": float(e_sp.mean()), "dense_mean_err":
+            float(e_d.mean()), "q999_err": q_sp, "dense_q999_err": q_d,
+            "ok": bool(e_sp.mean() <= 1.1 * e_d.mean() + 1e-5
+                       and q_sp <= 1.2 * q_d + 1e-3)}
+
+
+def check_spatial_kernels(dev, gen) -> None:
+    """The kernels at the shapes the row-sharded path gives them: B3 on
+    the 1-row haloed blocks of the unet's two narrow sites at 8 x 1024^2
+    over 2 and 4 shards (bf16 and fp32 against the plain version; the
+    cropped rows, gathered, bit-equal to the dense kernel's rows), and
+    B4's stream route at each family's int8 sites on a shard of 4 x
+    256^2 over 2, code for code."""
+    from mri_superresolution_torch.parallel import spatial
+    f, hr = BASE_FILTERS, 2 * SP_LR
+    for n in SP_SHARDS:
+        group = spatial.SpaceGroup([dev] * n)
+        for ci, co in ((f, f // 2), (f // 2, f // 2)):
+            for dt in (torch.bfloat16, torch.float32):
+                x, w = b3_inputs(SP_BATCH, ci, co, hr, dev, gen)
+                x, w = x.to(dt).contiguous(memory_format=torch.channels_last
+                                           ), w.to(dt)
+                blocks = [x[:, :, i * hr // n:(i + 1) * hr // n]
+                          for i in range(n)]
+                ext = group.halo(blocks, 1, 1)[1]
+                if dt == torch.bfloat16:
+                    b3_check(ext, w, f"spatial shard of {n}")
+                else:
+                    ok, err = within(conv3x3(ext, w), conv3x3_plain(ext, w),
+                                     1e-5, 1e-5)
+                    log("kernel_check", kernel="B3", shape=list(ext.shape),
+                        cout=co, served_by=f"spatial shard of {n}",
+                        dtype="fp32", max_abs_err=err, rtol=1e-5, atol=1e-5,
+                        ok=ok)
+                    if not ok:
+                        raise AssertionError(f"B3 fp32 at {list(ext.shape)}:"
+                                             f" max abs err {err}")
+                got = torch.cat(spatial._narrow_conv(group, blocks,
+                                                     [w] * n, dt), dim=2)
+                equal = torch.equal(got, conv3x3(x, w))
+                log("spatial_b3", shards=n, shape=list(x.shape), cout=co,
+                    dtype=str(dt).split(".")[-1], cropped_rows_bit_equal=equal)
+                if not equal:
+                    raise AssertionError(f"B3 on {n} shards at "
+                                         f"{list(x.shape)} ({dt}): the "
+                                         "cropped rows differ from the "
+                                         "dense kernel's")
+                del x, blocks, ext, got
+    n, seen = SP_SMALL_SHARDS, set()
+    for family in SP_FAMILIES:
+        for site, (b, c, h, w), slope in zoo_quant_sites(
+                family, SP_SMALL, SP_SMALL_LR, BASE_FILTERS):
+            shard = (b, c, h // n, w)
+            if (shard, slope) not in seen:
+                seen.add((shard, slope))
+                b4_site_check(f"{family} {site} (spatial shard)", shard,
+                              slope, dev, gen)
+
+
+def _sp_engines(dev, cfg, params, lr, hr, smi: str) -> dict:
+    """The full-width unet at 8 x 512^2 over 2 and 4 shards of one card,
+    fp32 and bf16, against the one-device engine on the same batch:
+    fp32 within rtol 1e-4, atol 3e-5; bf16 within 0.1 dB PSNR of the
+    dense bf16 output against the HR truth and no more than 0.1 dB below
+    it against the fp32 truth; B3 2n launches a forward and no other
+    kernel; ms a batch beside the dense engine's."""
+    res, launches = {}, {}
+    truth = None
+    for bf16 in (False, True):
+        name = "bf16" if bf16 else "fp32"
+        dense = InferenceEngine(cfg, params, bf16=bf16, device=dev)
+        want = dense.upscale_batch(lr)
+        if not bf16:
+            truth = want
+        dense_ms = cuda_ms(lambda: dense.upscale_batch(lr), iters=3,
+                           warmup=0)
+        for n in SP_SHARDS:
+            eng = InferenceEngine(cfg, params, bf16=bf16,
+                                  devices=[dev] * n, spatial_shards=n)
+            eng.upscale_batch(lr[:1])                    # warm
+            kernels.reset_launch_counts()
+            got = eng.upscale_batch(lr)
+            counts = _sp_counts()
+            _add(launches, counts)
+            if bf16:
+                q = {"psnr_db": _psnr_db(got, hr),
+                     "dense_psnr_db": _psnr_db(want, hr),
+                     "vs_fp32_db": _psnr_db(got, truth),
+                     "dense_vs_fp32_db": _psnr_db(want, truth)}
+                ok = abs(q["psnr_db"] - q["dense_psnr_db"]) <= 0.1 and \
+                    q["vs_fp32_db"] >= q["dense_vs_fp32_db"] - 0.1
+                gate = q
+            else:
+                ok, err = within(torch.from_numpy(got), torch.from_numpy(
+                    want), 1e-4, 3e-5)
+                gate = {"max_abs_err": err, "rtol": 1e-4, "atol": 3e-5}
+            ms = cuda_ms(lambda: eng.upscale_batch(lr), iters=3, warmup=0)
+            want_counts = {"conv3x3": 2 * n}
+            log("spatial_engine", dtype=name, shards=n,
+                devices=[str(dev)] * n, batch=SP_BATCH, lr=[SP_LR, SP_LR],
+                launches=counts, expected=want_counts, ok=ok, **gate,
+                spatial_ms=ms, one_device_ms=dense_ms, card=smi,
+                timing="CUDA events around 3 upscale_batch calls, upload "
+                       "and fetch included; one card, not representative")
+            if not ok or counts != want_counts:
+                raise AssertionError(f"spatial engine ({name}, {n} shards):"
+                                     f" {gate}, launches {counts}")
+            res[f"{name}_{n}"] = {"spatial_ms": ms, "one_device_ms": dense_ms}
+    return {"launches": launches, "ms": res}
+
+
+def _family_params(family: str, params) -> tuple:
+    if family == "unet":
+        return ModelConfig(base_filters=BASE_FILTERS), params
+    cfg = ModelConfig(model_type=family, base_filters=BASE_FILTERS,
+                      num_blocks=EDSR_BLOCKS)
+    return cfg, build_model(cfg, generator=torch.Generator().manual_seed(
+        1)).state_dict()
+
+
+def _sp_int8(dev, params, lr) -> dict:
+    """Each family on 4 x 256^2 over 2 shards: calibrated on the batch, a
+    sidecar frozen, spatial and dense int8 served from it (unet and
+    unet_tpu within the quality contract against the fp32 truth, edsr
+    and simple bit-equal), B4 one stream launch a site and shard and no
+    other kernel; the fp32 calibration forward's amax against the dense
+    ``calib_amax`` within rtol 1e-5, atol 1e-6 at every site."""
+    from mri_superresolution_torch.parallel import spatial
+    n = SP_SMALL_SHARDS
+    launches, out = {}, {}
+    x = torch.from_numpy(lr[..., None]).to(dev)
+    for family in SP_FAMILIES:
+        cfg, sd = _family_params(family, params)
+        sd = {k: v.to(dev) for k, v in sd.items()}
+        path = SP_DIR / f"{family}.calib.json"
+        quant_forward.save_scales(str(path), quant_forward.calibrate(
+            sd, [x], family, torch.bfloat16), family)
+        kw = {"quant": "int8", "quant_calib_path": str(path)}
+        dense = InferenceEngine(cfg, sd, device=dev, **kw)
+        sp = InferenceEngine(cfg, sd, devices=[dev] * n, spatial_shards=n,
+                             **kw)
+        want = dense.upscale_batch(lr)
+        sp.upscale_batch(lr[:1])                         # warm
+        kernels.reset_launch_counts()
+        stream = leaky_quantize.stream_launches
+        got = sp.upscale_batch(lr)
+        counts = _sp_counts()
+        stream = leaky_quantize.stream_launches - stream
+        _add(launches, counts)
+        n_sites = len(quant_forward.quant_sites(sd, family))
+        want_counts = {"leaky_quantize": n * n_sites}
+        if family in ("edsr", "simple"):
+            gate = {"bit_equal": bool(np.array_equal(got, want))}
+            ok = gate["bit_equal"]
+        else:
+            truth = InferenceEngine(cfg, sd, bf16=False,
+                                    device=dev).upscale_batch(lr)
+            gate = _int8_quality(got, want, truth)
+            ok = gate["ok"]
+        sites = sorted(quant_forward.amax_template(sd, family))
+        mesh = spatial.make_spatial_mesh(1, n, [dev] * n)
+        with torch.inference_mode():
+            _, amax = spatial.build_spatial_calib_forward_raw(
+                mesh, (SP_SMALL_LR, SP_SMALL_LR), sites, family,
+                torch.float32)(sd, x)
+            dense_amax = quant_forward.calib_amax(sd, x, family,
+                                                  torch.float32)
+        amax_err = max(float(((amax[k] - dense_amax[k]).abs() / (
+            1e-6 + 1e-5 * dense_amax[k].abs())).max()) for k in sites)
+        ok = ok and amax_err <= 1.0 and counts == want_counts and \
+            stream == n * n_sites
+        log("spatial_int8", family=family, shards=n, batch=SP_SMALL,
+            lr=[SP_SMALL_LR, SP_SMALL_LR], launches=counts,
+            expected=want_counts, stream_launches=stream,
+            quant_batches=sp._quant_batches, calib_amax_err_over_tol=amax_err,
+            ok=ok, gate=gate)
+        if not ok or sp._quant_batches != {"int8": 2, "bf16": 0}:
+            raise AssertionError(f"spatial int8 ({family}): {gate}, amax "
+                                 f"err/tol {amax_err}, launches {counts}, "
+                                 f"stream {stream}, {sp._quant_batches}")
+        out[family] = gate
+    return {"launches": launches, "checks": out}
+
+
+def _sp_stream_tta(dev, cfg, params, lr, hr) -> dict:
+    """Streaming calibration on the spatial engine (calibrates on the
+    batch, freezes, re-serves it int8; the dense engine's quality
+    contract), and the bf16 TTA ensemble over 2 shards within the bf16
+    budget of the dense ensemble."""
+    n = SP_SMALL_SHARDS
+    kw = {"quant": "int8", "quant_calib_slices": SP_SMALL}
+    sp = InferenceEngine(cfg, params, devices=[dev] * n, spatial_shards=n,
+                         **kw)
+    dense = InferenceEngine(cfg, params, device=dev, **kw)
+    y_sp, y_d = sp.upscale_batch(lr), dense.upscale_batch(lr)
+    truth = InferenceEngine(cfg, params, bf16=False,
+                            device=dev).upscale_batch(lr)
+    stream = {**_int8_quality(y_sp, y_d, truth),
+              "quant_batches": sp._quant_batches,
+              "summary": sp.quant_summary()}
+    stream["ok"] = stream["ok"] and sp._quant_batches == {"int8": 1,
+                                                          "bf16": 0}
+    tta_sp = InferenceEngine(cfg, params, devices=[dev] * n,
+                             spatial_shards=n, tta=True).upscale_batch(lr)
+    tta_d = InferenceEngine(cfg, params, device=dev,
+                            tta=True).upscale_batch(lr)
+    tta = _budget_quiet(_quality(tta_sp, hr, dev), _quality(tta_d, hr, dev))
+    log("spatial_stream_tta", shards=n, batch=SP_SMALL, streaming=stream,
+        tta=tta)
+    if not (stream["ok"] and tta["ok"]):
+        raise AssertionError(f"spatial streaming calibration {stream}, "
+                             f"TTA {tta}")
+    return {"streaming": stream, "tta": tta}
+
+
+def _kill_group(proc) -> None:
+    """Stop a process started in a session of its own, with its
+    children."""
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(30)
+
+
+def _sp_volume(dev) -> dict:
+    """``cli.infer_volume`` in this process on a 128 x 128 x 8 int16
+    phantom volume, with and without ``--num_devices 2 --spatial_shards
+    2``: both exit 0, within the bf16 budget of each other against the
+    2x truth."""
+    h, w, k = SP_VOL
+    lr = phantom_batch(np.random.default_rng(4), k, h)
+    gt = phantom_batch(np.random.default_rng(4), k, 2 * h)
+    nifti.save(str(SP_DIR / "vol.nii"), np.transpose(
+        np.round(lr * 2000.0).astype(np.int16), (1, 2, 0)),
+        zooms=(1.0, 1.0, 3.0), scl_slope=VOL_SLOPE)
+    outs, runs = {}, {}
+    for name, flags in (("dense", []), ("spatial", [
+            "--num_devices", "2", "--spatial_shards", "2"])):
+        out = SP_DIR / f"sr_{name}.nii"
+        runs[name] = _serve_volume([
+            "--input", str(SP_DIR / "vol.nii"), "--output", str(out),
+            "--checkpoint_dir", str(SP_DIR / "ckpt"), "--batch_size", "4",
+            *flags])
+        data, hdr = nifti.load(str(out))
+        outs[name] = np.transpose(data, (2, 0, 1))
+    d = _budget_quiet(_quality(outs["spatial"], gt, dev),
+                      _quality(outs["dense"], gt, dev))
+    ok = d["ok"] and runs["dense"]["rc"] == runs["spatial"]["rc"] == 0 and \
+        outs["spatial"].shape == (k, 2 * h, 2 * w)
+    log("spatial_volume_cli", shape=list(SP_VOL), runs=runs, budget=d,
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"infer_volume --spatial_shards 2: {runs}, {d}")
+    return {"launches": runs["spatial"]["launches"]}
+
+
+SPATIAL_BACKGROUND = r"""
+import json, subprocess, sys, time
+a = json.loads(sys.argv[1])
+t = time.perf_counter()
+e = subprocess.run(a["export"], capture_output=True, text=True)
+out = {"export_rc": e.returncode, "export_stdout": e.stdout[-2000:],
+       "export_stderr": e.stderr[-3000:],
+       "export_s": time.perf_counter() - t}
+if e.returncode == 0:
+    t = time.perf_counter()
+    c = subprocess.run(a["client"], capture_output=True, text=True)
+    out.update(client_rc=c.returncode, client_stdout=c.stdout[-4000:],
+               client_stderr=c.stderr[-3000:],
+               client_s=time.perf_counter() - t)
+print(json.dumps(out))
+"""
+
+
+def spatial_start(cfg, params):
+    """The spatial phase's checkpoint, and its export CLI followed by the
+    fresh process that serves the artifact, started in the background:
+    tracing the row-sharded program takes a minute of host time, which
+    the phases before it cover."""
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    (SP_DIR / "ckpt").mkdir(parents=True)
+    ckpt.save_checkpoint(str(SP_DIR / "ckpt" / "final_model_unet"), params,
+                         meta={"config": {"model": dataclasses.asdict(cfg)}})
+    art = SP_DIR / "spatial.mrisrt"
+    spec = {"path": str(art), "devices": 2, "batch": SP_SMALL,
+            "size": SP_SMALL_LR, "out": str(SP_DIR / "art.npy")}
+    chain = {"export": [
+        sys.executable, "-m", "mri_superresolution_torch.cli.export_serving",
+        "--checkpoint_dir", str(SP_DIR / "ckpt"), "--out", str(art),
+        "--shapes", f"{SP_SMALL_LR}x{SP_SMALL_LR}", "--spatial_shards", "2",
+        "--spatial_devices", "2", "--spatial_batch", str(SP_SMALL)],
+        "client": [sys.executable, "-c", SPATIAL_CLIENT, json.dumps(spec)]}
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SPATIAL_BACKGROUND, json.dumps(chain)],
+        cwd=str(SP_DIR), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    # stopped, with the export or client it runs, however the script ends
+    atexit.register(_kill_group, proc)
+    return {"art": art, "proc": proc}
+
+
+def _sp_artifact(bg: dict, want: np.ndarray) -> None:
+    """The background export and client's results: the export's line, and
+    the client's output bit-equal to the spatial engine's, with no model
+    code imported and B3 2 launches a shard."""
+    out, err = bg["proc"].communicate(timeout=600)
+    res = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    if res.get("export_rc") != 0 or "spatial=2" not in res.get(
+            "export_stdout", "") or res.get("client_rc") != 0:
+        raise AssertionError(f"spatial export and client: {res or err}")
+    client = json.loads(res["client_stdout"].strip().splitlines()[-1])
+    got = np.load(SP_DIR / "art.npy")
+    ok = np.array_equal(got, want) and not client["model_modules"] \
+        and client["launches"] == {"conv3x3": 2 * SP_SMALL_SHARDS}
+    log("spatial_artifact",
+        export_line=res["export_stdout"].strip().splitlines()[-1],
+        mib=os.path.getsize(bg["art"]) / 2 ** 20, client=client,
+        export_s=res["export_s"], client_process_s=res["client_s"],
+        bit_equal=bool(np.array_equal(got, want)), ok=ok)
+    if not ok:
+        raise AssertionError(f"spatial artifact: {client}, bit-equal "
+                             f"{np.array_equal(got, want)}")
+
+
+def spatial_path(dev, cfg, params, bg: dict, smi: str) -> dict:
+    """Row-sharded serving on one card named several times: see the
+    module's phase 15. ``bg``: :func:`spatial_start`'s background
+    export; ``smi``: the card's name and power limit, beside the
+    times."""
+    t0 = time.perf_counter()
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    # the daemon comes up on the host while the card runs the checks
+    daemon_log = open(SP_DIR / "serve.log", "w")
+    daemon = subprocess.Popen([
+        sys.executable, "-m", "mri_superresolution_torch.cli.serve",
+        "--checkpoint_dir", str(SP_DIR / "ckpt"), "--port", str(port),
+        "--num_devices", "2", "--spatial_shards", "2", "--max_batch", "2"],
+        cwd=str(SP_DIR), env=dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent)), stdout=daemon_log,
+        stderr=daemon_log)
+    launches, times = {}, {}
+
+    def lap(name, t):
+        times[name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    try:
+        t = time.perf_counter()
+        check_spatial_kernels(dev, torch.Generator(device=dev).manual_seed(9))
+        t = lap("kernel_checks", t)
+        small = phantom_batch(np.random.default_rng(0), SP_SMALL, SP_SMALL_LR)
+        small_hr = phantom_batch(np.random.default_rng(0), SP_SMALL,
+                                 2 * SP_SMALL_LR)
+        lr = phantom_batch(np.random.default_rng(0), SP_BATCH, SP_LR)
+        hr = phantom_batch(np.random.default_rng(0), SP_BATCH, 2 * SP_LR)
+        engines = _sp_engines(dev, cfg, params, lr, hr, smi)
+        _add(launches, engines["launches"])
+        t = lap("engines", t)
+        int8 = _sp_int8(dev, params, small)
+        _add(launches, int8["launches"])
+        t = lap("int8", t)
+        extra = _sp_stream_tta(dev, cfg, params, small, small_hr)
+        t = lap("streaming_tta", t)
+        volume = _sp_volume(dev)
+        t = lap("volume_cli", t)
+        sp_eng = InferenceEngine(cfg, params, devices=[dev] * 2,
+                                 spatial_shards=2)
+        # each against the engine at its own batch: cuDNN may sum in
+        # another order at another batch size
+        want, want2 = sp_eng.upscale_batch(small), sp_eng.upscale_batch(
+            small[:2])
+        # the daemon: one /upscale of a stack of 2
+        deadline = time.monotonic() + 180
+        while True:
+            try:
+                health = json.loads(_http(base, "/healthz", timeout=5))
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if daemon.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"serve --spatial_shards 2 did not come up (exit "
+                        f"{daemon.poll()}); see {SP_DIR}/serve.log")
+                time.sleep(0.25)
+        served = _from_npy(_http(base, "/upscale", _npy(small[:2])))
+        daemon.send_signal(signal.SIGTERM)
+        rc = daemon.wait(120)
+        served_ok = rc == 0 and np.array_equal(served, want2)
+        log("spatial_serve_cli", health=health, sigterm_exit=rc,
+            bit_equal=bool(np.array_equal(served, want2)), ok=served_ok)
+        if not served_ok:
+            raise AssertionError(f"serve --spatial_shards 2: exit {rc}, "
+                                 "answer not the engine's")
+        t = lap("serve_cli", t)
+        _sp_artifact(bg, want)
+        lap("artifact_wait", t)
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait(30)
+        daemon_log.close()
+        _kill_group(bg["proc"])
+    seconds = time.perf_counter() - t0
+    log("spatial_path", seconds=seconds, times=times, launches=launches,
+        volume_launches=volume["launches"])
+    return {"launches": launches, "engines": engines["ms"],
+            "int8": int8["checks"], "seconds": seconds, **extra}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA GPU")
@@ -4944,6 +5429,7 @@ def main(argv=None) -> int:
     trained = train_path(dev, lr)
     remat_profile_path(dev, trained)
     dp = dp_phase_path(dev, cfg, params, lr, hr, trained)
+    spatial_bg = spatial_start(cfg, params)
     # QAT trains on the training phase's pairs and fine-tunes its
     # checkpoint; the daemon serves the QAT checkpoint
     qat = qat_path(dev, lr, hr)
@@ -4953,6 +5439,7 @@ def main(argv=None) -> int:
     extract = extract_path(dev)
     evaluated = eval_path(dev, smi, extract["roots"])
     perc = perceptual_path(dev)
+    spatial = spatial_path(dev, cfg, params, spatial_bg, smi)
 
     torch_root = "mri_superresolution_torch/csrc/"
     tpu_root = "mri_superresolution_tpu/experiments/"
@@ -4997,6 +5484,7 @@ def main(argv=None) -> int:
         rows[-1]["artifact_launches"] = art["launches"][name]
         rows[-1]["dp_launches"] = dp["launches"].get(name, 0)
         rows[-1]["phase_launches"] = dp["phase_launches"].get(name, 0)
+        rows[-1]["spatial_launches"] = spatial["launches"].get(name, 0)
         if key in ("B1", "B1 backward"):
             rows[-1]["c64"] = c64["forward" if key == "B1" else "backward"]
         if key == "B2":
@@ -5032,7 +5520,9 @@ def main(argv=None) -> int:
                      "artifact_launches": art["launches"][wrapper],
                      "dp_launches": dp["launches"].get(wrapper, 0),
                      "phase_launches": dp["phase_launches"].get(wrapper,
-                                                                0)})
+                                                                0),
+                     "spatial_launches": spatial["launches"].get(wrapper,
+                                                                 0)})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

@@ -4,6 +4,7 @@
         --checkpoint_dir ./ckpt --out model.mrisrt [--shapes 256x256,256x192]
         [--mode plain|tta|int8 [--quant_calib scales.json]]
         [--serve_raw --raw_dtype int16] [--out_dtype int16] [--no_bf16]
+        [--spatial_shards 2 --spatial_devices 2 [--spatial_batch 4]]
         [--cpu]
 
 Takes the flags and defaults of the JAX package's
@@ -14,8 +15,11 @@ on the card (``--cpu``: on the CPU) and writes one artifact
 (``infer/export.py``) that serves on both. In int8 mode the frozen scales
 come from ``--quant_calib`` or from the QAT sidecar next to the resolved
 checkpoint (either package's). The batch stays symbolic: pass every (H,
-W) you will serve in ``--shapes``. Spatial (row-sharded) artifacts are
-not ported: ``--spatial_*`` exit 1 naming ROADMAP A14.
+W) you will serve in ``--shapes``. ``--spatial_shards S`` > 1 exports
+the row-sharded forward over ``--spatial_devices`` devices (0: the
+visible cards, 1 with ``--cpu``; S must divide it) with a fixed batch,
+``--spatial_batch`` (0: the data-group count); its shapes need H % (8 S)
+== 0 and W % 8 == 0, and ``--serve_raw`` is refused (``infer/export.py``).
 """
 
 from __future__ import annotations
@@ -62,11 +66,14 @@ def parse_args(argv=None):
                     choices=("float32", "int16", "uint8"),
                     help="pack outputs on the device (plain/tta modes)")
     ap.add_argument("--spatial_shards", type=int, default=1,
-                    help="> 1 is not ported yet (ROADMAP A14)")
+                    help="> 1: export the row-sharded forward, each "
+                         "slice's rows split over this many devices")
     ap.add_argument("--spatial_devices", type=int, default=0,
-                    help="not ported yet (ROADMAP A14)")
+                    help="devices of the spatial grid (0 = the visible "
+                         "cards; 1 with --cpu)")
     ap.add_argument("--spatial_batch", type=int, default=0,
-                    help="not ported yet (ROADMAP A14)")
+                    help="fixed batch of a spatial program (0 = the "
+                         "data-group count)")
     ap.add_argument("--no_bf16", action="store_true")
     ap.add_argument("--cpu", action="store_true",
                     help="trace on the CPU instead of the GPU")
@@ -78,12 +85,6 @@ def main(argv=None) -> int:
 
     from mri_superresolution_torch.utils.logging import setup_logging
     logger = setup_logging("export.log")
-    if args.spatial_shards != 1 or args.spatial_devices or \
-            args.spatial_batch:
-        logger.error("spatial (row-sharded) artifacts are not ported yet "
-                     "(ROADMAP A14): drop --spatial_shards, "
-                     "--spatial_devices and --spatial_batch")
-        return 1
     try:
         shapes = []
         for tok in args.shapes.split(","):
@@ -123,15 +124,22 @@ def main(argv=None) -> int:
                         platforms=tuple(args.platforms.split(",")),
                         mode=args.mode, quant_scales=scales,
                         serve_raw=args.serve_raw, raw_dtype=args.raw_dtype,
-                        out_dtype=args.out_dtype)
+                        out_dtype=args.out_dtype,
+                        spatial_shards=args.spatial_shards,
+                        spatial_devices=args.spatial_devices,
+                        spatial_batch=args.spatial_batch)
     except Exception as e:  # the CLI boundary: report and exit 1
         logger.exception(f"Export failed: {e}")
         return 1
+    spatial = args.spatial_shards > 1
     extra = (f" raw={args.raw_dtype}" if args.serve_raw else "") + \
-        (f" out={args.out_dtype}" if args.out_dtype != "float32" else "")
+        (f" out={args.out_dtype}" if args.out_dtype != "float32" else "") + \
+        (f" spatial={args.spatial_shards}" if spatial else "")
     print(f"Wrote {args.out} ({os.path.getsize(args.out) / 2**20:.1f} MiB): "
           f"{mc.model_type} bf={mc.base_filters} mode={args.mode}{extra} "
-          f"shapes={shapes} platforms={args.platforms} (batch symbolic)")
+          f"shapes={shapes} platforms={args.platforms} "
+          + ("(concrete batch per spatial program)" if spatial
+             else "(batch symbolic)"))
     return 0
 
 

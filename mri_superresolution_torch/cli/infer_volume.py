@@ -22,8 +22,15 @@ named as ignored, and a volume whose shape has no program is padded to
 the smallest exported shape that fits, or refused for raw and tta
 artifacts. ``--num_devices`` (default 0: every visible GPU; with
 ``--cpu`` that many CPU devices, 0 = 1) splits each batch over a copy of
-the model on each device. ``--spatial_shards`` > 1 (ROADMAP A14) is not
-ported and exits with status 1, naming its ROADMAP item.
+the model on each device. ``--spatial_shards S`` > 1 splits each
+slice's rows over S devices (``parallel/spatial.py``) and the batch over
+``--num_devices`` / S data groups, as the JAX CLI does: S must divide the
+device count, and a slice is zero-padded to H % (8 S) == 0 and W % 8 == 0
+with a warning (its GroupNorm statistics then differ from the dense
+forward's). With ``--spatial_shards`` the device slots may outnumber the
+cards, which are then named in turn (``--num_devices 2 --spatial_shards
+2`` on one card). A spatial artifact serves its exported shapes only,
+and ``--spatial_shards`` beside an artifact must be its own.
 """
 
 from __future__ import annotations
@@ -84,7 +91,11 @@ def parse_args(argv=None):
                         help='JSON sidecar of frozen int8 scales: loaded if '
                              'it exists (int8 from the first batch), '
                              'otherwise written after self-calibration')
-    parser.add_argument('--spatial_shards', type=int, default=1)
+    parser.add_argument('--spatial_shards', type=int, default=1,
+                        help='Split each slice\'s rows over this many '
+                             'devices (halo-exchange spatial parallelism) '
+                             'for slices too large for one; must divide '
+                             'the device count (--num_devices)')
     parser.add_argument('--tta', action='store_true',
                         help='Test-time augmentation: average the forward '
                              'over the dihedral flips (8 transforms for '
@@ -105,22 +116,14 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def unsupported(args) -> list:
-    """Messages for the flags this port does not serve yet (from a
-    checkpoint; ``artifact_conflicts`` holds an artifact's policy)."""
-    msgs = []
-    if args.spatial_shards != 1:
-        msgs.append("--spatial_shards > 1 is not ported yet (ROADMAP A14)")
-    return msgs
-
-
 def artifact_conflicts(args, art) -> tuple:
     """(refused, ignored) flag names beside a loaded artifact: a mode the
     artifact exports is satisfied, one it cannot serve is refused, and
     the flags it has no use for are ignored (the JAX CLI's policy)."""
     refused = [name for name, on in (
         ("--quant", args.quant != "none" and art.mode != "int8"),
-        ("--spatial_shards", args.spatial_shards != 1),
+        ("--spatial_shards", args.spatial_shards != 1
+         and (art.spatial or {}).get("n_space") != args.spatial_shards),
         ("--serve_raw", args.serve_raw and not art.normalize_inputs),
         ("--out_dtype", args.out_dtype != "float32"
          and np.dtype(args.out_dtype) != art.out_dtype),
@@ -164,6 +167,12 @@ def _artifact_shape_ok(art, h: int, w: int, logger) -> bool:
             "serve it by padding (the exported ensemble would transform "
             "the zero margin); re-export with this exact shape "
             f"(exported: {art.shapes})")
+        return False
+    if art.spatial:
+        logger.error(
+            f"spatial artifact has no program for {h}x{w} and cannot serve "
+            f"it by padding (H must stay % {8 * art.spatial['n_space']}); "
+            f"re-export with this exact shape (exported: {art.shapes})")
         return False
     logger.warning(
         f"No exact program for {h}x{w}; slices will be zero-padded to the "
@@ -285,7 +294,7 @@ def _load_engine(args, device):
                     checkpoint_dir=args.checkpoint_dir,
                     checkpoint_path=args.checkpoint_path,
                     bf16=not args.no_bf16, bucket=args.bucket,
-                    quant=args.quant,
+                    spatial_shards=args.spatial_shards, quant=args.quant,
                     quant_calib_slices=args.quant_calib_slices,
                     quant_calib_path=args.quant_calib, tta=args.tta,
                     normalize_inputs=args.serve_raw,
@@ -325,11 +334,6 @@ def main(argv=None) -> int:
                     f"{art.model_type} mode={art.mode}, shapes "
                     f"{art.shapes} on {art.device} (no model code loaded)")
     else:
-        msgs = unsupported(args)
-        if msgs:
-            for m in msgs:
-                logger.error(m)
-            return 1
         try:
             engine = _load_engine(args, device)
         except Exception as e:  # the CLI boundary: report and exit 1

@@ -21,12 +21,14 @@ the batcher, and exits 0. ``--artifact`` serves a portable artifact
 (``cli/export_serving.py``) with no model code, under the JAX CLI's
 policy: a flag the artifact exports is satisfied, one it cannot serve
 (``--quant``, ``--tta``, ``--serve_raw``, ``--out_dtype`` it does not
-export, ``--spatial_shards``, ``--num_devices``) exits 1, and
-``--bucket`` is named as ignored. ``--num_devices`` (default 0: every
-visible GPU; with ``--cpu`` that many CPU devices, 0 = 1) spreads each
-coalesced batch over a copy of the model on each device
-(``InferenceEngine``'s device pool). ``--spatial_shards`` > 1 (ROADMAP
-A14) is not ported and exits 1.
+export, a ``--spatial_shards`` other than its own, ``--num_devices``)
+exits 1, and ``--bucket`` is named as ignored. ``--num_devices``
+(default 0: every visible GPU; with ``--cpu`` that many CPU devices,
+0 = 1) spreads each coalesced batch over a copy of the model on each
+device (``InferenceEngine``'s device pool). ``--spatial_shards S`` > 1
+splits each slice's rows over S of them (``parallel/spatial.py``), the
+batch over the device count / S data groups, as the JAX CLI does; the
+device slots may then outnumber the cards, which are named in turn.
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ def parse_args(argv=None):
                          "others to coalesce")
     ap.add_argument("--bucket", type=int, default=1)
     ap.add_argument("--spatial_shards", type=int, default=1,
-                    help="> 1 is not ported yet (ROADMAP A14)")
+                    help="split each slice's rows over this many devices "
+                         "(must divide the device count, --num_devices)")
     ap.add_argument("--quant", choices=["none", "int8"], default="none")
     ap.add_argument("--quant_calib", default=None,
                     help="JSON sidecar of frozen int8 scales (a QAT "
@@ -99,15 +102,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def unsupported(args) -> list:
-    """Messages for the flags this port does not serve yet (from a
-    checkpoint; ``artifact_conflicts`` holds an artifact's policy)."""
-    msgs = []
-    if args.spatial_shards > 1:
-        msgs.append("--spatial_shards > 1 is not ported yet (ROADMAP A14)")
-    return msgs
-
-
 def artifact_conflicts(args, art) -> list:
     """The flags a loaded artifact cannot serve: a mode it exports is
     satisfied, anything else is refused (the JAX CLI's policy)."""
@@ -115,7 +109,8 @@ def artifact_conflicts(args, art) -> list:
     return [name for name, on in (
         ("--quant", args.quant != "none" and art.mode != "int8"),
         ("--tta", args.tta and art.mode != "tta"),
-        ("--spatial_shards", args.spatial_shards != 1),
+        ("--spatial_shards", args.spatial_shards != 1
+         and (art.spatial or {}).get("n_space") != args.spatial_shards),
         ("--num_devices", args.num_devices != 0),
         ("--serve_raw", args.serve_raw and not art.normalize_inputs),
         ("--out_dtype", args.out_dtype != "float32"
@@ -147,11 +142,6 @@ def _backend(args, logger):
                     f"device={art.device}")
         logger.info(f"Serving from artifact: {describe}")
         return art, describe
-    msgs = unsupported(args)
-    if msgs:
-        for m in msgs:
-            logger.error(m)
-        return None, None
     from mri_superresolution_torch.config import InferConfig, ModelConfig
     from mri_superresolution_torch.infer import load_engine
     from mri_superresolution_torch.utils.device import pool_args
@@ -161,6 +151,7 @@ def _backend(args, logger):
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_path=args.checkpoint_path,
         bf16=not args.no_bf16, bucket=args.bucket,
+        spatial_shards=args.spatial_shards,
         quant=args.quant, quant_calib_path=args.quant_calib, tta=args.tta,
         normalize_inputs=args.serve_raw,
         # the ensemble's transforms are defined on (N, h, w): raw TTA
@@ -172,7 +163,8 @@ def _backend(args, logger):
                     f"bf={engine.model_cfg.base_filters} "
                     f"quant={args.quant} tta={args.tta} "
                     f"raw={args.serve_raw} out={args.out_dtype} "
-                    f"device={engine.device} devices={engine.n_devices}")
+                    f"device={engine.device} devices={engine.n_devices}"
+                    f" spatial={engine.spatial_shards}")
 
 
 def main(argv=None) -> int:

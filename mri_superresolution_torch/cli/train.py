@@ -26,8 +26,9 @@ Data parallelism, one process a rank (``parallel/multihost.py``):
 - ``--opt_shard`` shards Adam's moments over the ranks (ZeRO-1).
 
 With one rank and no ``--multihost`` no process group is made and the run
-is the single-device one. ``--spatial_shards`` > 1 raises an error that
-names the ROADMAP item that ports it.
+is the single-device one. ``--spatial_shards`` > 1 (row-sharded
+training) raises an error that names the ROADMAP item that ports it,
+A14(b); row-sharded serving runs in the serving CLIs.
 """
 
 from __future__ import annotations
@@ -80,7 +81,8 @@ def parse_args(argv=None):
                         'package remats): less activation memory for one '
                         'more forward of those blocks; the same update')
     p.add_argument('--spatial_shards', type=int, default=1,
-                   help='> 1 is not ported yet (ROADMAP A14)')
+                   help='> 1 is not ported to training yet (ROADMAP '
+                        'A14(b))')
     p.add_argument('--grad_accum', type=int, default=1,
                    help='Split each batch into this many sequential '
                         'microbatches, accumulating fp32 gradients: the '

@@ -44,7 +44,18 @@ The serving options are the JAX engine's (``infer/engine.py`` there):
   process. The TTA,
   frozen and streaming int8 modes compose with it as in JAX (the
   calibration max taken over every device's chunk, padding rows
-  included, as JAX's sharded calibration forward takes it).
+  included, as JAX's sharded calibration forward takes it);
+- ``spatial_shards`` > 1: the pool is a (len(pool) / shards, shards)
+  grid (``parallel/spatial.py``), the JAX engine's (data, space) mesh.
+  Each data group's chunk is uploaded to its first device, its rows are
+  split over the group's devices for the row-sharded forward (halo rows
+  and GroupNorm sums exchanged between them), and the output rows are
+  gathered back there. Without ``devices`` the pool is ``num_devices``
+  slots (0: one a visible GPU) over the GPUs in turn, so one card may
+  hold every shard. Batches are zero-padded to H % (8 * shards) == 0
+  and W % 8 == 0, with a warning, as that moves every GroupNorm's
+  statistics. bf16, fp32, TTA, frozen int8 (the folded int8 weights made
+  once) and streaming calibration run on the row-sharded forwards.
 
 ``quant="int8"`` serves the int8 post-training-quantized model
 (``models/quant_forward.py``) with the JAX engine's state machine
@@ -121,6 +132,18 @@ class _Replica:
         self._quant_fwd = None
 
 
+def _spatial_pool(num_devices: int, device) -> list:
+    """A row-sharded engine's device slots: ``num_devices`` of them (0:
+    one a visible GPU), over the visible GPUs in turn, so that a card is
+    named more than once when the slots outnumber the cards; on the CPU,
+    when it is asked for, that many CPU devices (0: one)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return [torch.device("cpu")] * max(1, num_devices)
+    cards = device_pool(0)
+    n = num_devices if num_devices > 0 else len(cards)
+    return [cards[i % len(cards)] for i in range(n)]
+
+
 def _on(rep):
     """The CUDA device context of ``rep`` (nothing on the CPU), so that
     the kernels' launches find their device."""
@@ -156,9 +179,8 @@ class InferenceEngine(HostTransfers):
                 "transpose_io does not compose with tta (the ensemble's "
                 "transforms are defined on (N, h, w) batches); serve TTA "
                 "volumes through the standard layout")
-        if spatial_shards != 1:
-            raise NotImplementedError(
-                "spatial_shards is not ported yet (ROADMAP A14)")
+        if spatial_shards < 1:
+            raise ValueError("spatial_shards must be >= 1")
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown quant mode {quant!r}")
         if quant == "int8":
@@ -177,10 +199,14 @@ class InferenceEngine(HostTransfers):
                     "slices/s against bf16 on your card before choosing "
                     "(chip_smoke.py's zoo phase measures both)")
         self.model_cfg = model_cfg
-        # the device pool: ``devices`` as given, else the CPU when it is
-        # asked for, else num_devices GPUs (1: ``device``, the card)
+        self.spatial_shards = int(spatial_shards)
+        # the device pool: ``devices`` as given, else the grid's slots
+        # (spatial), else the CPU when it is asked for, else num_devices
+        # GPUs (1: ``device``, the card)
         if devices is not None:
             pool = device_pool(0, devices)
+        elif self.spatial_shards > 1:
+            pool = _spatial_pool(num_devices, device)
         elif num_devices == 1 or (device is not None
                                   and torch.device(device).type == "cpu"):
             pool = [resolve_device(device)]
@@ -200,6 +226,9 @@ class InferenceEngine(HostTransfers):
         self.model = build_model(model_cfg, dtype=self._dtype)
         self.model.load_state_dict(params, strict=True)
         self.model.to(self.device).eval()
+        self._sp_mesh = None
+        if self.spatial_shards > 1:
+            self._sp_mesh = self._spatial_mesh(pool)
         self.bucket = bucket
         # results cross to the host on this stream, beside the next forward
         self._d2h = (torch.cuda.Stream(self.device)
@@ -210,8 +239,19 @@ class InferenceEngine(HostTransfers):
             m = build_model(model_cfg, dtype=self._dtype)
             m.load_state_dict(params, strict=True)
             self._replicas.append(_Replica(dev, m.to(dev).eval()))
-        if self.n_devices > 1:
+        # the devices a batch's chunks go to: each device, or the first
+        # device of each spatial data group
+        self._leads = self._replicas[::self.spatial_shards]
+        if len(pool) > 1:
             self._register_flags = 1          # cudaHostRegisterPortable
+        if self._sp_mesh is not None:
+            logger.info(
+                f"Spatially-sharded serving: ({self.n_devices} data x "
+                f"{self.spatial_shards} space) grid over "
+                f"{[str(d) for d in pool]}: each batch padded to a multiple "
+                f"of {self.n_devices} and split, each slice's rows split "
+                f"{self.spatial_shards} ways")
+        elif self.n_devices > 1:
             logger.info(f"Serving on {self.n_devices} devices: "
                         f"{[str(d) for d in pool]} (each batch padded to a "
                         f"multiple of {self.n_devices} and split)")
@@ -229,6 +269,9 @@ class InferenceEngine(HostTransfers):
         self._calib_amax: Dict[str, np.ndarray] = {}
         self._calib_seen = 0         # real (unpadded) slices calibrated on
         self._quant_batches = {"int8": 0, "bf16": 0}
+        self._sp_fns: dict = {}      # (kind, group, bh, bw) -> forward
+        self._sp_qweights = None     # folded int8 weights (spatial)
+        self._warned: set = set()    # shapes whose padding was warned of
         if (quant == "int8" and quant_calib_path
                 and os.path.exists(quant_calib_path)):
             # deterministic serving: reuse frozen scales instead of
@@ -243,9 +286,75 @@ class InferenceEngine(HostTransfers):
                         f"scales from {quant_calib_path}; serving int8 from "
                         "the first batch")
 
+    def _spatial_mesh(self, pool):
+        """The (len(pool) // spatial_shards, spatial_shards) grid of the
+        row-sharded forwards (``parallel/spatial.py``); the data groups
+        are the batch axis."""
+        from mri_superresolution_torch.parallel import spatial
+        if self.model_cfg.model_type not in spatial.supported_types():
+            raise ValueError(
+                f"spatial_shards > 1 supports the "
+                f"{spatial.supported_types()} topologies, not "
+                f"{self.model_cfg.model_type!r}")
+        if len(pool) % self.spatial_shards:
+            raise ValueError(f"spatial_shards={self.spatial_shards} must "
+                             f"divide the {len(pool)} mesh devices")
+        self.n_devices = len(pool) // self.spatial_shards
+        return spatial.make_spatial_mesh(self.n_devices, self.spatial_shards,
+                                         pool)
+
+    def _spatial_fn(self, kind: str, g: int, bh: int, bw: int):
+        """Data group ``g``'s row-sharded forward of ``kind`` ("plain",
+        "int8" or "calib") at (bh, bw), built once."""
+        from mri_superresolution_torch.parallel import spatial
+        key = (kind, g, bh, bw)
+        if key not in self._sp_fns:
+            row, mt = self._sp_mesh.row(g), self.model_cfg.model_type
+            if kind == "plain":
+                fn = spatial.build_spatial_forward_raw(row, (bh, bw),
+                                                       self._dtype, mt)
+            elif kind == "int8":
+                fn = spatial.build_spatial_int8_forward_raw(
+                    row, (bh, bw), self._params, self._quant_scales, mt,
+                    self._dtype, qweights=self._sp_qweights)
+            else:
+                fn = spatial.build_spatial_calib_forward_raw(
+                    row, (bh, bw), quant_forward.amax_template(
+                        self._params, mt), mt, self._dtype)
+            self._sp_fns[key] = fn
+        return self._sp_fns[key]
+
+    def _group_params(self, g: int) -> list:
+        s = self.spatial_shards
+        return [r._params for r in self._replicas[g * s:(g + 1) * s]]
+
+    def _run(self, kind: str, g: int, x: torch.Tensor):
+        """Data group ``g``'s forward of ``kind`` on its chunk ``x``: the
+        model ("plain"), the frozen int8 forward or the calibration
+        forward (-> (y, amax)); row-sharded over the group's devices
+        when ``spatial_shards`` > 1, else on the group's one device."""
+        if self._sp_mesh is not None:
+            fn = self._spatial_fn(kind, g, x.shape[1], x.shape[2])
+            return fn(self._group_params(g), x)
+        r = self._leads[g]
+        with _on(r):
+            if kind == "plain":
+                return r.model(x)
+            if kind == "int8":
+                return r._quant_fwd(r._params, x)
+            return quant_forward.build_calib_forward(
+                self.model_cfg.model_type, dtype=self._dtype)(r._params, x)
+
     def _build_int8(self, scales) -> None:
         """Freeze ``scales`` into the int8 forward of each device
-        (validates that they cover every site)."""
+        (validates that they cover every site). Row-sharded engines fold
+        the int8 weights once here and build a forward per shape
+        lazily."""
+        if self._sp_mesh is not None:
+            self._sp_qweights = quant_forward.int8_qweights(
+                self._params, scales, self.model_cfg.model_type)
+            self._quant_scales = scales
+            return
         for rep in self._replicas:
             rep._quant_fwd = quant_forward.build_int8_forward(
                 rep._params, scales, self.model_cfg.model_type,
@@ -281,22 +390,18 @@ class InferenceEngine(HostTransfers):
         bf16 model, so an ensemble whose identity pass was served bf16
         stays bf16 even when that pass froze the scales.
 
-        ``xs`` holds the batch's chunk on each device, and the result is
-        each chunk's output: one decision a batch, the calibration's max
-        taken over every chunk."""
-        reps = self._replicas
+        ``xs`` holds the batch's chunk on each device (each data group's
+        first device), and the result is each chunk's output: one
+        decision a batch, the calibration's max taken over every chunk."""
         if (force_bf16 or foreground_frac < self.quant_min_foreground
                 or (self._quant_scales is None and not calib_ok)):
             self._served("bf16", count)
-            return [r.model(x) for r, x in zip(reps, xs)]
+            return [self._run("plain", g, x) for g, x in enumerate(xs)]
         if self._quant_scales is None:
             first = self._calib_seen == 0
-            calib = quant_forward.build_calib_forward(
-                self.model_cfg.model_type, dtype=self._dtype)
             ys = []
-            for r, x in zip(reps, xs):
-                with _on(r):
-                    y, amax = calib(r._params, x)
+            for g, x in enumerate(xs):
+                y, amax = self._run("calib", g, x)
                 ys.append(y)
                 for k, v in amax.items():
                     v = v.cpu().numpy()
@@ -325,11 +430,7 @@ class InferenceEngine(HostTransfers):
                 self._served("bf16", count)
                 return ys
         self._served("int8", count)
-        out = []
-        for r, x in zip(reps, xs):
-            with _on(r):
-                out.append(r._quant_fwd(r._params, x))
-        return out
+        return [self._run("int8", g, x) for g, x in enumerate(xs)]
 
     @property
     def quant_calibrating(self) -> bool:
@@ -349,8 +450,38 @@ class InferenceEngine(HostTransfers):
                 f"{c['bf16']} bf16 (calibration/near-empty routing); {state}")
 
     def _bucket_hw(self, h: int, w: int) -> Tuple[int, int]:
-        return (_round_up(max(h, 8), self.bucket),
-                _round_up(max(w, 8), self.bucket))
+        bh = _round_up(max(h, 8), self.bucket)
+        bw = _round_up(max(w, 8), self.bucket)
+        if self.spatial_shards > 1:
+            # the row-sharded forward needs H % (8 * shards) == 0 and
+            # W % 8 == 0; like bucket > 1 this gives up GroupNorm
+            # exactness at other sizes to keep the pools shard-local
+            bh = _round_up(bh, 8 * self.spatial_shards)
+            bw = _round_up(bw, 8)
+        return bh, bw
+
+    def _warn_padding(self, h: int, w: int, bh: int, bw: int,
+                      tta: bool = False) -> None:
+        """Warn, once a shape, that the row-sharded path pads an h x w
+        batch to (bh, bw), which moves every GroupNorm's statistics."""
+        if self.spatial_shards == 1 or (bh, bw) == (h, w) or \
+                (tta, h, w) in self._warned:
+            return
+        self._warned.add((tta, h, w))
+        s = self.spatial_shards
+        if tta:
+            logger.warning(
+                f"spatial_shards={s} pads {h}x{w} TTA members to {bh}x{bw}: "
+                "whole-image GroupNorm statistics differ from the dense "
+                "forward (same caveat as non-TTA spatial serving).")
+            return
+        pad_frac = 1.0 - (h * w) / (bh * bw)
+        logger.warning(
+            f"spatial_shards={s} pads {h}x{w} inputs to {bh}x{bw} "
+            f"({pad_frac:.1%} zero pixels): whole-image GroupNorm "
+            "statistics now differ from the dense forward. Use "
+            f"H % {8 * s} == 0, W % 8 == 0 inputs for exact spatial "
+            "serving.")
 
     @staticmethod
     def _foreground(batch: np.ndarray) -> float:
@@ -411,19 +542,17 @@ class InferenceEngine(HostTransfers):
         h, w = ((batch.shape[2], batch.shape[1]) if self.transpose_io
                 else (batch.shape[1], batch.shape[2]))
         bh, bw = self._bucket_hw(h, w)
+        self._warn_padding(h, w, bh, bw)
         chunks, reals = self._chunks(batch)
         with torch.inference_mode():
             xs = [self._device_input(c, bh, bw, r)
-                  for c, r in zip(chunks, self._replicas)]
+                  for c, r in zip(chunks, self._leads)]
             if self.quant == "int8":
                 ys = self._quant_upscale(
                     xs, n, self._foreground(batch), calib_ok=_quant_calib_ok,
                     count=_quant_count, force_bf16=_quant_force_bf16)
             else:
-                ys = []
-                for r, x in zip(self._replicas, xs):
-                    with _on(r):
-                        ys.append(r.model(x))
+                ys = [self._run("plain", g, x) for g, x in enumerate(xs)]
             out = []
             for y, k in zip(ys, reals):
                 y = y.clamp(0.0, 1.0)[:k, :2 * h, :2 * w, 0]
@@ -456,20 +585,19 @@ class InferenceEngine(HostTransfers):
                 mode = "int8"
             self._served(mode, count=True)
 
-        def forward_of(r):
-            if mode == "int8":
-                return lambda a: r._quant_fwd(r._params, a).clamp(0.0, 1.0)
-            return lambda a: r.model(a).clamp(0.0, 1.0)
-
+        kind = "int8" if mode == "int8" else "plain"
         h, w = batch.shape[1:]
+        self._warn_padding(h, w, *self._bucket_hw(h, w), tta=True)
         chunks, reals = self._chunks(batch)
         out = []
         with torch.inference_mode():
             xs = [self._device_input(c, h, w, r)
-                  for c, r in zip(chunks, self._replicas)]
-            for r, x, k in zip(self._replicas, xs, reals):
+                  for c, r in zip(chunks, self._leads)]
+            for g, (r, x, k) in enumerate(zip(self._leads, xs, reals)):
                 with _on(r):
-                    y = tta_ensemble(forward_of(r), x, self._bucket_hw)
+                    y = tta_ensemble(
+                        lambda a, g=g: self._run(kind, g, a).clamp(0.0, 1.0),
+                        x, self._bucket_hw)
                 out.append(pack_unit(y[:k, :, :, 0], self.out_dtype))
         return out
 
@@ -486,7 +614,7 @@ class InferenceEngine(HostTransfers):
         with torch.inference_mode():
             accs = [torch.zeros((k, 2 * h, 2 * w), dtype=torch.float32,
                                 device=r.device)
-                    for r, k in zip(self._replicas, self._chunks(batch)[1])]
+                    for r, k in zip(self._leads, self._chunks(batch)[1])]
             for i, (t, inv) in enumerate(pairs):
                 bf16_before = self._quant_batches["bf16"]
                 ys = self._dispatch_once(
@@ -504,7 +632,7 @@ class InferenceEngine(HostTransfers):
 
     def _start_fetches(self, ys: List[torch.Tensor]) -> list:
         """:meth:`_start_fetch` of each device's result on its device."""
-        return [self._start_fetch(y, r) for r, y in zip(self._replicas, ys)]
+        return [self._start_fetch(y, r) for r, y in zip(self._leads, ys)]
 
     def _collect_all(self, handles: list) -> np.ndarray:
         """The fetched results of one batch, its devices' rows in order."""

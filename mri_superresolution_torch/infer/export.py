@@ -12,7 +12,9 @@ the other's.
 Design:
 - the batch is symbolic (``torch.export.Dim``): one program serves every
   batch size. It is traced at a batch of 2, and nothing in the forward
-  branches on the batch;
+  branches on the batch. A row-sharded (spatial) program takes a fixed
+  batch instead, as in JAX, split over its data groups; the loader pads
+  the last chunk of a batch to it;
 - H and W are specialised, one program per (H, W): the unet's
   pad-to-match is Python control flow on concrete sizes, as in JAX;
 - the programs hold the ATen operations the eager forward runs and the
@@ -90,10 +92,12 @@ def _example(shape, raw_dtype: Optional[str], dev) -> torch.Tensor:
     return x.to(dev)
 
 
-def _export_program(model, fn, example: torch.Tensor) -> bytes:
-    """``fn`` exported with a symbolic batch, moved to the CPU and
-    serialised. ``fn`` runs eagerly once first: it fills the forward's
-    caches of device constants (``ops/resize``'s bilinear matrices) with
+def _export_program(model, fn, example: torch.Tensor,
+                    dynamic: bool = True) -> bytes:
+    """``fn`` exported with a symbolic batch (``dynamic``; else at the
+    example's batch), moved to the CPU and serialised. ``fn`` runs eagerly
+    once first: it fills the forward's caches of device constants (the
+    bilinear matrices of ``ops/resize`` and ``parallel/spatial``) with
     real tensors, which tracing then reads as constants instead of
     caching fake ones."""
     from torch.export import Dim
@@ -104,7 +108,7 @@ def _export_program(model, fn, example: torch.Tensor) -> bytes:
     with torch.no_grad():
         ep = torch.export.export(
             prog, (example,),
-            dynamic_shapes=({0: Dim("batch", min=1)},))
+            dynamic_shapes=({0: Dim("batch", min=1)},) if dynamic else None)
     ep = move_to_device_pass(ep, "cpu")
     buf = io.BytesIO()
     torch.export.save(ep, buf)
@@ -118,7 +122,8 @@ def export_artifact(path: str, state_dict: Dict[str, torch.Tensor],
                     mode: str = "plain", quant_scales=None,
                     min_foreground: float = 0.05, serve_raw: bool = False,
                     raw_dtype: str = "int16", out_dtype: str = "float32",
-                    spatial_shards: int = 1) -> None:
+                    spatial_shards: int = 1, spatial_devices: int = 0,
+                    spatial_batch: int = 0) -> None:
     """Export the clipped serving forward at each (H, W) of ``shapes``
     (the batch symbolic) and write the artifact to ``path``. The programs
     are traced on the device ``state_dict`` lies on.
@@ -145,7 +150,19 @@ def export_artifact(path: str, state_dict: Dict[str, torch.Tensor],
     normalize on the device and return (N, 2w, 2h), the engine's
     ``normalize_inputs`` with ``transpose_io``. ``platforms`` names the
     devices the artifact promises to serve on ("cuda", "cpu").
-    ``spatial_shards`` > 1 is not ported (ROADMAP A14).
+
+    ``spatial_shards`` > 1 exports the row-sharded forward
+    (``parallel/spatial.py``) over a (n_data, spatial_shards) grid of
+    ``spatial_devices`` devices (0: the visible cards of the export
+    device's type, 1 on the CPU), which the header records with the
+    grid. Every shard is traced on the export device, so the program
+    holds the whole grid's work and runs it on the device it is loaded
+    on; the loader takes a pool of the recorded size. The batch is fixed
+    at ``spatial_batch`` (0: n_data), and every shape needs H % (8 *
+    spatial_shards) == 0 and W % 8 == 0. Composes with the three modes
+    (the int8 fallback is row-sharded too; tta members keep the exported
+    shape) and with ``out_dtype``; ``serve_raw`` is refused, as its
+    normalize needs whole-slice statistics.
     """
     if mode not in ("plain", "tta", "int8"):
         raise ValueError(f"unknown artifact mode {mode!r}")
@@ -167,10 +184,13 @@ def export_artifact(path: str, state_dict: Dict[str, torch.Tensor],
     if serve_raw and in_dt.name not in _RAW_DTYPES:
         raise ValueError(f"raw_dtype must be uint8/uint16/int16/float32, "
                          f"got {raw_dtype}")
-    if int(spatial_shards) != 1:
-        raise NotImplementedError(
-            "spatial (row-sharded) artifacts are not ported yet "
-            "(ROADMAP A14)")
+    spatial = int(spatial_shards) > 1
+    if spatial and serve_raw:
+        raise ValueError(
+            "serve_raw does not compose with spatial artifacts (the "
+            "device-side percentile normalize needs whole-slice "
+            "statistics a row-sharded program would have to sum over its "
+            "shards; normalize on the host and serve fp32)")
     bad = [p for p in platforms if p not in PLATFORMS]
     if bad or not platforms:
         raise ValueError(f"platforms must be among {PLATFORMS}, got "
@@ -178,7 +198,13 @@ def export_artifact(path: str, state_dict: Dict[str, torch.Tensor],
     if mode == "int8" and quant_scales is None:
         raise ValueError("mode='int8' requires quant_scales (load a "
                          "QAT sidecar with quant_forward.load_scales)")
-    if mode != "tta":
+    if spatial:
+        for h, w in shapes:
+            if h % (8 * spatial_shards) or w % 8:
+                raise ValueError(
+                    f"spatial artifact shapes need H % {8 * spatial_shards}"
+                    f" == 0 and W % 8 == 0 (got {h}x{w})")
+    elif mode != "tta":
         for h, w in shapes:
             if h % 8 or w % 8:
                 raise ValueError(
@@ -201,6 +227,16 @@ def export_artifact(path: str, state_dict: Dict[str, torch.Tensor],
     def clipped(fwd):
         # the engine's order: forward, clamp, the channel dropped
         return lambda x: fwd(x[..., None]).clamp(0.0, 1.0)[..., 0]
+
+    if spatial:
+        grid = _export_spatial(model, model_cfg, shapes, dtype,
+                               mode, quant_scales, out_dt, spatial_shards,
+                               spatial_devices, spatial_batch, dev,
+                               clipped)
+        _write(path, _header(model_cfg, bf16, mode, platforms, shapes,
+                             min_foreground, False, in_dt, out_dt,
+                             spatial=grid["header"]), grid["blobs"])
+        return
 
     plain = clipped(model)
     if mode == "int8":
@@ -234,7 +270,64 @@ def export_artifact(path: str, state_dict: Dict[str, torch.Tensor],
         if mode == "int8":
             blobs.append(_export_program(model, plain, example))
 
-    header = {
+    _write(path, _header(model_cfg, bf16, mode, platforms, shapes,
+                         min_foreground, serve_raw, in_dt, out_dt), blobs)
+
+
+def _export_spatial(model, model_cfg, shapes, dtype, mode,
+                    quant_scales, out_dt, n_space, n_devices, batch, dev,
+                    clipped) -> dict:
+    """The row-sharded programs of :func:`export_artifact` and the grid
+    its header records."""
+    from mri_superresolution_torch.ops.functional import pack_unit
+    from mri_superresolution_torch.ops.tta import tta_ensemble
+    from mri_superresolution_torch.parallel import spatial
+
+    ndev = n_devices or (torch.cuda.device_count() if dev.type == "cuda"
+                         else 1)
+    if ndev % n_space:
+        raise ValueError(f"spatial_shards={n_space} must divide the {ndev} "
+                         f"export devices")
+    n_data = ndev // n_space
+    batch = batch or n_data
+    if batch % n_data:
+        raise ValueError(f"spatial_batch={batch} must be a multiple of the "
+                         f"data-axis width {n_data}")
+    # every shard traced on the export device: the program holds the
+    # grid's work, whatever device it loads on
+    mesh = spatial.make_spatial_mesh(n_data, n_space, [dev] * ndev)
+    params = model.state_dict()
+    mt = model_cfg.model_type
+    blobs = []
+    for h, w in shapes:
+        sp = spatial.build_spatial_forward_raw(mesh, (h, w), dtype, mt)
+        plain = clipped(lambda x, _f=sp: _f(params, x))
+        if mode == "int8":
+            i8 = spatial.build_spatial_int8_forward_raw(
+                mesh, (h, w), params, quant_scales, mt, dtype)
+            core = clipped(lambda x, _f=i8: _f(params, x))
+        elif mode == "tta":
+            def core(x, _sp=sp):
+                return tta_ensemble(
+                    lambda a: _sp(params, a).clamp(0.0, 1.0),
+                    x[..., None])[..., 0]
+        else:
+            core = plain
+        example = _example((batch, h, w), None, dev)
+        blobs.append(_export_program(
+            model, lambda x, _c=core: pack_unit(_c(x), out_dt), example,
+            dynamic=False))
+        if mode == "int8":
+            blobs.append(_export_program(model, plain, example,
+                                         dynamic=False))
+    return {"blobs": blobs,
+            "header": {"n_data": n_data, "n_space": int(n_space),
+                       "batch": int(batch), "devices": int(ndev)}}
+
+
+def _header(model_cfg, bf16, mode, platforms, shapes, min_foreground,
+            serve_raw, in_dt, out_dt, spatial=None) -> dict:
+    return {
         "format": FORMAT,
         "model_type": model_cfg.model_type,
         "base_filters": model_cfg.base_filters,
@@ -249,8 +342,14 @@ def export_artifact(path: str, state_dict: Dict[str, torch.Tensor],
         "serve_raw": bool(serve_raw),
         "raw_dtype": in_dt.name if serve_raw else None,
         "out_dtype": out_dt.name,
+        # row-sharded programs: {n_data, n_space, batch, devices}
+        "spatial": spatial,
         "torch_version": torch.__version__,
     }
+
+
+def _write(path: str, header: dict, blobs: list) -> None:
+    """The container: magic, JSON header, length-prefixed programs."""
     hdr = json.dumps(header, sort_keys=True).encode()
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -287,6 +386,8 @@ class ServingArtifact(HostTransfers):
         self.raw_dtype = (np.dtype(header["raw_dtype"])
                           if self.normalize_inputs else None)
         self.out_dtype = np.dtype(header["out_dtype"])
+        # row-sharded programs: {n_data, n_space, batch, devices}
+        self.spatial = header.get("spatial")
         self._programs = programs
         self._fallbacks = fallbacks
         self._d2h = (torch.cuda.Stream(device) if device.type == "cuda"
@@ -315,9 +416,34 @@ class ServingArtifact(HostTransfers):
             x = self._upload(arr)
             return program(x.as_strided(x.shape, _strides(x.shape)))
 
+    def _dispatch_spatial(self, batch: np.ndarray) -> torch.Tensor:
+        """A row-sharded program takes its fixed batch B: the batch runs
+        as ceil(N / B) calls, the last zero-padded on the batch axis,
+        which changes no real sample's output (every computation is per
+        sample). Exported shapes only: a pad would break H % (8 *
+        n_space)."""
+        n, h, w = batch.shape
+        if (h, w) not in self._programs:
+            raise ValueError(
+                f"spatial artifact has no program for {h}x{w} and cannot "
+                f"serve it by padding (H must stay % "
+                f"{8 * self.spatial['n_space']}); exported shapes: "
+                f"{self.shapes}")
+        program = self._pick((h, w), batch)
+        bs = self.spatial["batch"]
+        outs = []
+        for s in range(0, max(n, 1), bs):
+            chunk = np.zeros((bs, h, w), np.float32)
+            part = batch[s:s + bs]
+            chunk[:len(part)] = part
+            outs.append(self._run(program, chunk)[:len(part)])
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+
     def _dispatch(self, batch: np.ndarray, pad: bool) -> torch.Tensor:
         """One batch through its program, queued on the device; the
         output cropped on the device, nothing fetched."""
+        if self.spatial:
+            return self._dispatch_spatial(batch)
         if self.normalize_inputs:
             # the raw transposed contract: (n, w, h) stored values in,
             # (n, 2w, 2h) out
@@ -421,10 +547,34 @@ class ServingArtifact(HostTransfers):
         return InferenceEngine.process_single_image(self, *args, **kwargs)
 
 
-def load_artifact(path: str, device=None) -> ServingArtifact:
+def _spatial_device(header: Dict, dev, devices) -> torch.device:
+    """The device a row-sharded artifact's programs run on: its pool is
+    ``devices``, default ``dev`` named as often as the export grid had
+    devices; a pool of another size is refused, and so is one of
+    distinct devices, as the program holds every shard's work on one."""
+    sp = header["spatial"]
+    pool = ([torch.device(d) for d in devices] if devices is not None
+            else [dev] * sp["devices"])
+    if len(pool) != sp["devices"]:
+        raise ValueError(
+            f"this spatial artifact was exported over {sp['devices']} "
+            f"devices ({sp['n_data']} data x {sp['n_space']} space); the "
+            f"loader's pool has {len(pool)}")
+    if len(set(pool)) > 1:
+        raise ValueError(
+            "a spatial artifact runs its whole grid on one device; serve "
+            f"it on a pool of one device named {sp['devices']} times, not "
+            f"on {[str(d) for d in pool]} (ROADMAP: row-sharded artifacts "
+            "across cards)")
+    return resolve_device(pool[0])
+
+
+def load_artifact(path: str, device=None, devices=None) -> ServingArtifact:
     """Read an artifact onto ``device`` (the card unless the caller asks
-    for the CPU). Imports ``kernels`` for the operators the programs call,
-    and nothing of the model zoo, the trainer or the engine."""
+    for the CPU). A row-sharded artifact takes a pool, ``devices``, of the
+    size it was exported over (default: ``device`` that many times).
+    Imports ``kernels`` for the operators the programs call, and nothing
+    of the model zoo, the trainer or the engine."""
     from torch.export.passes import move_to_device_pass
 
     from mri_superresolution_torch import kernels  # noqa: F401 (operators)
@@ -444,6 +594,11 @@ def load_artifact(path: str, device=None) -> ServingArtifact:
         header = json.loads(f.read(hlen).decode())
         if header.get("format") != FORMAT:
             raise ValueError(f"unknown artifact format in {path}")
+        if header.get("spatial"):
+            dev = _spatial_device(header, dev, devices)
+        elif devices is not None:
+            raise ValueError(f"{path} is not a spatial artifact; it loads "
+                             "on one device, not a pool")
         if dev.type not in header["platforms"]:
             raise ValueError(
                 f"{path} was exported for {header['platforms']}, not "

@@ -121,7 +121,7 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for a training mode of the JAX trainer
     that the port does not run yet, naming the ROADMAP item that ports it."""
     later = [
-        (cfg.spatial_shards > 1, "--spatial_shards > 1", "A14"),
+        (cfg.spatial_shards > 1, "--spatial_shards > 1", "A14(b)"),
     ]
     for on, what, item in later:
         if on:

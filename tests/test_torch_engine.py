@@ -93,15 +93,16 @@ def test_preprocess_matches_jax():
 
 
 def test_unported_options_raise(jax_params):
-    """Options the port does not serve raise NotImplementedError naming
-    their ROADMAP item; combinations the JAX engine refuses raise
-    ValueError, as there."""
+    """Combinations the JAX engine refuses raise ValueError, as there:
+    among them ``spatial_shards`` that does not divide the device pool
+    (one CPU device here)."""
     sd = state_dict_from_jax(jax_params)
     for kw, err, match in (
             ({"transpose_io": True}, ValueError, "transpose_io requires"),
             ({"normalize_inputs": True, "transpose_io": True, "tta": True},
              ValueError, "does not compose with tta"),
-            ({"spatial_shards": 2}, NotImplementedError, "A14"),
+            ({"spatial_shards": 2}, ValueError,
+             "spatial_shards=2 must divide the 1 mesh devices"),
             ({"quant": "int8", "normalize_inputs": True}, ValueError,
              "normalize_inputs is incompatible"),
             ({"out_dtype": "float16"}, ValueError, "out_dtype")):

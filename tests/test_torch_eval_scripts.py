@@ -496,7 +496,9 @@ def test_tui_opt_shard_reaches_a_train_cli_that_runs_it():
     """The train menu with the ``opt_shard`` toggle on (and ``cpu``)
     builds a command the port's train CLI takes as it is: no refusal,
     ZeRO-1 on, one CPU rank at the CLIs' default device count; a
-    ``spatial_shards`` of 2 still reaches the refusal naming A14."""
+    ``spatial_shards`` of 2 still reaches the train CLI's refusal naming
+    A14, and the serve menu passes it to a serve CLI that serves it."""
+    from mri_superresolution_torch.cli import serve as scli
     from mri_superresolution_torch.cli import train as tcli
     from mri_superresolution_torch.train.trainer import check_supported
     p = dict(tui.DEFAULT_PARAMS, opt_shard=True, cpu=True,
@@ -510,6 +512,9 @@ def test_tui_opt_shard_reaches_a_train_cli_that_runs_it():
         tui.build_command("train", dict(p, spatial_shards=2))[3:]))
     with pytest.raises(NotImplementedError, match="A14"):
         check_supported(bad)
+    served = scli.parse_args(tui.build_command(
+        "serve", dict(p, spatial_shards=2))[3:])
+    assert served.spatial_shards == 2 and not hasattr(scli, "unsupported")
 
 
 @pytest.mark.parametrize("field,raw", [

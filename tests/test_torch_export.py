@@ -358,7 +358,9 @@ def test_artifact_serve_raw_validation(arts, sd, jax_params):
 def test_artifact_refusals(arts, sd, jax_params, tmp_path):
     """Garbage, a JAX artifact, an unknown format, a platform the
     artifact does not promise; at export, non-%8 shapes, spatial
-    artifacts (ROADMAP A14), an unknown mode or dtype or platform."""
+    artifacts JAX refuses (a shard count that does not divide the export
+    devices, a shape off the shard grid, serve_raw), an unknown mode or
+    dtype or platform."""
     bad = str(tmp_path / "bad.mrisrt")
     open(bad, "wb").write(b"not an artifact")
     with pytest.raises(ValueError, match="not a serving artifact"):
@@ -388,9 +390,15 @@ def test_artifact_refusals(arts, sd, jax_params, tmp_path):
     with pytest.raises(ValueError, match="%8"):
         jax_export(str(tmp_path / "x"), jax_params, JCFG, [(10, 16)],
                    bf16=False, platforms=("cpu",))
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="must divide the 1 export"):
         export_artifact(str(tmp_path / "x"), sd, CFG, [(32, 32)],
                         spatial_shards=4)
+    for kw, match in (({"shapes": [(40, 64)]}, "H % 32 == 0"),
+                      ({"serve_raw": True}, "serve_raw does not compose")):
+        kw = {"shapes": [(32, 32)], **kw}
+        with pytest.raises(ValueError, match=match):
+            export_artifact(str(tmp_path / "x"), sd, CFG, spatial_shards=4,
+                            spatial_devices=4, **kw)
     for kw, match in (({"mode": "fancy"}, "unknown artifact mode"),
                       ({"out_dtype": "float16"}, "out_dtype"),
                       ({"serve_raw": True, "raw_dtype": "int8"},

@@ -188,14 +188,20 @@ def test_export_cli_int8_sidecar_resolution(ws, monkeypatch, capsys,
     assert not os.path.exists(str(tmp_path / "e"))
 
 
-@pytest.mark.parametrize("flag", [["--spatial_shards", "2"],
-                                  ["--spatial_devices", "8"]])
-def test_export_cli_refuses_spatial(ws, flag, tmp_path, monkeypatch):
+@pytest.mark.parametrize("flag,word", [
+    (["--spatial_shards", "2"], "must divide the 1 export devices"),
+    (["--spatial_shards", "2", "--spatial_devices", "2", "--serve_raw"],
+     "serve_raw does not compose with spatial artifacts")])
+def test_export_cli_refuses_spatial(ws, flag, word, tmp_path, monkeypatch):
+    """Spatial exports the JAX CLI refuses too: a shard count that does
+    not divide the export devices (one with ``--cpu`` unless
+    ``--spatial_devices`` names more), and ``--serve_raw``."""
     monkeypatch.chdir(tmp_path)
     with _Logs() as logs:
         assert export_cli.main(["--checkpoint_dir", str(ws["dir"]), "--out",
                                 str(tmp_path / "s"), "--cpu", *flag]) == 1
-    assert "ROADMAP A14" in logs.text
+    assert word in logs.text
+    assert not os.path.exists(str(tmp_path / "s"))
 
 
 @pytest.mark.parametrize("mode,flags,ignored", [

@@ -771,14 +771,22 @@ def test_serve_cli_help():
 
 @pytest.mark.parametrize("flags,item", [
     (("--artifact", "m.mrisrx"), "JAX package"),
-    (("--spatial_shards", "2"), "ROADMAP A14")])
+    (("--num_devices", "3", "--spatial_shards", "2"),
+     "spatial_shards=2 must divide the 3 mesh devices")])
 def test_serve_cli_refuses_unported_modes(flags, item, tmp_path):
-    """Spatially sharded serving waits for ROADMAP A14; ``--artifact`` is
-    served since A12, but not a JAX package's artifact (jax.export
-    programs): exit 1, naming the package."""
+    """``--artifact`` is served since A12, but not a JAX package's
+    artifact (jax.export programs): exit 1, naming the package. A
+    ``--spatial_shards`` that does not divide the device count exits 1
+    with the JAX engine's error."""
     if flags[0] == "--artifact":
         (tmp_path / flags[1]).write_bytes(b"MRISRX1\n" + b"\0" * 16)
         flags = (flags[0], str(tmp_path / flags[1]))
+    else:
+        ckpt.save_checkpoint(
+            str(tmp_path / "final_model_unet"),
+            build_model(ModelConfig(base_filters=16)).state_dict(),
+            meta={"config": {"model": {"model_type": "unet",
+                                       "base_filters": 16}}})
     r = _serve("--cpu", "--checkpoint_dir", str(tmp_path), *flags)
     assert r.returncode == 1
     assert item in r.stderr

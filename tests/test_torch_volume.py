@@ -270,9 +270,13 @@ def test_load_engine_passes_every_field(tmp_path, jax_params):
                                           0.2)
     assert load_engine(InferConfig(checkpoint_dir=str(tmp_path), tta=True),
                        device="cpu").tta
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="must divide the 1 mesh devices"):
         load_engine(InferConfig(checkpoint_dir=str(tmp_path),
                                 spatial_shards=2), device="cpu")
+    eng = load_engine(InferConfig(checkpoint_dir=str(tmp_path),
+                                  spatial_shards=2), device="cpu",
+                      devices=[torch.device("cpu")] * 4)
+    assert (eng.spatial_shards, eng.n_devices) == (2, 2)
 
 
 # ----------------------------------------------------- the infer_volume CLI
@@ -443,19 +447,22 @@ def test_infer_volume_num_devices_matches_jax(workspace, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--artifact", "m.mrisrx"], "JAX package"),
-    (["--spatial_shards", "2"], "A14")])
-def test_infer_volume_refuses_unported_flags(tmp_path, flags, item):
-    """Spatially sharded serving waits for ROADMAP A14; ``--artifact`` is
-    served since A12, but not a JAX package's artifact (jax.export
-    programs): exit 1, naming the package."""
+    (["--num_devices", "3", "--spatial_shards", "2"],
+     "spatial_shards=2 must divide the 3 mesh devices")])
+def test_infer_volume_refuses_unported_flags(tmp_path, flags, item,
+                                             request):
+    """``--artifact`` is served since A12, but not a JAX package's
+    artifact (jax.export programs): exit 1, naming the package. A
+    ``--spatial_shards`` that does not divide the device count exits 1
+    with the JAX engine's error."""
     if flags[0] == "--artifact":
         (tmp_path / flags[1]).write_bytes(b"MRISRX1\n" + b"\0" * 16)
         flags = [flags[0], str(tmp_path / flags[1])]
+    else:
+        ws = request.getfixturevalue("workspace")
+        flags = ["--checkpoint_dir", str(ws), *flags]
     argv = ["--input", "v.nii", "--output", str(tmp_path / "o.nii"), "--cpu",
             *flags]
     with _Logs() as logs:
         assert cli.main(argv) == 1
     assert item in logs.text
-    if item == "A14":
-        msgs = cli.unsupported(cli.parse_args(argv))
-        assert len(msgs) == 1 and item in msgs[0]
