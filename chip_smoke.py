@@ -285,7 +285,27 @@ the last line is printed:
    for bit as the engine, and ``cli.export_serving --spatial_shards 2``
    whose artifact a fresh process serves, with no model code, bit for
    bit as the spatial engine.
-16. the ``kernels`` JSON line, the card's name and power limit, and the
+16. row-sharded training (``spatial_train_path``): B3 on the 1-row
+   haloed blocks of the training batch over 2 shards (8 x 130 x 256 at
+   both narrow sites, bf16 and fp32 against the plain version, the
+   cropped rows bit-equal to the dense kernel's); the full-width unet on
+   the training batch (8 x 128^2 -> 256^2), one step of the spatial
+   trainer (``tools/sp_step``) over two gloo ranks on ``cuda:0`` as a
+   (1 data x 2 space) grid, in fp32 (TF32 off) and bf16, against the
+   same step over the in-process ``SpaceGroup`` of ``[cuda:0, cuda:0]``
+   (the metrics the same bits, fp32 gradients within 1e-6, bf16
+   gradients within 8 bf16 ulps of each tensor's largest magnitude) and the
+   one-device dense step on the same batch (fp32 loss within rtol 1e-5
+   and gradients within max abs 1e-4; bf16 loss within rtol 1e-3); the
+   ranks' params the same bits; each rank's step launches B3 2 and
+   nothing else (B1, B2 and B4 are off the sharded path), the in-process
+   group 4; ms a bf16 step of a rank beside the one-device step's ("one
+   card, not representative"); then, in the same two ranks, the train
+   CLI's rank (``cli.train.run_rank``, as ``--num_devices 2
+   --spatial_shards 2`` starts them on two cards) for one epoch on the
+   training phase's pairs, its checkpoint served by the dense engine
+   (finite, the HR shape).
+17. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -311,7 +331,9 @@ the last line is printed:
    both ranks' checked step and the two-device engine's three batches)
    and ``phase_final``'s two forwards (``phase_launches``), the spatial
    phase's counted forwards (``spatial_launches``: its engines' bf16
-   and fp32 batches and the four families' int8 batches), and
+   and fp32 batches and the four families' int8 batches), the spatial
+   training phase's two ranks' fp32 and bf16 steps
+   (``spatial_train_launches``), and
    B1's
    and its backward's rows their C = 64 times (``c64``). A ``wall`` line
    before it gives the script's seconds.
@@ -394,7 +416,8 @@ from mri_superresolution_torch.parallel import multihost as multihost_mod
 from mri_superresolution_torch.tools import (convert_torch_checkpoint,
                                              dp_step,
                                              export_torch_checkpoint,
-                                             grad_gap, quality, roll_probe)
+                                             grad_gap, quality, roll_probe,
+                                             sp_step)
 from mri_superresolution_torch.tools.profile_step import trace_calls
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.train import trainer
@@ -4011,16 +4034,17 @@ def _cwd(path: Path):
 
 
 @contextlib.contextmanager
-def _fds_to(path: Path):
+def _fds_to(path: Path, err: Path = None):
     """This process's stdout and stderr, and its children's, into
-    ``path`` for the duration (the train CLI's children print their
-    protocol lines there, not among this script's)."""
+    ``path`` (stderr into ``err`` if given) for the duration (the train
+    CLI's children print their protocol lines there, not among this
+    script's)."""
     sys.stdout.flush()
     sys.stderr.flush()
     saved = [os.dup(1), os.dup(2)]
-    with open(path, "ab") as f:
+    with open(path, "ab") as f, open(err or path, "ab") as e:
         os.dup2(f.fileno(), 1)
-        os.dup2(f.fileno(), 2)
+        os.dup2(e.fileno(), 2)
     try:
         yield
     finally:
@@ -4968,34 +4992,33 @@ def _int8_quality(sp, dense, truth) -> dict:
                        and q_sp <= 1.2 * q_d + 1e-3)}
 
 
-def check_spatial_kernels(dev, gen) -> None:
-    """The kernels at the shapes the row-sharded path gives them: B3 on
-    the 1-row haloed blocks of the unet's two narrow sites at 8 x 1024^2
-    over 2 and 4 shards (bf16 and fp32 against the plain version; the
-    cropped rows, gathered, bit-equal to the dense kernel's rows), and
-    B4's stream route at each family's int8 sites on a shard of 4 x
-    256^2 over 2, code for code."""
+def spatial_b3_check(dev, gen, batch: int, hr: int, shards,
+                     served_by: str) -> None:
+    """B3 on the 1-row haloed blocks of the unet's two narrow sites of a
+    ``batch`` x ``hr``^2 image over each count of ``shards``: bf16 and
+    fp32 against the plain version (bf16 also run to run); the cropped
+    rows, gathered, bit-equal to the dense kernel's rows."""
     from mri_superresolution_torch.parallel import spatial
-    f, hr = BASE_FILTERS, 2 * SP_LR
-    for n in SP_SHARDS:
+    f = BASE_FILTERS
+    for n in shards:
         group = spatial.SpaceGroup([dev] * n)
+        where = f"{served_by} of {n}"
         for ci, co in ((f, f // 2), (f // 2, f // 2)):
             for dt in (torch.bfloat16, torch.float32):
-                x, w = b3_inputs(SP_BATCH, ci, co, hr, dev, gen)
+                x, w = b3_inputs(batch, ci, co, hr, dev, gen)
                 x, w = x.to(dt).contiguous(memory_format=torch.channels_last
                                            ), w.to(dt)
                 blocks = [x[:, :, i * hr // n:(i + 1) * hr // n]
                           for i in range(n)]
                 ext = group.halo(blocks, 1, 1)[1]
                 if dt == torch.bfloat16:
-                    b3_check(ext, w, f"spatial shard of {n}")
+                    b3_check(ext, w, where)
                 else:
                     ok, err = within(conv3x3(ext, w), conv3x3_plain(ext, w),
                                      1e-5, 1e-5)
                     log("kernel_check", kernel="B3", shape=list(ext.shape),
-                        cout=co, served_by=f"spatial shard of {n}",
-                        dtype="fp32", max_abs_err=err, rtol=1e-5, atol=1e-5,
-                        ok=ok)
+                        cout=co, served_by=where, dtype="fp32",
+                        max_abs_err=err, rtol=1e-5, atol=1e-5, ok=ok)
                     if not ok:
                         raise AssertionError(f"B3 fp32 at {list(ext.shape)}:"
                                              f" max abs err {err}")
@@ -5003,13 +5026,23 @@ def check_spatial_kernels(dev, gen) -> None:
                                                      [w] * n, dt), dim=2)
                 equal = torch.equal(got, conv3x3(x, w))
                 log("spatial_b3", shards=n, shape=list(x.shape), cout=co,
-                    dtype=str(dt).split(".")[-1], cropped_rows_bit_equal=equal)
+                    served_by=served_by, dtype=str(dt).split(".")[-1],
+                    cropped_rows_bit_equal=equal)
                 if not equal:
                     raise AssertionError(f"B3 on {n} shards at "
                                          f"{list(x.shape)} ({dt}): the "
                                          "cropped rows differ from the "
                                          "dense kernel's")
                 del x, blocks, ext, got
+
+
+def check_spatial_kernels(dev, gen) -> None:
+    """The kernels at the shapes the row-sharded serving path gives them:
+    B3 at 8 x 1024^2 over 2 and 4 shards (``spatial_b3_check``), and B4's
+    stream route at each family's int8 sites on a shard of 4 x 256^2
+    over 2, code for code."""
+    spatial_b3_check(dev, gen, SP_BATCH, 2 * SP_LR, SP_SHARDS,
+                     "spatial shard")
     n, seen = SP_SMALL_SHARDS, set()
     for family in SP_FAMILIES:
         for site, (b, c, h, w), slope in zoo_quant_sites(
@@ -5372,6 +5405,168 @@ def spatial_path(dev, cfg, params, bg: dict, smi: str) -> dict:
             "int8": int8["checks"], "seconds": seconds, **extra}
 
 
+# the row-sharded training phase: two gloo ranks on one card
+SPT_DIR = SCALES_PATH.parent / "spatial_train"
+SPT_TIME_STEPS = 3
+SPT_NOTE = "gloo, two ranks on one card, not representative"
+# the bf16 rank group against the in-process group: each gradient's gap
+# in bf16 ulps of its largest magnitude (the two round the backward's
+# bf16 sums at different places; on the CPU at base filters 16 a healthy
+# pair reads 3.9, an fp16 round trip in the sum's backward 18, a halo
+# backward that drops one direction 175)
+SPT_BF16_ULPS = 8.0
+
+
+def _spt_cli_argv() -> list:
+    """The train CLI's flags of the phase: ``--num_devices 2
+    --spatial_shards 2``, one epoch on the training phase's pairs."""
+    ck = SPT_DIR / "cli"
+    return ["--full_res_dir", str(TRAIN_DIR / "hr"),
+            "--low_res_dir", str(TRAIN_DIR / "lr"),
+            "--base_filters", str(BASE_FILTERS),
+            "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+            "--seed", str(TRAIN_SEED), "--checkpoint_dir", str(ck),
+            "--log_dir", str(ck / "logs"), "--num_devices", "2",
+            "--spatial_shards", "2"]
+
+
+def _spt_cli(dev) -> dict:
+    """The train CLI's run (in the step's ranks, after the step): its
+    rank 0's protocol and log, and its checkpoint served by the
+    one-device engine."""
+    ck = SPT_DIR / "cli"
+    log_text = (ck / "logs" / "training.log").read_text() \
+        if (ck / "logs" / "training.log").exists() else ""
+    final = ck / "final_model_unet.ckpt"
+    summaries = []
+    for ln in (SPT_DIR / "ranks.out").read_text(errors="replace").splitlines():
+        if ln.startswith("{") and ln.endswith('"type": "epoch_summary"}'):
+            summaries.append(json.loads(ln))
+    served = None
+    if final.exists():
+        eng = load_engine(InferConfig(checkpoint_path=str(final)),
+                          device=dev)
+        served = eng.upscale_batch(phantom_batch(np.random.default_rng(4), 2,
+                                                 TRAIN_LR))
+    ok = bool(served is not None and served.shape ==
+              (2, 2 * TRAIN_LR, 2 * TRAIN_LR) and np.isfinite(served).all()
+              and "Spatially-sharded training: (1 data x 2 space) mesh"
+              in log_text and len(summaries) == 1
+              and np.isfinite(summaries[0]["train_loss"]))
+    res = {"epoch_summary": summaries,
+           "served_shape": None if served is None else list(served.shape),
+           "ok": ok}
+    log("spatial_train_cli", **res)
+    if not ok:
+        raise AssertionError(f"the spatial train CLI on two ranks: {res}; "
+                             f"see {SPT_DIR}/ranks.err")
+    return res
+
+
+def bf16_ulps_of_max(got: dict, want: dict) -> float:
+    """The largest gap between two gradient trees, each tensor's in bf16
+    ulps (2^(e - 7) for a largest magnitude in [2^e, 2^(e + 1))) of its
+    largest magnitude in ``want``."""
+    worst = 0.0
+    for k, w in want.items():
+        m = float(w.abs().max())
+        err = float((got[k].double() - w.double()).abs().max())
+        if m == 0.0:
+            worst = max(worst, math.inf if err else 0.0)
+        else:
+            worst = max(worst, err / 2.0 ** (math.floor(math.log2(m)) - 7))
+    return worst
+
+
+def spatial_train_path(dev, smi: str) -> dict:
+    """Row-sharded training on one card: see the module's phase 16."""
+    shutil.rmtree(SPT_DIR, ignore_errors=True)
+    SPT_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    spatial_b3_check(dev, torch.Generator(device=dev).manual_seed(10),
+                     TRAIN_BATCH, 2 * TRAIN_LR, (2,), "spatial training shard")
+    sd = build_model(ModelConfig(base_filters=BASE_FILTERS),
+                     generator=torch.Generator().manual_seed(TRAIN_SEED)
+                     ).state_dict()
+    batch = {k: v.cpu().numpy() for k, v in
+             _train_batch("cpu", TRAIN_BATCH, TRAIN_LR).items()}
+
+    def case(name, dtype, **kw):
+        return {"name": name, "model": {"base_filters": BASE_FILTERS},
+                "state_dict": sd, "batch": batch, "dtype": dtype,
+                "mesh": (1, 2), "lr": 1e-4, "weight_decay": 1e-5, **kw}
+
+    cases = [case("fp32", "float32"),
+             case("bf16", "bfloat16", time_steps=SPT_TIME_STEPS)]
+    # the train CLI's rank runs in the same ranks after the step cases
+    torch.save({"cases": cases, "allow_tf32": False,
+                "train_argv": _spt_cli_argv()}, SPT_DIR / "spec.pt")
+    # the protocol's lines apart from the logs, which would split them
+    with _fds_to(SPT_DIR / "ranks.out", SPT_DIR / "ranks.err"):
+        rc = multihost_mod.launch(
+            "mri_superresolution_torch.tools.sp_step:run_rank",
+            [str(SPT_DIR / "spec.pt"), str(SPT_DIR)], [dev, dev],
+            f"127.0.0.1:{multihost_mod.free_port()}", 2, backend="gloo")
+    if rc != 0:
+        raise AssertionError(f"the spatial step's two gloo ranks exited "
+                             f"{rc}; see {SPT_DIR}/ranks.err")
+    ranks = sp_step.rank_results(cases, str(SPT_DIR), 2)
+    t1 = time.perf_counter()
+    inproc = {c["name"]: sp_step.run_mesh(c, dev) for c in cases}
+    dense = {c["name"]: dp_step.run_case(c, dev) for c in cases}
+    seconds = {"ranks": t1 - t0, "references": time.perf_counter() - t1}
+    r32, d32 = ranks["fp32"][0], dense["fp32"]
+    gates = {
+        "fp32_loss_rel": abs(r32["metrics"]["loss"] - d32["metrics"]["loss"])
+        / abs(d32["metrics"]["loss"]),
+        "fp32_grad_max_abs": sp_step.max_abs(r32["grads"], d32["grads"]),
+        "bf16_loss_rel": abs(ranks["bf16"][0]["metrics"]["loss"]
+                             - dense["bf16"]["metrics"]["loss"])
+        / abs(dense["bf16"]["metrics"]["loss"]),
+        "fp32_vs_in_process_grad_max_abs": sp_step.max_abs(
+            r32["grads"], inproc["fp32"]["grads"]),
+        "bf16_vs_in_process_grad_max_abs": sp_step.max_abs(
+            ranks["bf16"][0]["grads"], inproc["bf16"]["grads"]),
+        "bf16_vs_in_process_grad_ulps_of_max": bf16_ulps_of_max(
+            ranks["bf16"][0]["grads"], inproc["bf16"]["grads"])}
+    checks = {
+        "fp32_vs_dense": gates["fp32_loss_rel"] <= 1e-5
+        and gates["fp32_grad_max_abs"] <= 1e-4,
+        "bf16_vs_dense": gates["bf16_loss_rel"] <= 1e-3,
+        "metrics_equal_in_process": all(
+            ranks[n][0]["metrics"] == inproc[n]["metrics"] for n in ranks),
+        "fp32_grads_in_process": gates["fp32_vs_in_process_grad_max_abs"]
+        <= 1e-6,
+        "bf16_grads_in_process": gates["bf16_vs_in_process_grad_ulps_of_max"]
+        <= SPT_BF16_ULPS,
+        "ranks_equal": all(sp_step.same_bits(ranks[n][0]["params"],
+                                             ranks[n][1]["params"])
+                           for n in ranks),
+        "rank_launches": all(ranks[n][r]["launches"] == {"conv3x3": 2}
+                             for n in ranks for r in (0, 1)),
+        "in_process_launches": all(inproc[n]["launches"] == {"conv3x3": 4}
+                                   for n in inproc)}
+    launches = {}
+    for n in ranks:
+        for r in (0, 1):
+            _add(launches, ranks[n][r]["launches"])
+    ms = {"rank_step_ms": [ranks["bf16"][r]["step_ms"] for r in (0, 1)],
+          "in_process_step_ms": inproc["bf16"]["step_ms"],
+          "one_device_step_ms": dense["bf16"]["step_ms"]}
+    log("spatial_train_step", ranks=2, mesh=[1, 2], device=str(dev),
+        batch=TRAIN_BATCH, lr=TRAIN_LR, backend=ranks["fp32"][0]["backend"],
+        **gates, **checks, launches=launches,
+        dense_launches=dense["bf16"]["launches"], **ms, seconds=seconds,
+        timing=f"{SPT_NOTE}: host clock around {SPT_TIME_STEPS} bf16 steps "
+               f"after one, synchronized; {smi}")
+    if not all(checks.values()):
+        raise AssertionError(f"spatial training step: {checks}, {gates}")
+    cli = _spt_cli(dev)
+    seconds = time.perf_counter() - t0
+    log("spatial_train_path", seconds=seconds, launches=launches)
+    return {"launches": launches, "ms": ms, "cli": cli, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA GPU")
@@ -5440,6 +5635,7 @@ def main(argv=None) -> int:
     evaluated = eval_path(dev, smi, extract["roots"])
     perc = perceptual_path(dev)
     spatial = spatial_path(dev, cfg, params, spatial_bg, smi)
+    spatial_train = spatial_train_path(dev, smi)
 
     torch_root = "mri_superresolution_torch/csrc/"
     tpu_root = "mri_superresolution_tpu/experiments/"
@@ -5485,6 +5681,8 @@ def main(argv=None) -> int:
         rows[-1]["dp_launches"] = dp["launches"].get(name, 0)
         rows[-1]["phase_launches"] = dp["phase_launches"].get(name, 0)
         rows[-1]["spatial_launches"] = spatial["launches"].get(name, 0)
+        rows[-1]["spatial_train_launches"] = spatial_train["launches"].get(
+            name, 0)
         if key in ("B1", "B1 backward"):
             rows[-1]["c64"] = c64["forward" if key == "B1" else "backward"]
         if key == "B2":
@@ -5522,7 +5720,9 @@ def main(argv=None) -> int:
                      "phase_launches": dp["phase_launches"].get(wrapper,
                                                                 0),
                      "spatial_launches": spatial["launches"].get(wrapper,
-                                                                 0)})
+                                                                 0),
+                     "spatial_train_launches": spatial_train[
+                         "launches"].get(wrapper, 0)})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

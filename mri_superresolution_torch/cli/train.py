@@ -23,12 +23,16 @@ Data parallelism, one process a rank (``parallel/multihost.py``):
   p`` makes this process host p of a job of P; its local ranks take the
   global ranks ``p * local + i``. Without ``--coordinator`` it reads the
   variables ``torchrun`` sets and is one rank;
-- ``--opt_shard`` shards Adam's moments over the ranks (ZeRO-1).
+- ``--opt_shard`` shards Adam's moments over the ranks (ZeRO-1);
+- ``--spatial_shards S`` trains row-sharded: the ranks form a (ranks / S
+  data, S space) grid, each rank holds 1/S of every image's rows, and
+  halos and statistic sums cross the ranks of a space group
+  (``parallel/spatial.py``). S must divide the ranks; LR H must divide by
+  8 S and W by 8. With ``--opt_shard`` the moments shard over the data
+  groups.
 
 With one rank and no ``--multihost`` no process group is made and the run
-is the single-device one. ``--spatial_shards`` > 1 (row-sharded
-training) raises an error that names the ROADMAP item that ports it,
-A14(b); row-sharded serving runs in the serving CLIs.
+is the single-device one.
 """
 
 from __future__ import annotations
@@ -81,8 +85,10 @@ def parse_args(argv=None):
                         'package remats): less activation memory for one '
                         'more forward of those blocks; the same update')
     p.add_argument('--spatial_shards', type=int, default=1,
-                   help='> 1 is not ported to training yet (ROADMAP '
-                        'A14(b))')
+                   help='Row-shard every image over this many ranks (it '
+                        'must divide the ranks; LR H % (8 x this) == 0, '
+                        'W % 8 == 0): activations and their tape 1/S a '
+                        'rank, halos and sums between the ranks')
     p.add_argument('--grad_accum', type=int, default=1,
                    help='Split each batch into this many sequential '
                         'microbatches, accumulating fp32 gradients: the '
@@ -204,19 +210,23 @@ def _final_path(cfg) -> str:
 
 def main(argv=None) -> str:
     """Parse the flags and train; returns the final checkpoint's path.
-    An unported mode raises NotImplementedError before any work. With
-    more than one local rank this process starts them and waits; a rank
-    that fails ends the run with its exit code (SystemExit)."""
+    A ``--spatial_shards`` that does not divide the ranks raises
+    ValueError before any work. With more than one local rank this
+    process starts them and waits; a rank that fails ends the run with
+    its exit code (SystemExit)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     from mri_superresolution_torch.parallel import multihost
-    from mri_superresolution_torch.train.trainer import check_supported, train
+    from mri_superresolution_torch.train.trainer import check_spatial, train
     cfg = config_from_args(args)
-    check_supported(cfg)
     torchrun = args.multihost and args.coordinator is None
     # under torchrun the process is one rank, on cuda:LOCAL_RANK
     devices = [("cpu" if args.cpu else None)] if torchrun \
         else local_devices(args)
+    if not torchrun:
+        # the ranks this job will have (under torchrun, the group says)
+        hosts = (args.num_processes or 1) if args.multihost else 1
+        check_spatial(cfg, len(devices) * hosts)
     if len(devices) == 1 and not args.multihost:
         return train(cfg, device="cpu" if args.cpu else None)
     backend = "gloo" if args.cpu else None

@@ -13,9 +13,8 @@ serve}`` with the JAX TUI's flag lists, on the card unless the ``cpu``
 toggle is on. The ``opt_shard`` toggle reaches a train CLI that runs it
 (ZeRO-1), and the CLIs' default device count (``--num_devices`` 0)
 trains data-parallel over, and serves on, every visible GPU. A
-``spatial_shards`` > 1 serves row-sharded over those GPUs (it must
-divide their count), and reaches the train CLI's refusal, naming ROADMAP
-A14(b), which the launcher shows.
+``spatial_shards`` > 1 trains and serves row-sharded over those GPUs (it
+must divide their count).
 """
 
 import curses

@@ -1,13 +1,10 @@
 """Typed configs of the port.
 
-An own copy of the JAX package's ``config.py`` for the slices ported so
-far: ``ModelConfig`` (with every field of the JAX one, so that a
-checkpoint's JSON sidecar has the same ``config`` block whichever package
-wrote it), and ``LossConfig``, ``AugmentConfig``, ``TrainConfig``,
-``ExtractConfig`` and ``InferConfig`` whole. Options that later slices
-port keep their names and defaults here; ``train.trainer.check_supported``
-and the serving engine reject them when they are set, naming the ROADMAP
-item that ports each.
+An own copy of the JAX package's ``config.py``: ``ModelConfig`` (with
+every field of the JAX one, so that a checkpoint's JSON sidecar has the
+same ``config`` block whichever package wrote it), and ``LossConfig``,
+``AugmentConfig``, ``TrainConfig``, ``ExtractConfig`` and ``InferConfig``
+whole, with the same names, defaults and meanings.
 ``model_config_from_dict`` and ``train_config_from_dict`` read a
 sidecar's blocks and ignore keys this copy does not know.
 """
@@ -74,9 +71,7 @@ class AugmentConfig:
 @dataclass
 class TrainConfig:
     """Training loop config (reference scripts/train.py:486-548 defaults).
-    The meaning of each field is the JAX package's (its ``config.py``);
-    the ones this port does not run yet are rejected when set
-    (``train.trainer.check_supported``)."""
+    The meaning of each field is the JAX package's (its ``config.py``)."""
     full_res_dir: str = ""
     low_res_dir: str = ""
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -137,8 +132,7 @@ class ExtractConfig:
 @dataclass
 class InferConfig:
     """Inference config (reference scripts/infer.py:452-486), with the JAX
-    package's fields in its order; ``spatial_shards`` other than 1 is
-    rejected by the engine (ROADMAP A14)."""
+    package's fields in its order."""
     model: ModelConfig = field(default_factory=ModelConfig)
     checkpoint_dir: str = "./checkpoints"
     checkpoint_path: Optional[str] = None

@@ -29,7 +29,7 @@ import torch.utils.checkpoint
 
 from mri_superresolution_torch.config import LossConfig
 from mri_superresolution_torch.kernels import ssim_per_sample
-from mri_superresolution_torch.models.vgg import VGG19Features
+from mri_superresolution_torch.models.vgg import VGG19Features, _call
 
 
 def _weighted_mean(per_sample: torch.Tensor,
@@ -81,50 +81,83 @@ def global_clip(mean: torch.Tensor, per_sample: torch.Tensor,
     return torch.where(inside, mean + (g - mean.detach()), g.clamp(0.0, 1.0))
 
 
-def compose_loss(cfg: LossConfig, out32: torch.Tensor, tgt32: torch.Tensor,
-                 sample_weights: Optional[torch.Tensor],
-                 vgg: Optional[VGG19Features] = None, remat: bool = False,
-                 ssim_reduce: Optional[SsimReduce] = None
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The CombinedLoss composition on fp32 (B, H, W, 1) tensors. ``comps``
-    holds ``l1_loss``, ``ssim_loss``, ``ssim_metric`` (the clipped SSIM)
-    and ``perceptual_loss`` for the terms with a weight, as in the JAX
-    package. ``remat`` recomputes the VGG19 features of the output in the
-    backward instead of keeping them: the JAX trainer's loss-graph
-    checkpoint under ``--remat``. It is the only term with a tape to drop:
-    L1 keeps none, and B2's backward already recomputes the SSIM maps
-    inside its ``autograd.Function``. With ``ssim_reduce`` the SSIM clip
-    is decided on the global batch (:func:`global_clip`)."""
-    total = torch.zeros((), dtype=torch.float32, device=out32.device)
+def compose_loss(cfg: LossConfig, out32, tgt32,
+                 sample_weights, vgg: Optional[VGG19Features] = None,
+                 remat: bool = False,
+                 ssim_reduce: Optional[SsimReduce] = None, *,
+                 per_sample_mean=_per_sample_mean,
+                 weighted_mean=_weighted_mean, ssim_per_sample=None,
+                 vgg_features=None, always_ssim_metric: bool = False,
+                 each=_call) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The one copy of the CombinedLoss composition, on fp32 (B, H, W, 1)
+    tensors. ``comps`` holds ``l1_loss``, ``ssim_loss``, ``ssim_metric``
+    (the clipped SSIM) and ``perceptual_loss`` for the terms with a
+    weight, as in the JAX package. ``remat`` recomputes the VGG19
+    features of the output in the backward instead of keeping them: the
+    JAX trainer's loss-graph checkpoint under ``--remat``. It is the only
+    term with a tape to drop: L1 keeps none, and B2's backward already
+    recomputes the SSIM maps inside its ``autograd.Function``. With
+    ``ssim_reduce`` the SSIM clip is decided on the global batch
+    (:func:`global_clip`).
+
+    The JAX function's hooks replace its reductions and features; the
+    defaults are the dense ones (B2 for the SSIM):
+
+    - ``per_sample_mean(x) -> (B,)``: the mean over every other axis;
+    - ``weighted_mean(per, w) -> scalar``: the weighted mean over the
+      batch;
+    - ``ssim_per_sample(a, b) -> (B,)``: the per-sample SSIM;
+    - ``vgg_features(x)``: the VGG19 stack up to ``cfg.vgg_layer_idx``;
+    - ``always_ssim_metric``: report the unclipped SSIM as
+      ``ssim_metric`` when ``ssim_weight`` is 0;
+    - ``each(fn, *xs)``: applies the composition's own elementwise steps;
+      the row-sharded loss (``parallel/spatial.py``) passes its group's
+      ``map``, and its tensors are then lists of row blocks."""
+    if ssim_per_sample is None:
+        def ssim_per_sample(a, b):
+            return _ssim(cfg, a, b)
+    if vgg_features is None:
+        def vgg_features(x):
+            if remat and torch.is_grad_enabled():
+                return torch.utils.checkpoint.checkpoint(
+                    vgg, x, use_reentrant=False, preserve_rng_state=False)
+            return vgg(x)
+    total = each(lambda o: torch.zeros((), dtype=torch.float32,
+                                       device=o.device), out32)
     comps: Dict[str, torch.Tensor] = {}
     if cfg.l1_weight > 0:
-        l1 = l1_loss(out32, tgt32, sample_weights)
-        total = total + cfg.l1_weight * l1
+        l1 = weighted_mean(per_sample_mean(each(
+            lambda a, b: (a - b).abs(), out32, tgt32)), sample_weights)
+        total = each(lambda t, v: t + cfg.l1_weight * v, total, l1)
         comps["l1_loss"] = l1
+    if cfg.ssim_weight > 0 or always_ssim_metric:
+        per = ssim_per_sample(out32, tgt32)
+        ssim_raw = weighted_mean(per, sample_weights)
     if cfg.ssim_weight > 0:
-        per = _ssim(cfg, out32, tgt32)
-        ssim_val = _weighted_mean(per, sample_weights)
-        ssim_val = (ssim_val.clamp(0.0, 1.0) if ssim_reduce is None else
-                    global_clip(ssim_val, per, sample_weights, ssim_reduce))
-        ssim_l = 1.0 - ssim_val               # reference utils/losses.py:221
-        total = total + cfg.ssim_weight * ssim_l
+        ssim_val = (each(lambda v: v.clamp(0.0, 1.0), ssim_raw)
+                    if ssim_reduce is None else
+                    global_clip(ssim_raw, per, sample_weights, ssim_reduce))
+        # reference utils/losses.py:221
+        ssim_l = each(lambda v: 1.0 - v, ssim_val)
+        total = each(lambda t, v: t + cfg.ssim_weight * v, total, ssim_l)
         comps["ssim_loss"] = ssim_l
         comps["ssim_metric"] = ssim_val
+    elif always_ssim_metric:
+        comps["ssim_metric"] = ssim_raw
     if cfg.perceptual_weight > 0:
-        fg = (torch.utils.checkpoint.checkpoint(
-            vgg, out32, use_reentrant=False, preserve_rng_state=False)
-            if remat and torch.is_grad_enabled() else vgg(out32))
+        fg = vgg_features(out32)
         with torch.no_grad():
-            ft = vgg(tgt32)
+            ft = vgg_features(tgt32)
         if cfg.perceptual_loss_type == "l1":
-            per = _per_sample_mean((fg - ft).abs())
+            per = per_sample_mean(each(lambda a, b: (a - b).abs(), fg, ft))
         elif cfg.perceptual_loss_type in ("l2", "mse"):
-            per = _per_sample_mean((fg - ft).square())
+            per = per_sample_mean(each(lambda a, b: (a - b).square(), fg,
+                                       ft))
         else:
             raise ValueError(
                 f"Unsupported perceptual loss: {cfg.perceptual_loss_type}")
-        perc = _weighted_mean(per, sample_weights)
-        total = total + cfg.perceptual_weight * perc
+        perc = weighted_mean(per, sample_weights)
+        total = each(lambda t, v: t + cfg.perceptual_weight * v, total, perc)
         comps["perceptual_loss"] = perc
     return total, comps
 

@@ -18,8 +18,10 @@ by default as in the JAX package; on the card they follow
 ``torch.backends.cudnn.allow_tf32`` (PyTorch's default True: TF32), which
 this module does not set.
 
-Left out: the JAX function's ``conv_fn``/``pool_fn`` hooks, which only the
-spatially sharded loss uses (ROADMAP A14).
+The layer loop is the one copy of the VGG19 stack: its hooks
+(``conv_fn``, ``pool_fn`` and ``each``, the JAX function's
+``conv_fn``/``pool_fn``) let the row-sharded loss run it on row blocks
+(``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -160,26 +162,48 @@ class VGG19Features(nn.Module):
             {f"conv{i}": params[f"conv{i}"] for i in range(n)}))
         return m
 
-    def forward(self, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    def forward(self, x, dtype=torch.float32, conv_fn=None, pool_fn=None,
+                each=None):
         """(B, H, W, C) images in [0, 1] -> (B, h, w, channels) features of
-        the last layer, in ``dtype`` (the JAX package's layout)."""
-        if x.shape[-1] == 1:
-            x = x.expand(*x.shape[:-1], 3)
-        mean = torch.tensor(VGG_MEAN, dtype=dtype, device=x.device)
-        std = torch.tensor(VGG_STD, dtype=dtype, device=x.device)
-        x = ((x.to(dtype) - mean) / std).permute(0, 3, 1, 2)
-        x = x.contiguous(memory_format=torch.channels_last)
+        the last layer, in ``dtype`` (the JAX package's layout).
+
+        ``conv_fn(x, weight, bias)`` and ``pool_fn(x)`` replace the padded
+        3x3 conv and the 2x2 maxpool, and ``each(fn, x)`` applies every
+        other step (the input's normalization, the ReLUs, the output's
+        layout) to ``x``; the row-sharded loss passes its haloed conv,
+        its local pool and its group's ``map`` over a list of row
+        blocks."""
+        each = each or _call
+
+        def prepare(t):
+            if t.shape[-1] == 1:
+                t = t.expand(*t.shape[:-1], 3)
+            mean = torch.tensor(VGG_MEAN, dtype=dtype, device=t.device)
+            std = torch.tensor(VGG_STD, dtype=dtype, device=t.device)
+            t = ((t.to(dtype) - mean) / std).permute(0, 3, 1, 2)
+            return t.contiguous(memory_format=torch.channels_last)
+
+        x = each(prepare, x)
         for layer in self.features:
             if isinstance(layer, nn.Conv2d):
-                x = F.conv2d(x, layer.weight.to(dtype),
-                             layer.bias.to(dtype), padding=1)
+                w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+                x = (each(lambda t: F.conv2d(t, w, b, padding=1), x)
+                     if conv_fn is None else conv_fn(x, w, b))
+            elif isinstance(layer, nn.MaxPool2d) and pool_fn is not None:
+                x = pool_fn(x)
             else:
-                x = layer(x)
-        return x.permute(0, 2, 3, 1)
+                x = each(layer, x)
+        return each(lambda t: t.permute(0, 2, 3, 1), x)
+
+
+def _call(fn, *args):
+    return fn(*args)
 
 
 def extract_features(vgg: VGG19Features, x: torch.Tensor,
-                     dtype=torch.float32) -> torch.Tensor:
+                     dtype=torch.float32, conv_fn=None, pool_fn=None,
+                     each=None) -> torch.Tensor:
     """Run NHWC images in [0, 1] through ``vgg`` up to its
-    ``feature_layer_idx`` (the JAX package's ``extract_features``)."""
-    return vgg(x, dtype)
+    ``feature_layer_idx`` (the JAX package's ``extract_features``, its
+    hooks included: see :meth:`VGG19Features.forward`)."""
+    return vgg(x, dtype, conv_fn, pool_fn, each)

@@ -53,14 +53,21 @@ def _separable_blur(x: torch.Tensor, window_size: int,
 
 
 def ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-             sigma: float = 1.5, val_range: float = 1.0) -> torch.Tensor:
-    """Per-pixel SSIM map for NHWC images (fp32)."""
+             sigma: float = 1.5, val_range: float = 1.0,
+             blur_fn=None) -> torch.Tensor:
+    """Per-pixel SSIM map for NHWC images (fp32).
+
+    ``blur_fn`` replaces the zero-padded Gaussian blur of the NCHW stack
+    of img1, img2, img1², img2², img1·img2 (default
+    :func:`_separable_blur`): the row-sharded loss passes its blur of a
+    haloed block (``parallel/spatial.py``), so this stays the one copy of
+    the SSIM formula."""
     x1 = img1.float().permute(0, 3, 1, 2)
     x2 = img2.float().permute(0, 3, 1, 2)
     c = x1.shape[1]
-    blurred = _separable_blur(
-        torch.cat([x1, x2, x1 * x1, x2 * x2, x1 * x2], dim=1),
-        window_size, sigma)
+    stacked = torch.cat([x1, x2, x1 * x1, x2 * x2, x1 * x2], dim=1)
+    blurred = (_separable_blur(stacked, window_size, sigma) if blur_fn is None
+               else blur_fn(stacked))
     mu1, mu2, e11, e22, e12 = blurred.split(c, dim=1)
 
     mu1_sq = mu1 * mu1

@@ -157,7 +157,9 @@ def agree(value):
 
 
 class Collectives:
-    """The collectives of one data-parallel step over the default group.
+    """The collectives of one data-parallel step over the default group,
+    or over the subgroup ``group`` (a ``dist.new_group``; the spatial
+    trainer's data groups).
 
     ``sum_`` and ``max_`` reduce a list of tensors as one flat fp32 bucket
     (one collective, the tensors in the order given) and return the
@@ -166,9 +168,10 @@ class Collectives:
     spent in them when ``timed`` is set (each call then synchronizes the
     device)."""
 
-    def __init__(self, dev: Optional[torch.device] = None):
-        self.world = world()
-        self.rank = rank()
+    def __init__(self, dev: Optional[torch.device] = None, group=None):
+        self.group = group
+        self.world = world() if group is None else dist.get_world_size(group)
+        self.rank = rank() if group is None else dist.get_rank(group)
         self.device = torch.device(dev) if dev is not None else \
             _comm_device()
         self.timed = False
@@ -188,7 +191,7 @@ class Collectives:
         if self.timed:
             self._sync()
             t0 = time.perf_counter()
-        dist.all_reduce(flat, op=op)
+        dist.all_reduce(flat, op=op, group=self.group)
         if self.timed:
             self._sync()
             self.seconds += time.perf_counter() - t0
@@ -212,7 +215,7 @@ class Collectives:
         if self.timed:
             self._sync()
             t0 = time.perf_counter()
-        dist.all_gather(parts, src)
+        dist.all_gather(parts, src, group=self.group)
         if self.timed:
             self._sync()
             self.seconds += time.perf_counter() - t0

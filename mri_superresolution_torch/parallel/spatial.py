@@ -1,15 +1,16 @@
-"""Row-sharded (spatial) serving forwards of the four model families.
+"""Row-sharded (spatial) forwards and training loss of the four model
+families.
 
-The port of the serving half of the JAX package's ``parallel/spatial.py``.
-A slice's ROW axis is split over the ``n_space`` devices of a space group,
-and the forward runs on the row blocks with explicit collectives:
+The port of the JAX package's ``parallel/spatial.py``. A slice's ROW axis
+is split over the ``n_space`` shards of a space group, and the forward
+runs on the row blocks with explicit collectives:
 
-- a kxk conv takes ``(k//2)``-row halos from its neighbours
-  (:meth:`SpaceGroup.halo`); the two edge shards get zero rows, which is
-  the dense conv's zero padding, and the columns pad locally;
+- a kxk conv takes ``(k//2)``-row halos from its neighbours (the group's
+  ``halo``); the two edge shards get zero rows, which is the dense conv's
+  zero padding, and the columns pad locally;
 - GroupNorm statistics are whole-image: local fp32 sums are added over
-  the group (:meth:`SpaceGroup.all_sum`), in shard order and once, so that
-  every shard normalizes with the same bits;
+  the group (``all_sum``), in shard order and once, so that every shard
+  normalizes with the same bits;
 - the align_corners bilinear 2x row upsample is position-dependent: each
   shard applies its own slice of the global upsample matrix to a 1-row
   haloed block (:func:`_upsample_rows_matrices`);
@@ -17,12 +18,23 @@ and the forward runs on the row blocks with explicit collectives:
 
 A :class:`SpatialMesh` is a (n_data, n_space) grid over a device pool:
 the batch splits over its rows (data groups), a slice's rows over the
-devices of a row (a space group). The group here is in-process: the row
-blocks of one batch chunk are a list of tensors, one per device, every
-block function takes and returns such lists, and a halo is a copy of the
-neighbour's edge rows onto this shard's device. The block functions only
-call the group's ``halo``, ``all_sum``, ``all_max`` and ``map``, so a
-group whose collectives run over a process group plugs in unchanged.
+devices of a row (a space group). Every block function takes and returns
+a list of the row blocks a group holds, one tensor a block, and only
+calls the group's ``map``, ``halo``, ``all_sum``, ``all_max``,
+``data_sum`` and ``world_max``. A group's ``n`` is the number of shards
+an image is cut into, and ``shards`` the space index of each block it
+holds. Two groups implement them:
+
+- :class:`SpaceGroup`, in this process: its blocks are a list of tensors
+  on its devices, a halo is a copy of the neighbour's edge rows, a sum
+  adds the blocks' tensors. It serves one data group (``range(n)``) or,
+  for the training loss, every block of a mesh, data-major;
+- :class:`RankSpaceGroup`, over ``torch.distributed``: this rank holds
+  one block (``[s]``) of a (n_data, n_space) grid of ranks
+  (:class:`RankMesh`), and the collectives are ``autograd.Function`` s
+  over its space and data subgroups: a halo's backward returns the
+  gradient of the received rows to the rank that owns them, a sum's
+  backward sums the incoming gradients over the same group.
 
 Kernels on the shard path:
 
@@ -30,6 +42,9 @@ Kernels on the shard path:
   ``final_conv1``: it runs on the 1-row haloed block, pads all four sides
   with zeros itself, and the first and last of its output rows are
   cropped; the rows left are the dense kernel's on the same input rows.
+  In training the crop sends the gradient of the halo rows into the
+  halo's backward, and B3's backward is PyTorch's convolution gradient
+  (``kernels.conv3x3``), as the JAX kernel's is XLA's.
 - B4's stream kernel (``kernels.leaky_quantize``) at every int8 site:
   each site's input is quantized on its own rows BEFORE the halo exchange
   (elementwise, with replicated per-channel scales), so the neighbours'
@@ -40,17 +55,20 @@ Kernels on the shard path:
   other site with 1.0 (an input already activated).
 - B1 is not on the path: a GroupNorm needs whole-image statistics, and
   B1 computes them from the block it is given. The GroupNorms here are
-  torch ops on fp32 sums, as JAX's are ``jnp`` plus a ``psum``.
+  torch ops on fp32 sums, as JAX's are ``jnp`` plus a ``psum``. B2 is not
+  either: the sharded SSIM is a haloed blur and sums
+  (:func:`_ssim_per_sample_sharded`), as JAX's is ``jnp``.
 
 Launches a forward of one chunk over n shards: unet B3 2n in bf16 and
-fp32 (none in int8); int8 B4 one per quantized site and shard (unet and
-unet_tpu 20n, edsr 18n with 8 blocks, simple 2n); B1 and ``gn_quantize``
-none.
+fp32 (none in int8 and QAT, where those are quantized sites); int8 B4 one
+per quantized site and shard (unet and unet_tpu 20n, edsr 18n with 8
+blocks, simple 2n); B1 and ``gn_quantize`` none. A training step adds
+B3's backward, PyTorch's, to each B3 launch.
 
-Constraints (checked when a forward is built): H % (8 * n_space) == 0 and
-W % 8 == 0, so the three pools stay shard-local and every halo comes from
-the next shard alone. Parameters are the port's state_dict of the family,
-the dense model's, so every checkpoint serves.
+Constraints (checked when a forward or loss is built): H % (8 * n_space)
+== 0 and W % 8 == 0, so the three pools stay shard-local and every halo
+comes from the next shard alone. Parameters are the port's state_dict of
+the family, the dense model's, so every checkpoint serves and trains.
 """
 
 from __future__ import annotations
@@ -60,12 +78,18 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mri_superresolution_torch.kernels import conv3x3, leaky_quantize
+from mri_superresolution_torch.ops import ssim as _ssim
 from mri_superresolution_torch.ops.functional import (GN_EPS, max_pool2,
                                                       pixel_shuffle)
-from mri_superresolution_torch.ops.quant import int8_conv
+from mri_superresolution_torch.ops.quant import (FOREGROUND_INTENSITY,
+                                                 fake_quant_act,
+                                                 fake_quant_kernel, int8_conv,
+                                                 ste)
 from mri_superresolution_torch.ops.resize import _align_corners_matrix
 
 CL = torch.channels_last
@@ -84,20 +108,29 @@ def _device_ctx(dev: torch.device):
 
 
 class SpaceGroup:
-    """The collectives of one space group: the n_space devices whose row
-    blocks make up one batch chunk, in row order, in this process.
+    """The collectives of row blocks held in this process, one a device
+    of ``devices``: ``n_data`` rows of ``n`` blocks, data-major, each row
+    one batch chunk's row blocks in row order (``n_data`` 1: one space
+    group, as serving runs them).
 
-    ``halo``, ``all_sum`` and ``all_max`` take a list of per-shard tensors
-    (shard i on ``devices[i]``) and return one. Nothing is written in
-    place: on a device named twice, a received halo or a summed
-    statistic is a view of another shard's tensor."""
+    ``halo``, ``all_sum`` and the other collectives take a list of the
+    blocks' tensors (block i on ``devices[i]``) and return one. Nothing
+    is written in place: on a device named twice, a received halo or a
+    summed statistic is a view of another block's tensor. Every result is
+    differentiable (``.to`` and ``torch.cat`` carry gradients), so that
+    the training loss runs here as it runs over ranks."""
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, n_data: int = 1):
         self.devices = [torch.device(d) for d in devices]
-        self.n = len(self.devices)
+        if n_data < 1 or len(self.devices) % n_data:
+            raise ValueError(f"{len(self.devices)} blocks do not make "
+                             f"{n_data} equal rows")
+        self.n_data = n_data
+        self.n = len(self.devices) // n_data
+        self.shards = [i % self.n for i in range(len(self.devices))]
 
     def map(self, fn, *lists) -> list:
-        """``[fn(a_i, b_i, ...)]`` over the shards, each under its own
+        """``[fn(a_i, b_i, ...)]`` over the blocks, each under its own
         device's context."""
         out = []
         for i, args in enumerate(zip(*lists)):
@@ -114,37 +147,183 @@ class SpaceGroup:
         out = []
         for i, x in enumerate(xs):
             b, c, _, w = x.shape
+            s = self.shards[i]
             parts = []
             if up:
-                parts.append(xs[i - 1][:, :, -up:].to(x.device) if i > 0
+                parts.append(xs[i - 1][:, :, -up:].to(x.device) if s > 0
                              else x.new_zeros((b, c, up, w)))
             parts.append(x)
             if down:
                 parts.append(xs[i + 1][:, :, :down].to(x.device)
-                             if i < self.n - 1
+                             if s < self.n - 1
                              else x.new_zeros((b, c, down, w)))
             out.append(torch.cat(parts, dim=2).contiguous(memory_format=CL))
         return out
 
-    def _reduce(self, ts, op) -> list:
-        total = ts[0]
-        for t in ts[1:]:
-            total = op(total, t.to(total.device))
-        # one result, handed to every shard: the same bits everywhere
-        return [total.to(d) for d in self.devices]
+    def _reduce(self, ts, op, members) -> list:
+        out = [None] * len(ts)
+        for idx in members:
+            total = ts[idx[0]]
+            for j in idx[1:]:
+                total = op(total, ts[j].to(total.device))
+            # one result, handed to every member: the same bits everywhere
+            for j in idx:
+                out[j] = total.to(self.devices[j])
+        return out
+
+    def _rows(self) -> list:
+        return [list(range(r * self.n, (r + 1) * self.n))
+                for r in range(self.n_data)]
 
     def all_sum(self, ts: List[torch.Tensor]) -> list:
-        """The sum of the shards' tensors in shard order, once, on every
-        shard's device."""
-        return self._reduce(ts, torch.add)
+        """The sum over each space group of its blocks' tensors, in shard
+        order, once, on every block's device."""
+        return self._reduce(ts, torch.add, self._rows())
 
     def all_max(self, ts: List[torch.Tensor]) -> list:
-        return self._reduce(ts, torch.maximum)
+        return self._reduce(ts, torch.maximum, self._rows())
+
+    def data_sum(self, ts: List[torch.Tensor]) -> list:
+        """The sum over each data group (the blocks of one space index in
+        every row), in row order."""
+        return self._reduce(ts, torch.add, [
+            list(range(s, len(ts), self.n)) for s in range(self.n)])
+
+    def world_max(self, ts: List[torch.Tensor]) -> list:
+        """The max over every block (a detached statistic)."""
+        return self._reduce([t.detach() for t in ts], torch.maximum,
+                            [list(range(len(ts)))])
+
+
+def _gather(t: torch.Tensor, pg, n: int) -> List[torch.Tensor]:
+    """Every rank's ``t`` (one shape on each) in ``pg``'s rank order, in
+    t's dtype. Sent as fp32, which holds bf16 exactly: gloo, which runs
+    two ranks on one card, takes fp32 tensors on a card."""
+    src = t.detach().float().contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=pg)
+    return [p.to(t.dtype) for p in parts]
+
+
+def _ordered_sum(parts: List[torch.Tensor]) -> torch.Tensor:
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+class _RankSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks of ``pg``, in rank order, the
+    same bits on each; the backward is the same sum of the incoming
+    gradients, since every rank's input reaches every rank's output."""
+
+    @staticmethod
+    def forward(ctx, t, pg, n):
+        ctx.pg, ctx.n = pg, n
+        return _ordered_sum(_gather(t, pg, n))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ordered_sum(_gather(g, ctx.pg, ctx.n)), None, None
+
+
+class _RankHalo(torch.autograd.Function):
+    """This rank's (B, C, h, W) block extended by ``up`` rows of the
+    previous space rank and ``down`` rows of the next, zero rows at the
+    image's edges. One all-gather of every rank's first ``down`` and last
+    ``up`` rows, on every rank of the group, edge ranks included; the
+    backward gathers the gradient of the received rows the same way and
+    adds each into the edge rows of the rank that sent them."""
+
+    @staticmethod
+    def forward(ctx, x, up, down, group):
+        b, c, h, w = x.shape
+        ctx.up, ctx.down, ctx.group, ctx.h = up, down, group, h
+        sent = torch.cat([x[:, :, :down].reshape(-1),
+                          x[:, :, h - up:].reshape(-1)])
+        parts = _gather(sent, group.space_pg, group.n)
+        s, n, k = group.s, group.n, b * c * down * w
+        pieces = []
+        if up:
+            pieces.append(parts[s - 1][k:].reshape(b, c, up, w) if s > 0
+                          else x.new_zeros((b, c, up, w)))
+        pieces.append(x)
+        if down:
+            pieces.append(parts[s + 1][:k].reshape(b, c, down, w)
+                          if s < n - 1 else x.new_zeros((b, c, down, w)))
+        return torch.cat(pieces, dim=2).contiguous(memory_format=CL)
+
+    @staticmethod
+    def backward(ctx, g):
+        up, down, group, h = ctx.up, ctx.down, ctx.group, ctx.h
+        b, c, _, w = g.shape
+        # the gradient of the previous rank's last rows, then of the next
+        # rank's first rows
+        sent = torch.cat([g[:, :, :up].reshape(-1),
+                          g[:, :, up + h:].reshape(-1)])
+        parts = _gather(sent, group.space_pg, group.n)
+        s, n, k = group.s, group.n, b * c * up * w
+        dx = g[:, :, up:up + h].clone(memory_format=CL)
+        if up and s < n - 1:
+            dx[:, :, h - up:] += parts[s + 1][:k].reshape(b, c, up, w)
+        if down and s > 0:
+            dx[:, :, :down] += parts[s - 1][k:].reshape(b, c, down, w)
+        return dx, None, None, None
+
+
+def _rank_max(t: torch.Tensor, pg) -> torch.Tensor:
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=pg)
+    return out
+
+
+class RankSpaceGroup:
+    """:class:`SpaceGroup`'s collectives for a rank of a process group
+    that holds one row block: shard ``s`` of the ``n`` of its space group
+    (``space_pg``), in data group ``g`` of ``n_data`` (``data_pg``, the
+    ranks of space index ``s``). Halos and sums are
+    ``autograd.Function`` s (:class:`_RankHalo`, :class:`_RankSum`);
+    ``all_max`` and ``world_max`` reduce detached statistics. Every rank
+    of a group must make the same calls in the same order."""
+
+    def __init__(self, device, s: int, n: int, g: int, n_data: int,
+                 space_pg, data_pg):
+        self.devices = [torch.device(device)]
+        self.s, self.n, self.g, self.n_data = s, n, g, n_data
+        self.shards = [s]
+        self.space_pg, self.data_pg = space_pg, data_pg
+
+    map = SpaceGroup.map
+
+    def halo(self, xs, up: int, down: int) -> list:
+        if not (up or down):
+            return xs
+        return [_RankHalo.apply(xs[0], up, down, self)]
+
+    def all_sum(self, ts) -> list:
+        return [_RankSum.apply(ts[0], self.space_pg, self.n)]
+
+    def all_max(self, ts) -> list:
+        return [_rank_max(ts[0], self.space_pg)]
+
+    def data_sum(self, ts) -> list:
+        if self.n_data == 1:
+            return list(ts)
+        return [_RankSum.apply(ts[0], self.data_pg, self.n_data)]
+
+    def world_max(self, ts) -> list:
+        return [_rank_max(ts[0], None)]
+
+    def gather_rows(self, y: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The whole images of this rank's block ``y``: every space rank's
+        block, joined along the row axis ``dim`` (a collective of the
+        space group)."""
+        return torch.cat(_gather(y, self.space_pg, self.n), dim=dim)
 
 
 class SpatialMesh:
-    """A (n_data, n_space) grid of devices: ``grid[g]`` is data group g's
-    space group, its devices in row order."""
+    """A (n_data, n_space) grid of devices in this process: ``grid[g]`` is
+    data group g's space group, its devices in row order."""
 
     def __init__(self, grid: Sequence[Sequence]):
         self.grid = [[torch.device(d) for d in row] for row in grid]
@@ -152,6 +331,7 @@ class SpatialMesh:
             raise ValueError("a spatial mesh needs equal, non-empty rows")
         self.shape = (len(self.grid), len(self.grid[0]))
         self.groups = [SpaceGroup(row) for row in self.grid]
+        self._train_group = None
 
     @property
     def devices(self) -> list:
@@ -160,6 +340,92 @@ class SpatialMesh:
     def row(self, g: int) -> "SpatialMesh":
         """Data group ``g`` alone, as a mesh of one row."""
         return SpatialMesh([self.grid[g]])
+
+    # the training loss's view: every block of the mesh in one group
+    def train_group(self) -> SpaceGroup:
+        if self._train_group is None:
+            self._train_group = SpaceGroup(self.devices, self.shape[0])
+        return self._train_group
+
+    def split(self, x: torch.Tensor) -> list:
+        """The blocks of a global (B, H, ...) batch, data-major: data
+        group g's rows of the batch, shard s's rows of the images."""
+        n_data, n_space = self.shape
+        if x.shape[0] % n_data:
+            raise ValueError(f"batch {x.shape[0]} does not split over "
+                             f"{n_data} data groups")
+        bl, hl = x.shape[0] // n_data, x.shape[1] // n_space
+        return [x[g * bl:(g + 1) * bl, s * hl:(s + 1) * hl].to(d)
+                for g, row in enumerate(self.grid) for s, d in enumerate(row)]
+
+    def split_weights(self, w: torch.Tensor) -> list:
+        n_data, n_space = self.shape
+        bl = w.shape[0] // n_data
+        return [w[g * bl:(g + 1) * bl].to(d)
+                for g, row in enumerate(self.grid) for d in row]
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of a batch this process holds: all of them."""
+        return x
+
+    def weight_sum(self, w: torch.Tensor) -> torch.Tensor:
+        """The weight sum of the global batch ``w``."""
+        return w.detach().float().sum()
+
+    def join(self, ys: list, like: torch.Tensor) -> torch.Tensor:
+        """The global batch of the blocks ``ys`` on ``like``'s device."""
+        n = self.shape[1]
+        rows = [torch.cat([y.to(like.device) for y in ys[i:i + n]], dim=1)
+                for i in range(0, len(ys), n)]
+        return torch.cat(rows) if len(rows) > 1 else rows[0]
+
+
+class RankMesh:
+    """The ranks of this process group as a (n_data, n_space) grid,
+    data-major, as ``make_spatial_mesh`` orders devices: rank ``g *
+    n_space + s`` holds shard s of data group g's images on ``device``.
+    Every rank creates every subgroup, in the same order (a collective):
+    the space groups (consecutive ranks) and the data groups (the ranks
+    of one space index, for the loss's global weighted mean and ZeRO-1).
+    The loss of such a mesh takes and returns this rank's blocks."""
+
+    def __init__(self, n_data: int, n_space: int, device):
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if n_data * n_space != world:
+            raise ValueError(f"a ({n_data}, {n_space}) mesh needs "
+                             f"{n_data * n_space} ranks, the group has "
+                             f"{world}")
+        self.shape = (n_data, n_space)
+        self.g, self.s = divmod(rank, n_space)
+        space = [dist.new_group(list(range(g * n_space, (g + 1) * n_space)))
+                 for g in range(n_data)]
+        data = [dist.new_group(list(range(s, world, n_space)))
+                for s in range(n_space)] if n_data > 1 else [None] * n_space
+        self.data_pg = data[self.s]
+        self.devices = [torch.device(device)]
+        self.group = RankSpaceGroup(device, self.s, n_space, self.g, n_data,
+                                    space[self.g], self.data_pg)
+
+    def train_group(self) -> RankSpaceGroup:
+        return self.group
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (dim 1) of a batch of whole images."""
+        h = x.shape[1] // self.shape[1]
+        return x[:, self.s * h:(self.s + 1) * h]
+
+    def weight_sum(self, w: torch.Tensor) -> torch.Tensor:
+        """The global batch's weight sum from this data group's weights
+        ``w`` (a collective of the data group)."""
+        return self.group.data_sum([w.detach().float().sum()])[0]
+
+    def split(self, x: torch.Tensor) -> list:
+        return [x]
+
+    split_weights = split
+
+    def join(self, ys: list, like: torch.Tensor) -> torch.Tensor:
+        return ys[0]
 
 
 def make_spatial_mesh(n_data: int, n_space: int,
@@ -186,7 +452,7 @@ def make_spatial_mesh(n_data: int, n_space: int,
 # ------------------------------------------------------------ block ops
 
 def _none(group) -> list:
-    return [None] * group.n
+    return [None] * len(group.shards)
 
 
 def _conv(group, xs, ws, dtype, bs=None):
@@ -302,10 +568,10 @@ def _upsample2x(group, ops: _Operators, xs):
         y = torch.matmul(wc, y.reshape(-1, w, c))            # (b*2hl, 2w, c)
         return y.reshape(b, wr.shape[0], 2 * w, c).permute(0, 3, 1, 2) \
             .contiguous(memory_format=CL)
-    return group.map(one, range(group.n), xs)
+    return group.map(one, group.shards, xs)
 
 
-# ------------------------------------------------------- int8 contexts
+# ------------------------------------------------- int8 and QAT contexts
 
 class _QServeCtx:
     """Frozen-scale int8 serving: ``scales[dev]`` maps the dense int8
@@ -328,6 +594,38 @@ class _QCalibCtx:
         self.amax: Dict[str, list] = {}
 
 
+class _QCtx:
+    """Quantization-aware training on row blocks, the twin of
+    ``models/quant_forward``'s ``fakequant`` mode: ``scales[site]`` holds
+    the site's per-Cin activation scale on each block's device (the
+    dense fakequant forward's site names), ``fg_mask`` each block's
+    (b, 1, 1, 1) foreground routing mask, the same on every shard of a
+    sample (its fraction is summed over the space group first), and
+    ``amax[site]`` each block's per-channel max |x| over the quantizing
+    samples, combined over the world after the forward."""
+
+    def __init__(self, scales, fg_mask):
+        self.scales = scales
+        self.fg_mask = fg_mask
+        self.amax: Dict[str, list] = {}
+
+
+def _fq(group, qctx: _QCtx, site: str, xs, ws):
+    """Fake-quantize a site's input blocks and weights
+    (``quant_forward._fakequant``: STE gradients, foreground-routed
+    inputs, the masked statistic recorded). Quantization is elementwise
+    with replicated scales, so quantizing before the halo exchange equals
+    the dense path's quantize of the whole rows: the neighbours' halo
+    rows arrive quantized by the same map."""
+    def one(x, w, s_a, mask):
+        ax = torch.where(mask, x.detach().float().abs(), 0.0)
+        xq = torch.where(mask, ste(x, fake_quant_act(x, s_a)), x)
+        return xq, ste(w, fake_quant_kernel(w, s_a)), ax.amax(dim=(0, 2, 3))
+    res = group.map(one, xs, ws, qctx.scales[site], qctx.fg_mask)
+    qctx.amax[site] = [r[2] for r in res]
+    return [r[0] for r in res], [r[1] for r in res]
+
+
 def _site_conv(group, qctx, site, xs, ws, dtype, bs=None, slope=1.0):
     """One quantizable conv site on row blocks, in any mode. ``xs`` is
     the site's input before its activation: LeakyReLU(``slope``), the
@@ -336,6 +634,8 @@ def _site_conv(group, qctx, site, xs, ws, dtype, bs=None, slope=1.0):
     - plain (``qctx`` None) and calibration: the activation, then the
       halo'd conv; calibration also records the input's per-channel max
       |x| on each shard;
+    - QAT (:class:`_QCtx`): the activation, the fake-quantized input and
+      weights (:func:`_fq`), then the halo'd conv;
     - int8 serving: B4 quantizes the local rows (the activation folded
       in), the s8 halos are exchanged, the columns zero-padded, and the
       s8 x s8 -> s32 conv dequantizes to the block's dtype.
@@ -361,6 +661,8 @@ def _site_conv(group, qctx, site, xs, ws, dtype, bs=None, slope=1.0):
     if isinstance(qctx, _QCalibCtx):
         qctx.amax[site] = group.map(
             lambda x: x.abs().amax(dim=(0, 2, 3)).float(), xs)
+    elif isinstance(qctx, _QCtx) and site in qctx.scales:
+        xs, ws = _fq(group, qctx, site, xs, ws)
     return _conv(group, xs, ws, dtype, bs)
 
 
@@ -411,19 +713,38 @@ def _input_blocks(group, xs, dtype):
         memory_format=CL), xs)
 
 
-def _backbone(group, ops, qctx, P, xs, dtype):
-    """The unet/unet_tpu encoder-decoder (``models/unet.backbone``)."""
-    x1 = _double_conv(group, qctx, P, "inc", "inc",
-                      _input_blocks(group, xs, dtype), dtype)
-    x2 = _double_conv(group, qctx, P, "down1", "down1.maxpool_conv.1",
-                      _pool(group, x1), dtype)
-    x3 = _double_conv(group, qctx, P, "down2", "down2.maxpool_conv.1",
-                      _pool(group, x2), dtype)
-    x4 = _double_conv(group, qctx, P, "down3", "down3.maxpool_conv.1",
-                      _pool(group, x3), dtype)
-    y = _up_block(group, ops, qctx, P, 1, x4, x3, dtype)
-    y = _up_block(group, ops, qctx, P, 2, y, x2, dtype)
-    return _up_block(group, ops, qctx, P, 3, y, x1, dtype)
+def _maybe_ckpt(fn, remat: bool):
+    """``fn`` recomputed in the backward (``torch.utils.checkpoint``) when
+    ``remat`` is on: the recompute re-runs the block's halos and sums,
+    the same calls in the same order on every shard, so the tape holds
+    only block boundaries (the JAX forward's ``jax.checkpoint``
+    segments)."""
+    if not remat:
+        return fn
+
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return run
+
+
+def _backbone(group, ops, qctx, P, xs, dtype, remat=False):
+    """The unet/unet_tpu encoder-decoder (``models/unet.backbone``), each
+    DoubleConv and Up block a remat segment under ``remat`` (never with a
+    QAT context, whose statistics a recompute would record again)."""
+    assert qctx is None or not remat
+    dc, ub = _maybe_ckpt(_double_conv, remat), _maybe_ckpt(_up_block, remat)
+    x1 = dc(group, qctx, P, "inc", "inc", _input_blocks(group, xs, dtype),
+            dtype)
+    x2 = dc(group, qctx, P, "down1", "down1.maxpool_conv.1",
+            _pool(group, x1), dtype)
+    x3 = dc(group, qctx, P, "down2", "down2.maxpool_conv.1",
+            _pool(group, x2), dtype)
+    x4 = dc(group, qctx, P, "down3", "down3.maxpool_conv.1",
+            _pool(group, x3), dtype)
+    y = ub(group, ops, qctx, P, 1, x4, x3, dtype)
+    y = ub(group, ops, qctx, P, 2, y, x2, dtype)
+    return ub(group, ops, qctx, P, 3, y, x1, dtype)
 
 
 def _mix(group, P, a, b, dtype):
@@ -445,42 +766,52 @@ def _output(group, ys):
                      ys)
 
 
-def _local_forward_unet(group, ops, qctx, P, xs, dtype):
+def _local_forward_unet(group, ops, qctx, P, xs, dtype, remat=False):
     """``UNetSuperRes.forward`` on row blocks (``models/unet.py``): the
     bilinear branch's and the head's narrow convs on kernel B3, except in
-    int8, where they are quantized sites."""
-    y = _backbone(group, ops, qctx, P, xs, dtype)
+    int8 and QAT, where they are quantized sites. Under ``remat`` the two
+    branches and the head are segments too."""
+    y = _backbone(group, ops, qctx, P, xs, dtype, remat)
 
     def narrow(site, t, ws):
         if qctx is None:
             return _narrow_conv(group, t, ws, dtype)
         return _site_conv(group, qctx, site, t, ws, dtype)
 
-    yb = narrow("final_up_conv", _upsample2x(group, ops, y),
-                P("final_up_bilinear.1.weight"))
-    yb = _group_norm(group, yb, P("final_up_bilinear.2.weight"),
-                     P("final_up_bilinear.2.bias"), slope=_SLOPE)
-    yp = _site_conv(group, qctx, "final_up_pixelshuffle.conv", y,
-                    P("final_up_pixelshuffle.conv.weight"), dtype,
-                    P("final_up_pixelshuffle.conv.bias"))
-    yp = _group_norm(group, _shuffle(group, yp),
-                     P("final_up_pixelshuffle.norm.weight"),
-                     P("final_up_pixelshuffle.norm.bias"), slope=_SLOPE)
-    z = narrow("final_conv1", _mix(group, P, yb, yp, dtype),
-               P("final_conv.0.weight"))
-    z = _group_norm(group, z, P("final_conv.1.weight"),
-                    P("final_conv.1.bias"), slope=_SLOPE)
-    # the output head stays in the serving dtype in every mode
-    z = _conv(group, z, P("final_conv.3.weight"), dtype,
-              P("final_conv.3.bias"))
+    def bilinear(y):
+        yb = narrow("final_up_conv", _upsample2x(group, ops, y),
+                    P("final_up_bilinear.1.weight"))
+        return _group_norm(group, yb, P("final_up_bilinear.2.weight"),
+                           P("final_up_bilinear.2.bias"), slope=_SLOPE)
+
+    def shuffle(y):
+        yp = _site_conv(group, qctx, "final_up_pixelshuffle.conv", y,
+                        P("final_up_pixelshuffle.conv.weight"), dtype,
+                        P("final_up_pixelshuffle.conv.bias"))
+        return _group_norm(group, _shuffle(group, yp),
+                           P("final_up_pixelshuffle.norm.weight"),
+                           P("final_up_pixelshuffle.norm.bias"), slope=_SLOPE)
+
+    def head(y):
+        z = narrow("final_conv1", y, P("final_conv.0.weight"))
+        z = _group_norm(group, z, P("final_conv.1.weight"),
+                        P("final_conv.1.bias"), slope=_SLOPE)
+        # the output head stays in the serving dtype in every mode
+        return _conv(group, z, P("final_conv.3.weight"), dtype,
+                     P("final_conv.3.bias"))
+
+    yb = _maybe_ckpt(bilinear, remat)(y)
+    yp = _maybe_ckpt(shuffle, remat)(y)
+    z = _maybe_ckpt(head, remat)(_mix(group, P, yb, yp, dtype))
     return _output(group, z)
 
 
-def _local_forward_unet_tpu(group, ops, qctx, P, xs, dtype):
+def _local_forward_unet_tpu(group, ops, qctx, P, xs, dtype, remat=False):
     """``UNetSuperResTPU.forward`` on row blocks (``models/unet_tpu.py``):
     the final stage at the input resolution, local but for its GroupNorm
-    sums and 3x3 halos, then one depth-to-space."""
-    y = _backbone(group, ops, qctx, P, xs, dtype)
+    sums and 3x3 halos, then one depth-to-space. Under ``remat`` the two
+    branches and the head are segments too."""
+    y = _backbone(group, ops, qctx, P, xs, dtype, remat)
 
     def branch(name, t, bias=None):
         z = _site_conv(group, qctx, f"{name}_conv", t,
@@ -488,33 +819,41 @@ def _local_forward_unet_tpu(group, ops, qctx, P, xs, dtype):
         return _group_norm(group, z, P(f"{name}_norm.weight"),
                            P(f"{name}_norm.bias"), slope=_SLOPE)
 
-    a = branch("branch_a", y)
-    b = branch("branch_b", y, P("branch_b_conv.bias"))
-    z = branch("head", _mix(group, P, a, b, dtype))
-    z = _conv(group, z, P("head_out.weight"), dtype, P("head_out.bias"))
+    def head(t):
+        z = branch("head", t)
+        return _conv(group, z, P("head_out.weight"), dtype,
+                     P("head_out.bias"))
+
+    a = _maybe_ckpt(branch, remat)("branch_a", y)
+    b = _maybe_ckpt(branch, remat)("branch_b", y, P("branch_b_conv.bias"))
+    z = _maybe_ckpt(head, remat)(_mix(group, P, a, b, dtype))
     return _output(group, _shuffle(group, z))
 
 
-def _local_forward_edsr(group, ops, qctx, P, xs, dtype):
+def _local_forward_edsr(group, ops, qctx, P, xs, dtype, remat=False):
     """``EDSR.forward`` on row blocks (``models/edsr.py``): a trunk at the
     input resolution whose only collectives are its 3x3 halos; the
-    depth-to-space doubles rows within the shard. ``res_scale`` is 1."""
+    depth-to-space doubles rows within the shard. ``res_scale`` is 1.
+    Under ``remat`` each residual block is a segment."""
     def conv(name, t):
         return _site_conv(group, qctx, name, t, P(f"{name}.weight"), dtype,
                           P(f"{name}.bias"))
 
+    def block(i, y):
+        z = group.map(F.relu, conv(f"block{i}.conv0", y))
+        return group.map(lambda a, b: a + 1.0 * b, y,
+                         conv(f"block{i}.conv1", z))
+
     head = conv("head", _input_blocks(group, xs, dtype))
     y = head
     for i in range(P.num_blocks):
-        z = group.map(F.relu, conv(f"block{i}.conv0", y))
-        y = group.map(lambda a, b: a + 1.0 * b, y,
-                      conv(f"block{i}.conv1", z))
+        y = _maybe_ckpt(block, remat)(i, y)
     y = group.map(torch.add, conv("body_out", y), head)
     y = _conv(group, y, P("tail.weight"), dtype, P("tail.bias"))
     return _output(group, _shuffle(group, y))
 
 
-def _local_forward_simple(group, ops, qctx, P, xs, dtype):
+def _local_forward_simple(group, ops, qctx, P, xs, dtype, remat=False):
     """``SimpleSR.forward`` on row blocks (``models/simple.py``): the
     9-5-5 trunk takes 4-, 2- and 2-row halos; the rest is local."""
     def conv(name, t):
@@ -577,6 +916,19 @@ def _per_device(mesh: SpatialMesh, tensors: dict) -> dict:
             for d in dict.fromkeys(mesh.devices)}
 
 
+def _check(model_type: str, input_hw, n_space: int) -> None:
+    """ValueError for a family without a row-sharded forward, or an
+    (H, W) whose pools or halos would cross more than one shard."""
+    if model_type not in _LOCAL_FORWARDS:
+        raise ValueError(f"spatial sharding supports model types "
+                         f"{sorted(_LOCAL_FORWARDS)}, not {model_type!r}")
+    h, w = input_hw
+    if h % (8 * n_space) != 0:
+        raise ValueError(f"H={h} must be divisible by 8*n_space={8 * n_space}")
+    if w % 8 != 0:
+        raise ValueError(f"W={w} must be divisible by 8")
+
+
 def _make_local_forward(mesh: SpatialMesh, input_hw, dtype,
                         model_type: str):
     """Check the shapes and return ``run(params, x, make_ctx) -> (y,
@@ -584,15 +936,9 @@ def _make_local_forward(mesh: SpatialMesh, input_hw, dtype,
     the batch split over the data groups and the rows over each group's
     devices, ``y`` the (B, 2H, 2W, 1) fp32 output gathered on x's device
     and ``ctxs`` each group's int8 context."""
-    if model_type not in _LOCAL_FORWARDS:
-        raise ValueError(f"spatial sharding supports model types "
-                         f"{sorted(_LOCAL_FORWARDS)}, not {model_type!r}")
-    h, w = input_hw
     n_data, n_space = mesh.shape
-    if h % (8 * n_space) != 0:
-        raise ValueError(f"H={h} must be divisible by 8*n_space={8 * n_space}")
-    if w % 8 != 0:
-        raise ValueError(f"W={w} must be divisible by 8")
+    _check(model_type, input_hw, n_space)
+    h, w = input_hw
     fwd = _LOCAL_FORWARDS[model_type]
     ops = _Operators(n_space)
     hl = h // n_space
@@ -700,3 +1046,257 @@ def build_spatial_calib_forward_raw(mesh: SpatialMesh, input_hw, sites,
         return y, amax
 
     return fn
+
+
+# ----------------------------------------------- row-sharded training loss
+
+def _separable_blur_sharded(x: torch.Tensor, window_size: int,
+                            sigma: float) -> torch.Tensor:
+    """``ops/ssim``'s Gaussian blur of an NCHW block that carries
+    ``window_size // 2`` halo rows above and below: the rows are blurred
+    without padding (the halo replaces the dense row padding; the edge
+    shards' halos are zeros, the dense padding), the columns with the
+    dense zero padding, and the halo rows drop out. Shifted fp32 products
+    summed tap by tap, so that the value and its gradient stay fp32 on a
+    card whose convolutions may take TF32."""
+    g = _ssim.gaussian_window(window_size, sigma, x.device)
+    pad = window_size // 2
+    h, w = x.shape[2] - 2 * pad, x.shape[3]
+    y = g[0] * x[:, :, 0:h]
+    for k in range(1, window_size):
+        y = y + g[k] * x[:, :, k:k + h]
+    y = F.pad(y, (pad, pad))
+    out = g[0] * y[:, :, :, 0:w]
+    for k in range(1, window_size):
+        out = out + g[k] * y[:, :, :, k:k + w]
+    return out
+
+
+def _rows_halo(group, xs, p: int) -> list:
+    """NHWC blocks extended by ``p`` rows of each neighbour (NHWC)."""
+    ext = group.halo(group.map(lambda x: x.permute(0, 3, 1, 2).contiguous(
+        memory_format=CL), xs), p, p)
+    return group.map(lambda x: x.permute(0, 2, 3, 1), ext)
+
+
+def _mean_hwc_sharded(group, xs) -> list:
+    """Per-sample mean over (global rows, W, C) of NHWC row blocks: local
+    fp32 sums, added over the space group."""
+    sums = group.all_sum(group.map(lambda x: x.sum(dim=(1, 2, 3)), xs))
+    n = xs[0].shape[1] * group.n * xs[0].shape[2] * xs[0].shape[3]
+    return group.map(lambda s: s / n, sums)
+
+
+def _ssim_per_sample_sharded(group, a, b, window_size: int, sigma: float,
+                             val_range: float) -> list:
+    """Per-sample SSIM of NHWC row blocks: both images take
+    ``window_size // 2`` halo rows, ``ops/ssim.ssim_map`` (the one copy of
+    the SSIM formula) runs on each haloed block with the unpadded row
+    blur (:func:`_separable_blur_sharded`), and the maps' means are
+    summed over the group. The halo moves the two images' rows, not the
+    five blurred products': they are per-pixel functions of the images,
+    so the values are those of a halo of the products."""
+    p = window_size // 2
+
+    def one(x, y):
+        return _ssim.ssim_map(x, y, window_size, sigma, val_range,
+                              blur_fn=lambda t: _separable_blur_sharded(
+                                  t, window_size, sigma))
+    return _mean_hwc_sharded(group, group.map(
+        one, _rows_halo(group, a, p), _rows_halo(group, b, p)))
+
+
+def _weighted_mean_global(group, pers, ws) -> list:
+    """Weighted mean over the GLOBAL batch (``losses/combined.
+    _weighted_mean``): the weighted sum and the weight sum added over the
+    data group."""
+    num = group.data_sum(group.map(
+        lambda per, w: (per * w.float()).sum(), pers, ws))
+    den = group.data_sum(group.map(lambda w: w.float().sum(), ws))
+    return group.map(lambda n, d: n / d.clamp_min(1e-12), num, den)
+
+
+def _halo_conv3x3_bias(group):
+    """VGG's padded 3x3 conv on row blocks: 1-row halos replace the dense
+    row padding."""
+    def conv(xs, w, b):
+        return group.map(lambda x: F.conv2d(x, w, b, padding=(0, 1)),
+                         group.halo(xs, 1, 1))
+    return conv
+
+
+def _local_pool2(group):
+    """VGG's 2x2 maxpool, shard-local: :func:`build_spatial_loss` checks
+    that the stride-2 windows never straddle a shard border."""
+    def pool(xs):
+        if xs[0].shape[2] % 2 != 0:
+            raise ValueError(
+                f"sharded VGG pool hit odd local rows ({xs[0].shape[2]}) — "
+                "build_spatial_loss validation should have rejected this "
+                "config")
+        return group.map(lambda x: F.max_pool2d(x, 2), xs)
+    return pool
+
+
+def _vgg_features_sharded(group, vgg, xs) -> list:
+    """``models/vgg``'s layer loop (the one copy of the VGG19 stack) on
+    row blocks: the 3x3 convs take 1-row halos, the pools and ReLUs are
+    shard-local."""
+    return vgg(xs, conv_fn=_halo_conv3x3_bias(group),
+               pool_fn=_local_pool2(group), each=group.map)
+
+
+_COMP_KEYS = ("l1_loss", "ssim_loss", "ssim_metric", "perceptual_loss")
+
+
+def build_spatial_loss(mesh, input_hw, loss_cfg, model_type: str = "unet",
+                       dtype=torch.bfloat16, vgg=None, remat: bool = False,
+                       qat_sites=None, qat_min_foreground: float = 0.05):
+    """The row-sharded forward and ``CombinedLoss`` over a mesh, for
+    training: ``loss_fn(params, hr, lr, weights) -> (total, comps, out)``.
+
+    ``mesh`` is a :class:`SpatialMesh` in this process, whose loss takes
+    the global (B, 2H, 2W, 1) ``hr``, (B, H, W, 1) ``lr`` and (B,)
+    ``weights`` and returns the global ``out``; or this rank's
+    :class:`RankMesh`, whose loss takes and returns the rank's row blocks
+    (``RankMesh.rows`` of its data group's images) and its data group's
+    weights. ``params`` is the family's state_dict; the model's live one
+    (``model.state_dict(keep_vars=True)``) lets gradients reach
+    ``model.parameters()``. ``total`` and ``comps`` are the global
+    batch's, the same bits on every shard: the loss of
+    ``losses/combined.compose_loss`` with its sums over the space group
+    (per-sample means, the SSIM's haloed blur) and the data group (the
+    weighted means, so the SSIM clip is the global mean's); ``comps``
+    always holds the four keys of ``_COMP_KEYS`` (zeros for terms without
+    a weight). The perceptual term runs VGG19 row-sharded
+    (:func:`_vgg_features_sharded`), the target's features without a
+    gradient.
+
+    Over ranks, each rank's backward from ``total`` gives its share of
+    the gradient: the sums' backwards sum over their groups, so only one
+    rank may seed the replicated loss (rank 0 seeds 1, the others 0, as
+    the one loss of the in-process mesh is seeded once), and the
+    parameters' gradients are then summed over the world
+    (``train/trainer.spatial_loss_and_grads``).
+
+    ``remat`` recomputes the forward's blocks in the backward
+    (:func:`_maybe_ckpt`) and the whole loss graph (the SSIM blurs, the
+    VGG stack and their collectives), as JAX's ``jax.checkpoint`` does.
+
+    ``qat_sites`` (the dense fakequant forward's site names,
+    ``quant_forward.amax_template``'s keys) makes it quantization-aware:
+    ``loss_fn(params, qat_amax, hr, lr, weights)``, whose comps also
+    carry ``qat_batch_amax`` (each site's per-channel max |x| over the
+    quantizing samples of the whole batch, a max over the world) and
+    ``qat_any_fg``. A sample quantizes when ``qat_min_foreground`` of its
+    GLOBAL pixels are foreground (the count summed over the space group
+    first), so every shard of a sample routes it alike. The model-side
+    remat segments are off under QAT; the loss's checkpoint stays.
+
+    Raises ValueError, with the JAX package's messages, for an even SSIM
+    window, a halo deeper than a shard's HR rows, or VGG pools that would
+    straddle shards."""
+    from mri_superresolution_torch.losses.combined import compose_loss
+
+    loss_cfg.validate()
+    if loss_cfg.perceptual_weight > 0 and vgg is None:
+        raise ValueError("perceptual_weight > 0 requires vgg")
+    n_space = mesh.shape[1]
+    _check(model_type, input_hw, n_space)
+    h = input_hw[0]
+    cfg = loss_cfg
+    hr_local_rows = 2 * h // n_space
+    # the SSIM blur reaches window//2 rows into each neighbour; a deeper
+    # halo would need more than the next shard (and an even window would
+    # change the output's row count)
+    if cfg.window_size % 2 != 1:
+        raise ValueError(f"window_size must be odd for spatial sharding "
+                         f"(got {cfg.window_size})")
+    if cfg.window_size // 2 > hr_local_rows:
+        raise ValueError(
+            f"SSIM window {cfg.window_size} needs a {cfg.window_size // 2}-"
+            f"row halo but each shard only holds {hr_local_rows} HR rows; "
+            f"reduce spatial_shards or window_size")
+    if cfg.perceptual_weight > 0:
+        from mri_superresolution_torch.models.vgg import n_pools
+        pools = n_pools(cfg.vgg_layer_idx)
+        if hr_local_rows % (2 ** pools) != 0:
+            raise ValueError(
+                f"sharded VGG perceptual loss crosses {pools} 2x2 pools, "
+                f"so local HR rows ({hr_local_rows} = 2*{h}/{n_space}) must "
+                f"be divisible by {2 ** pools}; use a conforming H / "
+                f"spatial_shards or a smaller vgg_layer_idx")
+    qat_on = qat_sites is not None
+    group = mesh.train_group()
+    fwd, ops = _LOCAL_FORWARDS[model_type], _Operators(n_space)
+    model_remat = remat and not qat_on
+
+    def loss_part(out32, hr32, ws):
+        total, comps = compose_loss(
+            cfg, out32, hr32, ws, each=group.map,
+            per_sample_mean=lambda xs: _mean_hwc_sharded(group, xs),
+            weighted_mean=lambda pers, w: _weighted_mean_global(group, pers,
+                                                                w),
+            ssim_per_sample=lambda a, b: _ssim_per_sample_sharded(
+                group, a, b, cfg.window_size, cfg.sigma, cfg.val_range),
+            vgg_features=lambda xs: _vgg_features_sharded(group, vgg, xs),
+            always_ssim_metric=True)
+        zero = group.map(lambda t: torch.zeros_like(t), total)
+        return total, {k: comps.get(k, zero) for k in _COMP_KEYS}
+
+    if remat:
+        # the backward re-runs the SSIM blurs and the VGG stack (and
+        # their collectives) instead of holding their tape
+        part = loss_part
+
+        def loss_part(out32, hr32, ws):
+            if not torch.is_grad_enabled():
+                return part(out32, hr32, ws)
+            return torch.utils.checkpoint.checkpoint(
+                part, out32, hr32, ws, use_reentrant=False,
+                preserve_rng_state=False)
+
+    def qat_context(qat_amax, los):
+        scales = {}
+        for k, v in qat_amax.items():
+            v = torch.as_tensor(v, dtype=torch.float32)
+            v = torch.where(v > 0, v / 127.0, torch.ones_like(v))
+            scales[k] = [v.to(d) for d in group.devices]
+        # the foreground fraction of each GLOBAL sample: the local counts
+        # summed over the space group, so all shards route it together
+        cnt = group.all_sum(group.map(
+            lambda x: (x.float().abs() > FOREGROUND_INTENSITY).float().sum(
+                dim=(1, 2, 3)), los))
+        n_px = los[0].shape[1] * n_space * los[0].shape[2] * los[0].shape[3]
+        return _QCtx(scales, group.map(
+            lambda c: (c / n_px >= qat_min_foreground).reshape(-1, 1, 1, 1),
+            cnt))
+
+    def run(params, qat_amax, hr, lo, wts):
+        los, hrs = mesh.split(lo), mesh.split(hr)
+        ws = mesh.split_weights(wts)
+        P = _Params(_shard_params(params, mesh))
+        qctx = qat_context(qat_amax, los) if qat_on else None
+        out = fwd(group, ops, qctx, P, los, dtype, remat=model_remat)
+        total, comps = loss_part(out, group.map(lambda t: t.float(), hrs),
+                                 ws)
+        comps = {k: v[0] for k, v in comps.items()}
+        if qat_on:
+            missing = sorted(set(qat_sites) ^ set(qctx.amax))
+            if missing:
+                raise AssertionError(
+                    f"spatial fakequant sites out of sync with the dense "
+                    f"forward's: {missing}")
+            keys = sorted(qctx.amax)
+            sizes = [qctx.amax[k][0].numel() for k in keys]
+            flat = group.world_max([torch.cat(
+                [qctx.amax[k][i] for k in keys] + [m.any().float().view(1)])
+                for i, m in enumerate(qctx.fg_mask)])[0]
+            parts = flat.split(sizes + [1])
+            comps["qat_batch_amax"] = dict(zip(keys, parts[:-1]))
+            comps["qat_any_fg"] = parts[-1][0] > 0
+        return total[0], comps, mesh.join(out, lo)
+
+    if qat_on:
+        return run
+    return lambda params, hr, lo, wts: run(params, None, hr, lo, wts)

@@ -10,10 +10,11 @@ config, and the step's options (``grad_accum``, ``ema_decay``, ``qat``,
 ``opt_shard``, augmentation, lr, compute dtype). Every rank takes its rows
 (``parallel.rank_rows``), runs the trainer's step (``build_train_step``
 with the rank's ``multihost.Collectives``) and writes
-``OUT_DIR/<case>.rank<r>.pt``: the updated params, Adam's state gathered
-into the replicated layout, the EMA, QAT's running ranges, the metrics,
-the moment bytes the rank holds, the step's kernel launches and, with
-``time_steps``, step and all-reduce milliseconds.
+``OUT_DIR/<case>.rank<r>.pt``: the updated params, their gradients (the
+ones the update took), Adam's state gathered into the replicated layout,
+the EMA, QAT's running ranges, the metrics, the moment bytes the rank
+holds, the step's kernel launches and, with ``time_steps``, step and
+(over ranks) all-reduce milliseconds.
 
 :func:`run_threads` runs the same ranks as threads of one process over
 :class:`ThreadGroup`, whose collectives add and compare the ranks'
@@ -101,38 +102,55 @@ def run_case(case: dict, dev, coll=None) -> dict:
     """``case``'s step on this rank (``coll`` a ``multihost.Collectives``
     or a :class:`ThreadGroup` rank; None: one process on the global
     batch)."""
+    rows = None
+    if coll is not None:
+        rows = rank_rows(len(case["batch"]["weight"]), coll.world, coll.rank,
+                         case.get("grad_accum", 1))
+
+    def build(mcfg, dtype):
+        qat_fwd = None
+        if case.get("qat"):
+            qat_fwd = quant_forward.build_fakequant_forward(mcfg.model_type,
+                                                            dtype)
+        return trainer.build_train_step(
+            CombinedLoss(LossConfig(**case.get("loss", {}))),
+            AugmentConfig(enabled=bool(case.get("augment"))),
+            case.get("grad_accum", 1), case.get("ema_decay", 0.0), qat_fwd,
+            case.get("qat_decay", 0.98), coll, rows)
+
+    return run_step(case, dev, build, rows, coll, coll)
+
+
+def run_step(case: dict, dev, build_step, rows=None, opt_coll=None,
+             coll=None) -> dict:
+    """One step of ``build_step(model_config, dtype)`` (a trainer's step
+    builder) from ``case``'s model, optimizer and state, on ``rows`` of
+    its batch (None: all of it), Adam's moments sharded over
+    ``opt_coll`` under ``opt_shard``; then, with ``time_steps``, its
+    milliseconds (and ``coll``'s all-reduce's): the result a rank
+    writes."""
     torch.manual_seed(0)
     dtype = _DTYPES[case.get("dtype", "float32")]
     mcfg = ModelConfig(**case["model"])
     model = build_model(mcfg, dtype=dtype).to(dev)
     model.load_state_dict(case["state_dict"])
-    ga = case.get("grad_accum", 1)
-    world, rank = (1, 0) if coll is None else (coll.world, coll.rank)
-    b = len(case["batch"]["weight"])
-    rows = None if coll is None else rank_rows(b, world, rank, ga)
     lr, wd = case.get("lr", 1e-4), case.get("weight_decay", 1e-5)
-    if case.get("opt_shard") and coll is not None:
-        opt = Zero1Adam(model.named_parameters(), lr, wd, coll)
+    if case.get("opt_shard") and opt_coll is not None:
+        opt = Zero1Adam(model.named_parameters(), lr, wd, opt_coll)
     else:
         opt = trainer.make_optimizer(model.parameters(), lr, wd)
     ema = case.get("ema_decay", 0.0)
     state = trainer.TrainState(model, opt, 0, {
         k: p.detach().clone() for k, p in model.named_parameters()}
         if ema > 0 else None)
-    qat_fwd = None
     if case.get("qat"):
-        qat_fwd = quant_forward.build_fakequant_forward(mcfg.model_type,
-                                                        dtype)
         state.qat_amax = {k: torch.as_tensor(v).to(dev)
                           for k, v in case["qat_amax"].items()}
-    aug = AugmentConfig(enabled=bool(case.get("augment")))
-    step = trainer.build_train_step(
-        CombinedLoss(LossConfig(**case.get("loss", {}))), aug, ga, ema,
-        qat_fwd, case.get("qat_decay", 0.98), coll, rows)
+    step = build_step(mcfg, dtype)
     batch = _case_batch(case, rows, dev)
 
     def gen():
-        if not aug.enabled:
+        if not case.get("augment"):
             return None
         return torch.Generator(device=dev).manual_seed(case["aug_seed"])
 
@@ -143,6 +161,8 @@ def run_case(case: dict, dev, coll=None) -> dict:
     launches = {k: v for k, v in kernels.launch_counts().items() if v}
     out = {"params": {k: v.detach().cpu().clone()
                       for k, v in model.state_dict().items()},
+           "grads": {k: p.grad.detach().cpu().clone()
+                     for k, p in model.named_parameters()},
            "adam": _cloned(trainer.adam_state(model, opt)),
            "ema": None if state.ema is None else
            {k: v.cpu() for k, v in state.ema.items()},
@@ -155,7 +175,7 @@ def run_case(case: dict, dev, coll=None) -> dict:
                                      for k in ("exp_avg", "exp_avg_sq"))),
            "launches": launches}
     n = case.get("time_steps", 0)
-    if n and coll is not None:
+    if n:
         out.update(_times(step, state, batch, lr, gen, coll, dev, n))
     return out
 
@@ -169,8 +189,9 @@ def _cloned(adam: dict) -> dict:
 
 
 def _times(step, state, batch, lr, gen, coll, dev, n: int) -> dict:
-    """Milliseconds of a step (mean of ``n`` after one warm-up) and of
-    the all-reduce of one gradient bucket alone, on this rank."""
+    """Milliseconds of a step (mean of ``n`` after one warm-up) and, with
+    ``coll``, of the all-reduce of one gradient bucket alone, on this
+    rank."""
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -182,6 +203,8 @@ def _times(step, state, batch, lr, gen, coll, dev, n: int) -> dict:
         step(state, batch, lr, gen())
     sync()
     step_ms = (time.perf_counter() - t0) / n * 1e3
+    if coll is None:
+        return {"step_ms": step_ms}
     grads = [p.detach().float() for p in state.model.parameters()]
     coll.sum_(grads)
     coll.timed, coll.seconds = True, 0.0

@@ -58,8 +58,24 @@ ranks' parameters are the same bits, so their EMAs are too).
 ZeRO-1) with the replicated update's bits. Rank 0 alone speaks the stdout
 protocol and writes checkpoints, sidecars, figures, traces and
 ``training.log``; rank r logs to ``training.p{r}.log``. Without a process
-group the path is the single-device one, unchanged. Spatial sharding is
-not ported: :func:`check_supported` names the ROADMAP item that ports it.
+group the path is the single-device one, unchanged.
+
+Spatial sharding (``--spatial_shards S``, the JAX trainer's (data, space)
+mesh): the ranks form a (world / S data, S space) grid
+(``parallel.spatial.RankMesh``), rank (g, s) takes data group g's rows of
+each batch (``parallel.rank_rows`` over the data groups), draws the
+augmentation for the global batch and applies it to whole images, then
+keeps its rows [s H / S, (s + 1) H / S) of them. The forward, the loss
+and the backward run row-sharded (``parallel.spatial.
+build_spatial_loss``): its halos and sums are collectives of the space
+and data groups, rank 0 alone seeds the backward of the replicated loss,
+and the parameters' gradients are summed over the world
+(:func:`spatial_loss_and_grads`), so every rank takes the same update.
+``--grad_accum``, ``--ema_decay``, ``--qat``, ``--remat`` and
+``--opt_shard`` (Adam's moments sharded over the data groups, replicated
+over space) compose with it; validation scores the sharded loss, whose
+sums are the same on every rank, and rank 0's sample grid gathers its
+images' rows over its space group.
 """
 
 from __future__ import annotations
@@ -117,17 +133,37 @@ def repeatable():
         cudnn.deterministic, cudnn.benchmark = prev
 
 
-def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for a training mode of the JAX trainer
-    that the port does not run yet, naming the ROADMAP item that ports it."""
-    later = [
-        (cfg.spatial_shards > 1, "--spatial_shards > 1", "A14(b)"),
-    ]
-    for on, what, item in later:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch trainer yet (ROADMAP "
-                f"{item}); the JAX package's scripts/train.py runs it")
+def check_spatial(cfg: TrainConfig, world: int) -> int:
+    """The data groups of a ``--spatial_shards`` run over ``world`` ranks
+    (1 without spatial sharding); ValueError, with the JAX trainer's
+    messages, for a family without a row-sharded forward or a shard count
+    that does not divide the ranks."""
+    if cfg.spatial_shards <= 1:
+        return world
+    from mri_superresolution_torch.parallel import spatial
+    if cfg.model.model_type not in spatial.supported_types():
+        raise ValueError(
+            f"spatial_shards > 1 supports model types "
+            f"{spatial.supported_types()} (parallel/spatial.py "
+            f"topologies), not {cfg.model.model_type!r}")
+    if world % cfg.spatial_shards != 0:
+        raise ValueError(
+            f"spatial_shards={cfg.spatial_shards} must divide the {world} "
+            f"mesh device(s) (the ranks: --num_devices, or --multihost's "
+            f"processes)")
+    return world // cfg.spatial_shards
+
+
+def check_spatial_hw(cfg: TrainConfig, lr_hw) -> None:
+    """ValueError, with the JAX trainer's message, for LR images that
+    ``cfg.spatial_shards`` row blocks of whole 8-row tiles cannot cover."""
+    h, w = lr_hw
+    if h % (8 * cfg.spatial_shards) != 0 or w % 8 != 0:
+        raise ValueError(
+            f"spatial_shards={cfg.spatial_shards} training needs LR "
+            f"H % {8 * cfg.spatial_shards} == 0 and W % 8 == 0; got "
+            f"{h}x{w}. Re-extract with a conforming --target_size or "
+            f"reduce spatial_shards.")
 
 
 def make_optimizer(params, learning_rate: float,
@@ -417,30 +453,164 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
         qat = None if qat_fwd is None else (qat_fwd, state.qat_amax)
         loss, comps, grads = loss_and_grads(state.model, loss_fn, hr, lo, w,
                                             grad_accum, qat, dp)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        for p, g in zip(state.model.parameters(), grads):
-            p.grad = g
-        state.optimizer.step()
-        state.step += 1
-        if ema_decay > 0.0:
-            # Polyak average in fp32, started at the initial params (no
-            # bias correction)
-            with torch.no_grad():
-                for name, p in state.model.named_parameters():
-                    state.ema[name] = (state.ema[name] * ema_decay
-                                       + p.detach() * (1.0 - ema_decay))
-        if qat is not None:
-            state.qat_amax = update_qat_amax(state.qat_amax, comps,
-                                             qat_decay)
-        metrics = {"loss": loss, "ssim": comps["ssim_metric"]}
-        if "ssim_clip_micros" in comps:
-            metrics["ssim_clip_micros"] = comps["ssim_clip_micros"]
-        if qat is not None:
-            metrics["qat_any_fg"] = comps["qat_any_fg"]
-        return metrics
+        return _update(state, loss, comps, grads, lr, ema_decay,
+                       qat_decay if qat is not None else None)
 
     return train_step
+
+
+def _update(state: TrainState, loss, comps, grads, lr: float,
+            ema_decay: float, qat_decay: Optional[float]) -> dict:
+    """The step after its gradients: the Adam step at ``lr``, the EMA
+    ``ema = ema * d + params * (1 - d)``, QAT's running amax (with a
+    ``qat_decay``); the step's metrics."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    for p, g in zip(state.model.parameters(), grads):
+        p.grad = g
+    state.optimizer.step()
+    state.step += 1
+    if ema_decay > 0.0:
+        # Polyak average in fp32, started at the initial params (no bias
+        # correction)
+        with torch.no_grad():
+            for name, p in state.model.named_parameters():
+                state.ema[name] = (state.ema[name] * ema_decay
+                                   + p.detach() * (1.0 - ema_decay))
+    if qat_decay is not None:
+        state.qat_amax = update_qat_amax(state.qat_amax, comps, qat_decay)
+    metrics = {"loss": loss, "ssim": comps["ssim_metric"]}
+    if "ssim_clip_micros" in comps:
+        metrics["ssim_clip_micros"] = comps["ssim_clip_micros"]
+    if qat_decay is not None:
+        metrics["qat_any_fg"] = comps["qat_any_fg"]
+    return metrics
+
+
+def spatial_loss_and_grads(model: torch.nn.Module, sloss, mesh,
+                           hr: torch.Tensor, lo: torch.Tensor,
+                           w: torch.Tensor, grad_accum: int = 1,
+                           qat_amax=None, coll=None):
+    """(loss, comps, grads in ``model.parameters()`` order) of one batch
+    through the row-sharded loss ``sloss`` of ``mesh``
+    (``parallel.spatial.build_spatial_loss``; with ``qat_amax`` its QAT
+    form), the JAX spatial step's ``value_and_grad`` of the one global
+    loss.
+
+    On an in-process mesh the batch is the global one and the one
+    backward is complete. On a ``RankMesh`` it is this rank's row blocks
+    of its data group's rows, ``coll`` the world's collectives: the loss
+    and comps are the global batch's on every rank, the sums in its
+    backward carry each rank's share to the ranks that need it, so rank 0
+    alone seeds the loss (1, the others 0: a seed of 1 on every rank
+    would count the loss once a rank), and the ranks' parameter
+    gradients are summed over the world, one fp32 bucket, the same bits
+    on every rank. ``grad_accum > 1`` runs that many microbatches as
+    :func:`loss_and_grads` does: den_i-weighted gradient sums divided by
+    the batch's weight sum, ``ssim_clip_micros`` the microbatches whose
+    (global) SSIM saturates the clip, QAT's statistic a max over them."""
+    params = list(model.parameters())
+    sd = model.state_dict(keep_vars=True)
+    seed = 1.0 if coll is None or coll.rank == 0 else 0.0
+    a = grad_accum
+    g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in params] \
+        if a > 1 else None
+    num_loss = num_ssim = n_sat = torch.zeros((), device=hr.device)
+    amax_acc, fg_acc = None, None
+    for hr_i, lo_i, w_i in zip(hr.chunk(a), lo.chunk(a), w.chunk(a)):
+        args = (hr_i, lo_i, w_i) if qat_amax is None else \
+            (qat_amax, hr_i, lo_i, w_i)
+        loss_i, comps_i, _ = sloss(sd, *args)
+        g_i = torch.autograd.grad(loss_i, params,
+                                  grad_outputs=torch.full_like(loss_i, seed))
+        if qat_amax is not None:
+            b = comps_i["qat_batch_amax"]
+            amax_acc = b if amax_acc is None else {
+                k: torch.maximum(amax_acc[k], v) for k, v in b.items()}
+            f = comps_i["qat_any_fg"]
+            fg_acc = f if fg_acc is None else fg_acc | f
+        if a == 1:
+            grads, loss = list(g_i), loss_i.detach()
+            comps = _detached(comps_i)
+            continue
+        den_i = mesh.weight_sum(w_i)
+        ssim_i = comps_i["ssim_metric"].detach()
+        n_sat = n_sat + ((den_i > 0) & ((ssim_i <= 0.0) |
+                                        (ssim_i >= 1.0))).float()
+        g_acc = [acc + den_i * g.float() for acc, g in zip(g_acc, g_i)]
+        num_loss = num_loss + den_i * loss_i.detach()
+        num_ssim = num_ssim + den_i * ssim_i
+    if a > 1:
+        den = mesh.weight_sum(w).clamp_min(1e-12)
+        grads = g_acc
+        loss = num_loss / den
+        comps = {"ssim_metric": num_ssim / den, "ssim_clip_micros": n_sat}
+        if qat_amax is not None:
+            comps.update(qat_batch_amax=amax_acc, qat_any_fg=fg_acc)
+    if coll is not None:
+        grads = coll.sum_(grads)
+    if a > 1:
+        grads = [(g / den).to(p.dtype) for g, p in zip(grads, params)]
+    return loss, comps, grads
+
+
+def build_spatial_train_step(sloss, mesh, augment_cfg=None,
+                             grad_accum: int = 1, ema_decay: float = 0.0,
+                             qat: bool = False, qat_decay: float = 0.0,
+                             coll=None, rows=None):
+    """The row-sharded train step, ``build_train_step``'s contract with
+    the loss of ``parallel.spatial.build_spatial_loss`` over ``mesh``
+    (``qat``: its QAT form, fed ``state.qat_amax``). ``batch`` holds whole
+    images: on a ``RankMesh`` its data group's rows ``rows`` of the
+    global batch, the augmentation drawn for the global batch and applied
+    to the whole images (a rotation is not shard-local), then this rank's
+    row blocks kept (``mesh.rows``); the update is the global batch's
+    (:func:`spatial_loss_and_grads`). The optimizer may be a
+    :class:`Zero1Adam` over the data group."""
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   lr: float, generator: Optional[torch.Generator] = None):
+        with repeatable():
+            return _step(state, batch, lr, generator)
+
+    def _step(state, batch, lr, generator):
+        hr, lo = batch["hr"], batch["lr"]
+        w = batch["weight"] * informative(state.model, lo)
+        if augment_cfg is not None and augment_cfg.enabled:
+            hr, lo = augment_pair(
+                hr, lo, generator, augment_cfg, rows=rows,
+                global_batch=None if rows is None
+                else len(rows) * mesh.shape[0])
+        loss, comps, grads = spatial_loss_and_grads(
+            state.model, sloss, mesh, mesh.rows(hr), mesh.rows(lo), w,
+            grad_accum, state.qat_amax if qat else None, coll)
+        return _update(state, loss, comps, grads, lr, ema_decay,
+                       qat_decay if qat else None)
+
+    return train_step
+
+
+def build_spatial_eval_step(model: torch.nn.Module, sloss, mesh,
+                            qat: bool = False):
+    """eval_step(params, batch) -> (metrics, output) through the
+    row-sharded loss, under no_grad: ``build_eval_step``'s contract
+    (``qat``: ``params`` is the pair (params or None, amax)); the metrics
+    are the global batch's on every rank, the output this rank's row
+    blocks (``mesh.rows`` of the batch's images)."""
+
+    def eval_step(params, batch: Dict[str, torch.Tensor]):
+        with torch.no_grad(), repeatable():
+            hr, lo = mesh.rows(batch["hr"]), mesh.rows(batch["lr"])
+            args = (hr, lo, batch["weight"])
+            if qat:
+                params, amax = params
+                args = (amax,) + args
+            sd = model.state_dict()
+            total, comps, out = sloss(sd if params is None
+                                      else {**sd, **params}, *args)
+            return {"loss": total, "ssim": comps["ssim_metric"]}, out
+
+    return eval_step
 
 
 def build_eval_step(model: torch.nn.Module, loss_fn: CombinedLoss,
@@ -590,7 +760,6 @@ def train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
 
 
 def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
-    check_supported(cfg)
     check_qat(cfg)
     # data parallel: this process is one rank of a process group
     # (parallel/multihost.py); the path below is the single-device one
@@ -598,6 +767,10 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     coll = multihost.Collectives() if multihost.active() else None
     rank, world = multihost.rank(), multihost.world()
     main = rank == 0
+    spatial = cfg.spatial_shards > 1
+    # the batch splits over the data groups: the ranks, or with spatial
+    # sharding the rows of the (n_data, spatial_shards) grid of ranks
+    n_data = check_spatial(cfg, world)
     if not main:
         set_quiet(True)
     os.makedirs(cfg.log_dir, exist_ok=True)
@@ -620,6 +793,20 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     log_message(f"Training on {dev}"
                 + (f" ({torch.cuda.get_device_name(dev)})"
                    if dev.type == "cuda" else ""))
+    smesh, data_rank = None, rank
+    if spatial:
+        from mri_superresolution_torch.parallel.spatial import RankMesh
+        # every rank is a process, so the space axis spans processes
+        log_message(f"Multi-host spatially-sharded training: space-axis "
+                    f"halo exchanges and statistic reductions cross process "
+                    f"boundaries where the {cfg.spatial_shards}-way space "
+                    f"axis spans processes")
+        smesh = RankMesh(n_data, cfg.spatial_shards, dev)
+        data_rank = smesh.g
+        log_message(f"Spatially-sharded training: ({n_data} data x "
+                    f"{cfg.spatial_shards} space) mesh — row-sharded "
+                    f"forward/loss/backward (halo exchanges, summed "
+                    f"statistics)")
     if coll is not None:
         log_message(f"Using mesh with {world} device(s): "
                     f"{multihost.rank_devices()}")
@@ -642,8 +829,8 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     if cfg.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
     # the batch must split into grad_accum equal microbatches, and each of
-    # them across the ranks
-    quantum = world * cfg.grad_accum
+    # them across the data groups
+    quantum = n_data * cfg.grad_accum
     batch_size = int(-(-cfg.batch_size // quantum) * quantum)
     if batch_size != cfg.batch_size and coll is None:
         log_message(f"Rounding batch_size {cfg.batch_size} → {batch_size} "
@@ -651,14 +838,14 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                     f"microbatches")
     elif batch_size != cfg.batch_size:
         log_message(f"Rounding batch_size {cfg.batch_size} → {batch_size} "
-                    f"to divide the {world}-way data axis"
+                    f"to divide the {n_data}-way data axis"
                     + (f" x {cfg.grad_accum} gradient-accumulation "
                        f"microbatches" if cfg.grad_accum > 1 else ""))
     # this rank's rows of each global batch (all of them without a group)
     rows = val_rows = None
     if coll is not None:
-        rows = rank_rows(batch_size, world, rank, cfg.grad_accum)
-        val_rows = rank_rows(batch_size, world, rank)
+        rows = rank_rows(batch_size, n_data, data_rank, cfg.grad_accum)
+        val_rows = rank_rows(batch_size, n_data, data_rank)
     if cfg.grad_accum > 1:
         log_message(f"Gradient accumulation: {cfg.grad_accum} sequential "
                     f"microbatches of {batch_size // cfg.grad_accum} per "
@@ -681,6 +868,10 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                                    shuffle=True, seed=cfg.seed, rows=rows)
         val_loader = BatchLoader(lr_arr, hr_arr, val_idx, batch_size,
                                  shuffle=False, seed=cfg.seed, rows=val_rows)
+
+    sample_hw = dataset.item_hw()[0]
+    if spatial:
+        check_spatial_hw(cfg, sample_hw)
 
     # --- model / loss / optimizer ---
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
@@ -711,15 +902,24 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
             f"score the quantized forward; checkpoints export a frozen "
             f"calibration sidecar (<checkpoint>.calib.json) — serve with "
             f"--quant int8 (the sidecar is found beside the checkpoint)")
-        if cfg.remat:
+        if cfg.remat and spatial:
+            log_message(
+                "QAT + spatial: model-side remat segments are disabled (the "
+                "fake-quant statistics would be recorded again by a "
+                "recompute — same restriction as dense QAT); the "
+                "loss-graph checkpoint still applies.")
+        elif cfg.remat:
             log_message("QAT + remat: the fake-quant forward is functional, "
                         "so the model-side remat segments do not apply; the "
                         "loss-graph checkpoint still does")
-    if cfg.opt_shard and coll is not None:
-        # ZeRO-1: Adam's moments sharded over the ranks; params (and the
-        # EMA, which serving reads whole) stay replicated
+    if cfg.opt_shard and coll is not None and n_data > 1:
+        # ZeRO-1: Adam's moments sharded over the data groups (with
+        # spatial sharding, replicated over space); params (and the EMA,
+        # which serving reads whole) stay replicated
         optimizer = Zero1Adam(model.named_parameters(), cfg.learning_rate,
-                              cfg.weight_decay, coll)
+                              cfg.weight_decay,
+                              coll if smesh is None else
+                              multihost.Collectives(dev, smesh.data_pg))
         n_sharded, n_leaves = optimizer.counts()
     else:
         optimizer = make_optimizer(model.parameters(), cfg.learning_rate,
@@ -732,7 +932,7 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     if cfg.opt_shard:
         log_message(f"ZeRO-1 optimizer-state sharding: {n_sharded}/"
                     f"{n_leaves} moment tensors stored sharded over the "
-                    f"{world}-way data axis (~1/{world} per-device "
+                    f"{n_data}-way data axis (~1/{n_data} per-device "
                     f"optimizer memory)")
     state = TrainState(model, optimizer, 0, None)
     scheduler = ReduceLROnPlateau(cfg.learning_rate, factor=0.5,
@@ -842,11 +1042,26 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
             def qat_serving_calib(ema):
                 return calib(ema, calib_x)
 
-    loss_fn = CombinedLoss(cfg.loss, load_vgg(cfg, dev), remat=cfg.remat)
-    train_step = build_train_step(loss_fn, cfg.augment, cfg.grad_accum,
-                                  cfg.ema_decay, qat_fwd, cfg.qat_decay,
-                                  coll, rows)
-    eval_step = build_eval_step(model, loss_fn, qat_fwd, coll)
+    if spatial:
+        from mri_superresolution_torch.parallel.spatial import (
+            build_spatial_loss)
+        sloss = build_spatial_loss(
+            smesh, sample_hw, cfg.loss, cfg.model.model_type, dtype,
+            vgg=load_vgg(cfg, dev), remat=cfg.remat,
+            qat_sites=sorted(quant_forward.amax_template(
+                model.state_dict(), cfg.model.model_type))
+            if qat_on else None)
+        train_step = build_spatial_train_step(
+            sloss, smesh, cfg.augment, cfg.grad_accum, cfg.ema_decay,
+            qat_on, cfg.qat_decay, coll, rows)
+        eval_step = build_spatial_eval_step(model, sloss, smesh, qat_on)
+    else:
+        loss_fn = CombinedLoss(cfg.loss, load_vgg(cfg, dev),
+                               remat=cfg.remat)
+        train_step = build_train_step(loss_fn, cfg.augment, cfg.grad_accum,
+                                      cfg.ema_decay, qat_fwd, cfg.qat_decay,
+                                      coll, rows)
+        eval_step = build_eval_step(model, loss_fn, qat_fwd, coll)
 
     writer = None
     if cfg.use_tensorboard and main:
@@ -1045,7 +1260,11 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                 writer.add_scalar("Loss/val", val_loss, epoch)
                 writer.add_scalar("SSIM/val", val_ssim, epoch)
 
-        # data parallel: rank 0's rows of the batch (its first B / world)
+        if spatial and vis_out is not None and epoch % vis_frequency == 0:
+            # rank 0's images, gathered from its space group's row blocks
+            # (a collective: every rank takes part, whatever it draws)
+            vis_out = smesh.group.gather_rows(vis_out)
+        # data parallel: rank 0's rows of the batch (its first B / n_data)
         if grids and main and epoch % vis_frequency == 0 and \
                 vis_batch is not None:
             try:

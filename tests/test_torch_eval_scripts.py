@@ -494,24 +494,26 @@ def test_tui_commands_are_the_jax_flags_after_the_module(menu):
 
 def test_tui_opt_shard_reaches_a_train_cli_that_runs_it():
     """The train menu with the ``opt_shard`` toggle on (and ``cpu``)
-    builds a command the port's train CLI takes as it is: no refusal,
-    ZeRO-1 on, one CPU rank at the CLIs' default device count; a
-    ``spatial_shards`` of 2 still reaches the train CLI's refusal naming
-    A14, and the serve menu passes it to a serve CLI that serves it."""
+    builds a command the port's train CLI takes as it is: ZeRO-1 on, one
+    CPU rank at the CLIs' default device count; a ``spatial_shards`` of 2
+    reaches a train CLI that trains row-sharded over ranks it divides
+    (and, over the one CPU rank, names the ranks it must divide), and the
+    serve menu passes it to a serve CLI that serves it."""
     from mri_superresolution_torch.cli import serve as scli
     from mri_superresolution_torch.cli import train as tcli
-    from mri_superresolution_torch.train.trainer import check_supported
+    from mri_superresolution_torch.train.trainer import check_spatial
     p = dict(tui.DEFAULT_PARAMS, opt_shard=True, cpu=True,
              full_res_dir="hr", low_res_dir="lr")
     args = tcli.parse_args(tui.build_command("train", p)[3:])
     cfg = tcli.config_from_args(args)
-    check_supported(cfg)
+    assert check_spatial(cfg, 1) == 1
     assert cfg.opt_shard and args.num_devices == 0
     assert tcli.local_devices(args) == [torch.device("cpu")]
-    bad = tcli.config_from_args(tcli.parse_args(
+    sp = tcli.config_from_args(tcli.parse_args(
         tui.build_command("train", dict(p, spatial_shards=2))[3:]))
-    with pytest.raises(NotImplementedError, match="A14"):
-        check_supported(bad)
+    assert sp.spatial_shards == 2 and check_spatial(sp, 4) == 2
+    with pytest.raises(ValueError, match="must divide the 1 mesh"):
+        check_spatial(sp, 1)
     served = scli.parse_args(tui.build_command(
         "serve", dict(p, spatial_shards=2))[3:])
     assert served.spatial_shards == 2 and not hasattr(scli, "unsupported")

@@ -26,6 +26,7 @@ from mri_superresolution_torch.config import LossConfig, ModelConfig
 from mri_superresolution_torch.kernels.groupnorm import group_norm_leaky
 from mri_superresolution_torch.losses import CombinedLoss
 from mri_superresolution_torch.models import build_model
+from mri_superresolution_torch.models import quant_forward as qf
 from mri_superresolution_torch.models import vgg as vgg_mod
 from mri_superresolution_torch.models import unet as unet_mod
 from mri_superresolution_torch.ops.functional import group_norm_fp32
@@ -545,10 +546,20 @@ def test_cli_trains_every_family_and_the_perceptual_loss(
     assert out.shape == (2, 32, 32) and np.isfinite(out).all()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (("--qat", "--spatial_shards", "2"), "A14"),
-    (("--spatial_shards", "2"), "A14")])
-def test_cli_rejects_unported_modes(pngs, tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(_argv(pngs, tmp_path, "--epochs", "1", *flags))
-    assert not os.path.exists(tmp_path / "final_model_unet.ckpt")
+@pytest.mark.parametrize("flags", [("--qat", "--spatial_shards", "2"),
+                                   ("--spatial_shards", "2")])
+def test_cli_runs_spatial_modes(pngs, tmp_path, monkeypatch, flags):
+    """``--spatial_shards 2`` (with ``--qat`` too) over two CPU ranks
+    trains row-sharded: the final checkpoint, rank 0's log with the
+    spatial mesh's line and, under QAT, the sidecar of 20 frozen scales
+    (the JAX package's ``test_qat_spatial_train_end_to_end``)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    final = cli.main(_argv(pngs, tmp_path, "--epochs", "1", "--num_devices",
+                           "2", *flags))
+    assert os.path.exists(final)
+    log = (tmp_path / "logs" / "training.log").read_text()
+    assert "Spatially-sharded training: (1 data x 2 space) mesh" in log
+    if "--qat" in flags:
+        assert "QAT enabled" in log
+        scales, mtype = qf.load_scales(final[:-len(".ckpt")] + ".calib.json")
+        assert mtype == "unet" and len(scales) == 20
