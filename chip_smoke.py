@@ -305,7 +305,47 @@ the last line is printed:
    --spatial_shards 2`` starts them on two cards) for one epoch on the
    training phase's pairs, its checkpoint served by the dense engine
    (finite, the HR shape).
-17. the ``kernels`` JSON line, the card's name and power limit, and the
+17. EMA, the mid-epoch resume and streaming (``ema_path``), on the
+   training phase's pairs at its width and epochs through the train
+   CLI: ``--ema_decay 0.9 --save_every_steps 3``, its ``raw_params`` the
+   training phase's final params by SHA-256 and its served params apart
+   from them; the same with ``--augmentation`` (augmentation drawn on the
+   card from a generator seeded by seed, epoch and batch), and again
+   preempted through ``progress_cb`` at epoch 1's first batch and resumed
+   with ``--resume`` from its step checkpoint (epoch 0, cursor 3): every
+   array of the final checkpoint (params, ``raw_params``, Adam's count
+   and moments) the same bytes as the uninterrupted run's, the two runs'
+   launches exact; ``--streaming on`` without EMA, its final checkpoint
+   the training phase's bytes; 10 trainer steps at 8 x 128^2 with EMA
+   0.9, fp32 (TF32 off) and bf16, each step's live weights read to the
+   host and the EMA recomputed there in float64 (``tools/ema_quality.
+   ema_recompute_gap``): every tensor within 1e-6 of its largest
+   magnitude; a step with EMA launches what one without it does (B1 20,
+   its backward 20 one-pass, B3 2, B2 1); the EMA checkpoint served
+   through ``load_engine`` on the card and on the CPU port at the bf16
+   budget.
+18. the daemon soak (``soak_path``): ``tools/soak_server``'s logic at
+   full width (base filters 32, 256^2 -> 512^2, int16 on the raw path),
+   6 slice clients and 2 volume clients (24 slices) for 30 s in this
+   process: its five books checks (``check_books``), the aggregate
+   slices/s, p50 and p99 by client kind, the batch-size histogram and
+   ``peak_pending``; B1 20 (one-pass) and B3 2 launches an engine
+   forward; each client's first response against ``upscale_batch`` on
+   the same slices at the bf16 budget (an fp32 engine's output the
+   truth), bit-equality logged; B1 and B3 against their plain versions
+   at the largest padded batch the soak formed.
+19. the remaining quality harnesses (``harness_path``), each through its
+   ``main`` on the extraction phase's pairs: ``tools/ema_quality
+   --models unet --decays 0.9 --epochs 2``, ``tools/vgg_quality --epochs
+   2`` and ``tools/edsr_convergence --epochs 4 --patience 2``: each
+   report has the JAX tool's keys and finite rows, the EMA run's live
+   weights (``finalraw``) are the control run's final params by SHA-256,
+   the edsr protocol records the patience and a best checkpoint exists,
+   and B1, its backward, B2 and B3 launched; ``tools/fetch_vgg_weights
+   --pth`` on a seeded torchvision-shaped VGG19 state_dict, its ``.npz``
+   giving on the card the features of ``VGG19Features`` built from the
+   same arrays.
+20. the ``kernels`` JSON line, the card's name and power limit, and the
    device JSON line last. No kernel's time (and no B5 time, library calls
    included) may fall below its bound: that would mean a broken yardstick.
    The B3 times are bf16, the tensor-core kernel. B1's row gives the
@@ -333,9 +373,10 @@ the last line is printed:
    phase's counted forwards (``spatial_launches``: its engines' bf16
    and fp32 batches and the four families' int8 batches), the spatial
    training phase's two ranks' fp32 and bf16 steps
-   (``spatial_train_launches``), and
-   B1's
-   and its backward's rows their C = 64 times (``c64``). A ``wall`` line
+   (``spatial_train_launches``), the EMA phase's (``ema_launches``), the
+   soak's daemon (``soak_launches``) and the harness phase's three tools
+   (``harness_launches``), and B1's and its backward's rows their C = 64
+   times (``c64``). A ``wall`` line
    before it gives the script's seconds.
 
 Needs one CUDA card; without one it exits 1 and prints no result.
@@ -414,10 +455,13 @@ from mri_superresolution_torch.ops.ssim import ssim
 from mri_superresolution_torch.losses import CombinedLoss
 from mri_superresolution_torch.parallel import multihost as multihost_mod
 from mri_superresolution_torch.tools import (convert_torch_checkpoint,
-                                             dp_step,
+                                             dp_step, edsr_convergence,
+                                             ema_quality,
                                              export_torch_checkpoint,
-                                             grad_gap, quality, roll_probe,
-                                             sp_step)
+                                             fetch_vgg_weights, grad_gap,
+                                             quality, roll_probe,
+                                             soak_server, sp_step,
+                                             vgg_quality)
 from mri_superresolution_torch.tools.profile_step import trace_calls
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.train import trainer
@@ -2023,6 +2067,17 @@ def card_vs_cpu_step(dev, cfg, lcfg=LossConfig(), vgg_params=None,
     return res
 
 
+def _train_argv(ck: Path, flags=(), epochs: int = 1) -> list:
+    """The train CLI's flags of the training phase (the JAX package's
+    defaults, full width, its phantom PNGs), writing to ``ck``."""
+    return ["--full_res_dir", str(TRAIN_DIR / "hr"),
+            "--low_res_dir", str(TRAIN_DIR / "lr"),
+            "--base_filters", str(BASE_FILTERS),
+            "--batch_size", str(TRAIN_BATCH), "--epochs", str(epochs),
+            "--seed", str(TRAIN_SEED), "--checkpoint_dir", str(ck),
+            "--log_dir", str(ck / "logs"), *flags]
+
+
 def _train_cli(ck: Path, flags=(), epochs: int = 1, gn: int = 20,
                b3: int = 2, start_epoch: int = 0, calib: int = 0) -> dict:
     """One in-process run of the train CLI at the JAX package's defaults
@@ -2034,12 +2089,7 @@ def _train_cli(ck: Path, flags=(), epochs: int = 1, gn: int = 20,
     a resume), and the launches they should make with ``gn`` B1 sites and
     ``b3`` B3 sites a forward (B2 once a batch), and ``calib`` forwards
     of QAT's calibration (no B2)."""
-    argv = ["--full_res_dir", str(TRAIN_DIR / "hr"),
-            "--low_res_dir", str(TRAIN_DIR / "lr"),
-            "--base_filters", str(BASE_FILTERS),
-            "--batch_size", str(TRAIN_BATCH), "--epochs", str(epochs),
-            "--seed", str(TRAIN_SEED), "--checkpoint_dir", str(ck),
-            "--log_dir", str(ck / "logs"), *flags]
+    argv = _train_argv(ck, flags, epochs)
     proto = io.StringIO()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -5567,6 +5617,454 @@ def spatial_train_path(dev, smi: str) -> dict:
     return {"launches": launches, "ms": ms, "cli": cli, "seconds": seconds}
 
 
+# --------------------------------------------- EMA, resume and streaming
+
+EMA_DIR = SCALES_PATH.parent / "ema"
+# the EMA run's decay and its step checkpoints (step 3 is epoch 0's
+# batch 3 of 4); the host recompute: steps and its gate, relative to each
+# tensor's largest magnitude
+EMA_DECAY, EMA_SAVE_EVERY = 0.9, 3
+EMA_RECOMPUTE_STEPS, EMA_RECOMPUTE_RTOL = 10, 1e-6
+
+
+class _Preempted(Exception):
+    """Raised from the trainer's progress callback: a simulated
+    preemption."""
+
+
+def _params_sha(sd: dict) -> str:
+    """SHA-256 over a state_dict's names and fp32 bytes, in sorted order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ckpt_arrays(path: str) -> dict:
+    """Every array a checkpoint holds, flat: its params, its extras'
+    trees (``raw_params``) and Adam's count and moments."""
+    params, opt, _, extras = ckpt.load_checkpoint(path, return_extras=True)
+    out = {f"params/{k}": v for k, v in params.items()}
+    for name, tree in extras.items():
+        out.update({f"{name}/{k}": v for k, v in tree.items()})
+    if opt is not None:
+        out["opt/count"] = torch.tensor(opt["count"])
+        for m in ("mu", "nu"):
+            out.update({f"opt/{m}/{k}": v for k, v in opt[m].items()})
+    return out
+
+
+def _train_gate(name: str, run: dict) -> None:
+    """A train CLI run's launches against its expected counts, all of
+    B1's backward on the one-pass route."""
+    want = run["expected"]
+    ok = run["launches"] == want and \
+        run["backward_onepass"] == want["group_norm_leaky_backward"]
+    log("ema_train", run=name, seconds=run["seconds"], steps=run["steps"],
+        val_batches=run["vals"], launches=run["launches"], expected=want,
+        backward_onepass=run["backward_onepass"], ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: launches {run['launches']} (B1 "
+                             f"backward one-pass {run['backward_onepass']}),"
+                             f" expected {want}")
+
+
+def ema_path(dev, lr, hr, trained: dict) -> dict:
+    """``--ema_decay``, the mid-epoch resume and streaming through the
+    train CLI at the training phase's pairs, width and epochs: (a) EMA
+    0.9 with step checkpoints every 3 steps, its ``raw_params`` the
+    training phase's final params by SHA-256 (EMA never feeds back), its
+    served params apart; the same with ``--augmentation``, and again
+    preempted at epoch 1's first batch and resumed from its step
+    checkpoint (mid-epoch 0): every array of the two final checkpoints
+    the same bytes; (c) ``--streaming on``, its final checkpoint the
+    training phase's bytes; (d) the EMA of 10 steps at 8 x 128^2 against
+    a float64 recompute on the host, fp32 (TF32 off) and bf16; (e) a step
+    with EMA launches what a step without it does; (f) the EMA checkpoint
+    served on the card and on the CPU port within the bf16 budget."""
+    start = time.perf_counter()
+    shutil.rmtree(EMA_DIR, ignore_errors=True)
+    totals = dict.fromkeys(kernels.launch_counts(), 0)
+    ema = ("--ema_decay", str(EMA_DECAY), "--save_every_steps",
+           str(EMA_SAVE_EVERY))
+    aug = (*ema, "--augmentation")
+
+    # (a) the live weights under EMA are the training phase's
+    plain = _train_cli(EMA_DIR / "plain", ema, epochs=TRAIN_EPOCHS)
+    _train_gate("ema", plain)
+    params, _, _, extras = ckpt.load_checkpoint(plain["final"],
+                                                return_extras=True)
+    raw = extras["raw_params"]
+    train_sha = _params_sha(ckpt.load_checkpoint(
+        str(TRAIN_DIR / "ckpt" / "final_model_unet.ckpt"))[0])
+    ema_gap = max(float((params[k] - raw[k]).abs().max()) for k in raw)
+    ok_a = _params_sha(raw) == train_sha and ema_gap > 0.0
+    log("ema_raw_params", raw_params_sha256=_params_sha(raw),
+        train_path_sha256=train_sha, params_sha256=_params_sha(params),
+        max_abs_params_minus_raw=ema_gap, ok=ok_a)
+    if not ok_a:
+        raise AssertionError(f"the EMA run's raw_params are not the "
+                             f"training phase's final params, or its "
+                             f"served params do not differ from them "
+                             f"({ema_gap})")
+    _add(totals, plain["launches"])
+
+    # (b) with augmentation: uninterrupted, then preempted and resumed
+    full = _train_cli(EMA_DIR / "aug", aug, epochs=TRAIN_EPOCHS)
+    _train_gate("ema_augmentation", full)
+    _add(totals, full["launches"])
+    ck = EMA_DIR / "resumed"
+
+    def preempt(epoch, batch_idx, loss):
+        if epoch == 1:
+            raise _Preempted
+
+    cfg = train_cli.config_from_args(train_cli.parse_args(
+        _train_argv(ck, aug, TRAIN_EPOCHS)))
+    kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.train(cfg, progress_cb=preempt, device=dev)
+    except _Preempted:
+        pass
+    else:
+        raise AssertionError("the EMA run was not preempted")
+    torch.cuda.synchronize()
+    cut = kernels.launch_counts()
+    cut_bwd = group_norm_leaky_backward.onepass_launches
+    step_meta = ckpt.read_meta(str(ck / "step_model_unet.ckpt"))
+    resumed = _train_cli(ck, (*aug, "--resume"), epochs=TRAIN_EPOCHS)
+    mid_epoch = "mid-epoch" in json.dumps(resumed["by_type"])
+    # the two runs' launches: epoch 0 and epoch 1's first step before the
+    # preemption; epoch 0 from its step checkpoint's cursor, and epoch 1
+    # after it
+    per_epoch = full["steps"] // TRAIN_EPOCHS
+    steps = (per_epoch + 1) + (per_epoch - EMA_SAVE_EVERY) + \
+        (TRAIN_EPOCHS - 1) * per_epoch
+    vals = 1 + TRAIN_EPOCHS
+    pair = {k: cut.get(k, 0) + v for k, v in resumed["launches"].items()}
+    want = dict.fromkeys(pair, 0)
+    want.update(group_norm_leaky=20 * (steps + vals),
+                group_norm_leaky_backward=20 * steps,
+                conv3x3=2 * (steps + vals), ssim_per_sample=steps + vals)
+    bwd_onepass = cut_bwd + resumed["backward_onepass"]
+    a, b = _ckpt_arrays(full["final"]), _ckpt_arrays(resumed["final"])
+    differ = sorted(k for k in a if k not in b or not torch.equal(a[k], b[k]))
+    ok_b = (sorted(a) == sorted(b) and not differ and mid_epoch
+            and (step_meta.get("epoch"), step_meta.get("batch_cursor"))
+            == (0, EMA_SAVE_EVERY) and pair == want
+            and bwd_onepass == 20 * steps
+            and not (ck / "step_model_unet.ckpt").exists())
+    log("ema_resume", arrays=len(a), differing=differ[:8],
+        step_checkpoint={k: step_meta.get(k) for k in
+                         ("epoch", "batch_cursor", "step")},
+        resumed_mid_epoch=mid_epoch, final_sha256={
+            "uninterrupted": _params_sha(a), "resumed": _params_sha(b)},
+        launches=pair, expected=want, backward_onepass=bwd_onepass,
+        seconds={"uninterrupted": full["seconds"],
+                 "resumed": resumed["seconds"]}, ok=ok_b)
+    if not ok_b:
+        raise AssertionError(f"the preempted and resumed EMA run differs "
+                             f"from the uninterrupted one: arrays "
+                             f"{differ[:8]}, step checkpoint at epoch "
+                             f"{step_meta.get('epoch')} batch "
+                             f"{step_meta.get('batch_cursor')}, "
+                             f"mid-epoch {mid_epoch}, launches {pair} "
+                             f"against {want}")
+    _add(totals, pair)
+
+    # (c) streaming gives the in-memory loader's checkpoint
+    stream = _train_cli(EMA_DIR / "streaming", ("--streaming", "on"),
+                        epochs=TRAIN_EPOCHS)
+    _train_gate("streaming", stream)
+    _add(totals, stream["launches"])
+    got = _ckpt_digests(EMA_DIR / "streaming")
+    streamed = "Streaming data loading" in json.dumps(stream["by_type"])
+    ok_c = streamed and got["final_model_unet"] == \
+        trained["digests"]["final_model_unet"]
+    log("streaming_train", digests=got, train_path=trained["digests"],
+        streaming_logged=streamed, seconds=stream["seconds"],
+        in_memory_seconds=trained["seconds"], ok=ok_c)
+    if not ok_c:
+        raise AssertionError(f"the --streaming on run's final checkpoint "
+                             f"{got} is not the training phase's "
+                             f"{trained['digests']} (streaming {streamed})")
+
+    # (d) the EMA against a float64 recompute on the host
+    for dtype in (torch.float32, torch.bfloat16):
+        r, _, counts, _ = _counted_run(lambda: ema_quality.ema_recompute_gap(
+            dev, dtype, steps=EMA_RECOMPUTE_STEPS, batch=TRAIN_BATCH,
+            lr_hw=TRAIN_LR, decay=EMA_DECAY, base_filters=BASE_FILTERS),
+            totals)
+        ok_d = r["worst_rel_gap"] <= EMA_RECOMPUTE_RTOL and \
+            counts["group_norm_leaky_backward"] == 20 * EMA_RECOMPUTE_STEPS
+        log("ema_recompute", batch=TRAIN_BATCH, lr=[TRAIN_LR, TRAIN_LR],
+            **r, gate=f"each tensor within {EMA_RECOMPUTE_RTOL} of its "
+            f"largest magnitude", launches=counts, ok=ok_d)
+        if not ok_d:
+            raise AssertionError(f"the EMA ({dtype}) is off its float64 "
+                                 f"recompute: {r}")
+
+    # (e) the EMA update launches no kernel of the port
+    model = build_model(ModelConfig(base_filters=BASE_FILTERS),
+                        dtype=torch.bfloat16, generator=torch.Generator(
+                            ).manual_seed(TRAIN_SEED)).to(dev)
+    state = trainer.TrainState(
+        model, trainer.make_optimizer(model.parameters(), 1e-4, 1e-5), 0,
+        {k: p.detach().clone() for k, p in model.named_parameters()})
+    step = trainer.build_train_step(CombinedLoss(LossConfig()),
+                                    ema_decay=EMA_DECAY)
+    batch = _train_batch(dev, TRAIN_BATCH, TRAIN_LR)
+    per_step = _step_counts(lambda: step(state, batch, 1e-4))
+    _add(totals, {k: v for k, v in per_step.items() if "." not in k})
+    want_step = {"group_norm_leaky": 20, "group_norm_leaky_backward": 20,
+                 "group_norm_leaky_backward.onepass": 20, "conv3x3": 2,
+                 "ssim_per_sample": 1}
+    log("ema_step_launches", step=per_step, expected=want_step,
+        ok=per_step == want_step)
+    if per_step != want_step:
+        raise AssertionError(f"a step with EMA launches {per_step}, "
+                             f"expected {want_step}")
+
+    # (f) the EMA checkpoint served on the card and on the CPU port
+    (out, _, counts, _) = _counted_run(lambda: load_engine(
+        InferConfig(checkpoint_path=plain["final"]), device=dev
+    ).upscale_batch(lr[:2]), totals)
+    out_cpu = load_engine(InferConfig(checkpoint_path=plain["final"]),
+                          device="cpu").upscale_batch(lr[:2])
+    d = _budget_quiet(_quality(out, hr[:2]), _quality(out_cpu, hr[:2]))
+    ok_f = d["ok"] and counts["group_norm_leaky"] == 20 and \
+        counts["conv3x3"] == 2 and bool(np.isfinite(out).all())
+    log("ema_serve", checkpoint=plain["final"], slices=2, launches=counts,
+        max_abs_diff=float(np.abs(out - out_cpu).max()), **{**d, "ok": ok_f})
+    if not ok_f:
+        raise AssertionError(f"the EMA checkpoint served on the card and "
+                             f"on the CPU port: {d}, launches {counts}")
+    seconds = time.perf_counter() - start
+    log("ema_path", seconds=seconds, ema_run_seconds=plain["seconds"],
+        launches=totals)
+    return {"launches": totals, "seconds": seconds}
+
+
+# ------------------------------------------------------ the daemon soak
+
+# tools/soak_server.py at the serving phase's width and size (256^2 ->
+# 512^2, base filters 32), its JAX defaults otherwise, for 30 s
+SOAK_ARGV = ["--seconds", "30", "--slice_clients", "6", "--volume_clients",
+             "2", "--hw", str(LR), "--batch", "16", "--vol_slices", "24",
+             "--base_filters", str(BASE_FILTERS)]
+
+
+def soak_path(dev) -> dict:
+    """The port's ``tools/soak_server`` logic on the card: 6 slice and 2
+    volume clients against the raw int16 daemon for 30 s; its five books
+    checks; B1 20 (one-pass) and B3 2 launches an engine forward; each
+    client's first response against ``upscale_batch`` on the same slices
+    at the bf16 budget (an fp32 engine's output the truth), bit-equality
+    logged; B1 and B3 against their plain versions at the largest padded
+    batch the soak formed."""
+    args = soak_server.parse_args(SOAK_ARGV)
+    engine = soak_server.build_engine(args, dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    books = soak_server.run_soak(engine, args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    onepass = group_norm_leaky.onepass_launches
+    s = soak_server.summary(books)
+    log("soak", **s, max_pending=args.max_pending, hw=args.hw,
+        base_filters=args.base_filters, vol_slices=args.vol_slices,
+        clients={"slice": args.slice_clients, "volume": args.volume_clients},
+        phase_seconds=seconds,
+        timing="host clock; 8 client threads, the handler threads and the "
+               "batcher's worker in one process")
+    soak_server.check_books(books, args.max_pending)
+    want = dict.fromkeys(counts, 0)
+    want.update(group_norm_leaky=20 * s["batches"],
+                conv3x3=2 * s["batches"])
+    ok = counts == want and onepass == 20 * s["batches"]
+    log("soak_launches", launches=counts, expected=want,
+        onepass_launches=onepass, forwards=s["batches"], ok=ok)
+    if not ok:
+        raise AssertionError(f"soak launches {counts} (B1 one-pass "
+                             f"{onepass}), expected {want}")
+
+    fp32 = InferenceEngine(engine.model_cfg, {
+        k: v.float() for k, v in engine.model.state_dict().items()},
+        bf16=False, device=dev, normalize_inputs=True, transpose_io=True)
+    worst = {"d_psnr_db": 0.0, "d_ssim": 0.0}
+    equal = []
+    for f in books["first"]:
+        direct = soak_server.direct_output(engine, f)
+        truth = soak_server.direct_output(fp32, f)
+        got, want_out = f["output"], direct
+        if f["kind"] == "volume":
+            got, want_out, truth = (np.moveaxis(a, -1, 0) for a in
+                                    (got, want_out, truth))
+        scale = 1.0 / 32767.0
+        d = _budget_quiet(_quality(got * scale, truth, dev),
+                          _quality(want_out * scale, truth, dev))
+        equal.append(bool(np.array_equal(f["output"], direct)))
+        for k in worst:
+            worst[k] = max(worst[k], d[k])
+        log("soak_first_response", kind=f["kind"], client=f["client"],
+            slices=len(got), bit_equal=equal[-1], **d)
+        if not d["ok"]:
+            raise AssertionError(f"soak client {f['kind']}[{f['client']}]'s "
+                                 f"first response against upscale_batch: "
+                                 f"{d}")
+    if len(books["first"]) != args.slice_clients + args.volume_clients:
+        raise AssertionError(f"{len(books['first'])} clients were served, "
+                             f"of {args.slice_clients + args.volume_clients}")
+
+    most = max(int(k) for k in s["batch_size_hist"])
+    padded = min(1 << (most - 1).bit_length(), soak_server.MAX_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    where = f"the soak's largest padded batch ({padded})"
+    b1_err = max(b1_check(*b1_inputs(shape, dev, gen), where)
+                 for shape, _ in gn_sites(padded, LR, BASE_FILTERS))
+    f = BASE_FILTERS
+    b3_err = max(b3_check(*b3_inputs(padded, ci, co, 2 * LR, dev, gen),
+                          where) for ci, co in ((f, f // 2), (f // 2, f // 2)))
+    log("soak_path", seconds=seconds, slices_per_s=s["slices_per_s"],
+        first_responses_bit_equal=all(equal), worst_first_response=worst,
+        largest_batch=most, padded_batch=padded, b1_max_abs_err=b1_err,
+        b3_max_abs_err=b3_err)
+    return {"launches": counts, "summary": s, "seconds": seconds}
+
+
+# ---------------------------------------------------------- harnesses
+
+HARNESS_DIR = SCALES_PATH.parent / "harness"
+HARNESS_EMA_DECAY = "0.9"
+HARNESS_KEYS = {
+    "ema": ["decays", "lr", "epochs", "rows"],
+    "vgg": ["unet_perc0", "unet_perc0.1"],
+    "edsr": ["edsr/plain", "edsr/tta", "protocol"]}
+
+
+def _harness_workdir(name: str) -> Path:
+    """A harness's workdir whose pairs are the extraction phase's: its
+    four pair folders link to them, so it trains on them and skips
+    synthesis and extraction."""
+    wd = HARNESS_DIR / name
+    wd.mkdir(parents=True)
+    for d in ("hr_train", "lr_train", "hr_test", "lr_test"):
+        os.symlink(EXTRACT_DIR / d, wd / d)
+    return wd
+
+
+def _tool_main(tool, wd: Path, *argv) -> dict:
+    """A harness's ``main`` on ``wd`` at the extraction phase's HR size,
+    its printout to ``<wd>/tool.log``."""
+    with open(wd / "tool.log", "w") as f, contextlib.redirect_stdout(f):
+        return tool.main(["--workdir", str(wd), "--hr_size",
+                          str(EXTRACT_TARGET), *argv])
+
+
+def _finite_rows(rows: dict) -> bool:
+    return all(np.isfinite(r[k]) and np.isfinite(r[f"delta_{k}"])
+               for r in rows.values() for k in quality.METRICS)
+
+
+def _vgg19_state_dict(seed: int) -> dict:
+    """A torchvision-shaped VGG19 state_dict of seeded weights: the
+    ``features.*`` convs, and a classifier tensor the conversion drops."""
+    rng = np.random.default_rng(seed)
+    sd, in_ch = {}, 3
+    for idx, (kind, arg) in enumerate(vgg_mod.layer_table()):
+        if kind == "conv":
+            sd[f"features.{idx}.weight"] = torch.from_numpy(
+                (rng.standard_normal((arg, in_ch, 3, 3))
+                 * np.sqrt(2.0 / (9 * in_ch))).astype(np.float32))
+            sd[f"features.{idx}.bias"] = torch.from_numpy(
+                (0.01 * rng.standard_normal(arg)).astype(np.float32))
+            in_ch = arg
+    sd["classifier.0.weight"] = torch.zeros(4, 8)
+    return sd
+
+
+def harness_path(dev, roots: dict) -> dict:
+    """The port's three remaining quality harnesses through their
+    ``main`` on the extraction phase's pairs (made from ``roots``' volumes)
+    at a small protocol: ``ema_quality --models unet --decays 0.9 --epochs
+    2``, ``vgg_quality --epochs 2``, ``edsr_convergence --epochs 4
+    --patience 2``; each report's keys, finite rows, the EMA run's live
+    weights the control's by SHA-256, the recorded patience; then
+    ``fetch_vgg_weights --pth`` on a seeded VGG19 state_dict, its ``.npz``
+    giving on the card the features of ``VGG19Features`` built from the
+    same arrays. Every launch is counted."""
+    start = time.perf_counter()
+    shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    totals = dict.fromkeys(kernels.launch_counts(), 0)
+    reports, seconds = {}, {}
+    wd = {name: _harness_workdir(name) for name in HARNESS_KEYS}
+    for name, tool, argv in (
+            ("ema", ema_quality, ("--models", "unet", "--decays",
+                                  HARNESS_EMA_DECAY, "--epochs", "2")),
+            ("vgg", vgg_quality, ("--epochs", "2")),
+            ("edsr", edsr_convergence, ("--epochs", "4", "--patience",
+                                        "2"))):
+        reports[name], seconds[name], counts, _ = _counted_run(
+            lambda: _tool_main(tool, wd[name], *argv), totals)
+        rows = reports[name].get("rows", reports[name])
+        log("harness_run", tool=name, argv=list(argv), seconds=seconds[name],
+            launches=counts, rows={k: {m: r[m] for m in ("ssim", "psnr")}
+                                   for k, r in rows.items() if "ssim" in r})
+    ema_rows, edsr = reports["ema"]["rows"], reports["edsr"]
+    tag = f"ema{float(HARNESS_EMA_DECAY)}"
+    raw = ckpt.load_checkpoint(str(wd["ema"] / f"ckpt_{tag}" /
+                                   "rawfinal_model_unet.ckpt"))[0]
+    control = ckpt.load_checkpoint(str(wd["ema"] / "ckpt_control" /
+                                       "final_model_unet.ckpt"))[0]
+    on_disk = {
+        "ema": json.load(open(wd["ema"] / "ema_quality.json")),
+        "vgg": json.load(open(wd["vgg"] / "vgg_quality.json")),
+        "edsr": json.load(open(wd["edsr"] / "edsr_convergence.json"))}
+    gates = {
+        "keys": all(list(on_disk[k]) == v for k, v in HARNESS_KEYS.items()),
+        "ema_rows": sorted(ema_rows) == sorted(
+            f"unet/{r}" for r in ("best_control", f"best_{tag}",
+                                  f"final_{tag}", f"finalraw_{tag}")),
+        "finite": _finite_rows(ema_rows) and _finite_rows(reports["vgg"])
+        and _finite_rows({k: v for k, v in edsr.items() if k != "protocol"}),
+        "finalraw_is_control": _params_sha(raw) == _params_sha(control),
+        "patience": edsr["protocol"]["patience"] == 2 and (
+            wd["edsr"] / "ckpt" / "best_model_edsr.ckpt").exists(),
+        "kernels": all(totals[k] > 0 for k in (
+            "group_norm_leaky", "group_norm_leaky_backward", "conv3x3",
+            "ssim_per_sample"))}
+
+    # fetch_vgg_weights --pth, and the features of what it wrote
+    pth, npz = HARNESS_DIR / "vgg19.pth", HARNESS_DIR / "vgg19.npz"
+    sd = _vgg19_state_dict(18)
+    torch.save(sd, pth)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = fetch_vgg_weights.main(["--pth", str(pth), "--out", str(npz)])
+    x = torch.from_numpy(np.random.default_rng(18).random(
+        (2, EXTRACT_TARGET, EXTRACT_TARGET, 1)).astype(np.float32)).to(dev)
+    got = vgg_mod.VGG19Features.from_params(vgg_mod.load_params_npz(
+        str(npz))).to(dev)(x)
+    want = vgg_mod.VGG19Features.from_params(
+        vgg_mod.params_from_torch_state_dict(
+            {k: v.numpy() for k, v in sd.items()})).to(dev)(x)
+    vgg_ok, vgg_err = within(got, want, 1e-5, 1e-5 * float(want.abs().max()))
+    gates["fetch_vgg_weights"] = rc == 0 and vgg_ok
+    ok = all(gates.values())
+    seconds["phase"] = time.perf_counter() - start
+    log("harness_path", roots={k: str(v) for k, v in roots.items()},
+        pairs=str(EXTRACT_DIR), gates=gates, seconds=seconds,
+        fetch_vgg_features={"shape": list(got.shape), "max_abs_err": vgg_err,
+                            "bit_equal": bool(torch.equal(got, want))},
+        launches=totals, ok=ok)
+    if not ok:
+        raise AssertionError(f"harness phase gates: {gates}")
+    return {"launches": totals, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA GPU")
@@ -5636,6 +6134,9 @@ def main(argv=None) -> int:
     perc = perceptual_path(dev)
     spatial = spatial_path(dev, cfg, params, spatial_bg, smi)
     spatial_train = spatial_train_path(dev, smi)
+    ema = ema_path(dev, lr, hr, trained)
+    soak = soak_path(dev)
+    harness = harness_path(dev, extract["roots"])
 
     torch_root = "mri_superresolution_torch/csrc/"
     tpu_root = "mri_superresolution_tpu/experiments/"
@@ -5683,6 +6184,9 @@ def main(argv=None) -> int:
         rows[-1]["spatial_launches"] = spatial["launches"].get(name, 0)
         rows[-1]["spatial_train_launches"] = spatial_train["launches"].get(
             name, 0)
+        for col, phase in (("ema", ema), ("soak", soak),
+                           ("harness", harness)):
+            rows[-1][f"{col}_launches"] = phase["launches"].get(name, 0)
         if key in ("B1", "B1 backward"):
             rows[-1]["c64"] = c64["forward" if key == "B1" else "backward"]
         if key == "B2":
@@ -5722,7 +6226,10 @@ def main(argv=None) -> int:
                      "spatial_launches": spatial["launches"].get(wrapper,
                                                                  0),
                      "spatial_train_launches": spatial_train[
-                         "launches"].get(wrapper, 0)})
+                         "launches"].get(wrapper, 0),
+                     **{f"{col}_launches": phase["launches"].get(wrapper, 0)
+                        for col, phase in (("ema", ema), ("soak", soak),
+                                           ("harness", harness))}})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

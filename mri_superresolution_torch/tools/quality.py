@@ -5,6 +5,7 @@ train -> serve -> metrics.
         [--epochs 30] [--n_train_volumes 6] [--n_test_volumes 2]
         [--n_slices 25] [--hr_size 128] [--seed 42] [--batch_size 8]
         [--models unet unet_tpu edsr simple] [--no-augmentation]
+        [--learning_rate 1e-4] [--patience 10]
         [--qat_decay 0.98] [--ft_epochs 8]
         [--skip_train] [--cpu]
 
@@ -40,7 +41,9 @@ and defaults, run by the port alone:
 
 The report is ``<workdir>/quality.json``, and a markdown table on stdout.
 Everything runs on the card unless ``--cpu``. The rows are guards of
-quality, not gains.
+quality, not gains. The port's other harnesses (``ema_quality``,
+``vgg_quality``, ``edsr_convergence``) share steps 1-4 through
+``ensure_pairs``, ``train_argv``, ``run_train`` and ``engine_row``.
 """
 
 from __future__ import annotations
@@ -239,19 +242,16 @@ def qat_rows(ckpt_path: str, model_type: str, tag: str, lrs: np.ndarray,
     return rows
 
 
-def train_qat(train_cli, p: Dict, wd: str, mt: str, args, common) -> Dict:
+def train_qat(p: Dict, wd: str, mt: str, args, common) -> Dict:
     """The two QAT runs of family ``mt``: --qat from scratch into
     ``ckpt_qat``, then the bf16 run's final checkpoint copied into
     ``ckpt_ft_<mt>`` and resumed with --qat for ``--ft_epochs`` epochs past
     the epochs it completed. Returns their seconds."""
     seconds = {}
     qat = ["--qat", "--qat_decay", str(args.qat_decay)]
-    t0 = time.perf_counter()
-    with open(os.path.join(wd, f"train_{mt}_qat.jsonl"), "w") as f, \
-            contextlib.redirect_stdout(f):
-        train_cli.main([*common, "--epochs", str(args.epochs),
-                        "--checkpoint_dir", p["ckpt_qat"], *qat])
-    seconds[f"train_{mt}_qat"] = time.perf_counter() - t0
+    seconds[f"train_{mt}_qat"] = run_train(
+        [*common, "--epochs", str(args.epochs), "--checkpoint_dir",
+         p["ckpt_qat"], *qat], os.path.join(wd, f"train_{mt}_qat.jsonl"))
     base = os.path.join(p["ckpt"], f"final_model_{mt}")
     with open(base + ".json") as f:
         done = int(json.load(f)["epoch"]) + 1
@@ -260,12 +260,10 @@ def train_qat(train_cli, p: Dict, wd: str, mt: str, args, common) -> Dict:
     for ext in (".ckpt", ".json"):
         shutil.copy(base + ext, os.path.join(ft_dir,
                                              f"final_model_{mt}{ext}"))
-    t0 = time.perf_counter()
-    with open(os.path.join(wd, f"train_{mt}_qat_ft.jsonl"), "w") as f, \
-            contextlib.redirect_stdout(f):
-        train_cli.main([*common, "--epochs", str(done + args.ft_epochs),
-                        "--checkpoint_dir", ft_dir, "--resume", *qat])
-    seconds[f"train_{mt}_qat_ft"] = time.perf_counter() - t0
+    seconds[f"train_{mt}_qat_ft"] = run_train(
+        [*common, "--epochs", str(done + args.ft_epochs), "--checkpoint_dir",
+         ft_dir, "--resume", *qat],
+        os.path.join(wd, f"train_{mt}_qat_ft.jsonl"))
     return seconds
 
 
@@ -322,6 +320,10 @@ def parse_args(argv=None):
                          "approximate flip-equivariance)")
     ap.add_argument("--models", nargs="+", default=list(FAMILIES),
                     choices=FAMILIES)
+    ap.add_argument("--learning_rate", type=float, default=1e-4)
+    ap.add_argument("--patience", type=int, default=10,
+                    help="early-stop patience (the LR plateau at "
+                         "patience // 2)")
     ap.add_argument("--qat_decay", type=float, default=0.98)
     ap.add_argument("--ft_epochs", type=int, default=8,
                     help="epochs of the --qat --resume fine-tune past the "
@@ -329,65 +331,126 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def workdir_paths(wd: str, *extra: str) -> Dict[str, str]:
+    """The protocol's folders under ``wd``: the synthesized volumes, the
+    extracted pairs of each split, and ``extra``."""
+    return {k: os.path.join(wd, k) for k in
+            ("data_train", "data_test", "hr_train", "lr_train", "hr_test",
+             "lr_test", *extra)}
+
+
+def ensure_pairs(p: Dict[str, str], args, wd: str, tag: str) -> None:
+    """``make_pairs``, unless both splits' HR and LR folders already hold
+    files (a resumed run, or pairs the caller put there)."""
+    if all(os.path.isdir(p[k]) and os.listdir(p[k]) for k in
+           ("hr_train", "lr_train", "hr_test", "lr_test")):
+        print(f"[{tag}] pairs already extracted: skipping synthesis and "
+              f"extraction", flush=True)
+    else:
+        print(f"[{tag}] synthesizing volumes", flush=True)
+        make_pairs(p, args, wd)
+
+
+def make_pairs(p: Dict[str, str], args, wd: str) -> Dict[str, float]:
+    """Steps 1-2: seeded train and test volumes, then the extract CLI
+    over each split (its output to ``<wd>/extract_<split>.log``); the
+    seconds of each step."""
+    from mri_superresolution_torch.cli import extract as extract_cli
+
+    seconds = {}
+    t0 = time.perf_counter()
+    synthesize(p["data_train"], args.n_train_volumes, args.seed)
+    synthesize(p["data_test"], args.n_test_volumes, args.seed + 1)
+    seconds["synthesize"] = time.perf_counter() - t0
+    for split in ("train", "test"):
+        t0 = time.perf_counter()
+        with open(os.path.join(wd, f"extract_{split}.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            rc = extract_cli.main([
+                "--datasets_dir", p[f"data_{split}"],
+                "--hr_output_dir", p[f"hr_{split}"],
+                "--lr_output_dir", p[f"lr_{split}"],
+                "--n_slices", str(args.n_slices),
+                "--target_size", str(args.hr_size), str(args.hr_size),
+                "--seed", str(args.seed),
+                *(["--cpu"] if args.cpu else [])])
+        if rc != 0:
+            raise RuntimeError(f"extraction of the {split} split failed "
+                               f"(see {wd}/extract_{split}.log)")
+        seconds[f"extract_{split}"] = time.perf_counter() - t0
+    return seconds
+
+
+def train_argv(p: Dict[str, str], wd: str, mt: str, args, *flags
+               ) -> List[str]:
+    """The train CLI's flags of the protocol for family ``mt``: the train
+    split's pairs, ``--batch_size``, SSIM weight 0.3, validation split
+    0.2, ``--seed``, logs under ``wd``, ``--cpu`` if asked; then
+    ``flags``."""
+    return ["--full_res_dir", p["hr_train"], "--low_res_dir", p["lr_train"],
+            "--batch_size", str(args.batch_size), "--ssim_weight", "0.3",
+            "--validation_split", "0.2", "--seed", str(args.seed),
+            "--model_type", mt, "--log_dir", os.path.join(wd, "logs"),
+            *(["--cpu"] if args.cpu else []), *map(str, flags)]
+
+
+def run_train(argv: Sequence[str], protocol_path: str) -> float:
+    """``cli.train.main(argv)`` in this process, its JSON lines written to
+    ``protocol_path``; the seconds it took."""
+    from mri_superresolution_torch.cli import train as train_cli
+
+    t0 = time.perf_counter()
+    with open(protocol_path, "w") as f, contextlib.redirect_stdout(f):
+        train_cli.main(list(argv))
+    return time.perf_counter() - t0
+
+
+def read_held_out(p: Dict[str, str]) -> Tuple[list, np.ndarray,
+                                               np.ndarray]:
+    """The test split's (LR, HR) pairs, and their LR and HR stacks."""
+    pairs = held_out_pairs(p["lr_test"], p["hr_test"])
+    return (pairs, read_pngs([a for a, _ in pairs]),
+            read_pngs([b for _, b in pairs]))
+
+
+def engine_row(ckpt_path: str, model_type: str, lrs: np.ndarray,
+               hrs: np.ndarray, device, mode: str = "bf16") -> Dict:
+    """One checkpoint served in ``mode`` (bf16, fp32 or tta) one image a
+    call, and ``summarize``'s row: the JAX harnesses' ``engine_metrics``
+    (bf16, tta) and ``ours_infer_metrics`` (fp32)."""
+    return summarize(serve(load_mode_engine(ckpt_path, model_type, mode,
+                                            device), lrs), hrs, device)
+
+
 def main(argv=None) -> Dict:
     """Run the protocol; returns the report written to
     ``<workdir>/quality.json``."""
-    from mri_superresolution_torch.cli import extract as extract_cli
-    from mri_superresolution_torch.cli import train as train_cli
     from mri_superresolution_torch.utils.device import resolve_device
 
     args = parse_args(argv)
     device = resolve_device("cpu" if args.cpu else None)
-    cpu = ["--cpu"] if args.cpu else []
     wd = os.path.abspath(args.workdir)
     os.makedirs(wd, exist_ok=True)
-    p = {k: os.path.join(wd, k) for k in
-         ("data_train", "data_test", "hr_train", "lr_train", "hr_test",
-          "lr_test", "ckpt", "ckpt_qat")}
+    p = workdir_paths(wd, "ckpt", "ckpt_qat")
     seconds = {}
 
     if not args.skip_train:
-        t0 = time.perf_counter()
-        synthesize(p["data_train"], args.n_train_volumes, args.seed)
-        synthesize(p["data_test"], args.n_test_volumes, args.seed + 1)
-        seconds["synthesize"] = time.perf_counter() - t0
-        for split in ("train", "test"):
-            t0 = time.perf_counter()
-            with open(os.path.join(wd, f"extract_{split}.log"), "w") as f, \
-                    contextlib.redirect_stdout(f):
-                rc = extract_cli.main([
-                    "--datasets_dir", p[f"data_{split}"],
-                    "--hr_output_dir", p[f"hr_{split}"],
-                    "--lr_output_dir", p[f"lr_{split}"],
-                    "--n_slices", str(args.n_slices),
-                    "--target_size", str(args.hr_size), str(args.hr_size),
-                    "--seed", str(args.seed), *cpu])
-            if rc != 0:
-                raise RuntimeError(f"extraction of the {split} split failed "
-                                   f"(see {wd}/extract_{split}.log)")
-            seconds[f"extract_{split}"] = time.perf_counter() - t0
+        seconds.update(make_pairs(p, args, wd))
         for mt in args.models:
             print(f"[quality] training {mt}", flush=True)
-            common = ["--full_res_dir", p["hr_train"],
-                      "--low_res_dir", p["lr_train"],
-                      "--batch_size", str(args.batch_size),
-                      "--ssim_weight", "0.3", "--validation_split", "0.2",
-                      "--seed", str(args.seed), "--model_type", mt,
-                      *(["--augmentation"] if args.augmentation else []),
-                      "--log_dir", os.path.join(wd, "logs"), *cpu]
-            t0 = time.perf_counter()
-            with open(os.path.join(wd, f"train_{mt}.jsonl"), "w") as f, \
-                    contextlib.redirect_stdout(f):
-                train_cli.main([*common, "--epochs", str(args.epochs),
-                                "--checkpoint_dir", p["ckpt"]])
-            seconds[f"train_{mt}"] = time.perf_counter() - t0
+            common = train_argv(
+                p, wd, mt, args, "--learning_rate", args.learning_rate,
+                "--patience", args.patience,
+                *(["--augmentation"] if args.augmentation else []))
+            seconds[f"train_{mt}"] = run_train(
+                [*common, "--epochs", str(args.epochs),
+                 "--checkpoint_dir", p["ckpt"]],
+                os.path.join(wd, f"train_{mt}.jsonl"))
             print(f"[quality] training {mt} with --qat, and the --qat "
                   f"--resume fine-tune", flush=True)
-            seconds.update(train_qat(train_cli, p, wd, mt, args, common))
+            seconds.update(train_qat(p, wd, mt, args, common))
 
-    pairs = held_out_pairs(p["lr_test"], p["hr_test"])
-    lrs = read_pngs([a for a, _ in pairs])
-    hrs = read_pngs([b for _, b in pairs])
+    pairs, lrs, hrs = read_held_out(p)
     calib = read_pngs([os.path.join(p["lr_train"], f) for f in
                        sorted(os.listdir(p["lr_train"]))])
     print(f"[quality] {len(pairs)} held-out pairs, LR {lrs.shape[1:]} -> "

@@ -1280,3 +1280,14 @@ def test_remat_step_is_bit_equal_on_card_with_its_launches(dev):
                             "ssim_per_sample": 1}
     for k, v in out[False][1].items():
         assert torch.equal(v, out[True][1][k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ema_matches_a_float64_recompute_on_card(dev, dtype):
+    """The trainer's in-place EMA (decay 0.9) over 10 steps of the
+    full-width unet at 8 x 128^2, fp32 (TF32 off) and bf16, against a
+    float64 recompute on the host from each step's live weights: every
+    tensor within 1e-6 of its largest magnitude."""
+    from mri_superresolution_torch.tools.ema_quality import ema_recompute_gap
+    r = ema_recompute_gap(dev, dtype, steps=10, batch=8, lr_hw=128)
+    assert r["tensors"] > 0 and r["worst_rel_gap"] <= 1e-6, r

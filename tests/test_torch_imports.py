@@ -48,5 +48,7 @@ def test_port_imports_are_clean():
                  "tools.convert_torch_checkpoint", "utils.figures",
                  "utils.subproc", "parallel", "parallel.mesh",
                  "parallel.multihost", "train.zero1", "tools.dp_step",
-                 "experiments", "experiments.phase"):
+                 "experiments", "experiments.phase", "tools.ema_quality",
+                 "tools.soak_server", "tools.vgg_quality",
+                 "tools.edsr_convergence", "tools.fetch_vgg_weights"):
         assert f"mri_superresolution_torch.{name}" in walked
