@@ -93,6 +93,7 @@ from mri_superresolution_torch.parallel.mesh import (device_pool,
                                                      pad_batch_to_devices)
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.utils.device import resolve_device
+from mri_superresolution_torch.utils.spans import span
 from mri_superresolution_torch.utils.weights import edsr_num_blocks
 
 logger = logging.getLogger("mri_superresolution_torch.infer")
@@ -333,17 +334,19 @@ class InferenceEngine(HostTransfers):
         model ("plain"), the frozen int8 forward or the calibration
         forward (-> (y, amax)); row-sharded over the group's devices
         when ``spatial_shards`` > 1, else on the group's one device."""
-        if self._sp_mesh is not None:
-            fn = self._spatial_fn(kind, g, x.shape[1], x.shape[2])
-            return fn(self._group_params(g), x)
         r = self._leads[g]
-        with _on(r):
-            if kind == "plain":
-                return r.model(x)
-            if kind == "int8":
-                return r._quant_fwd(r._params, x)
-            return quant_forward.build_calib_forward(
-                self.model_cfg.model_type, dtype=self._dtype)(r._params, x)
+        with span("engine.forward", r.device):
+            if self._sp_mesh is not None:
+                fn = self._spatial_fn(kind, g, x.shape[1], x.shape[2])
+                return fn(self._group_params(g), x)
+            with _on(r):
+                if kind == "plain":
+                    return r.model(x)
+                if kind == "int8":
+                    return r._quant_fwd(r._params, x)
+                return quant_forward.build_calib_forward(
+                    self.model_cfg.model_type, dtype=self._dtype)(r._params,
+                                                                  x)
 
     def _build_int8(self, scales) -> None:
         """Freeze ``scales`` into the int8 forward of each device
@@ -500,15 +503,17 @@ class InferenceEngine(HostTransfers):
         ``rep``'s device (default: the first)."""
         if batch.shape[0] == 0:
             batch = np.zeros((1,) + batch.shape[1:], batch.dtype)
-        x = self._upload(batch, rep).float()
-        if self.transpose_io:
-            x = x.transpose(1, 2)
-        if self.normalize_inputs:
-            x = normalize_slices(x)
-        h, w = x.shape[1:]
-        if (bh, bw) != (h, w):
-            x = F.pad(x, (0, bw - w, 0, bh - h))
-        return x[..., None]
+        x = self._upload(batch, rep)
+        with span("engine.normalize"):
+            x = x.float()
+            if self.transpose_io:
+                x = x.transpose(1, 2)
+            if self.normalize_inputs:
+                x = normalize_slices(x)
+            h, w = x.shape[1:]
+            if (bh, bw) != (h, w):
+                x = F.pad(x, (0, bw - w, 0, bh - h))
+            return x[..., None]
 
     def _chunks(self, batch: np.ndarray) -> Tuple[list, List[int]]:
         """The batch's chunk for each device and its count of real rows:
@@ -553,15 +558,16 @@ class InferenceEngine(HostTransfers):
                     count=_quant_count, force_bf16=_quant_force_bf16)
             else:
                 ys = [self._run("plain", g, x) for g, x in enumerate(xs)]
-            out = []
-            for y, k in zip(ys, reals):
-                y = y.clamp(0.0, 1.0)[:k, :2 * h, :2 * w, 0]
-                if self.transpose_io:
-                    # (N, 2w, 2h): .T of the fetched batch is the F-order
-                    # output volume
-                    y = y.transpose(1, 2)
-                out.append(pack_unit(y, self.out_dtype) if _pack else y)
-            return out
+            with span("engine.pack"):
+                out = []
+                for y, k in zip(ys, reals):
+                    y = y.clamp(0.0, 1.0)[:k, :2 * h, :2 * w, 0]
+                    if self.transpose_io:
+                        # (N, 2w, 2h): .T of the fetched batch is the
+                        # F-order output volume
+                        y = y.transpose(1, 2)
+                    out.append(pack_unit(y, self.out_dtype) if _pack else y)
+                return out
 
     def _tta_on_device(self) -> bool:
         """True when a --tta batch runs as one card-resident ensemble: bf16
@@ -598,7 +604,8 @@ class InferenceEngine(HostTransfers):
                     y = tta_ensemble(
                         lambda a, g=g: self._run(kind, g, a).clamp(0.0, 1.0),
                         x, self._bucket_hw)
-                out.append(pack_unit(y[:k, :, :, 0], self.out_dtype))
+                with span("engine.pack"):
+                    out.append(pack_unit(y[:k, :, :, 0], self.out_dtype))
         return out
 
     def _tta_host_loop(self, batch: np.ndarray) -> np.ndarray:
@@ -644,6 +651,12 @@ class InferenceEngine(HostTransfers):
         return (self._tta_dispatch(batch) if self.tta
                 else self._dispatch_once(batch))
 
+    def _dispatch_fetch(self, batch: np.ndarray) -> list:
+        """One batch dispatched and its fetch queued: the handles for
+        :meth:`_collect_all`."""
+        with span("engine.dispatch"):
+            return self._start_fetches(self._dispatch(batch))
+
     def upscale_batch(self, batch: np.ndarray) -> np.ndarray:
         """(N, h, w) float [0,1] -> (N, 2h, 2w) in ``out_dtype``; with
         ``normalize_inputs`` the batch is raw (uint8, int16, uint16 or
@@ -661,7 +674,7 @@ class InferenceEngine(HostTransfers):
         """
         if self.tta and not self._tta_on_device():
             return self._tta_host_loop(batch)
-        return self._collect_all(self._start_fetches(self._dispatch(batch)))
+        return self._collect_all(self._dispatch_fetch(batch))
 
     def upscale_batches(self, batches,
                         depth: int = 2) -> Iterator[np.ndarray]:
@@ -685,7 +698,7 @@ class InferenceEngine(HostTransfers):
                     yield self._collect_all(window.popleft())
                 yield self.upscale_batch(b)
                 continue
-            window.append(self._start_fetches(self._dispatch(b)))
+            window.append(self._dispatch_fetch(b))
             if len(window) > depth:
                 yield self._collect_all(window.popleft())
         while window:

@@ -8,8 +8,10 @@ on. A subclass sets ``device`` and ``_d2h`` (the side stream, None on the
 CPU). A backend that spans several devices passes the device's own
 holder of those two attributes (``rep``) to :meth:`_upload` and
 :meth:`_start_fetch`, so that each device has its own side stream and
-staging, and sets ``_register_flags`` to page-lock for every device. No
-model code is imported here.
+staging, and sets ``_register_flags`` to page-lock for every device.
+While a profiler runs, each step is a span (``utils/spans.py``):
+``engine.upload``, ``engine.page_lock``, ``engine.unlock``,
+``engine.fetch`` and ``engine.collect``. No model code is imported here.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from mri_superresolution_torch.utils.spans import span
 
 
 def _host_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -52,12 +56,13 @@ class HostTransfers:
         previous batch runs. ``rep`` names the device (default: this
         backend's)."""
         rep = self if rep is None else rep
-        src = _host_tensor(np.ascontiguousarray(arr))
-        if rep._d2h is None:
-            return src
-        if not src.is_pinned():
-            src = self._staged(src)
-        return src.to(rep.device, non_blocking=True)
+        with span("engine.upload"):
+            src = _host_tensor(np.ascontiguousarray(arr))
+            if rep._d2h is None:
+                return src
+            if not src.is_pinned():
+                src = self._staged(src)
+            return src.to(rep.device, non_blocking=True)
 
     @staticmethod
     def _staged(src: torch.Tensor) -> torch.Tensor:
@@ -80,7 +85,7 @@ class HostTransfers:
         if not arr.flags.c_contiguous:
             raise ValueError("page_locked needs a C-contiguous array")
         cudart = torch.cuda.cudart()
-        with torch.cuda.device(self.device):
+        with span("engine.page_lock"), torch.cuda.device(self.device):
             err = cudart.cudaHostRegister(src.data_ptr(), arr.nbytes,
                                           self._register_flags)
         if int(err) != 0:
@@ -89,12 +94,13 @@ class HostTransfers:
         try:
             yield arr
         finally:
-            # the uploads from ``arr`` are done before it is unlocked
-            for dev in {r.device for r in getattr(self, "_replicas",
-                                                  [self])}:
-                torch.cuda.synchronize(dev)
-            with torch.cuda.device(self.device):
-                err = cudart.cudaHostUnregister(src.data_ptr())
+            with span("engine.unlock"):
+                # the uploads from ``arr`` are done before it is unlocked
+                for dev in {r.device for r in getattr(self, "_replicas",
+                                                      [self])}:
+                    torch.cuda.synchronize(dev)
+                with torch.cuda.device(self.device):
+                    err = cudart.cudaHostUnregister(src.data_ptr())
             if int(err) != 0:
                 raise RuntimeError(f"cudaHostUnregister failed: cudaError "
                                    f"{int(err)}")
@@ -110,7 +116,7 @@ class HostTransfers:
         returned array is gone. ``rep`` names ``y``'s device (default:
         this backend's)."""
         rep = self if rep is None else rep
-        with torch.inference_mode():
+        with span("engine.fetch"), torch.inference_mode():
             y = y.contiguous()
             if rep._d2h is None:
                 return y, None
@@ -131,6 +137,7 @@ class HostTransfers:
         """Wait for a fetch queued by :meth:`_start_fetch` and return the
         host array, the sole view of its buffer."""
         out, done = handle
-        if done is not None:
-            done.synchronize()
-        return out.numpy()
+        with span("engine.collect"):
+            if done is not None:
+                done.synchronize()
+            return out.numpy()

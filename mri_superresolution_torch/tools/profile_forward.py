@@ -8,10 +8,10 @@ then for the bf16 engine and the int8 engine (frozen on that batch) times
 ``_dispatch_once`` (upload, forward, clamp, crop; no fetch) by the host
 clock around a synchronize, and traces one more call with
 ``torch.profiler``. Prints one JSON line per engine: the host ms per
-forward, the device kernel ms the trace saw, the device's idle share
-(1 - kernel / host, one stream), and the top kernels by device time and
-host ops by self CPU time with their counts (``tools/profile_step.py``'s
-``trace_calls``, which traces a training step the same way).
+forward, the device kernel ms the trace saw, and the top kernels by
+device time and host ops by self CPU time with their counts
+(``tools/profile_step.py``'s ``trace_calls``, which traces a training
+step the same way).
 """
 
 from __future__ import annotations

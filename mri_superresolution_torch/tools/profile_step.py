@@ -15,9 +15,8 @@ of ``batch`` slices of ``size``^2 -> (2 size)^2 on the card (augmentation
 off); times 10 steps by the host clock around a synchronize, after 3
 warm-up steps, and traces one more step with ``torch.profiler``. Prints
 one JSON line: the host ms a step, the device kernel ms the trace saw,
-the device's idle share (1 - kernel / host, one stream), the launches, the
-top kernels by device time with their launch counts, and the top host ops
-by self CPU time. Needs a CUDA device.
+the launches, the top kernels by device time with their launch counts,
+and the top host ops by self CPU time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,9 +31,8 @@ from pathlib import Path
 def trace_calls(fn, top: int = 12, iters: int = 10, warmup: int = 2) -> dict:
     """Host ms a call of ``fn`` (the mean of ``iters`` calls after
     ``warmup``, synchronized), then one more call traced with
-    ``torch.profiler``: device kernel ms, the device's idle share (1 -
-    kernel / host, one stream), launches, and the top kernels by device
-    time and host ops by self CPU time, with their counts."""
+    ``torch.profiler``: device kernel ms, launches, and the top kernels by
+    device time and host ops by self CPU time, with their counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -66,7 +64,6 @@ def trace_calls(fn, top: int = 12, iters: int = 10, warmup: int = 2) -> dict:
                       key=lambda r: -r[1])
     device_ms = sum(ms for _, ms, _ in kernels)
     return {"host_ms": host_ms, "device_ms": device_ms,
-            "idle_share": max(0.0, 1.0 - device_ms / host_ms),
             "launches": sum(n for _, _, n in kernels),
             "top": [{"kernel": k[:120], "ms": ms, "count": n,
                      "share": ms / device_ms}

@@ -38,7 +38,10 @@ update is the same bits as without it. Under ``--qat`` the fake-quant
 forward is functional, so only the loss-side checkpoint applies, as in
 JAX. ``--profile_dir`` traces one epoch with ``torch.profiler`` (CPU and
 CUDA activities) into a Chrome trace there, the epoch the JAX trainer
-traces: ``min(start_epoch + 1, epochs - 1)``, its validation included.
+traces: ``min(start_epoch + 1, epochs - 1)``, its validation included;
+each step's ``train.step``, ``train.forward``, ``train.loss``,
+``train.backward`` and ``train.update`` spans (``utils/spans.py``) are
+among its ranges.
 
 Data parallelism (the JAX trainer's mesh and ``--multihost``): when this
 process is a rank of a process group (``parallel/multihost.py``; the
@@ -109,6 +112,7 @@ from mri_superresolution_torch.train.zero1 import Zero1Adam
 from mri_superresolution_torch.utils.device import resolve_device
 from mri_superresolution_torch.utils.logging import (log_message, set_quiet,
                                                    setup_logging)
+from mri_superresolution_torch.utils.spans import span
 
 
 @contextlib.contextmanager
@@ -252,18 +256,22 @@ def _forward(model, lo, qat=None):
     with ``qat`` = (fakequant forward, running amax) the fakequant forward
     on the model's parameters, whose batch statistic and foreground flag
     come back as ``qat_batch_amax`` and ``qat_any_fg``."""
-    if qat is None:
-        return model(lo), {}
-    fq, amax = qat
-    out, batch_amax, any_fg = fq(model.state_dict(keep_vars=True), amax, lo)
-    return out, {"qat_batch_amax": batch_amax, "qat_any_fg": any_fg}
+    with span("train.forward", lo.device):
+        if qat is None:
+            return model(lo), {}
+        fq, amax = qat
+        out, batch_amax, any_fg = fq(model.state_dict(keep_vars=True), amax,
+                                     lo)
+        return out, {"qat_batch_amax": batch_amax, "qat_any_fg": any_fg}
 
 
 def _loss(model, loss_fn, hr, lo, w, qat=None, ssim_reduce=None):
     out, extra = _forward(model, lo, qat)
-    total, comps = loss_fn(out, hr, sample_weights=w, ssim_reduce=ssim_reduce)
-    if "ssim_metric" not in comps:   # ssim_weight == 0: metric only
-        comps = dict(comps, ssim_metric=_ssim_metric(loss_fn, out, hr, w))
+    with span("train.loss", hr.device):
+        total, comps = loss_fn(out, hr, sample_weights=w,
+                               ssim_reduce=ssim_reduce)
+        if "ssim_metric" not in comps:   # ssim_weight == 0: metric only
+            comps = dict(comps, ssim_metric=_ssim_metric(loss_fn, out, hr, w))
     return total, dict(comps, **extra)
 
 
@@ -347,7 +355,8 @@ def loss_and_grads(model: torch.nn.Module, loss_fn: CombinedLoss,
         sums = _SsimSums(dp, den_i)
         loss_i, comps_i = _loss(model, loss_fn, hr_i, lo_i, w_i, qat,
                                 sums.reduce())
-        g_i = torch.autograd.grad(loss_i, params)
+        with span("train.backward", loss_i.device):
+            g_i = torch.autograd.grad(loss_i, params)
         if qat is not None:
             b = {k: v.detach() for k, v in comps_i["qat_batch_amax"].items()}
             amax_acc = b if amax_acc is None else {
@@ -440,7 +449,7 @@ def build_train_step(loss_fn: CombinedLoss, augment_cfg=None,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: float, generator: Optional[torch.Generator] = None):
-        with repeatable():
+        with span("train.step"), repeatable():
             return _step(state, batch, lr, generator)
 
     def _step(state, batch, lr, generator):
@@ -464,21 +473,23 @@ def _update(state: TrainState, loss, comps, grads, lr: float,
     """The step after its gradients: the Adam step at ``lr``, the EMA
     ``ema = ema * d + params * (1 - d)``, QAT's running amax (with a
     ``qat_decay``); the step's metrics."""
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    for p, g in zip(state.model.parameters(), grads):
-        p.grad = g
-    state.optimizer.step()
-    state.step += 1
-    if ema_decay > 0.0:
-        # Polyak average in fp32, started at the initial params (no bias
-        # correction)
-        with torch.no_grad():
-            for name, p in state.model.named_parameters():
-                state.ema[name] = (state.ema[name] * ema_decay
-                                   + p.detach() * (1.0 - ema_decay))
-    if qat_decay is not None:
-        state.qat_amax = update_qat_amax(state.qat_amax, comps, qat_decay)
+    with span("train.update", loss.device):
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        for p, g in zip(state.model.parameters(), grads):
+            p.grad = g
+        state.optimizer.step()
+        state.step += 1
+        if ema_decay > 0.0:
+            # Polyak average in fp32, started at the initial params (no
+            # bias correction)
+            with torch.no_grad():
+                for name, p in state.model.named_parameters():
+                    state.ema[name] = (state.ema[name] * ema_decay
+                                       + p.detach() * (1.0 - ema_decay))
+        if qat_decay is not None:
+            state.qat_amax = update_qat_amax(state.qat_amax, comps,
+                                             qat_decay)
     metrics = {"loss": loss, "ssim": comps["ssim_metric"]}
     if "ssim_clip_micros" in comps:
         metrics["ssim_clip_micros"] = comps["ssim_clip_micros"]
