@@ -21,7 +21,12 @@ the last line is printed:
    kernel with an int8 output) is checked code for code against B1 + B4,
    run to run, and against its plain version within one code on under
    0.5% of the elements at the seven DoubleConv conv2 sites, and timed
-   against B1 (bf16 out) + B4 run separately. Both B4 routes are also
+   against B1 (bf16 out) + B4 run separately. The epilogue kernel (bias,
+   ReLU, scale and residual after a conv; EDSR's served trunk) is checked
+   bit for bit against its plain version, in place and out of place, at
+   EDSR-baseline's trunk (64 slices of 256^2 x 64, bf16) and odd shapes,
+   and timed there L2-cold per site kind beside the PyTorch passes it
+   replaced (``earlier_ms``). Both B4 routes are also
    checked, not timed, at every other shape the zoo quantizes (the
    serving and volume batches) and the extraction phase's unet one image
    of 128^2 at a time. B1 and B3 are checked at the training, volume,
@@ -103,8 +108,9 @@ the last line is printed:
    int8`` (writing frozen scales; a calibration forward, then every
    batch int8), then 16 slices of 256^2 through ``upscale_batch`` in
    bf16 and in int8 with those scales: launches a forward (unet_tpu
-   bf16 B1 20 and B3 0, int8 B1 13, ``gn_quantize`` 7, B4 13; edsr int8
-   B4 18; simple int8 B4 2), slices/s of both in turns with peak memory,
+   bf16 B1 20 and B3 0, int8 B1 13, ``gn_quantize`` 7, B4 13; edsr bf16
+   the epilogue 18, int8 B4 18; simple int8 B4 2; edsr's validation
+   forwards in training the epilogue 18 each), slices/s of both in turns with peak memory,
    and 2 of those slices and slices 48-49 of each volume against the CPU
    port at the bf16 budget (edsr and simple in bf16 also all 16 slices
    together at the budget, and each slice alone with its |dSSIM| within
@@ -358,7 +364,9 @@ the last line is printed:
    image on a row of its own (with ``--parent``, the older kernel's time
    as ``earlier_ms``); B1's backward row the one-pass route at its 20
    training sites, the four-pass kernel's time there as ``earlier_ms``,
-   and the training run's launches and one-pass launches. B1's and B3's
+   and the training run's launches and one-pass launches; the epilogue's
+   row a forward's 34 sites at EDSR-baseline's trunk, the PyTorch passes
+   they replaced as ``earlier_ms``. B1's and B3's
    rows also carry the volume path's default run's launches
    (``volume_launches``); every row the zoo phase's (``zoo_launches``),
    the extraction phase's (``extract_launches``, B5's rows too), the
@@ -433,6 +441,8 @@ from mri_superresolution_torch.config import (InferConfig, LossConfig,
 from mri_superresolution_torch.infer import (InferenceEngine, load_engine,
                                              serve_http)
 from mri_superresolution_torch.kernels import _build
+from mri_superresolution_torch.kernels.bias_epilogue import (
+    bias_epilogue, bias_epilogue_plain)
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
     gn_quantize, gn_quantize_plain, group_norm_leaky,
@@ -522,7 +532,8 @@ EDSR_BLOCKS = 8
 # and twice the CPU port's own bf16 against fp32 on that slice
 ZOO_ALL_SLICES = ("edsr", "simple")
 ZOO_SLICE_SSIM_FLOOR, ZOO_SLICE_CONTROL_FACTOR = 1e-3, 2.0
-ZOO_BF16_LAUNCHES = {"unet_tpu": {"group_norm_leaky": 20}, "edsr": {},
+ZOO_BF16_LAUNCHES = {"unet_tpu": {"group_norm_leaky": 20},
+                     "edsr": {"bias_epilogue": 2 * EDSR_BLOCKS + 2},
                      "simple": {}}
 ZOO_INT8_LAUNCHES = {
     "unet_tpu": {"group_norm_leaky": 13, "gn_quantize": 7,
@@ -1117,6 +1128,94 @@ def check_b4(dev, gen) -> dict:
     # sites run in gn_quantize's row)
     return {**standalone, "library_ms": None, "max_abs_err": 0.0,
             "bound_by": bound_by, "sites": 13, "all_20_sites": tot}
+
+
+# the epilogue at EDSR-baseline's served trunk (benchmark/configs/
+# edsr-baseline-x2.json): 16 blocks, 64 features, batches of 64 slices of
+# 256^2; (site, kernel keywords, sites a forward)
+EPI_SHAPE, EPI_BLOCKS = (64, 64, 256, 256), 16
+EPI_SITES = (("head", {}, 1), ("conv0", {"relu": True}, EPI_BLOCKS),
+             ("conv1, body_out", {"residual": True, "scale": 1.0},
+              EPI_BLOCKS + 1))
+
+
+def _epi_earlier(t, b16, residual=None, relu=False, scale=1.0):
+    """The PyTorch passes EDSR's trunk ran at a site before the epilogue:
+    the conv's broadcast bias add in bf16, ``F.relu``, the multiply by
+    res_scale and the residual add, each a kernel of its own."""
+    t = t + b16.view(1, -1, 1, 1)
+    if relu:
+        return F.relu(t)
+    if residual is not None:
+        return residual + scale * t
+    return t
+
+
+def check_epilogue(dev, gen) -> dict:
+    """The epilogue kernel (``kernels/bias_epilogue.py``) bit for bit
+    against its plain version, out of place and in place, twice, at
+    EDSR-baseline's served trunk and at odd shapes (27 x 35, C = 8, 16,
+    fp32 too); then each site kind L2-cold beside its plain version and the
+    PyTorch passes it replaced (``earlier_ms``), summed over a forward's
+    2 * 16 + 2 sites against the bytes it must move."""
+    cases = [(EPI_SHAPE, torch.bfloat16), ((2, 8, 27, 35), torch.bfloat16),
+             ((3, 16, 27, 35), torch.float32), ((1, 64, 27, 35), torch.float32)]
+    for shape, dtype in cases:
+        y = torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        r = torch.randn_like(y.float(), memory_format=torch.channels_last
+                             ).to(dtype)
+        b = torch.randn(shape[1], generator=gen, device=dev)
+        for _, kw, _ in EPI_SITES + (("scaled", {"residual": True,
+                                                 "scale": 0.1}, 0),):
+            kw = {**kw, "residual": r} if kw.get("residual") else kw
+            want = bias_epilogue_plain(y, b, **kw)
+            got = bias_epilogue(y, b, **kw)
+            same = torch.equal(got, bias_epilogue(y, b, **kw))
+            inplace = bias_epilogue(y.clone(), b, inplace=True, **kw)
+            ok = torch.equal(got, want) and torch.equal(inplace, want) and \
+                got.is_contiguous(memory_format=torch.channels_last)
+            log("kernel_check", kernel="bias_epilogue", shape=list(shape),
+                dtype=str(dtype), relu=kw.get("relu", False),
+                residual=kw.get("residual") is not None,
+                scale=kw.get("scale", 1.0), exact=ok, run_to_run_equal=same)
+            if not (ok and same):
+                raise AssertionError(f"bias_epilogue disagrees with its plain "
+                                     f"version at {shape} {dtype} {kw}")
+        del y, r, want, got, inplace
+    y = torch.randn(EPI_SHAPE, generator=gen, device=dev).bfloat16(
+        ).contiguous(memory_format=torch.channels_last)
+    res = torch.randn_like(y.float()).bfloat16()
+    b = torch.randn(EPI_SHAPE[1], generator=gen, device=dev)
+    b16 = b.bfloat16()
+    ys = l2_cold_copies(y)
+    keys = ("ms", "earlier_ms", "plain_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    for site, kw, n in EPI_SITES:
+        kw = {**kw, "residual": res} if kw.get("residual") else kw
+        k = cuda_ms_cold(lambda t: bias_epilogue(t, b, **kw), ys)
+        e = cuda_ms_cold(lambda t: _epi_earlier(t, b16, **kw), ys)
+        p = cuda_ms_cold(lambda t: bias_epilogue_plain(t, b, **kw), ys)
+        tensors = 3 if "residual" in kw else 2
+        bnd, bound_by = bound_ms(tensors * y.numel() * y.element_size(), 0.0,
+                                 torch.bfloat16)
+        log("kernel_time", kernel="bias_epilogue", site=site,
+            shape=list(EPI_SHAPE), kernel_ms=k, earlier_ms=e, plain_ms=p,
+            library_ms=None, bound_ms=bnd, bound_share=bnd / k,
+            sites_a_forward=n, timing="L2-cold, CUDA graph replays")
+        if min(k, e, p) < bnd:
+            raise AssertionError(f"bias_epilogue times below their {bnd} ms "
+                                 f"bound at {site}: {k}, {e}, {p}")
+        for key, v in zip(keys, (k, e, p, bnd)):
+            tot[key] += n * v
+    del ys, res
+    log("kernel_total", kernel="bias_epilogue", sites=2 * EPI_BLOCKS + 2,
+        shape=list(EPI_SHAPE), **tot, bound_share=tot["bound_ms"] / tot["ms"],
+        note="a forward's sites; earlier_ms: the PyTorch passes they "
+             "replaced")
+    return {**tot, "library_ms": None, "max_abs_err": 0.0,
+            "bound_by": bound_by, "shape": list(EPI_SHAPE),
+            "sites": 2 * EPI_BLOCKS + 2}
 
 
 def fused_site_check(site: str, shape, slope: float, dev, gen) -> tuple:
@@ -2079,7 +2178,8 @@ def _train_argv(ck: Path, flags=(), epochs: int = 1) -> list:
 
 
 def _train_cli(ck: Path, flags=(), epochs: int = 1, gn: int = 20,
-               b3: int = 2, start_epoch: int = 0, calib: int = 0) -> dict:
+               b3: int = 2, start_epoch: int = 0, calib: int = 0,
+               epilogue: int = 0) -> dict:
     """One in-process run of the train CLI at the JAX package's defaults
     and full width on the training phase's phantom PNGs, writing to
     ``ck``, the launch counts set to 0 just before and read just after:
@@ -2087,8 +2187,9 @@ def _train_cli(ck: Path, flags=(), epochs: int = 1, gn: int = 20,
     ones (forward and backward), the JSON lines by type, the steps and
     validation batches it ran (epochs ``start_epoch`` to ``epochs``, for
     a resume), and the launches they should make with ``gn`` B1 sites and
-    ``b3`` B3 sites a forward (B2 once a batch), and ``calib`` forwards
-    of QAT's calibration (no B2)."""
+    ``b3`` B3 sites a forward (B2 once a batch), ``calib`` forwards
+    of QAT's calibration (no B2), and ``epilogue`` launches of the
+    epilogue kernel a validation forward (edsr's, run without grad)."""
     argv = _train_argv(ck, flags, epochs)
     proto = io.StringIO()
     kernels.reset_launch_counts()
@@ -2110,7 +2211,7 @@ def _train_cli(ck: Path, flags=(), epochs: int = 1, gn: int = 20,
     want.update(group_norm_leaky=gn * (steps + vals + calib),
                 group_norm_leaky_backward=gn * steps,
                 conv3x3=b3 * (steps + vals + calib),
-                ssim_per_sample=steps + vals)
+                ssim_per_sample=steps + vals, bias_epilogue=epilogue * vals)
     return {"final": final, "seconds": seconds, "launches": counts,
             "expected": want, "onepass": group_norm_leaky.onepass_launches,
             "backward_onepass": group_norm_leaky_backward.onepass_launches,
@@ -3439,7 +3540,9 @@ def _zoo_train(family: str, c64: dict) -> tuple:
     gn = ZOO_BF16_LAUNCHES[family].get("group_norm_leaky", 0)
     run = _train_cli(ZOO_DIR / f"ckpt_{family}",
                      ["--model_type", family, "--num_blocks",
-                      str(EDSR_BLOCKS)], gn=gn, b3=0)
+                      str(EDSR_BLOCKS)], gn=gn, b3=0,
+                     epilogue=ZOO_BF16_LAUNCHES[family].get("bias_epilogue",
+                                                            0))
     counts, steps, vals = run["launches"], run["steps"], run["vals"]
     routes = {"group_norm_leaky.onepass": run["onepass"],
               "group_norm_leaky_backward.onepass": run["backward_onepass"]}
@@ -3510,15 +3613,17 @@ def _volume_slices(vol: Path) -> tuple:
 def _zoo_volume_want(family: str, key: str, c64: dict) -> tuple:
     """(launches, B1 one-pass launches) of the infer_volume CLI's run of
     ``family`` at batch 32: bf16, every batch's forward; int8, the first
-    batch's calibration forward (the bf16 one), then every batch int8
-    (the first re-served once its scales freeze)."""
+    batch's calibration forward (the bf16 one, ``quant_forward``'s: B1
+    as the model runs it, no epilogue), then every batch int8 (the first
+    re-served once its scales freeze)."""
     batches = -(-VOL_SLICES // VOL_BATCH)
     bf16, int8 = ZOO_BF16_LAUNCHES[family], ZOO_INT8_LAUNCHES[family]
     one = _zoo_onepass(family, False, VOL_BATCH, c64)
     if key == "bf16":
         return {k: batches * v for k, v in bf16.items()}, batches * one
-    return ({k: bf16.get(k, 0) + batches * int8.get(k, 0)
-             for k in {**bf16, **int8}},
+    calib = {k: v for k, v in bf16.items() if k != "bias_epilogue"}
+    return ({k: calib.get(k, 0) + batches * int8.get(k, 0)
+             for k in {**calib, **int8}},
             one + batches * _zoo_onepass(family, True, VOL_BATCH, c64))
 
 
@@ -6106,7 +6211,8 @@ def main(argv=None) -> int:
                "B2": check_b2(dev, gen, args.parent),
                "B4": check_b4(dev, gen),
                "B4 fused": check_fused(dev, gen),
-               "B1 backward": check_b1_backward(dev, gen)}
+               "B1 backward": check_b1_backward(dev, gen),
+               "epilogue": check_epilogue(dev, gen)}
     # the remat leg's larger crop: B1's backward at its 20 sites
     check_b1_backward_sites(dev, gen, BATCH, LR, "remat leg's larger crop")
     c64 = check_b1_c64(dev, gen)
@@ -6230,6 +6336,24 @@ def main(argv=None) -> int:
                      **{f"{col}_launches": phase["launches"].get(wrapper, 0)
                         for col, phase in (("ema", ema), ("soak", soak),
                                            ("harness", harness))}})
+    r = results["epilogue"]
+    phases = (("zoo", zoo), ("perceptual", perc), ("extract", extract),
+              ("eval", evaluated), ("qat", qat), ("serve", served),
+              ("artifact", art), ("dp", dp), ("spatial", spatial),
+              ("spatial_train", spatial_train), ("ema", ema),
+              ("soak", soak), ("harness", harness))
+    rows.append({"name": "bias_epilogue", "route": "cuda",
+                 "source": torch_root + "bias_epilogue.cu",
+                 "replaces": "none (XLA fuses a conv's pointwise tail into "
+                             "the conv)",
+                 "launches": counts.get("bias_epilogue", 0),
+                 **{k: r[k] for k in ("max_abs_err", "ms", "earlier_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "shape", "sites")},
+                 **{f"{col}_launches": phase["launches"].get(
+                     "bias_epilogue", 0) for col, phase in phases},
+                 "phase_launches": dp["phase_launches"].get("bias_epilogue",
+                                                            0)})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

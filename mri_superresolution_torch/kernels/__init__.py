@@ -9,6 +9,8 @@ Nothing here builds or imports anything at import time:
 ``_build.library()`` compiles at first use.
 """
 
+from mri_superresolution_torch.kernels.bias_epilogue import (  # noqa: F401
+    bias_epilogue)
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3  # noqa: F401
 from mri_superresolution_torch.kernels.groupnorm import (  # noqa: F401
     gn_quantize, group_norm_leaky, group_norm_leaky_backward)
@@ -20,7 +22,7 @@ from mri_superresolution_torch.kernels.ssim import ssim_per_sample  # noqa: F401
 
 WRAPPERS = (group_norm_leaky, group_norm_leaky_backward, conv3x3,
             ssim_per_sample, leaky_quantize, gn_quantize, roll_copy, roll32,
-            taps3)
+            taps3, bias_epilogue)
 
 
 def reset_launch_counts() -> None:

@@ -4,8 +4,9 @@
 that launches a kernel through ``ctypes`` with ``data_ptr()`` cannot be
 traced, since the fake tensors export traces with hold no memory. So each
 kernel that a served forward runs (B1 ``group_norm_leaky``, B1's fused
-int8 route ``gn_quantize``, B3 ``conv3x3``, B4 ``leaky_quantize``) is an
-operator ``torch.ops.mri_sr.<name>`` with three implementations:
+int8 route ``gn_quantize``, B3 ``conv3x3``, B4 ``leaky_quantize``, EDSR's
+``bias_epilogue``) is an operator ``torch.ops.mri_sr.<name>`` with three
+implementations:
 
 - CUDA: the wrapper's kernel launch, with its route choice, alignment
   checks and launch counter;

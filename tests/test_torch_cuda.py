@@ -15,6 +15,8 @@ import torch
 from mri_superresolution_torch import kernels
 from mri_superresolution_torch.config import ModelConfig
 from mri_superresolution_torch.infer import InferenceEngine
+from mri_superresolution_torch.kernels.bias_epilogue import (
+    bias_epilogue, bias_epilogue_plain)
 from mri_superresolution_torch.kernels.conv3x3 import conv3x3, conv3x3_plain
 from mri_superresolution_torch.kernels.groupnorm import (
     gn_quantize, group_norm_leaky, group_norm_leaky_backward,
@@ -333,7 +335,7 @@ def test_unet_on_card_matches_cpu(dev):
         "group_norm_leaky": 20, "group_norm_leaky_backward": 0,
         "conv3x3": 2, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
-        "taps3": 0}
+        "taps3": 0, "bias_epilogue": 0}
     np.testing.assert_allclose(got, cpu.upscale_batch(x), rtol=1e-4,
                                atol=1e-4)
     m = InferenceEngine.calculate_metrics(got[0], got[1], dev)
@@ -1047,12 +1049,104 @@ def test_tta_batch_launches_every_member(dev):
     assert d_psnr <= 0.1
 
 
+# ------------------------------------------- the epilogue kernel (EDSR)
+
+_EPI = {"bias": {}, "relu": {"relu": True},
+        "residual": {"residual": True, "scale": 1.0},
+        "scaled": {"residual": True, "scale": 0.1}}
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("variant", sorted(_EPI))
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 64, 27, 35), torch.bfloat16), ((32, 16, 27, 35), torch.bfloat16),
+    ((64, 8, 27, 35), torch.bfloat16), ((64, 64, 256, 256), torch.bfloat16),
+    ((2, 16, 27, 35), torch.float32), ((3, 8, 27, 35), torch.float32)])
+def test_bias_epilogue_kernel(dev, shape, dtype, variant, inplace):
+    """Bit for bit the fp32 formula rounded once (the plain version on the
+    card), each variant, in place and out of place; the same bits twice."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    y, r = _cl(shape, dtype, dev, gen), _cl(shape, dtype, dev, gen)
+    b = torch.randn(shape[1], generator=gen, device=dev)
+    kw = dict(_EPI[variant])
+    if kw.pop("residual", False):
+        kw["residual"] = r
+    want = bias_epilogue_plain(y, b, **kw)
+    again = bias_epilogue(y, b, **kw)
+    before = bias_epilogue.launches
+    got = bias_epilogue(y, b, inplace=inplace, **kw)
+    torch.cuda.synchronize()
+    assert bias_epilogue.launches == before + 1
+    assert (got is y) == inplace
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_bias_epilogue_kernel_refuses(dev):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    y = _cl((2, 16, 8, 8), torch.bfloat16, dev, gen)
+    b = torch.zeros(16, device=dev)
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_epilogue(y.contiguous(), b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bias_epilogue(_cl((2, 12, 8, 8), torch.bfloat16, dev, gen),
+                      torch.zeros(12, device=dev))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bias_epilogue(_cl((2, 16, 8, 8), torch.bfloat16, dev, gen, offset=1),
+                      b)
+
+
+def test_edsr_serving_forward_fuses_its_epilogues(dev):
+    """EDSR's bf16 forward through the engine takes the epilogue
+    2 * num_blocks + 2 times and stays within the serving budget of the
+    fp32 CPU forward (0.1 dB PSNR, 1e-3 SSIM against one ground truth); a
+    grad-enabled forward on the card launches none and keeps the PyTorch
+    ops' bits."""
+    from mri_superresolution_torch.ops.metrics import psnr
+    cfg = ModelConfig(model_type="edsr", base_filters=64, num_blocks=4)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(13))
+    g = torch.Generator().manual_seed(14)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    sd = model.state_dict()
+    x = phantom_batch(np.random.default_rng(13), 4, 64)
+    gt = torch.from_numpy(phantom_batch(np.random.default_rng(13), 4, 128))
+    gpu = InferenceEngine(cfg, sd, bf16=True, device=dev)
+    cpu = InferenceEngine(cfg, sd, bf16=False, device="cpu")
+    gpu.upscale_batch(x[:1])                               # warm
+    kernels.reset_launch_counts()
+    got = gpu.upscale_batch(x)
+    assert kernels.launch_counts() == dict(
+        dict.fromkeys(kernels.launch_counts(), 0), bias_epilogue=2 * 4 + 2)
+    want = cpu.upscale_batch(x)
+    d_psnr = abs(float(psnr(torch.from_numpy(got)[..., None], gt[..., None]))
+                 - float(psnr(torch.from_numpy(want)[..., None],
+                              gt[..., None])))
+    d_ssim = abs(float(ssim_plain(torch.from_numpy(got)[..., None],
+                                  gt[..., None]))
+                 - float(ssim_plain(torch.from_numpy(want)[..., None],
+                                    gt[..., None])))
+    assert d_psnr <= 0.1 and d_ssim <= 1e-3, (d_psnr, d_ssim)
+    m = build_model(cfg, dtype=torch.bfloat16)
+    m.load_state_dict(sd)
+    m.to(dev)
+    xt = torch.from_numpy(x[..., None]).to(dev)
+    kernels.reset_launch_counts()
+    trained = m(xt)
+    assert trained.requires_grad and bias_epilogue.launches == 0
+    with torch.no_grad():
+        served = m(xt)
+    assert bias_epilogue.launches == 2 * 4 + 2
+    torch.testing.assert_close(served, trained.detach(), rtol=0, atol=2e-2)
+
+
 # ------------------------------------------------------- the model zoo
 
 _ZOO = {"unet_tpu": ({"group_norm_leaky": 20},
                      {"group_norm_leaky": 13, "gn_quantize": 7,
                       "leaky_quantize": 13}),
-        "edsr": ({}, {"leaky_quantize": 6}),
+        "edsr": ({"bias_epilogue": 2 * 2 + 2}, {"leaky_quantize": 6}),
         "simple": ({}, {"leaky_quantize": 2})}
 
 
@@ -1066,7 +1160,7 @@ def _counts(**kw):
 def test_zoo_forward_on_card_matches_cpu(dev, family):
     """Each family's fp32 forward through the engine on the card against
     the CPU port (cuDNN without TF32), with its launches: unet_tpu B1 20
-    and B3 0, edsr and simple none."""
+    and B3 0, edsr the epilogue 2 * 2 + 2, simple none."""
     cfg = ModelConfig(model_type=family, base_filters=16, num_blocks=2)
     params = build_model(cfg, generator=torch.Generator().manual_seed(0)
                          ).state_dict()

@@ -227,11 +227,12 @@ def test_cpu_calls_do_not_count_as_launches():
     p = torch.randn(64, 64).bfloat16()
     for probe in (kernels.roll_copy, kernels.roll32, kernels.taps3):
         probe(p)
+    kernels.bias_epilogue(x, torch.zeros(16), x, relu=True)
     assert kernels.launch_counts() == {
         "group_norm_leaky": 0, "group_norm_leaky_backward": 0,
         "conv3x3": 0, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
-        "taps3": 0}
+        "taps3": 0, "bias_epilogue": 0}
 
 
 # ------------------------------------------- the served kernels as operators
@@ -244,6 +245,8 @@ def _op_calls():
     from mri_superresolution_torch.kernels.conv3x3 import conv3x3_plain
     from mri_superresolution_torch.kernels.leaky_quantize import (
         leaky_quantize_plain)
+    from mri_superresolution_torch.kernels.bias_epilogue import (
+        bias_epilogue_plain)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 16, 8, 8, generator=g).contiguous(
         memory_format=torch.channels_last)
@@ -257,10 +260,13 @@ def _op_calls():
         ("leaky_quantize", lambda t: kernels.leaky_quantize(t, q, 0.2),
          leaky_quantize_plain(x, q, 0.2)),
         ("gn_quantize", lambda t: kernels.gn_quantize(t, s, b, q),
-         gn_quantize_plain(x, s, b, q))], x
+         gn_quantize_plain(x, s, b, q)),
+        ("bias_epilogue",
+         lambda t: kernels.bias_epilogue(t, b, t, relu=True, scale=0.5),
+         bias_epilogue_plain(x, b, x, relu=True, scale=0.5))], x
 
 
-@pytest.mark.parametrize("i", range(4))
+@pytest.mark.parametrize("i", range(5))
 def test_served_kernels_are_dispatcher_operators(i):
     """Each served kernel is ``torch.ops.mri_sr.<name>``. Without a
     gradient to keep, its wrapper gives on the CPU the plain version in
