@@ -26,7 +26,12 @@ the last line is printed:
    bit for bit against its plain version, in place and out of place, at
    EDSR-baseline's trunk (64 slices of 256^2 x 64, bf16) and odd shapes,
    and timed there L2-cold per site kind beside the PyTorch passes it
-   replaced (``earlier_ms``). Both B4 routes are also
+   replaced (``earlier_ms``). W, the window attention of SwinIR's served
+   blocks, at their shape (64 slices of 256^2, C = 180 in 6 heads,
+   windows of 8), unshifted and shifted by 4: within one bf16 ulp of the
+   largest output of its plain version (the published roll, partition,
+   scores, bias, mask, softmax, P v and roll back), the same bits twice,
+   and timed L2-cold beside that version. Both B4 routes are also
    checked, not timed, at every other shape the zoo quantizes (the
    serving and volume batches) and the extraction phase's unet one image
    of 128^2 at a time. B1 and B3 are checked at the training, volume,
@@ -121,7 +126,13 @@ the last line is printed:
    found. Before the paths, B1 at unet_tpu's C = 64 sites, forward at
    the serving, volume and training batches ((16, 64, 256^2), (32, 64,
    256^2), (8, 64, 128^2)) and backward (8, 64, 128^2), against the plain
-   versions with B1's gates, and timed L2-cold.
+   versions with B1's gates, and timed L2-cold. Then ``swinir`` at its
+   published widths (embed 180, 6 x 6 Swin blocks), seeded init and not
+   trained (its training runs on plain ops only): its checkpoint through
+   the infer_volume CLI on the volume phase's volume (W 36 a batch), and
+   the 16 slices through ``upscale_batch`` in bf16 (W 36, counted alone)
+   with two of them within 5% of the largest output of the card's fp32
+   forward of the same weights.
 9. extraction (the port's data pipeline): 8 synthetic anatomy volumes
    (``tools/quality.make_volume``) at a clinical 192 x 256 in-plane
    matrix, 160 slices, stored int16 with scl_slope, as .nii and .nii.gz,
@@ -366,8 +377,10 @@ the last line is printed:
    training sites, the four-pass kernel's time there as ``earlier_ms``,
    and the training run's launches and one-pass launches; the epilogue's
    row a forward's 34 sites at EDSR-baseline's trunk, the PyTorch passes
-   they replaced as ``earlier_ms``. B1's and B3's
-   rows also carry the volume path's default run's launches
+   they replaced as ``earlier_ms``; W's row a launch (the mean of its two
+   shifts, each in ``by_shift``), its launches those of the zoo phase's
+   counted SwinIR forward and of its volume (``volume_launches``). B1's
+   and B3's rows also carry the volume path's default run's launches
    (``volume_launches``); every row the zoo phase's (``zoo_launches``),
    the extraction phase's (``extract_launches``, B5's rows too), the
    perceptual training run's (``perceptual_launches``), the QAT phase's
@@ -454,6 +467,9 @@ from mri_superresolution_torch.kernels.leaky_quantize import (
 from mri_superresolution_torch.kernels.ssim import (
     flops_per_pixel as ssim_flops_per_pixel, ssim_per_sample,
     ssim_per_sample_plain)
+from mri_superresolution_torch.kernels.window_attention import (
+    bytes_moved as wattn_bytes, flops as wattn_flops, window_attention,
+    window_attention_plain)
 from mri_superresolution_torch.models import build_model, param_count
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.models import vgg as vgg_mod
@@ -532,9 +548,14 @@ EDSR_BLOCKS = 8
 # and twice the CPU port's own bf16 against fp32 on that slice
 ZOO_ALL_SLICES = ("edsr", "simple")
 ZOO_SLICE_SSIM_FLOOR, ZOO_SLICE_CONTROL_FACTOR = 1e-3, 2.0
+# swinir at its published widths (benchmark/configs/swinir-classical-x2
+# .json): 6 residual groups of 6 Swin blocks, W once a block
+SWIN_CFG = ModelConfig(model_type="swinir", base_filters=180, num_blocks=6)
+SWIN_BLOCKS = 6 * 6
 ZOO_BF16_LAUNCHES = {"unet_tpu": {"group_norm_leaky": 20},
                      "edsr": {"bias_epilogue": 2 * EDSR_BLOCKS + 2},
-                     "simple": {}}
+                     "simple": {},
+                     "swinir": {"window_attention": SWIN_BLOCKS}}
 ZOO_INT8_LAUNCHES = {
     "unet_tpu": {"group_norm_leaky": 13, "gn_quantize": 7,
                  "leaky_quantize": 13},
@@ -1216,6 +1237,76 @@ def check_epilogue(dev, gen) -> dict:
     return {**tot, "library_ms": None, "max_abs_err": 0.0,
             "bound_by": bound_by, "shape": list(EPI_SHAPE),
             "sites": 2 * EPI_BLOCKS + 2}
+
+
+# W at SwinIR's served blocks: batches of 64 slices of 256^2, C = 180 in 6
+# heads, windows of 8, unshifted and shifted by 4
+WATTN_SHAPE, WATTN_HEADS, WATTN_WINDOW = (64, 256, 256, 180), 6, 8
+
+
+def check_window_attention(dev, gen) -> dict:
+    """W (``kernels/window_attention.py``) at SwinIR's served shape, for
+    each shift: within one bf16 ulp (2^-7) of the largest output of its
+    plain version in bf16 (which rounds P to bf16 as the kernel does), the
+    same bits twice; then its time L2-cold beside the plain version (the
+    published roll, partition, scores, bias, mask, softmax, P v, reverse
+    and roll back) and against its byte bound."""
+    b, h, w, c = WATTN_SHAPE
+    heads, win = WATTN_HEADS, WATTN_WINDOW
+    qkv = (1.5 * torch.randn(b, h, w, 3 * c, generator=gen, device=dev)
+           ).to(torch.bfloat16)
+    table = torch.randn((win * 2 - 1) ** 2, heads, generator=gen, device=dev)
+    bnd, bound_by = bound_ms(wattn_bytes(b, h, w, c),
+                             wattn_flops(b, h, w, c, win), torch.bfloat16)
+    by_shift, errs = {}, []
+    for shift in (0, win // 2):
+        with torch.no_grad():
+            got = window_attention(qkv, table, heads, win, shift)
+            same = torch.equal(got, window_attention(qkv, table, heads, win,
+                                                     shift))
+            want = window_attention_plain(qkv, table, heads, win, shift)
+            top = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+        del got, want
+        log("kernel_check", kernel="window_attention", shape=list(
+            WATTN_SHAPE), heads=heads, shift=shift, dtype="bf16",
+            max_abs_err=err, largest_output=top,
+            bound=f"{BF16_RTOL} of the largest output",
+            run_to_run_equal=same)
+        if not (err <= BF16_RTOL * top and same):
+            raise AssertionError(f"window_attention disagrees with its plain "
+                                 f"version at shift {shift}: {err} against "
+                                 f"{BF16_RTOL * top} ({same})")
+        errs.append(err)
+    xs = l2_cold_copies(qkv)
+    for shift in (0, win // 2):
+        with torch.no_grad():
+            k = cuda_ms_cold(lambda t: window_attention(
+                t, table, heads, win, shift), xs, iters=6)
+            # its host copies of the bias index and the mask cannot be
+            # captured in a graph: CUDA events around calls, each on a
+            # qkv far larger than the L2
+            p = cuda_ms(lambda: window_attention_plain(
+                qkv, table, heads, win, shift), iters=3, warmup=1)
+        log("kernel_time", kernel="window_attention", shift=shift,
+            shape=list(WATTN_SHAPE), kernel_ms=k, plain_ms=p,
+            library_ms=None, bound_ms=bnd, bound_share=bnd / k,
+            timing="kernel L2-cold, CUDA graph replays; plain CUDA events")
+        if min(k, p) < bnd:
+            raise AssertionError(f"window_attention times below their {bnd} "
+                                 f"ms bound at shift {shift}: {k}, {p}")
+        by_shift[shift] = {"ms": k, "plain_ms": p}
+    del xs, qkv
+    torch.cuda.empty_cache()
+    ms = sum(v["ms"] for v in by_shift.values()) / len(by_shift)
+    plain = sum(v["plain_ms"] for v in by_shift.values()) / len(by_shift)
+    log("kernel_total", kernel="window_attention", shape=list(WATTN_SHAPE),
+        ms=ms, plain_ms=plain, bound_ms=bnd, bound_share=bnd / ms,
+        launches_a_forward=SWIN_BLOCKS,
+        note="a launch, the mean of the two shifts (half the blocks each)")
+    return {"ms": ms, "plain_ms": plain, "library_ms": None,
+            "max_abs_err": max(errs), "bound_ms": bnd, "bound_by": bound_by,
+            "shape": list(WATTN_SHAPE), "by_shift": by_shift}
 
 
 def fused_site_check(site: str, shape, slope: float, dev, gen) -> tuple:
@@ -3617,10 +3708,11 @@ def _zoo_volume_want(family: str, key: str, c64: dict) -> tuple:
     as the model runs it, no epilogue), then every batch int8 (the first
     re-served once its scales freeze)."""
     batches = -(-VOL_SLICES // VOL_BATCH)
-    bf16, int8 = ZOO_BF16_LAUNCHES[family], ZOO_INT8_LAUNCHES[family]
+    bf16 = ZOO_BF16_LAUNCHES[family]
     one = _zoo_onepass(family, False, VOL_BATCH, c64)
     if key == "bf16":
         return {k: batches * v for k, v in bf16.items()}, batches * one
+    int8 = ZOO_INT8_LAUNCHES[family]
     calib = {k: v for k, v in bf16.items() if k != "bias_epilogue"}
     return ({k: calib.get(k, 0) + batches * int8.get(k, 0)
              for k in {**calib, **int8}},
@@ -3796,6 +3888,64 @@ def _zoo_all_slices(family: str, cfg, cpu, out: np.ndarray,
                                      if not d["ok"]]}
 
 
+def _zoo_swinir(dev, lr) -> dict:
+    """SwinIR at its published widths, seeded init, served: its checkpoint
+    through the infer_volume CLI on the volume phase's volume (W
+    ``SWIN_BLOCKS`` a batch), then the 16 slices of 256^2 through
+    ``upscale_batch`` in bf16 (W ``SWIN_BLOCKS`` a forward, counted
+    alone) and two of them against the card's fp32 forward of the same
+    weights (the plain ops, TF32 off) within 5% of its largest output.
+    Not trained here: its training runs on plain ops only."""
+    d = ZOO_DIR / "ckpt_swinir"
+    d.mkdir(parents=True)
+    params = build_model(SWIN_CFG, generator=torch.Generator().manual_seed(
+        TRAIN_SEED)).state_dict()
+    ckpt.save_checkpoint(str(d / "best_model_swinir"), params,
+                         meta={"config": {"model": {
+                             "model_type": "swinir",
+                             "base_filters": SWIN_CFG.base_filters,
+                             "num_blocks": SWIN_CFG.num_blocks}}})
+    out = ZOO_DIR / "sr_swinir_bf16.nii"
+    vol = _serve_volume(["--input", str(VOL_DIR / "vol.nii"), "--output",
+                         str(out), "--checkpoint_dir", str(d),
+                         "--model_type", "swinir", "--batch_size",
+                         str(VOL_BATCH)])
+    want_vol, _ = _zoo_volume_want("swinir", "bf16", {})
+    log("zoo_volume", family="swinir", run="bf16", flags=[],
+        expected_launches=want_vol, **vol)
+    if vol["rc"] != 0 or vol["launches"] != want_vol:
+        raise AssertionError(f"swinir volume: exit {vol['rc']}, launches "
+                             f"{vol['launches']}, expected {want_vol}")
+    _read_volume(out, 1.0)
+
+    eng = load_engine(InferConfig(checkpoint_path=str(
+        d / "best_model_swinir.ckpt")), device=dev)
+    eng.upscale_batch(lr[:2])                               # warm
+    torch.cuda.reset_peak_memory_stats()
+    got, counts, _ = _counted(lambda: eng.upscale_batch(lr))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = _zoo_want("swinir", False)
+    ms = cuda_ms(lambda: eng.upscale_batch(lr), iters=3, warmup=1)
+    fp32 = InferenceEngine(SWIN_CFG, params, bf16=False, device=dev)
+    ref = fp32.upscale_batch(lr[:2])
+    gap = float(np.abs(got[:2] - ref).max())
+    top = float(np.abs(ref).max())
+    log("zoo_launches", family="swinir", precision="bf16", slices=BATCH,
+        launches=counts, expected=want, fp32_max_abs_gap=gap,
+        fp32_largest=top, ms_per_batch=ms, slices_per_s=BATCH / ms * 1e3,
+        peak_mem_gb=peak, widths=dataclasses.asdict(eng.model_cfg),
+        timing="CUDA events around 3 upscale_batch calls after 1")
+    if counts != want:
+        raise AssertionError(f"swinir bf16 forward launches {counts}, "
+                             f"expected {want}")
+    if got.shape != (BATCH, 2 * LR, 2 * LR) or not np.isfinite(got).all() \
+            or gap > 0.05 * top:
+        raise AssertionError(f"swinir bf16 output {got.shape}, {gap} from "
+                             f"the fp32 forward (largest {top})")
+    return {"volume": vol, "launches": counts, "ms_per_batch": ms,
+            "peak_mem_gb": peak}
+
+
 def zoo_path(dev, lr, hr, c64: dict) -> dict:
     """The other three families through their entry points, at full width
     (base filters 32, edsr 8 blocks), seeded init: the train CLI for one
@@ -3820,7 +3970,13 @@ def zoo_path(dev, lr, hr, c64: dict) -> dict:
                        serve["bf16"]["launches"], serve["int8"]["launches"]):
             for k, v in counts.items():
                 totals[k] += v
-    log("zoo_path", families=list(ZOO_FAMILIES), launches=totals)
+    res["swinir"] = _zoo_swinir(dev, lr)
+    for counts in (res["swinir"]["volume"]["launches"],
+                   res["swinir"]["launches"]):
+        for k, v in counts.items():
+            totals[k] += v
+    log("zoo_path", families=list(ZOO_FAMILIES) + ["swinir"],
+        launches=totals)
     return {"results": res, "launches": totals}
 
 
@@ -6212,7 +6368,8 @@ def main(argv=None) -> int:
                "B4": check_b4(dev, gen),
                "B4 fused": check_fused(dev, gen),
                "B1 backward": check_b1_backward(dev, gen),
-               "epilogue": check_epilogue(dev, gen)}
+               "epilogue": check_epilogue(dev, gen),
+               "window_attention": check_window_attention(dev, gen)}
     # the remat leg's larger crop: B1's backward at its 20 sites
     check_b1_backward_sites(dev, gen, BATCH, LR, "remat leg's larger crop")
     c64 = check_b1_c64(dev, gen)
@@ -6354,6 +6511,20 @@ def main(argv=None) -> int:
                      "bias_epilogue", 0) for col, phase in phases},
                  "phase_launches": dp["phase_launches"].get("bias_epilogue",
                                                             0)})
+    r, sw = results["window_attention"], zoo["results"]["swinir"]
+    rows.append({"name": "window_attention", "route": "cuda",
+                 "source": torch_root + "window_attention.cu",
+                 "replaces": "none (the JAX package has no attention)",
+                 "launches": sw["launches"]["window_attention"],
+                 "volume_launches": sw["volume"]["launches"].get(
+                     "window_attention", 0),
+                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "shape", "by_shift")},
+                 **{f"{col}_launches": phase["launches"].get(
+                     "window_attention", 0) for col, phase in phases},
+                 "phase_launches": dp["phase_launches"].get(
+                     "window_attention", 0)})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

@@ -21,6 +21,8 @@ import glob
 import os
 import sys
 
+from mri_superresolution_torch.config import MODEL_TYPES
+
 
 def find_weight_dirs(root: str):
     """{weight: path} of the ``ssim_weight_{w}`` directories in root."""
@@ -126,8 +128,7 @@ def parse_args(argv=None):
                     "with different SSIM weights")
     parser.add_argument('--weight_dirs', type=str, required=True)
     parser.add_argument('--test_image_dir', type=str, required=True)
-    parser.add_argument('--model_type', type=str,
-                        choices=['unet', 'unet_tpu', 'edsr', 'simple'],
+    parser.add_argument('--model_type', type=str, choices=MODEL_TYPES,
                         default='unet')
     parser.add_argument('--output_dir', type=str,
                         default='./ssim_detailed_comparison')

@@ -19,6 +19,8 @@ import argparse
 import os
 import sys
 
+from mri_superresolution_torch.config import MODEL_TYPES, with_family_defaults
+
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
@@ -28,10 +30,10 @@ def parse_args(argv=None):
     parser.add_argument('--target', type=str, default=None)
     parser.add_argument('--checkpoint_dir', type=str, default='./checkpoints')
     parser.add_argument('--checkpoint_path', type=str, default=None)
-    parser.add_argument('--model_type', type=str,
-                        choices=['unet', 'unet_tpu', 'edsr', 'simple'],
+    parser.add_argument('--model_type', type=str, choices=MODEL_TYPES,
                         default='unet')
-    parser.add_argument('--base_filters', type=int, default=64)
+    parser.add_argument('--base_filters', type=int, default=None,
+                        help='default 64, swinir 180 (its embed_dim)')
     parser.add_argument('--show_comparison', action='store_true')
     parser.add_argument('--show_diff', action='store_true')
     parser.add_argument('--save_figure', type=str, default=None,
@@ -69,7 +71,7 @@ def parse_args(argv=None):
                              'weights and exported programs in one file, '
                              'no model code needed. The input size must be '
                              'among the exported shapes.')
-    return parser.parse_args(argv)
+    return with_family_defaults(parser.parse_args(argv), base_filters=64)
 
 
 def main(argv=None) -> int:

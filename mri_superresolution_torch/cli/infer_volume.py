@@ -42,6 +42,8 @@ import sys
 
 import numpy as np
 
+from mri_superresolution_torch.config import MODEL_TYPES, with_family_defaults
+
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
@@ -59,10 +61,10 @@ def parse_args(argv=None):
     parser.add_argument('--artifact', type=str, default=None,
                         help='Serve from a portable artifact (cli.'
                              'export_serving) instead of a checkpoint')
-    parser.add_argument('--model_type', type=str,
-                        choices=['unet', 'unet_tpu', 'edsr', 'simple'],
+    parser.add_argument('--model_type', type=str, choices=MODEL_TYPES,
                         default='unet')
-    parser.add_argument('--base_filters', type=int, default=32)
+    parser.add_argument('--base_filters', type=int, default=None,
+                        help='default 32, swinir 180 (its embed_dim)')
     parser.add_argument('--batch_size', type=int, default=64,
                         help='Slices per forward pass')
     parser.add_argument('--tile', type=int, default=512,
@@ -113,7 +115,7 @@ def parse_args(argv=None):
                              'round(y*32767 / y*255) on the card and store '
                              'the NIfTI scl_slope that decodes back to '
                              '[0,1]; float32 = exact.')
-    return parser.parse_args(argv)
+    return with_family_defaults(parser.parse_args(argv), base_filters=32)
 
 
 def artifact_conflicts(args, art) -> tuple:

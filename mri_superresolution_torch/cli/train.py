@@ -1,7 +1,7 @@
 """Train a model of the zoo on the GPU.
 
     python -m mri_superresolution_torch.cli.train --full_res_dir hr \
-        --low_res_dir lr [--model_type unet|unet_tpu|edsr|simple] \
+        --low_res_dir lr [--model_type unet|unet_tpu|edsr|simple|swinir] \
         [--perceptual_weight 0.1 [--vgg_weights vgg19.npz]] [--epochs 100] \
         [--batch_size 8] [--resume] ...
 
@@ -41,6 +41,8 @@ import argparse
 import random
 import sys
 
+from mri_superresolution_torch.config import MODEL_TYPES, with_family_defaults
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
@@ -49,12 +51,13 @@ def parse_args(argv=None):
                    help='Directory containing high-quality MRI slices')
     p.add_argument('--low_res_dir', type=str, required=True,
                    help='Directory containing low-quality MRI slices')
-    p.add_argument('--model_type', type=str,
-                   choices=['unet', 'unet_tpu', 'edsr', 'simple'],
+    p.add_argument('--model_type', type=str, choices=MODEL_TYPES,
                    default='unet')
-    p.add_argument('--base_filters', type=int, default=32)
-    p.add_argument('--num_blocks', type=int, default=8,
-                   help='edsr only: residual trunk depth')
+    p.add_argument('--base_filters', type=int, default=None,
+                   help='default 32, swinir 180 (its embed_dim)')
+    p.add_argument('--num_blocks', type=int, default=None,
+                   help='edsr: residual trunk depth (default 8); swinir: '
+                        'residual Swin groups (default 6)')
     p.add_argument('--batch_size', type=int, default=8)
     p.add_argument('--epochs', type=int, default=100)
     p.add_argument('--learning_rate', type=float, default=1e-4)
@@ -147,7 +150,8 @@ def parse_args(argv=None):
                         'epoch here')
     p.add_argument('--checkpoint_dir', type=str, default='./checkpoints')
     p.add_argument('--log_dir', type=str, default='./logs')
-    return p.parse_args(argv)
+    return with_family_defaults(p.parse_args(argv), base_filters=32,
+                                num_blocks=8)
 
 
 def config_from_args(args):

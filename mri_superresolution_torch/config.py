@@ -18,13 +18,39 @@ from typing import Optional, Tuple
 
 @dataclass
 class ModelConfig:
-    """U-Net hyperparameters (reference models/unet_model.py:116-129)."""
+    """Model hyperparameters: the U-Net's (reference models/unet_model.py:
+    116-129), the other families' beside them."""
     model_type: str = "unet"
     in_channels: int = 1
     out_channels: int = 1
     base_filters: int = 32
     initial_alpha: float = 0.0  # percentage 0-100, normalized /100 internally
-    num_blocks: int = 8         # trunk depth (edsr family only)
+    num_blocks: int = 8         # trunk depth (edsr), residual groups (swinir)
+    # swinir only (base_filters is its embed_dim): the published classical
+    # 2x widths of Liang et al. 2021
+    swin_depth: int = 6         # Swin blocks a residual group
+    swin_heads: int = 6
+    window_size: int = 8        # attention windows; odd blocks shift by half
+    mlp_ratio: float = 2.0
+    num_feat: int = 64          # channels of the upsampling tail
+
+
+# the CLIs' --base_filters and --num_blocks where a family's published
+# widths differ from the U-Net's
+FAMILY_DEFAULTS = {"swinir": {"base_filters": 180, "num_blocks": 6}}
+# the model families, in the CLIs' order
+MODEL_TYPES = ("unet", "unet_tpu", "edsr", "simple", "swinir")
+
+
+def with_family_defaults(args, **defaults):
+    """A CLI's parsed ``args`` with each of ``defaults`` (``base_filters``,
+    ``num_blocks``) that was not given set: the ``--model_type`` family's
+    published width, else the value in ``defaults``."""
+    for name, default in defaults.items():
+        if getattr(args, name) is None:
+            setattr(args, name, FAMILY_DEFAULTS.get(args.model_type, {})
+                    .get(name, default))
+    return args
 
 
 @dataclass
@@ -166,8 +192,22 @@ class InferConfig:
     transpose_io: bool = False
 
 
+# ModelConfig's fields that only swinir reads. A checkpoint's sidecar
+# leaves them out: its weights carry every Swin width in their shapes
+# (utils/weights.swinir_widths), and the JAX package's ModelConfig has none.
+SWIN_FIELDS = ("swin_depth", "swin_heads", "window_size", "mlp_ratio",
+               "num_feat")
+
+
 def to_dict(cfg) -> dict:
-    return dataclasses.asdict(cfg)
+    """``cfg`` (a config, or one holding a ``model``) as a checkpoint
+    sidecar's ``config`` block, without :data:`SWIN_FIELDS`."""
+    d = dataclasses.asdict(cfg)
+    for m in (d, d.get("model")):
+        if isinstance(m, dict):
+            for k in SWIN_FIELDS:
+                m.pop(k, None)
+    return d
 
 
 _SUB = {"model": ModelConfig, "loss": LossConfig, "augment": AugmentConfig}

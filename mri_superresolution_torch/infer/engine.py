@@ -8,7 +8,7 @@ Reference behaviour reproduced (scripts/infer.py): percentile-clip
 
 Each batch is uploaded as it is, zero-padded to the shape bucket on the
 card, run through the bf16 (or fp32) model of any family (``unet``,
-``unet_tpu``, ``edsr``, ``simple``), clamped, cropped to exactly 2x
+``unet_tpu``, ``edsr``, ``simple``, ``swinir``), clamped, cropped to exactly 2x
 the input and, for uint8/int16 ``out_dtype``, packed on the card before
 the fetch. The engine runs on the card unless ``device="cpu"`` is passed.
 The serving options are the JAX engine's (``infer/engine.py`` there):
@@ -94,7 +94,8 @@ from mri_superresolution_torch.parallel.mesh import (device_pool,
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.utils.device import resolve_device
 from mri_superresolution_torch.utils.spans import span
-from mri_superresolution_torch.utils.weights import edsr_num_blocks
+from mri_superresolution_torch.utils.weights import (edsr_num_blocks,
+                                                     swinir_widths)
 
 logger = logging.getLogger("mri_superresolution_torch.infer")
 
@@ -335,7 +336,7 @@ class InferenceEngine(HostTransfers):
         forward (-> (y, amax)); row-sharded over the group's devices
         when ``spatial_shards`` > 1, else on the group's one device."""
         r = self._leads[g]
-        with span("engine.forward", r.device):
+        with span("engine.forward", r.device, count=x.shape[0]):
             if self._sp_mesh is not None:
                 fn = self._spatial_fn(kind, g, x.shape[1], x.shape[2])
                 return fn(self._group_params(g), x)
@@ -901,6 +902,11 @@ def load_engine(cfg: InferConfig, device=None, num_devices: int = 1,
         # a bare weight file carries its depth in its blocks
         model_cfg = dataclasses.replace(
             model_cfg, num_blocks=edsr_num_blocks(params))
+    elif model_cfg.model_type == "swinir":
+        # and a swinir file all its widths in its shapes
+        widths = swinir_widths(params)
+        model_cfg = dataclasses.replace(model_cfg, **widths)
+        logger.info(f"swinir widths from the weights: {widths}")
     quant_calib_path = cfg.quant_calib_path
     if cfg.quant == "int8" and not quant_calib_path:
         # a QAT checkpoint carries its frozen scales beside it: serve with

@@ -5,6 +5,8 @@ PyTorch version in the same module, and counts its kernel launches in
 ``<wrapper>.launches`` (``group_norm_leaky.onepass_launches`` and
 ``group_norm_leaky_backward.onepass_launches`` count their one-pass routes
 apart, ``leaky_quantize.stream_launches`` its stream route).
+:func:`launch_counts` covers every wrapper, which the card tests compare
+whole.
 Nothing here builds or imports anything at import time:
 ``_build.library()`` compiles at first use.
 """
@@ -19,10 +21,12 @@ from mri_superresolution_torch.kernels.leaky_quantize import (  # noqa: F401
 from mri_superresolution_torch.kernels.roll_probe import (  # noqa: F401
     roll32, roll_copy, taps3)
 from mri_superresolution_torch.kernels.ssim import ssim_per_sample  # noqa: F401
+from mri_superresolution_torch.kernels.window_attention import (  # noqa: F401
+    window_attention)
 
 WRAPPERS = (group_norm_leaky, group_norm_leaky_backward, conv3x3,
             ssim_per_sample, leaky_quantize, gn_quantize, roll_copy, roll32,
-            taps3, bias_epilogue)
+            taps3, bias_epilogue, window_attention)
 
 
 def reset_launch_counts() -> None:

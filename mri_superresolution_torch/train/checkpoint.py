@@ -183,6 +183,10 @@ def load_checkpoint(path: str, return_extras: bool = False,
     return out
 
 
+# the buffers of a published SwinIR state_dict that the port derives
+SWINIR_BUFFERS = (".relative_position_index", ".attn_mask")
+
+
 def read_meta(path: str) -> Dict:
     """The JSON sidecar ``<base>.json`` of a checkpoint, or {}."""
     base = path[:-5] if path.endswith(".ckpt") else path
@@ -246,12 +250,19 @@ def load_params_any(path: str, model_type: str = "unet"
     a ``.ckpt`` (params + sidecar; the family its meta names, else
     ``model_type``), a bare ``.msgpack`` param tree (of ``model_type``), or
     a ``.pth`` state_dict (a reference unet checkpoint, full dict or bare
-    state_dict, or a port state_dict). A param tree that does not fit the
+    state_dict, a published SwinIR file's ``params_ema`` or ``params``
+    without its buffers, or a port state_dict). A param tree that does not fit the
     family raises ValueError."""
     if path.endswith(".pth"):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        sd = ckpt["model_state_dict"] if "model_state_dict" in ckpt else ckpt
-        return {k: v.float() for k, v in sd.items()}, {"source": "torch"}
+        sd = ckpt
+        for key in ("model_state_dict", "params_ema", "params"):
+            if key in ckpt:
+                sd = ckpt[key]
+                break
+        # a published SwinIR file keeps two derived buffers a block
+        return ({k: v.float() for k, v in sd.items()
+                 if not k.endswith(SWINIR_BUFFERS)}, {"source": "torch"})
     base = path[:-5] if path.endswith(".ckpt") else path
     blob_path = path if path.endswith(".msgpack") else base + ".ckpt"
     with open(blob_path, "rb") as f:

@@ -84,6 +84,7 @@ images' rows over its space group.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -113,6 +114,7 @@ from mri_superresolution_torch.utils.device import resolve_device
 from mri_superresolution_torch.utils.logging import (log_message, set_quiet,
                                                    setup_logging)
 from mri_superresolution_torch.utils.spans import span
+from mri_superresolution_torch.utils.weights import swinir_widths
 
 
 @contextlib.contextmanager
@@ -884,6 +886,24 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
     if spatial:
         check_spatial_hw(cfg, sample_hw)
 
+    # resume from whichever of final / step is further along; ties prefer
+    # final, whose meta holds the last validated scheduler state
+    names = ckpt.checkpoint_paths(cfg.checkpoint_dir, cfg.model.model_type)
+    resume_base = None
+    if cfg.resume:
+        cands = sorted((_meta_step(names[k]), k == "final", k)
+                       for k in ("final", "step"))
+        if cands[-1][0] >= 0:
+            resume_base = names[cands[-1][2]]
+    if resume_base is not None:
+        params_r, opt_r, meta, extras = ckpt.load_checkpoint(
+            resume_base + ".ckpt", return_extras=True,
+            model_type=cfg.model.model_type)
+        if cfg.model.model_type == "swinir":
+            # its sidecar keeps no Swin widths: the weights' shapes do
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, **swinir_widths(params_r)))
+
     # --- model / loss / optimizer ---
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     # remat: the same parameters, so checkpoints do not depend on it
@@ -950,20 +970,7 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
                                   patience=cfg.patience // 2)
     early = EarlyStopping(cfg.patience)
     start_epoch, start_cursor = 0, 0
-    names = ckpt.checkpoint_paths(cfg.checkpoint_dir, cfg.model.model_type)
-
-    # resume from whichever of final / step is further along; ties prefer
-    # final, whose meta holds the last validated scheduler state
-    resume_base = None
-    if cfg.resume:
-        cands = sorted((_meta_step(names[k]), k == "final", k)
-                       for k in ("final", "step"))
-        if cands[-1][0] >= 0:
-            resume_base = names[cands[-1][2]]
     if resume_base is not None:
-        params_r, opt_r, meta, extras = ckpt.load_checkpoint(
-            resume_base + ".ckpt", return_extras=True,
-            model_type=cfg.model.model_type)
         # EMA checkpoints store the averaged weights as "params" and the
         # live ones as "raw_params"; the optimizer resumes from the live
         live = extras.get("raw_params", params_r)

@@ -43,6 +43,9 @@ class Record(NamedTuple):
     thread: int
     # (start, end) timing events on the device's stream, or None
     events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]]
+    # what the span processed, where its caller counts it (the slices of
+    # an ``engine.forward``), else 0
+    count: int = 0
 
 
 class Recorder:
@@ -83,10 +86,12 @@ def profiling() -> bool:
 
 
 class _Span:
-    __slots__ = ("name", "device", "_range", "_start", "_stream", "_events")
+    __slots__ = ("name", "device", "count", "_range", "_start", "_stream",
+                 "_events")
 
-    def __init__(self, name: str, device: Optional[torch.device]):
-        self.name, self.device = name, device
+    def __init__(self, name: str, device: Optional[torch.device],
+                 count: int = 0):
+        self.name, self.device, self.count = name, device, count
 
     def __enter__(self):
         self._range = record_function(self.name)
@@ -105,18 +110,20 @@ class _Span:
             self._events[1].record(self._stream)
         end = time.time_ns()
         _RECORDER.keep(Record(self.name, self._start, end,
-                              threading.get_ident(), self._events))
+                              threading.get_ident(), self._events,
+                              self.count))
         self._range.__exit__(*exc)
         return False
 
 
-def span(name: str, device: Optional[torch.device] = None):
+def span(name: str, device: Optional[torch.device] = None, count: int = 0):
     """A span named ``name`` while a profiler runs (see the module's
     docstring), else the shared no-op :data:`OFF`. ``device``: time the
-    span on this CUDA device's current stream too."""
+    span on this CUDA device's current stream too; ``count``: what it
+    processed, kept in its record."""
     if not profiling():
         return OFF
-    return _Span(name, device)
+    return _Span(name, device, count)
 
 
 def records(lo_ns: int, hi_ns: int) -> List[Record]:

@@ -15,6 +15,9 @@ permuted.
 - ``edsr``: ``head``, ``block{i}.conv0``/``conv1`` (flax ``block{i}/
   Conv_0``/``Conv_1``), ``body_out``, ``tail``;
 - ``simple``: ``extract``, ``map``, ``reconstruct``;
+- ``swinir`` (no JAX counterpart): the published state_dict names split at
+  their dots into a nested tree, each tensor as it is (OIHW convs, (out,
+  in) linears), so that the port's ``.ckpt`` carries it too;
 - VGG19 (``vgg_state_dict_from_jax``): ``conv{i}`` <-> torchvision's
   ``features.{idx}`` at the i-th conv index.
 
@@ -91,7 +94,10 @@ _UNET_TPU_HEAD = ("branch_a_conv", "branch_a_norm", "branch_b_conv",
 _TOP_KEYS = {"unet": set(_BACKBONE + _UNET_HEAD),
              "unet_tpu": set(_BACKBONE + _UNET_TPU_HEAD),
              "edsr": {"head", "body_out", "tail"},
-             "simple": {"extract", "map", "reconstruct"}}
+             "simple": {"extract", "map", "reconstruct"},
+             "swinir": {"conv_first", "patch_embed", "layers", "norm",
+                        "conv_after_body", "conv_before_upsample",
+                        "upsample", "conv_last"}}
 
 
 def edsr_num_blocks(tree) -> int:
@@ -99,6 +105,28 @@ def edsr_num_blocks(tree) -> int:
     ``block{i}``) or state_dict (``block{i}.*`` keys)."""
     names = {k.split(".")[0] for k in tree if k.startswith("block")}
     return len(names)
+
+
+def swinir_widths(sd) -> dict:
+    """The ``ModelConfig`` fields of a swinir state_dict (published names),
+    read from its shapes: ``in_channels``, ``out_channels``,
+    ``base_filters`` (embed_dim), ``num_blocks`` (RSTBs), ``swin_depth``,
+    ``swin_heads``, ``window_size``, ``mlp_ratio`` and ``num_feat``."""
+    pre = "layers.0.residual_group.blocks"
+    table = sd[f"{pre}.0.attn.relative_position_bias_table"]
+    embed = sd["conv_first.weight"].shape[0]
+    return {
+        "in_channels": sd["conv_first.weight"].shape[1],
+        "out_channels": sd["conv_last.weight"].shape[0],
+        "base_filters": embed,
+        "num_blocks": len({k.split(".")[1] for k in sd
+                           if k.startswith("layers.")}),
+        "swin_depth": len({k.split(".")[4] for k in sd
+                           if k.startswith(pre + ".")}),
+        "swin_heads": table.shape[1],
+        "window_size": (round(table.shape[0] ** 0.5) + 1) // 2,
+        "mlp_ratio": sd[f"{pre}.0.mlp.fc1.weight"].shape[0] / embed,
+        "num_feat": sd["conv_before_upsample.0.weight"].shape[0]}
 
 
 def check_tree(params: dict, model_type: str) -> None:
@@ -214,10 +242,28 @@ def _simple_inv(sd, params: dict) -> None:
         params[name] = _conv_inv(sd, name)
 
 
+def _nested(params: dict, sd: Dict[str, torch.Tensor], prefix="") -> None:
+    for k, v in params.items():
+        if isinstance(v, dict):
+            _nested(v, sd, f"{prefix}{k}.")
+        else:
+            sd[prefix + k] = torch.from_numpy(np.array(v, np.float32,
+                                                       copy=True))
+
+
+def _nested_inv(sd, params: dict) -> None:
+    for k, v in sd.items():
+        *path, leaf = k.split(".")
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = _np(v)
+
+
 _TO_SD = {"unet": _unet, "unet_tpu": _unet_tpu, "edsr": _edsr,
-          "simple": _simple}
+          "simple": _simple, "swinir": _nested}
 _FROM_SD = {"unet": _unet_inv, "unet_tpu": _unet_tpu_inv, "edsr": _edsr_inv,
-            "simple": _simple_inv}
+            "simple": _simple_inv, "swinir": _nested_inv}
 
 
 def state_dict_from_jax(params: dict, model_type: str = "unet"

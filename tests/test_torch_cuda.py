@@ -335,7 +335,7 @@ def test_unet_on_card_matches_cpu(dev):
         "group_norm_leaky": 20, "group_norm_leaky_backward": 0,
         "conv3x3": 2, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
-        "taps3": 0, "bias_epilogue": 0}
+        "taps3": 0, "bias_epilogue": 0, "window_attention": 0}
     np.testing.assert_allclose(got, cpu.upscale_batch(x), rtol=1e-4,
                                atol=1e-4)
     m = InferenceEngine.calculate_metrics(got[0], got[1], dev)
@@ -1385,3 +1385,89 @@ def test_ema_matches_a_float64_recompute_on_card(dev, dtype):
     from mri_superresolution_torch.tools.ema_quality import ema_recompute_gap
     r = ema_recompute_gap(dev, dtype, steps=10, batch=8, lr_hw=128)
     assert r["tensors"] > 0 and r["worst_rel_gap"] <= 1e-6, r
+
+
+def _qkv(shape, dev, seed=0):
+    """A (B, H, W, 3C) bf16 qkv of std 1.5 and a bias table of std 1."""
+    b, h, w, c, heads = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = (1.5 * torch.randn(b, h, w, 3 * c, generator=gen, device=dev)
+           ).to(torch.bfloat16)
+    table = torch.randn(225, heads, generator=gen, device=dev)
+    return qkv, table
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 256, 180, 6),   # SwinIR's
+                                   (3, 40, 24, 180, 6),     # odd windows
+                                   (2, 16, 32, 36, 3)])     # hd 12
+@pytest.mark.parametrize("shift", [0, 4])
+def test_window_attention_kernel(dev, shape, shift):
+    """The kernel against its plain version computed in bf16 (within one
+    bf16 ulp of the largest output) and in fp32 from the same bf16 inputs
+    (within 2^-6 of it: the kernel rounds P to bf16); twice the same
+    bits."""
+    from mri_superresolution_torch.kernels.window_attention import (
+        window_attention, window_attention_plain)
+    qkv, table = _qkv(shape, dev)
+    heads = shape[-1]
+    window_attention.launches = 0
+    with torch.no_grad():
+        got = window_attention(qkv, table, heads, 8, shift)
+        again = window_attention(qkv, table, heads, 8, shift)
+        want = window_attention_plain(qkv, table, heads, 8, shift)
+        want32 = window_attention_plain(qkv.float(), table, heads, 8, shift)
+    torch.cuda.synchronize()
+    assert window_attention.launches == 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, again)
+    top = float(want32.abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2 ** -7 * top
+    assert float((got.float() - want32).abs().max()) <= 2 ** -6 * top
+
+
+def test_window_attention_grad_and_cpu_take_the_plain_version(dev):
+    from mri_superresolution_torch.kernels.window_attention import (
+        window_attention)
+    qkv, table = _qkv((1, 16, 16, 36, 3), dev)
+    window_attention.launches = 0
+    window_attention(qkv.float().requires_grad_(), table, 3, 8, 4)
+    window_attention(qkv.float(), table, 3, 8, 4)          # fp32
+    window_attention(qkv.cpu(), table.cpu(), 3, 8, 4)
+    assert window_attention.launches == 0
+
+
+def test_swinir_served_forward_launches_the_kernel(dev):
+    """The published widths' bf16 forward with grad off: 36 launches, each
+    a span that counts its slices, no torch.roll and no softmax (no
+    materialized scores); the output within bf16's reach of the fp32
+    forward on the CPU."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    from mri_superresolution_torch.kernels.window_attention import (
+        window_attention)
+    from mri_superresolution_torch.utils import spans
+    cfg = ModelConfig(model_type="swinir", base_filters=180, num_blocks=6)
+    model = build_model(cfg, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0))
+    params = model.state_dict()
+    model = model.to(dev).eval()
+    x = torch.rand(2, 36, 44, 1, generator=torch.Generator().manual_seed(1))
+    window_attention.launches = 0
+    t0 = time.time_ns()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as p:
+        got = model(x.to(dev))
+    torch.cuda.synchronize()
+    assert window_attention.launches == 36
+    # each launch's span counts its slices while a profiler runs
+    made = [r for r in spans.records(t0, time.time_ns())
+            if r.name == "kernel.window_attention"]
+    assert [r.count for r in made] == [2] * 36
+    ops = {e.key for e in p.key_averages()}
+    assert not ops & {"aten::roll", "aten::softmax", "aten::_softmax"}, ops
+    ref = build_model(cfg)
+    ref.load_state_dict(params)
+    with torch.no_grad():
+        want = ref(x)
+    assert got.shape == want.shape == (2, 72, 88, 1)
+    gap = float((got.cpu() - want).abs().max())
+    assert gap <= 0.05 * float(want.abs().max()), gap
