@@ -31,7 +31,17 @@ the last line is printed:
    windows of 8), unshifted and shifted by 4: within one bf16 ulp of the
    largest output of its plain version (the published roll, partition,
    scores, bias, mask, softmax, P v and roll back), the same bits twice,
-   and timed L2-cold beside that version. Both B4 routes are also
+   and timed L2-cold beside that version, in the packed rows of 3C and in
+   the served forward's 16-byte rows (qkv 544, output 184, whose pad must
+   read zero; the first 180 channels the packed rows' bits). The padded
+   LayerNorm (SwinIR's 74 a served forward, rows of 184 normalised over
+   their first 180 channels) at 64 slices of 256^2 and at odd row counts
+   and widths: within one bf16 ulp of the largest output of its plain
+   version, the pad zero, the same bits twice, timed L2-cold beside the
+   plain version and ``F.layer_norm`` over unpadded rows
+   (``library_ms``). SwinIR's four token GEMMs (qkv, proj, fc1, fc2) at
+   64 x 256^2 tokens in rows of 180 and of 184, timed with the names of
+   the kernels cuBLAS took. Both B4 routes are also
    checked, not timed, at every other shape the zoo quantizes (the
    serving and volume batches) and the extraction phase's unet one image
    of 128^2 at a time. B1 and B3 are checked at the training, volume,
@@ -129,8 +139,9 @@ the last line is printed:
    versions with B1's gates, and timed L2-cold. Then ``swinir`` at its
    published widths (embed 180, 6 x 6 Swin blocks), seeded init and not
    trained (its training runs on plain ops only): its checkpoint through
-   the infer_volume CLI on the volume phase's volume (W 36 a batch), and
-   the 16 slices through ``upscale_batch`` in bf16 (W 36, counted alone)
+   the infer_volume CLI on the volume phase's volume (W 36 and the padded
+   LayerNorm 74 a batch), and the 16 slices through ``upscale_batch`` in
+   bf16 (W 36, the LayerNorm 74, counted alone)
    with two of them within 5% of the largest output of the card's fp32
    forward of the same weights.
 9. extraction (the port's data pipeline): 8 synthetic anatomy volumes
@@ -378,8 +389,10 @@ the last line is printed:
    and the training run's launches and one-pass launches; the epilogue's
    row a forward's 34 sites at EDSR-baseline's trunk, the PyTorch passes
    they replaced as ``earlier_ms``; W's row a launch (the mean of its two
-   shifts, each in ``by_shift``), its launches those of the zoo phase's
-   counted SwinIR forward and of its volume (``volume_launches``). B1's
+   shifts in 16-byte rows, each in ``by_shift`` with the packed rows'
+   time), its launches those of the zoo phase's counted SwinIR forward
+   and of its volume (``volume_launches``), and the padded LayerNorm's
+   row likewise, a launch at 64 x 256^2 rows of 184. B1's
    and B3's rows also carry the volume path's default run's launches
    (``volume_launches``); every row the zoo phase's (``zoo_launches``),
    the extraction phase's (``extract_launches``, B5's rows too), the
@@ -464,6 +477,8 @@ from mri_superresolution_torch.kernels.groupnorm import (
     group_norm_leaky_twopass, onepass_backward_plan, onepass_plan)
 from mri_superresolution_torch.kernels.leaky_quantize import (
     leaky_quantize, leaky_quantize_generic, leaky_quantize_plain)
+from mri_superresolution_torch.kernels.padded_layer_norm import (
+    bytes_moved as pln_bytes, padded_layer_norm, padded_layer_norm_plain)
 from mri_superresolution_torch.kernels.ssim import (
     flops_per_pixel as ssim_flops_per_pixel, ssim_per_sample,
     ssim_per_sample_plain)
@@ -555,7 +570,8 @@ SWIN_BLOCKS = 6 * 6
 ZOO_BF16_LAUNCHES = {"unet_tpu": {"group_norm_leaky": 20},
                      "edsr": {"bias_epilogue": 2 * EDSR_BLOCKS + 2},
                      "simple": {},
-                     "swinir": {"window_attention": SWIN_BLOCKS}}
+                     "swinir": {"window_attention": SWIN_BLOCKS,
+                                "padded_layer_norm": 2 * SWIN_BLOCKS + 2}}
 ZOO_INT8_LAUNCHES = {
     "unet_tpu": {"group_norm_leaky": 13, "gn_quantize": 7,
                  "leaky_quantize": 13},
@@ -1250,11 +1266,18 @@ def check_window_attention(dev, gen) -> dict:
     plain version in bf16 (which rounds P to bf16 as the kernel does), the
     same bits twice; then its time L2-cold beside the plain version (the
     published roll, partition, scores, bias, mask, softmax, P v, reverse
-    and roll back) and against its byte bound."""
+    and roll back) and against its byte bound. In the served forward's
+    16-byte rows (qkv rows of 544, output rows of 184, garbage in qkv's
+    pad) the first C output channels are the packed rows' bits and the
+    output's pad zero; the row's time is that of the 16-byte rows, the
+    packed rows' beside it (``packed_ms``)."""
     b, h, w, c = WATTN_SHAPE
     heads, win = WATTN_HEADS, WATTN_WINDOW
-    qkv = (1.5 * torch.randn(b, h, w, 3 * c, generator=gen, device=dev)
-           ).to(torch.bfloat16)
+    qs, os_ = -(-3 * c // 8) * 8, -(-c // 8) * 8
+    wide = (1.5 * torch.randn(b, h, w, qs, generator=gen, device=dev)
+            ).to(torch.bfloat16)
+    wide[..., 3 * c:] = 9.0
+    qkv = wide[..., :3 * c].contiguous()
     table = torch.randn((win * 2 - 1) ** 2, heads, generator=gen, device=dev)
     bnd, bound_by = bound_ms(wattn_bytes(b, h, w, c),
                              wattn_flops(b, h, w, c, win), torch.bfloat16)
@@ -1267,36 +1290,47 @@ def check_window_attention(dev, gen) -> dict:
             want = window_attention_plain(qkv, table, heads, win, shift)
             top = float(want.float().abs().max())
             err = float((got.float() - want.float()).abs().max())
-        del got, want
+            rows = window_attention(wide, table, heads, win, shift, c, os_)
+            rows_same = torch.equal(rows[..., :c], got)
+            pad_zero = not bool(rows[..., c:].any())
+        del got, want, rows
         log("kernel_check", kernel="window_attention", shape=list(
             WATTN_SHAPE), heads=heads, shift=shift, dtype="bf16",
             max_abs_err=err, largest_output=top,
             bound=f"{BF16_RTOL} of the largest output",
-            run_to_run_equal=same)
-        if not (err <= BF16_RTOL * top and same):
+            run_to_run_equal=same, rows=[qs, os_],
+            rows_equal_packed=rows_same, rows_pad_zero=pad_zero)
+        if not (err <= BF16_RTOL * top and same and rows_same and pad_zero):
             raise AssertionError(f"window_attention disagrees with its plain "
                                  f"version at shift {shift}: {err} against "
-                                 f"{BF16_RTOL * top} ({same})")
+                                 f"{BF16_RTOL * top} ({same}); rows of "
+                                 f"{qs}/{os_}: {rows_same}, {pad_zero}")
         errs.append(err)
-    xs = l2_cold_copies(qkv)
+    del qkv
+    xs = l2_cold_copies(wide)
+    packed = [t[..., :3 * c].contiguous() for t in xs[:2]]
     for shift in (0, win // 2):
         with torch.no_grad():
             k = cuda_ms_cold(lambda t: window_attention(
-                t, table, heads, win, shift), xs, iters=6)
+                t, table, heads, win, shift, c, os_), xs, iters=6)
+            # two packed inputs of 4.5 GB each: L2-cold as well
+            kp = cuda_ms_cold(lambda t: window_attention(
+                t, table, heads, win, shift), packed, iters=6)
             # its host copies of the bias index and the mask cannot be
             # captured in a graph: CUDA events around calls, each on a
             # qkv far larger than the L2
             p = cuda_ms(lambda: window_attention_plain(
-                qkv, table, heads, win, shift), iters=3, warmup=1)
+                packed[0], table, heads, win, shift), iters=3, warmup=1)
         log("kernel_time", kernel="window_attention", shift=shift,
-            shape=list(WATTN_SHAPE), kernel_ms=k, plain_ms=p,
-            library_ms=None, bound_ms=bnd, bound_share=bnd / k,
+            shape=list(WATTN_SHAPE), rows=[qs, os_], kernel_ms=k,
+            packed_ms=kp, plain_ms=p, library_ms=None, bound_ms=bnd,
+            bound_share=bnd / k,
             timing="kernel L2-cold, CUDA graph replays; plain CUDA events")
-        if min(k, p) < bnd:
+        if min(k, kp, p) < bnd:
             raise AssertionError(f"window_attention times below their {bnd} "
-                                 f"ms bound at shift {shift}: {k}, {p}")
-        by_shift[shift] = {"ms": k, "plain_ms": p}
-    del xs, qkv
+                                 f"ms bound at shift {shift}: {k}, {kp}, {p}")
+        by_shift[shift] = {"ms": k, "packed_ms": kp, "plain_ms": p}
+    del xs, packed, wide
     torch.cuda.empty_cache()
     ms = sum(v["ms"] for v in by_shift.values()) / len(by_shift)
     plain = sum(v["plain_ms"] for v in by_shift.values()) / len(by_shift)
@@ -1307,6 +1341,110 @@ def check_window_attention(dev, gen) -> dict:
     return {"ms": ms, "plain_ms": plain, "library_ms": None,
             "max_abs_err": max(errs), "bound_ms": bnd, "bound_by": bound_by,
             "shape": list(WATTN_SHAPE), "by_shift": by_shift}
+
+
+# the padded LayerNorm at SwinIR's served stream: 64 slices of 256^2 tokens
+# in rows of 184, normalised over their first 180 channels; odd row counts
+# and other widths checked too
+PLN_ROWS, PLN_C, PLN_CP = 64 * 256 * 256, 180, 184
+PLN_CASES = ((PLN_ROWS, PLN_C, PLN_CP), (7, 180, 184), (4099, 180, 184),
+             (1, 60, 64), (333, 96, 96), (517, 240, 240), (3, 500, 512))
+
+
+def check_padded_layer_norm(dev, gen) -> dict:
+    """The padded LayerNorm (``kernels/padded_layer_norm.py``): at each of
+    PLN_CASES (rows whose pad holds 7.0, which must not reach the sums)
+    within one bf16 ulp (2^-7) of the largest output of its plain version,
+    the pad written as zeros, the same bits twice; then at SwinIR's served
+    stream timed L2-cold beside the plain version and ``F.layer_norm`` over
+    the unpadded rows of 180 (``library_ms``), against its byte bound
+    (rows x 2 x 184 x 2 B)."""
+    errs = []
+    for rows, c, cp in PLN_CASES:
+        x = (0.3 + 2 * torch.randn(rows, cp, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        x[:, c:] = 7.0
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        with torch.no_grad():
+            got = padded_layer_norm(x, w, b, 1e-5)
+            same = torch.equal(got, padded_layer_norm(x, w, b, 1e-5))
+            want = padded_layer_norm_plain(x, w, b, 1e-5)
+        top = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        pad_zero = not bool(got[:, c:].any())
+        log("kernel_check", kernel="padded_layer_norm", rows=rows, c=c,
+            width=cp, max_abs_err=err, largest_output=top,
+            bound=f"{BF16_RTOL} of the largest output", pad_zero=pad_zero,
+            run_to_run_equal=same)
+        if not (err <= BF16_RTOL * top and same and pad_zero):
+            raise AssertionError(f"padded_layer_norm disagrees with its plain "
+                                 f"version at {rows} x {c}/{cp}: {err} "
+                                 f"against {BF16_RTOL * top} ({same}, "
+                                 f"{pad_zero})")
+        errs.append(err)
+        del x, got, want
+    x = torch.randn(PLN_ROWS, PLN_CP, generator=gen, device=dev).to(
+        torch.bfloat16)
+    x[:, PLN_C:] = 0
+    w = 1 + 0.1 * torch.randn(PLN_C, generator=gen, device=dev)
+    b = 0.1 * torch.randn(PLN_C, generator=gen, device=dev)
+    bnd, bound_by = bound_ms(pln_bytes(PLN_ROWS, PLN_CP), 0.0, torch.bfloat16)
+    xs = l2_cold_copies(x)
+    unpadded = l2_cold_copies(x[:, :PLN_C].contiguous())
+    w16, b16 = w.bfloat16(), b.bfloat16()
+    with torch.no_grad():
+        k = cuda_ms_cold(lambda t: padded_layer_norm(t, w, b, 1e-5), xs,
+                         iters=6)
+        p = cuda_ms(lambda: padded_layer_norm_plain(x, w, b, 1e-5), iters=3,
+                    warmup=1)
+        lib = cuda_ms_cold(lambda t: F.layer_norm(t, (PLN_C,), w16, b16,
+                                                  1e-5), unpadded, iters=6)
+    del xs, unpadded, x
+    log("kernel_time", kernel="padded_layer_norm", rows=PLN_ROWS, c=PLN_C,
+        width=PLN_CP, kernel_ms=k, plain_ms=p, library_ms=lib, bound_ms=bnd,
+        bound_share=bnd / k, launches_a_forward=2 * SWIN_BLOCKS + 2,
+        timing="kernel and library L2-cold, CUDA graph replays; plain CUDA "
+               "events", library="F.layer_norm over unpadded rows of 180")
+    if min(k, p) < bnd:
+        raise AssertionError(f"padded_layer_norm times below their {bnd} ms "
+                             f"bound: {k}, {p}")
+    return {"ms": k, "plain_ms": p, "library_ms": lib,
+            "max_abs_err": max(errs), "bound_ms": bnd, "bound_by": bound_by,
+            "shape": [PLN_ROWS, PLN_CP], "c": PLN_C}
+
+
+def check_swin_gemms(dev) -> dict:
+    """SwinIR's four token GEMMs (``F.linear`` with a bias) at the served
+    stream's 64 x 256^2 tokens, in rows of 180 (K and N as published) and
+    in the served forward's 16-byte rows (184; qkv's 540 outputs 544):
+    device ms by CUDA events, TFLOP/s of the rows' own work, and the
+    kernels cuBLAS took (a profiler over one call)."""
+    from torch.profiler import ProfilerActivity, profile
+    m = PLN_ROWS
+    hid = int(PLN_C * SWIN_CFG.mlp_ratio)
+    out = {}
+    for width in (PLN_C, PLN_CP):
+        n3 = -(-3 * PLN_C // 8) * 8 if width != PLN_C else 3 * PLN_C
+        for name, (k, n) in (("qkv", (width, n3)), ("proj", (width, width)),
+                             ("fc1", (width, hid)), ("fc2", (hid, width))):
+            a = torch.randn(m, k, device=dev, dtype=torch.bfloat16)
+            wt = 0.05 * torch.randn(n, k, device=dev, dtype=torch.bfloat16)
+            bias = torch.randn(n, device=dev, dtype=torch.bfloat16)
+            with torch.no_grad():
+                ms = cuda_ms(lambda: F.linear(a, wt, bias), iters=5, warmup=2)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    F.linear(a, wt, bias)
+                    torch.cuda.synchronize()
+            names = sorted({e.key for e in prof.key_averages()
+                            if e.device_type.name == "CUDA"
+                            and "Memset" not in e.key})
+            log("gemm_time", gemm=name, rows=m, k=k, n=n, ms=ms,
+                tflops=2 * m * k * n / ms / 1e9, kernels=names)
+            out[f"{name}_{width}"] = ms
+            del a, wt, bias
+    torch.cuda.empty_cache()
+    return out
 
 
 def fused_site_check(site: str, shape, slope: float, dev, gen) -> tuple:
@@ -3891,9 +4029,10 @@ def _zoo_all_slices(family: str, cfg, cpu, out: np.ndarray,
 def _zoo_swinir(dev, lr) -> dict:
     """SwinIR at its published widths, seeded init, served: its checkpoint
     through the infer_volume CLI on the volume phase's volume (W
-    ``SWIN_BLOCKS`` a batch), then the 16 slices of 256^2 through
-    ``upscale_batch`` in bf16 (W ``SWIN_BLOCKS`` a forward, counted
-    alone) and two of them against the card's fp32 forward of the same
+    ``SWIN_BLOCKS`` and the padded LayerNorm 2 ``SWIN_BLOCKS`` + 2 a
+    batch), then the 16 slices of 256^2 through ``upscale_batch`` in bf16
+    (the same a forward, counted alone) and two of them against the
+    card's fp32 forward of the same
     weights (the plain ops, TF32 off) within 5% of its largest output.
     Not trained here: its training runs on plain ops only."""
     d = ZOO_DIR / "ckpt_swinir"
@@ -6369,7 +6508,9 @@ def main(argv=None) -> int:
                "B4 fused": check_fused(dev, gen),
                "B1 backward": check_b1_backward(dev, gen),
                "epilogue": check_epilogue(dev, gen),
-               "window_attention": check_window_attention(dev, gen)}
+               "window_attention": check_window_attention(dev, gen),
+               "padded_layer_norm": check_padded_layer_norm(dev, gen)}
+    check_swin_gemms(dev)
     # the remat leg's larger crop: B1's backward at its 20 sites
     check_b1_backward_sites(dev, gen, BATCH, LR, "remat leg's larger crop")
     c64 = check_b1_c64(dev, gen)
@@ -6525,6 +6666,20 @@ def main(argv=None) -> int:
                      "window_attention", 0) for col, phase in phases},
                  "phase_launches": dp["phase_launches"].get(
                      "window_attention", 0)})
+    r = results["padded_layer_norm"]
+    rows.append({"name": "padded_layer_norm", "route": "cuda",
+                 "source": torch_root + "padded_layer_norm.cu",
+                 "replaces": "none (the JAX package has no LayerNorm)",
+                 "launches": sw["launches"]["padded_layer_norm"],
+                 "volume_launches": sw["volume"]["launches"].get(
+                     "padded_layer_norm", 0),
+                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "shape", "c")},
+                 **{f"{col}_launches": phase["launches"].get(
+                     "padded_layer_norm", 0) for col, phase in phases},
+                 "phase_launches": dp["phase_launches"].get(
+                     "padded_layer_norm", 0)})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

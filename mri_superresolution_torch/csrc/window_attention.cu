@@ -1,6 +1,9 @@
 // SwinIR's shifted-window multi-head attention in one pass: from the qkv
 // linear's output (B, H, W, 3C) to the attention output (B, H, W, C) at the
-// tokens' own positions, ready for the block's proj.
+// tokens' own positions, ready for the block's proj. Either may lie in wider
+// rows (the served forward's 16-byte rows: qkv in rows of QS >= 3C, the
+// output in rows of OS >= C, whose channels from C on the kernel sets to
+// zero, since proj's zero weights times unset memory could be NaN).
 //
 // Replaces no TPU kernel: the JAX package has no attention. The published
 // SwinIR (Liang et al. 2021, models/network_swinir.py) runs, per block, a
@@ -14,9 +17,12 @@
 //
 // - The roll and the windowing are index arithmetic: the window's tokens are
 //   read from, and written back to, their own positions ((y' + shift) mod H).
-//   A window's row is two runs of 4 tokens, each contiguous in the token
-//   layout and 16-byte aligned (C even, shift a multiple of 4), which cp.async
-//   copies whole into shared memory: the window's q, k and v, 64 x 3C bf16.
+//   In rows of 3C a window's row is two runs of 4 tokens, each contiguous
+//   in the token layout and 16-byte aligned (QS a multiple of 4, shift 0 or
+//   4), which cp.async copies whole into shared memory; in 16-byte rows
+//   (QS a multiple of 8) each token's first 3C channels are copied into a
+//   shared row of SS, which spreads the fragment loads over the banks. The
+//   window's q, k and v: 64 x SS bf16.
 // - Warp w takes query rows 16 (w % 4) .. +15 of heads w / 4, w / 4 + 2, ...
 //   S = q k^T runs on mma.sync.m16n8k16 (bf16 in, fp32 sums) with the head
 //   size zero-padded to 32 in the fragments (hd = 30 for SwinIR): the pairs
@@ -32,12 +38,14 @@
 //   P v as they lie (the score accumulators' layout is the A layout).
 // - O = P v on mma.sync again; each warp writes its rows of its head over
 //   that head's q channels in shared memory (no other warp reads them), and
-//   the block writes the window's output, 64 x C, in 8-byte vectors.
+//   the block writes the window's output, 64 x OS, in 8-byte vectors.
 //
-// Bound on the H100: by bytes. A token moves 8C bytes and takes 4 * 64 * C
-// operations (q k^T and P v), 32 operations a byte, far below the ~295 at
-// which the tensor cores would bind. So the design moves each byte once and
-// keeps enough in flight: 69 kB of cp.async a block, three blocks an SM.
+// Bound on the H100: by bytes. A token moves 8C bytes (2 (QS + OS) in wider
+// rows: 1,456 against 1,440 at C = 180 in rows of 544 and 184) and takes
+// 4 * 64 * C operations (q k^T and P v), 32 operations a byte, far below the
+// ~295 at which the tensor cores would bind. So the design moves each byte
+// once and keeps enough in flight: 70 kB of cp.async a block, three blocks
+// an SM.
 // The plain version (kernels/window_attention.py) is the published sequence;
 // the kernel agrees with it to bf16 rounding (fp32 sums in another order).
 
@@ -104,28 +112,42 @@ __global__ void __launch_bounds__(kThreads, 2)
     window_attention_kernel(const bf16* __restrict__ qkv,
                             const float* __restrict__ table,
                             bf16* __restrict__ out, int H, int W, int C,
-                            int heads, int shift, float scale) {
+                            int heads, int shift, float scale, int QS,
+                            int SS, int OS) {
   extern __shared__ uint4 smem_raw[];
-  bf16* s = reinterpret_cast<bf16*>(smem_raw);           // [kN][3C]
-  float* tab = reinterpret_cast<float*>(s + kN * 3 * C);  // [heads][kTable]
+  bf16* s = reinterpret_cast<bf16*>(smem_raw);           // [kN][SS]
+  float* tab = reinterpret_cast<float*>(s + kN * SS);     // [heads][kTable]
   __shared__ unsigned char reg_id[kN];
 
-  const int C3 = 3 * C;
   const int nwx = W / kWin;
   const int wy = blockIdx.x / nwx, wx = blockIdx.x % nwx;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
 
-  // 16 runs of 4 tokens (a window row's two halves), 3C / 2 chunks of 16 B
-  const int cps = C3 / 2;
   const size_t img = static_cast<size_t>(b) * H * W;
-  for (int i = tid; i < 16 * cps; i += kThreads) {
-    const int run = i / cps, j = i - run * cps;
-    const int r = run >> 1, x0 = (run & 1) * 4;
-    const int y = (wy * kWin + r + shift) % H;
-    const int x = (wx * kWin + x0 + shift) % W;
-    const bf16* src = qkv + (img + static_cast<size_t>(y) * W + x) * C3;
-    cp_async16(s + (r * kWin + x0) * C3 + j * 8, src + j * 8);
+  if (QS % 8) {
+    // rows of 3C (SS == QS): 16 runs of 4 tokens (a window row's two
+    // halves), each 16-byte aligned, QS / 2 chunks of 16 B
+    const int cps = QS / 2;
+    for (int i = tid; i < 16 * cps; i += kThreads) {
+      const int run = i / cps, j = i - run * cps;
+      const int r = run >> 1, x0 = (run & 1) * 4;
+      const int y = (wy * kWin + r + shift) % H;
+      const int x = (wx * kWin + x0 + shift) % W;
+      const bf16* src = qkv + (img + static_cast<size_t>(y) * W + x) * QS;
+      cp_async16(s + (r * kWin + x0) * SS + j * 8, src + j * 8);
+    }
+  } else {
+    // 16-byte rows: each token's first 3C channels, rounded up to 16 B,
+    // into a shared row of SS
+    const int cpt = (3 * C + 7) / 8;
+    for (int i = tid; i < kN * cpt; i += kThreads) {
+      const int t = i / cpt, j = i - t * cpt;
+      const int y = (wy * kWin + (t >> 3) + shift) % H;
+      const int x = (wx * kWin + (t & 7) + shift) % W;
+      const bf16* src = qkv + (img + static_cast<size_t>(y) * W + x) * QS;
+      cp_async16(s + t * SS + j * 8, src + j * 8);
+    }
   }
   for (int i = tid; i < heads * kTable; i += kThreads) {
     const int h = i / kTable, t = i - h * kTable;
@@ -154,16 +176,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
       const int d = ks * 16 + 2 * tq;
-      qa[ks][0] = d < hd ? ld_pair(s + i0 * C3 + qo + d) : 0u;
-      qa[ks][1] = d < hd ? ld_pair(s + i1 * C3 + qo + d) : 0u;
-      qa[ks][2] = d + 8 < hd ? ld_pair(s + i0 * C3 + qo + d + 8) : 0u;
-      qa[ks][3] = d + 8 < hd ? ld_pair(s + i1 * C3 + qo + d + 8) : 0u;
+      qa[ks][0] = d < hd ? ld_pair(s + i0 * SS + qo + d) : 0u;
+      qa[ks][1] = d < hd ? ld_pair(s + i1 * SS + qo + d) : 0u;
+      qa[ks][2] = d + 8 < hd ? ld_pair(s + i0 * SS + qo + d + 8) : 0u;
+      qa[ks][3] = d + 8 < hd ? ld_pair(s + i1 * SS + qo + d + 8) : 0u;
     }
     float sc[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const bf16* kr = s + (nt * 8 + g) * C3 + ko;
+      const bf16* kr = s + (nt * 8 + g) * SS + ko;
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
         const int d = ks * 16 + 2 * tq;
@@ -238,53 +260,69 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (d < hd) {
           const unsigned short* vc = su + vo + d;
           const int k0 = kk * 16 + 2 * tq;
-          b0 = static_cast<uint32_t>(vc[k0 * C3]) |
-               (static_cast<uint32_t>(vc[(k0 + 1) * C3]) << 16);
-          b1 = static_cast<uint32_t>(vc[(k0 + 8) * C3]) |
-               (static_cast<uint32_t>(vc[(k0 + 9) * C3]) << 16);
+          b0 = static_cast<uint32_t>(vc[k0 * SS]) |
+               (static_cast<uint32_t>(vc[(k0 + 1) * SS]) << 16);
+          b1 = static_cast<uint32_t>(vc[(k0 + 8) * SS]) |
+               (static_cast<uint32_t>(vc[(k0 + 9) * SS]) << 16);
         }
         mma_bf16(o, pa[kk], b0, b1);
       }
       // rows i0, i1, channels dn * 8 + 2 tq, +1: over this head's q
       const int dc = dn * 8 + 2 * tq;
       if (dc < hd) {
-        *reinterpret_cast<uint32_t*>(s + i0 * C3 + qo + dc) = pack(o[0], o[1]);
-        *reinterpret_cast<uint32_t*>(s + i1 * C3 + qo + dc) = pack(o[2], o[3]);
+        *reinterpret_cast<uint32_t*>(s + i0 * SS + qo + dc) = pack(o[0], o[1]);
+        *reinterpret_cast<uint32_t*>(s + i1 * SS + qo + dc) = pack(o[2], o[3]);
       }
     }
   }
   __syncthreads();
 
-  // the window's output: 16 runs of 4 tokens, C / 4 vectors of 8 B a token
-  const int vpt = C / 4;
+  // the window's output: 16 runs of 4 tokens, OS / 4 vectors of 8 B a
+  // token, those from C on zero (C % 4 == 0)
+  const int vpt = OS / 4;
   for (int i = tid; i < kN * vpt; i += kThreads) {
     const int t = i / vpt, j = i - t * vpt;
     const int r = t >> 3, c = t & 7;
     const int y = (wy * kWin + r + shift) % H;
     const int x = (wx * kWin + c + shift) % W;
-    const uint2 v = *reinterpret_cast<const uint2*>(s + t * C3 + j * 4);
-    *reinterpret_cast<uint2*>(out + (img + static_cast<size_t>(y) * W + x) * C +
-                              j * 4) = v;
+    const uint2 v = j * 4 < C
+                        ? *reinterpret_cast<const uint2*>(s + t * SS + j * 4)
+                        : make_uint2(0u, 0u);
+    *reinterpret_cast<uint2*>(out + (img + static_cast<size_t>(y) * W + x) *
+                                        OS + j * 4) = v;
   }
 }
 
 }  // namespace
 
-// qkv: (b, h, w, 3c) bf16, contiguous, 16-byte aligned, the last axis q | k
-// | v, each head-major; table: ((2 * 8 - 1)^2, heads) fp32; out: (b, h, w, c)
-// bf16, 8-byte aligned. Windows of 8 over the frame rolled by -shift. Refuses
-// h or w not a multiple of 8, c not a multiple of 4 or of heads, an odd head
-// size or one above 32, more than 16 heads, a shift not 0 or 4, b above 65535.
+// qkv: (b, h, w, qs) bf16, contiguous, 16-byte aligned, its first 3c
+// channels q | k | v, each head-major; table: ((2 * 8 - 1)^2, heads) fp32;
+// out: (b, h, w, os) bf16, 8-byte aligned, channels c .. os - 1 set to zero.
+// Windows of 8 over the frame rolled by -shift. Refuses h or w not a
+// multiple of 8, c not a multiple of 4 or of heads, an odd head size or one
+// above 32, more than 16 heads, a shift not 0 or 4, b above 65535, qs not a
+// multiple of 4 or below 3c, os not a multiple of 4 or below c.
 extern "C" int msr_window_attention(const void* qkv, const float* table,
                                     void* out, int b, int h, int w, int c,
-                                    int heads, int shift, void* stream) {
+                                    int heads, int shift, int qs, int os,
+                                    void* stream) {
   if (b < 1 || b > 65535 || h < kWin || w < kWin || h % kWin || w % kWin ||
       heads < 1 || heads > kMaxHeads || c % heads || c % 4 ||
       (c / heads) % 2 || c / heads > 32 || (shift != 0 && shift != 4) ||
+      qs < 3 * c || qs % 4 || os < c || os % 4 ||
       reinterpret_cast<uintptr_t>(qkv) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 8)
     return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(kN) * 3 * c * sizeof(bf16) +
+  // the shared row: qs itself for rows of 3c; for 16-byte rows, 3c rounded
+  // up to 8 channels and then to 8 mod 16, so that the fragment loads of 8
+  // rows fall on distinct banks (a row of 544 put rows i and i + 2 on the
+  // same banks: W took 1.22x its time)
+  int ss = qs;
+  if (qs % 8 == 0) {
+    ss = (3 * c + 7) / 8 * 8;
+    if (ss % 16 == 0) ss += 8;
+  }
+  const size_t smem = static_cast<size_t>(kN) * ss * sizeof(bf16) +
                       static_cast<size_t>(heads) * kTable * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const long long windows = static_cast<long long>(h / kWin) * (w / kWin);
@@ -307,6 +345,7 @@ extern "C" int msr_window_attention(const void* qkv, const float* table,
                             kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv), table,
-      static_cast<__nv_bfloat16*>(out), h, w, c, heads, shift, scale);
+      static_cast<__nv_bfloat16*>(out), h, w, c, heads, shift, scale, qs, ss,
+      os);
   return static_cast<int>(cudaGetLastError());
 }

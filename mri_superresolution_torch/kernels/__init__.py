@@ -18,6 +18,8 @@ from mri_superresolution_torch.kernels.groupnorm import (  # noqa: F401
     gn_quantize, group_norm_leaky, group_norm_leaky_backward)
 from mri_superresolution_torch.kernels.leaky_quantize import (  # noqa: F401
     leaky_quantize)
+from mri_superresolution_torch.kernels.padded_layer_norm import (  # noqa: F401
+    padded_layer_norm)
 from mri_superresolution_torch.kernels.roll_probe import (  # noqa: F401
     roll32, roll_copy, taps3)
 from mri_superresolution_torch.kernels.ssim import ssim_per_sample  # noqa: F401
@@ -26,7 +28,7 @@ from mri_superresolution_torch.kernels.window_attention import (  # noqa: F401
 
 WRAPPERS = (group_norm_leaky, group_norm_leaky_backward, conv3x3,
             ssim_per_sample, leaky_quantize, gn_quantize, roll_copy, roll32,
-            taps3, bias_epilogue, window_attention)
+            taps3, bias_epilogue, window_attention, padded_layer_norm)
 
 
 def reset_launch_counts() -> None:

@@ -56,7 +56,9 @@ SIGNATURES = {
     "msr_probe_roll32": [_P, _P, _I, _I, _P],
     "msr_probe_taps3": [_P, _P, _I, _I, _P],
     "msr_bias_epilogue": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
-    "msr_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "msr_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
+    "msr_padded_layer_norm": [_P, _P, _P, _P, _LL, _I, _I, _F, _P],
 }
 
 

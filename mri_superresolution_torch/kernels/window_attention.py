@@ -13,6 +13,11 @@ attention output (B, H, W, C) at the tokens' own positions: the roll and
 the windowing are index arithmetic, the bias index and the mask come from
 the tokens' coordinates.
 
+The served forward keeps its rows 16 bytes wide: qkv in rows of 3C
+rounded up to 8 channels, the output in rows of C rounded up (``dim`` and
+``out_width``); the kernel reads the first 3C channels of each qkv row and
+writes zeros into the output's channels from C on.
+
 The plain version below is that published sequence in PyTorch ops, which
 autograd knows: training, the CPU and every differentiated call take it.
 ``window_attention`` takes the kernel with grad off, on a CUDA tensor, for
@@ -28,6 +33,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from mri_superresolution_torch.kernels import _build
 from mri_superresolution_torch.utils.spans import span
@@ -137,52 +143,65 @@ def window_attention_plain(qkv: torch.Tensor, table: torch.Tensor,
     return o
 
 
-def _check(qkv, table, heads, window, shift):
-    if qkv.dim() != 4 or qkv.shape[-1] % 3:
-        raise ValueError(f"qkv must be (B, H, W, 3C), got {tuple(qkv.shape)}")
-    b, h, w, c3 = qkv.shape
+def _check(qkv, table, heads, window, shift, c, out_width):
+    if qkv.dim() != 4 or qkv.shape[-1] < 3 * c or out_width < c:
+        raise ValueError(f"qkv must be (B, H, W, >= 3C) and the output's "
+                         f"rows at least C = {c} wide, got "
+                         f"{tuple(qkv.shape)} and {out_width}")
+    _, h, w, _ = qkv.shape
     if h % window or w % window:
         raise ValueError(f"H and W must be multiples of the window "
                          f"{window}, got {h} x {w}")
     if not 0 <= shift < window:
         raise ValueError(f"shift must be in [0, {window}), got {shift}")
-    if (c3 // 3) % heads:
-        raise ValueError(f"C = {c3 // 3} is not a multiple of {heads} heads")
+    if c % heads:
+        raise ValueError(f"C = {c} is not a multiple of {heads} heads")
     if table.shape != ((2 * window - 1) ** 2, heads):
         raise ValueError(f"table must be ({(2 * window - 1) ** 2}, {heads}), "
                          f"got {tuple(table.shape)}")
 
 
-def _launch(qkv, table, heads, window, shift):
+def _launch(qkv, table, heads, window, shift, c, out_width):
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
+    if qkv.shape[-1] % 4 or out_width % 4:
+        raise ValueError(f"qkv's and the output's rows must be multiples of "
+                         f"4 channels, got {qkv.shape[-1]} and {out_width}")
     if table.dtype != torch.float32 or not table.is_contiguous() or \
             table.device != qkv.device:
         raise ValueError(f"table must be a contiguous float32 tensor on "
                          f"{qkv.device}")
-    b, h, w, c3 = qkv.shape
-    out = torch.empty((b, h, w, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    b, h, w, qs = qkv.shape
+    out = torch.empty((b, h, w, out_width), dtype=qkv.dtype,
+                      device=qkv.device)
     with span(LAUNCH_SPAN, count=b):
         code = _build.library().msr_window_attention(
-            qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w,
-            c3 // 3, heads, shift, _build.stream_ptr(qkv.device))
+            qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, c,
+            heads, shift, qs, out_width, _build.stream_ptr(qkv.device))
     window_attention.launches += 1
     _build.check(code, "window_attention")
     return out
 
 
 def window_attention(qkv: torch.Tensor, table: torch.Tensor, heads: int,
-                     window: int, shift: int) -> torch.Tensor:
+                     window: int, shift: int, dim: int = None,
+                     out_width: int = None) -> torch.Tensor:
     """Shifted-window multi-head attention of the qkv linear's output
     ``qkv`` (B, H, W, 3C) with the relative-position bias ``table``; the
     (B, H, W, C) attention output at the tokens' own positions, before
-    ``proj``. The kernel where grad is off, on a CUDA tensor that
-    :func:`serves` takes; elsewhere :func:`window_attention_plain`."""
-    _check(qkv, table, heads, window, shift)
+    ``proj``. ``dim``: C, where qkv's rows are wider than 3C (their
+    channels from 3C on are not read); ``out_width``: the output's rows,
+    C by default, their channels from C on zero. The kernel where grad is
+    off, on a CUDA tensor that :func:`serves` takes; elsewhere
+    :func:`window_attention_plain`."""
+    c = qkv.shape[-1] // 3 if dim is None else dim
+    out_width = c if out_width is None else out_width
+    _check(qkv, table, heads, window, shift, c, out_width)
     if qkv.is_cuda and not _build.needs_grad(qkv, table) and \
-            serves(qkv.shape[-1] // 3, heads, window, shift, qkv.dtype):
-        return _launch(qkv, table, heads, window, shift)
-    return window_attention_plain(qkv, table, heads, window, shift)
+            serves(c, heads, window, shift, qkv.dtype):
+        return _launch(qkv, table, heads, window, shift, c, out_width)
+    o = window_attention_plain(qkv[..., :3 * c], table, heads, window, shift)
+    return F.pad(o, (0, out_width - c)) if out_width > c else o
 
 
 window_attention.launches = 0

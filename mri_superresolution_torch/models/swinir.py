@@ -21,11 +21,25 @@ PixelShuffle(2), ``conv_last``, and the crop to 2H x 2W.
 Tensors are (B, H, W, C) tokens between the convs, which see the same bytes
 as (B, C, H, W) in channels_last memory. Params are fp32 and every op runs
 in the compute ``dtype`` (bf16 served), LayerNorm with its statistics and
-the softmax in fp32. With grad off on the card, in bf16, the attention of
-each block is one launch of the window-attention kernel (``num_blocks *
-swin_depth`` a forward, 36 published); training, the CPU and fp32 take its
-plain version. The convs keep cuDNN's bias: 180 channels is no multiple of
-``kernels.bias_epilogue``'s vector.
+the softmax in fp32.
+
+The served path is the forward with grad off on the card, in what the
+window-attention kernel takes (bf16; :func:`SwinIR.served`). There the
+attention of each block is one launch of that kernel (``num_blocks *
+swin_depth`` a forward, 36 published), and the token stream lies in rows
+of Cp = C rounded up to 8 channels (180 -> 184), a 16-byte row of bf16, its
+pad channels exactly zero: every GEMM operand and output and every conv's
+channels are then 16-byte aligned, which cuBLAS's and cuDNN's Hopper
+kernels need (180-wide rows took sm80 ``align2`` GEMM tiles and cuDNN's
+padding pass on each conv). The weights are cast into zero-padded bf16
+copies on each forward, as the unpadded path casts them, and nothing is
+kept on the module. Each LayerNorm there is ``kernels.padded_layer_norm``
+(74 a forward published), which normalises the first C channels with the
+fp32 scale and shift as they are (no padded copy) and writes the pad as
+zeros; the residual adds, GELU and the RSTB skip keep zeros at zero, and
+``conv_before_upsample`` takes the Cp channels with zero weights on the
+pad. Training, the CPU, fp32 and every grad-enabled call take the
+unpadded ops. The convs keep cuDNN's bias.
 
 The state_dict names are the published ones, so a published ``.pth``
 (``params``) loads once its two buffers per block (``relative_position_index``
@@ -40,31 +54,68 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mri_superresolution_torch.kernels import _build
+from mri_superresolution_torch.kernels.padded_layer_norm import (
+    padded_layer_norm)
 from mri_superresolution_torch.kernels.window_attention import (
-    window_attention)
+    serves, window_attention)
 from mri_superresolution_torch.models.unet import CL, _conv, _conv3
 from mri_superresolution_torch.ops.functional import pixel_shuffle
 from mri_superresolution_torch.utils.spans import span
 
 LN_EPS = 1e-5
 LEAKY_SLOPE = 0.01
+# channels of one 16-byte vector of bf16: the served path's rows are
+# multiples of it
+ROW_ALIGN = 8
 
 
-def _ln(x, norm: nn.LayerNorm):
-    """LayerNorm over the last axis in ``x``'s dtype, statistics in fp32
-    (PyTorch's own, for bf16 too)."""
+def row_width(n: int, served: bool) -> int:
+    """The channels a row of ``n`` takes: ``n`` rounded up to ROW_ALIGN on
+    the served path, ``n`` elsewhere."""
+    return -(-n // ROW_ALIGN) * ROW_ALIGN if served else n
+
+
+def padded(t: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """``t`` cast to ``dtype`` and zero-padded at the end of each axis to
+    ``shape``; ``t.to(dtype)`` where the shapes agree."""
+    if tuple(shape) == tuple(t.shape):
+        return t.to(dtype)
+    out = t.new_zeros(shape, dtype=dtype)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _ln(x, norm: nn.LayerNorm, served: bool):
+    """LayerNorm over the first C channels in ``x``'s dtype, statistics in
+    fp32: on the served path the padded-row kernel, elsewhere PyTorch's own
+    over the whole last axis."""
+    if served:
+        return padded_layer_norm(x, norm.weight, norm.bias, norm.eps)
     return F.layer_norm(x, norm.normalized_shape, norm.weight.to(x.dtype),
                         norm.bias.to(x.dtype), norm.eps)
 
 
-def _linear(x, lin: nn.Linear):
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+def _linear(x, lin: nn.Linear, served: bool):
+    """``lin`` of ``x``'s rows in x's dtype, its weight zero-padded to x's
+    width of inputs and, on the served path, to 16-byte rows of outputs."""
+    n = row_width(lin.out_features, served)
+    return F.linear(x, padded(lin.weight, (n, x.shape[-1]), x.dtype),
+                    padded(lin.bias, (n,), x.dtype))
 
 
-def _conv_tokens(t, conv: nn.Conv2d, dtype):
+def _conv_to(x, conv: nn.Conv2d, dtype, n: int):
+    """The 3x3 ``conv`` of (B, K, H, W) ``x`` to ``n`` channels, its weight
+    zero-padded to K inputs and n outputs, channels_last out."""
+    w = padded(conv.weight, (n, x.shape[1]) + tuple(conv.weight.shape[2:]),
+               dtype)
+    return _conv(x, w, dtype, padded(conv.bias, (n,), dtype), padding=1)
+
+
+def _conv_tokens(t, conv: nn.Conv2d, dtype, served: bool):
     """A 3x3 conv of (B, H, W, C) tokens, the result as tokens."""
-    return _conv(t.permute(0, 3, 1, 2), conv.weight, dtype, conv.bias,
-                 padding=1).permute(0, 2, 3, 1)
+    n = row_width(conv.out_channels, served)
+    return _conv_to(t.permute(0, 3, 1, 2), conv, dtype, n).permute(0, 2, 3, 1)
 
 
 class WindowAttention(nn.Module):
@@ -99,16 +150,18 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x):
-        a = self.attn
+    def forward(self, x, served: bool):
+        a, c = self.attn, self.norm1.normalized_shape[0]
         with span("swin.attn", x.device):
-            qkv = _linear(_ln(x, self.norm1), a.qkv)
+            qkv = _linear(_ln(x, self.norm1, served), a.qkv, served)
             y = window_attention(qkv, a.relative_position_bias_table,
-                                 a.heads, a.window, self.shift)
-            x = x + _linear(y, a.proj)
+                                 a.heads, a.window, self.shift, c,
+                                 x.shape[-1])
+            x = x + _linear(y, a.proj, served)
         with span("swin.mlp", x.device):
-            h = F.gelu(_linear(_ln(x, self.norm2), self.mlp.fc1))
-            x = x + _linear(h, self.mlp.fc2)
+            h = F.gelu(_linear(_ln(x, self.norm2, served), self.mlp.fc1,
+                               served))
+            x = x + _linear(h, self.mlp.fc2, served)
         return x
 
 
@@ -132,11 +185,11 @@ class RSTB(nn.Module):
                                             mlp_ratio)
         self.conv = _conv3(dim, dim, bias=True)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, served: bool):
         y = x
         for blk in self.residual_group.blocks:
-            y = blk(y)
-        return x + _conv_tokens(y, self.conv, dtype)
+            y = blk(y, served)
+        return x + _conv_tokens(y, self.conv, dtype, served)
 
 
 class PatchNorm(nn.Module):
@@ -174,7 +227,19 @@ class SwinIR(nn.Module):
         self.conv_last = _conv3(num_feat, out_channels, bias=True)
         _init_(self, generator)
 
+    def served(self, x: torch.Tensor) -> bool:
+        """Whether a forward of ``x`` is the served path: on the card, grad
+        off, and every block's attention one that the kernel takes."""
+        return x.is_cuda and not _build.needs_grad(x, *self.parameters()) \
+            and all(serves(b.norm1.normalized_shape[0], b.attn.heads,
+                           b.attn.window, b.shift, self.dtype)
+                    for layer in self.layers
+                    for b in layer.residual_group.blocks)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._forward(x, self.served(x))
+
+    def _forward(self, x: torch.Tensor, served: bool) -> torch.Tensor:
         dt, w = self.dtype, self.window
         _, h0, w0, _ = x.shape
         x = x.permute(0, 3, 1, 2).float()
@@ -182,17 +247,16 @@ class SwinIR(nn.Module):
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
         x = x.to(dt).contiguous(memory_format=CL)
-        f = _conv(x, self.conv_first.weight, dt, self.conv_first.bias,
-                  padding=1).permute(0, 2, 3, 1)
-        t = _ln(f, self.patch_embed.norm)
+        f = _conv_to(x, self.conv_first, dt, row_width(
+            self.conv_first.out_channels, served)).permute(0, 2, 3, 1)
+        t = _ln(f, self.patch_embed.norm, served)
         for layer in self.layers:
-            t = layer(t, dt)
-        t = _ln(t, self.norm)
-        y = f + _conv_tokens(t, self.conv_after_body, dt)
+            t = layer(t, dt, served)
+        t = _ln(t, self.norm, served)
+        y = f + _conv_tokens(t, self.conv_after_body, dt, served)
         y = y.permute(0, 3, 1, 2)
         up = self.conv_before_upsample[0]
-        y = F.leaky_relu(_conv(y, up.weight, dt, up.bias, padding=1),
-                         LEAKY_SLOPE)
+        y = F.leaky_relu(_conv_to(y, up, dt, up.out_channels), LEAKY_SLOPE)
         ups = self.upsample[0]
         y = pixel_shuffle(_conv(y, ups.weight, dt, ups.bias, padding=1), 2)
         y = _conv(y, self.conv_last.weight, dt, self.conv_last.bias,

@@ -335,7 +335,8 @@ def test_unet_on_card_matches_cpu(dev):
         "group_norm_leaky": 20, "group_norm_leaky_backward": 0,
         "conv3x3": 2, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
-        "taps3": 0, "bias_epilogue": 0, "window_attention": 0}
+        "taps3": 0, "bias_epilogue": 0, "window_attention": 0,
+        "padded_layer_norm": 0}
     np.testing.assert_allclose(got, cpu.upscale_batch(x), rtol=1e-4,
                                atol=1e-4)
     m = InferenceEngine.calculate_metrics(got[0], got[1], dev)
@@ -1436,13 +1437,94 @@ def test_window_attention_grad_and_cpu_take_the_plain_version(dev):
     assert window_attention.launches == 0
 
 
+@pytest.mark.parametrize("shape", [(4, 256, 256, 180, 6),   # SwinIR's
+                                   (3, 40, 24, 180, 6),     # odd windows
+                                   (2, 16, 32, 36, 3)])     # rows of 112/40
+@pytest.mark.parametrize("shift", [0, 4])
+def test_window_attention_kernel_in_16_byte_rows(dev, shape, shift):
+    """qkv in rows of 3C rounded up to 8 channels (544 at C = 180, garbage
+    past 3C) and the output in rows of C rounded up (184): the first C
+    output channels are the kernel's bits on the packed rows, the output's
+    pad zero."""
+    from mri_superresolution_torch.kernels.window_attention import (
+        window_attention)
+    b, h, w, c, heads = shape
+    qs, os_ = -(-3 * c // 8) * 8, -(-c // 8) * 8
+    qkv, table = _qkv(shape, dev)
+    wide = torch.full((b, h, w, qs), 9.0, device=dev, dtype=torch.bfloat16)
+    wide[..., :3 * c] = qkv
+    window_attention.launches = 0
+    with torch.no_grad():
+        got = window_attention(wide, table, heads, 8, shift, c, os_)
+        want = window_attention(qkv, table, heads, 8, shift)
+    torch.cuda.synchronize()
+    assert window_attention.launches == 2
+    assert got.shape == (b, h, w, os_)
+    assert torch.equal(got[..., :c], want)
+    assert not got[..., c:].any()
+
+
+@pytest.mark.parametrize("lead,c,cp", [((64, 256, 256), 180, 184),
+                                       ((7,), 180, 184), ((4099,), 180, 184),
+                                       ((3, 11, 5), 60, 64),
+                                       ((333,), 96, 96), ((517,), 240, 240),
+                                       ((3,), 500, 512)])
+def test_padded_layer_norm_kernel(dev, lead, c, cp):
+    """Within one bf16 ulp of the largest output of the plain version
+    (fp32 statistics in another order), the pad written as zeros though
+    the input's pad holds 7.0, the same bits twice, one launch a call."""
+    from mri_superresolution_torch.kernels.padded_layer_norm import (
+        padded_layer_norm, padded_layer_norm_plain)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = (0.3 + 2 * torch.randn(*lead, cp, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    x[..., c:] = 7.0
+    w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    padded_layer_norm.launches = 0
+    with torch.no_grad():
+        got = padded_layer_norm(x, w, b, 1e-5)
+        again = padded_layer_norm(x, w, b, 1e-5)
+        want = padded_layer_norm_plain(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert padded_layer_norm.launches == 2
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, again)
+    assert not got[..., c:].any()
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= \
+        BF16_RTOL * top
+
+
+def test_padded_layer_norm_kernel_refuses(dev):
+    from mri_superresolution_torch.kernels.padded_layer_norm import (
+        padded_layer_norm)
+    w, b = torch.ones(180, device=dev), torch.zeros(180, device=dev)
+    x = torch.randn(4, 184, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="bfloat16"):
+        padded_layer_norm(x.float(), w, b, 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        padded_layer_norm(torch.randn(4, 180, device=dev).bfloat16(), w, b,
+                          1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        padded_layer_norm(torch.randn(4, 192, device=dev).bfloat16()[:, :184],
+                          w, b, 1e-5)
+    flat = torch.zeros(1 + 4 * 184, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        padded_layer_norm(flat[1:].view(4, 184), w, b, 1e-5)
+
+
 def test_swinir_served_forward_launches_the_kernel(dev):
-    """The published widths' bf16 forward with grad off: 36 launches, each
-    a span that counts its slices, no torch.roll and no softmax (no
-    materialized scores); the output within bf16's reach of the fp32
-    forward on the CPU."""
+    """The published widths' bf16 forward with grad off: W 36 launches and
+    the padded LayerNorm 74 (2 a block, the patch norm, the final norm),
+    each a span that counts its slices or rows, no torch.roll, no softmax
+    (no materialized scores) and no PyTorch LayerNorm; the output within
+    bf16's reach of the fp32 forward on the CPU. With grad on, neither
+    kernel runs."""
     import time
     from torch.profiler import ProfilerActivity, profile
+    from mri_superresolution_torch.kernels.padded_layer_norm import (
+        padded_layer_norm)
     from mri_superresolution_torch.kernels.window_attention import (
         window_attention)
     from mri_superresolution_torch.utils import spans
@@ -1453,17 +1535,27 @@ def test_swinir_served_forward_launches_the_kernel(dev):
     model = model.to(dev).eval()
     x = torch.rand(2, 36, 44, 1, generator=torch.Generator().manual_seed(1))
     window_attention.launches = 0
+    padded_layer_norm.launches = 0
     t0 = time.time_ns()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as p:
         got = model(x.to(dev))
     torch.cuda.synchronize()
     assert window_attention.launches == 36
-    # each launch's span counts its slices while a profiler runs
-    made = [r for r in spans.records(t0, time.time_ns())
-            if r.name == "kernel.window_attention"]
-    assert [r.count for r in made] == [2] * 36
+    assert padded_layer_norm.launches == 74
+    # each launch's span counts its slices (W) or rows (the LayerNorm) of
+    # the frame padded to the window, 40 x 48
+    recs = spans.records(t0, time.time_ns())
+    assert [r.count for r in recs if r.name == "kernel.window_attention"] \
+        == [2] * 36
+    assert [r.count for r in recs if r.name == "kernel.swin_layer_norm"] \
+        == [2 * 40 * 48] * 74
     ops = {e.key for e in p.key_averages()}
-    assert not ops & {"aten::roll", "aten::softmax", "aten::_softmax"}, ops
+    assert not ops & {"aten::roll", "aten::softmax", "aten::_softmax",
+                      "aten::layer_norm", "aten::native_layer_norm"}, ops
+    with torch.enable_grad():
+        model(x.to(dev))
+    assert (window_attention.launches, padded_layer_norm.launches) == \
+        (36, 74)
     ref = build_model(cfg)
     ref.load_state_dict(params)
     with torch.no_grad():
@@ -1471,3 +1563,56 @@ def test_swinir_served_forward_launches_the_kernel(dev):
     assert got.shape == want.shape == (2, 72, 88, 1)
     gap = float((got.cpu() - want).abs().max())
     assert gap <= 0.05 * float(want.abs().max()), gap
+
+
+def test_swinir_padded_rows_match_the_unpadded_served_path(dev):
+    """The served forward at the published widths in rows of 184 against
+    the same bf16 forward in rows of 180 (PyTorch's LayerNorm, the sm80
+    GEMMs): outputs clamped to [0, 1] as the engine serves them, within
+    the volume cell's limits of the fp32 reference (largest gap 0.025,
+    mean 0.005)."""
+    cfg = ModelConfig(model_type="swinir", base_filters=180, num_blocks=6)
+    model = build_model(cfg, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    model = model.to(dev).eval()
+    x = phantom_batch(np.random.default_rng(5), 4, 128)
+    x = torch.from_numpy(x[..., None]).to(dev)
+    with torch.no_grad():
+        assert model.served(x)
+        got = model(x).clamp(0, 1)
+        want = model._forward(x, False).clamp(0, 1)
+    gap = (got - want).abs()
+    print(f"padded vs unpadded: max {float(gap.max())}, mean "
+          f"{float(gap.mean())}")
+    assert float(gap.max()) <= 0.025 and float(gap.mean()) <= 0.005
+
+
+def test_swinir_served_forward_takes_aligned_kernels_only(dev):
+    """A served forward of 16 slices of 256^2 at the published widths:
+    among its device kernels no sm80 ``align2`` GEMM (cuBLAS's choice for
+    180-wide rows), no PyTorch LayerNorm and no cuDNN channel padding;
+    the padded LayerNorm and W are there."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = ModelConfig(model_type="swinir", base_filters=180, num_blocks=6)
+    model = build_model(cfg, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0)
+                        ).to(dev).eval()
+    x = torch.rand(16, 256, 256, 1,
+                   generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            model(x)
+            torch.cuda.synchronize()
+    names = {e.key for e in p.key_averages()
+             if e.device_type.name == "CUDA"}
+    for bad in ("cutlass_80_tensorop_bf16_s16816gemm",
+                "vectorized_layer_norm_kernel", "nhwcAddPaddingKernel"):
+        assert not [n for n in names if bad in n], (bad, names)
+    assert [n for n in names if "padded_ln_kernel" in n]
+    assert [n for n in names if "window_attention_kernel" in n]

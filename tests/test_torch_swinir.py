@@ -128,6 +128,20 @@ def test_window_attention_plain_matches_reference(shape, heads, ws, shift):
                        got)
 
 
+def test_window_attention_takes_wider_rows():
+    """qkv in rows of 112 for C = 36 (3C = 108) and the output in rows of
+    40: the first 36 output channels are the packed rows' attention, the
+    rest zeros, whatever qkv holds past 3C."""
+    g = torch.Generator().manual_seed(6)
+    qkv = torch.randn(1, 16, 24, 112, generator=g)
+    table = torch.randn(49, 3, generator=g)
+    got = wa.window_attention(qkv, table, 3, 4, 2, 36, 40)
+    want = wa.window_attention(qkv[..., :108].contiguous(), table, 3, 4, 2)
+    assert got.shape == (1, 16, 24, 40)
+    assert torch.equal(got[..., :36], want)
+    assert not got[..., 36:].any()
+
+
 def test_the_kernel_serves_the_published_widths():
     bf = torch.bfloat16
     assert wa.serves(180, 6, 8, 4, bf) and wa.serves(180, 6, 8, 0, bf)
@@ -160,6 +174,131 @@ def test_mask_and_index_match_the_published_construction(h, w, ws, shift):
     assert last[0, n - 1] == -100.0 and last[0, 1] == 0.0
     assert int((last == 0).sum()) == (ws - shift) ** 2 * (ws - shift) ** 2 \
         + 2 * ((ws - shift) * shift) ** 2 + shift ** 4
+
+
+# C = 36 in 3 heads: rows of 40, qkv of 112, the MLP's 72 already whole
+WIDE = ModelConfig(model_type="swinir", base_filters=36, num_blocks=2,
+                   swin_depth=2, swin_heads=3, window_size=4, num_feat=16)
+
+
+def _todays_forward(m, x):
+    """The unpadded forward as the module ran it before the served path
+    took 16-byte rows: every op on C-wide tokens, the weights cast to the
+    compute dtype, PyTorch's LayerNorm."""
+    from mri_superresolution_torch.models.unet import _conv
+    from mri_superresolution_torch.ops.functional import pixel_shuffle
+    import torch.nn.functional as F
+    dt, w = m.dtype, m.window
+
+    def ln(t, n):
+        return F.layer_norm(t, n.normalized_shape, n.weight.to(t.dtype),
+                            n.bias.to(t.dtype), n.eps)
+
+    def lin(t, li):
+        return F.linear(t, li.weight.to(t.dtype), li.bias.to(t.dtype))
+
+    def conv(t, cv):
+        return _conv(t, cv.weight, dt, cv.bias, padding=1)
+
+    _, h0, w0, _ = x.shape
+    x = x.permute(0, 3, 1, 2).float()
+    ph, pw = (-h0) % w, (-w0) % w
+    if ph or pw:
+        x = F.pad(x, (0, pw, 0, ph), mode="reflect")
+    x = x.to(dt).contiguous(memory_format=torch.channels_last)
+    f = conv(x, m.conv_first).permute(0, 2, 3, 1)
+    t = ln(f, m.patch_embed.norm)
+    for layer in m.layers:
+        y = t
+        for b in layer.residual_group.blocks:
+            a = b.attn
+            qkv = lin(ln(y, b.norm1), a.qkv)
+            o = wa.window_attention(qkv, a.relative_position_bias_table,
+                                    a.heads, a.window, b.shift)
+            y = y + lin(o, a.proj)
+            y = y + lin(F.gelu(lin(ln(y, b.norm2), b.mlp.fc1)), b.mlp.fc2)
+        t = t + conv(y.permute(0, 3, 1, 2), layer.conv).permute(0, 2, 3, 1)
+    t = ln(t, m.norm)
+    y = (f + conv(t.permute(0, 3, 1, 2), m.conv_after_body).permute(
+        0, 2, 3, 1)).permute(0, 3, 1, 2)
+    y = F.leaky_relu(conv(y, m.conv_before_upsample[0]), 0.01)
+    y = pixel_shuffle(conv(y, m.upsample[0]), 2)
+    y = conv(y, m.conv_last)
+    return y[:, :, :2 * h0, :2 * w0].float().permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad", [False, True])
+def test_cpu_and_grad_forwards_keep_todays_ops_bit_for_bit(dtype, grad):
+    """Off the served path (the CPU; grad on or off; fp32 or bf16) the
+    forward runs the unpadded ops it always ran, to the bit."""
+    torch.manual_seed(0)
+    m = build_model(WIDE, dtype=dtype,
+                    generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.05 * torch.randn(p.shape))
+    x = _x((2, 18, 14, 1))
+    with torch.set_grad_enabled(grad):
+        assert not m.served(x)
+        got = m(x)
+        want = _todays_forward(m, x)
+    assert got.requires_grad == grad
+    assert torch.equal(got, want)
+
+
+def test_padded_ops_keep_the_first_outputs_and_zero_the_pad():
+    """Each linear and conv with its weight zero-padded to 16-byte rows of
+    inputs and outputs: the first outputs equal the unpadded op's in fp32,
+    the pad outputs are exactly 0."""
+    from mri_superresolution_torch.models import swinir as sw
+    m = build_model(WIDE, generator=torch.Generator().manual_seed(8))
+    g = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+    blk = m.layers[0].residual_group.blocks[0]
+    x = torch.randn(2, 8, 8, 36, generator=g)
+    xp = torch.nn.functional.pad(x, (0, 4))
+    h = torch.randn(2, 8, 8, 72, generator=g)
+    for lin, inp, pinp in ((blk.attn.qkv, x, xp), (blk.attn.proj, x, xp),
+                           (blk.mlp.fc1, x, xp), (blk.mlp.fc2, h, h)):
+        got = sw._linear(pinp, lin, True)
+        want = sw._linear(inp, lin, False)
+        n = lin.out_features
+        assert got.shape[-1] == sw.row_width(n, True) == -(-n // 8) * 8
+        torch.testing.assert_close(got[..., :n], want, rtol=1e-6, atol=1e-6)
+        assert not got[..., n:].any()
+    for conv, inp, pinp in ((m.layers[0].conv, x, xp),
+                            (m.conv_after_body, x, xp)):
+        got = sw._conv_tokens(pinp, conv, torch.float32, True)
+        want = sw._conv_tokens(inp, conv, torch.float32, False)
+        assert got.shape[-1] == 40
+        torch.testing.assert_close(got[..., :36], want, rtol=1e-5, atol=1e-5)
+        assert not got[..., 36:].any()
+    up = m.conv_before_upsample[0]                 # Cp in, num_feat out
+    got = sw._conv_to(xp.permute(0, 3, 1, 2), up, torch.float32, 16)
+    want = sw._conv_to(x.permute(0, 3, 1, 2), up, torch.float32, 16)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # no padding where the shapes agree: the cast alone, as before
+    assert sw.padded(up.weight, up.weight.shape, torch.float32) is up.weight
+
+
+def test_padded_forward_equals_the_unpadded_one_in_fp32():
+    """The served path's arithmetic on the CPU (plain LayerNorm and
+    attention over 16-byte rows): the whole forward within fp32 rounding
+    of the unpadded one, at C = 36 (rows of 40) and at C = 24 (rows
+    already whole)."""
+    for cfg in (WIDE, TINY):
+        m = build_model(cfg, generator=torch.Generator().manual_seed(10))
+        g = torch.Generator().manual_seed(11)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+            x = _x((2, 18, 14, 1))
+            got = m._forward(x, True)
+            want = m._forward(x, False)
+        assert _gap(got, want) < 1e-5, cfg.base_filters
 
 
 def _no_shift(monkeypatch, model):
