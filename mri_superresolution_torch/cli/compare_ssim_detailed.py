@@ -21,8 +21,6 @@ import glob
 import os
 import sys
 
-from mri_superresolution_torch.config import MODEL_TYPES
-
 
 def find_weight_dirs(root: str):
     """{weight: path} of the ``ssim_weight_{w}`` directories in root."""
@@ -123,13 +121,13 @@ def create_detailed_comparison(weight_dirs, test_image_dir, output_dir,
 
 
 def parse_args(argv=None):
+    from mri_superresolution_torch.models.families import model_flags
     parser = argparse.ArgumentParser(
         description="Create detailed comparison of MRI Super-resolution "
                     "with different SSIM weights")
     parser.add_argument('--weight_dirs', type=str, required=True)
     parser.add_argument('--test_image_dir', type=str, required=True)
-    parser.add_argument('--model_type', type=str, choices=MODEL_TYPES,
-                        default='unet')
+    model_flags(parser)
     parser.add_argument('--output_dir', type=str,
                         default='./ssim_detailed_comparison')
     parser.add_argument('--cpu', action='store_true',

@@ -28,19 +28,17 @@ import argparse
 import os
 import sys
 
-from mri_superresolution_torch.config import MODEL_TYPES, with_family_defaults
-
 
 def parse_args(argv=None):
+    from mri_superresolution_torch.models.families import (FAMILIES,
+                                                            model_flags)
     ap = argparse.ArgumentParser(
         description="Export a checkpoint as a portable serving artifact")
     ap.add_argument("--checkpoint_dir", default="./checkpoints")
     ap.add_argument("--checkpoint_path", default=None)
-    ap.add_argument("--model_type", default="unet", choices=MODEL_TYPES,
-                    help="swinir is refused: its window-attention kernel "
-                         "has no exported operator")
-    ap.add_argument("--base_filters", type=int, default=None,
-                    help="default 32, swinir 180 (its embed_dim)")
+    fill = model_flags(ap, base_filters=32, model_help=", ".join(
+        n for n, f in FAMILIES.items() if not f.exports) + " is refused: "
+        "its window-attention kernel has no exported operator")
     ap.add_argument("--out", required=True)
     ap.add_argument("--shapes", default="256x256",
                     help="comma-separated HxW list to specialize "
@@ -81,7 +79,7 @@ def parse_args(argv=None):
     ap.add_argument("--no_bf16", action="store_true")
     ap.add_argument("--cpu", action="store_true",
                     help="trace on the CPU instead of the GPU")
-    return with_family_defaults(ap.parse_args(argv), base_filters=32)
+    return fill(ap.parse_args(argv))
 
 
 def main(argv=None) -> int:

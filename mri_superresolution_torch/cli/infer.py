@@ -19,10 +19,9 @@ import argparse
 import os
 import sys
 
-from mri_superresolution_torch.config import MODEL_TYPES, with_family_defaults
-
 
 def parse_args(argv=None):
+    from mri_superresolution_torch.models.families import model_flags
     parser = argparse.ArgumentParser(
         description="MRI quality enhancement inference")
     parser.add_argument('--input', type=str, required=True)
@@ -30,10 +29,7 @@ def parse_args(argv=None):
     parser.add_argument('--target', type=str, default=None)
     parser.add_argument('--checkpoint_dir', type=str, default='./checkpoints')
     parser.add_argument('--checkpoint_path', type=str, default=None)
-    parser.add_argument('--model_type', type=str, choices=MODEL_TYPES,
-                        default='unet')
-    parser.add_argument('--base_filters', type=int, default=None,
-                        help='default 64, swinir 180 (its embed_dim)')
+    fill = model_flags(parser, base_filters=64)
     parser.add_argument('--show_comparison', action='store_true')
     parser.add_argument('--show_diff', action='store_true')
     parser.add_argument('--save_figure', type=str, default=None,
@@ -71,7 +67,7 @@ def parse_args(argv=None):
                              'weights and exported programs in one file, '
                              'no model code needed. The input size must be '
                              'among the exported shapes.')
-    return with_family_defaults(parser.parse_args(argv), base_filters=64)
+    return fill(parser.parse_args(argv))
 
 
 def main(argv=None) -> int:

@@ -42,10 +42,9 @@ import sys
 
 import numpy as np
 
-from mri_superresolution_torch.config import MODEL_TYPES, with_family_defaults
-
 
 def parse_args(argv=None):
+    from mri_superresolution_torch.models.families import model_flags
     parser = argparse.ArgumentParser(
         description="Super-resolve a whole NIfTI volume (2x in-plane)")
     parser.add_argument('--input', type=str, required=True,
@@ -61,10 +60,7 @@ def parse_args(argv=None):
     parser.add_argument('--artifact', type=str, default=None,
                         help='Serve from a portable artifact (cli.'
                              'export_serving) instead of a checkpoint')
-    parser.add_argument('--model_type', type=str, choices=MODEL_TYPES,
-                        default='unet')
-    parser.add_argument('--base_filters', type=int, default=None,
-                        help='default 32, swinir 180 (its embed_dim)')
+    fill = model_flags(parser, base_filters=32)
     parser.add_argument('--batch_size', type=int, default=64,
                         help='Slices per forward pass')
     parser.add_argument('--tile', type=int, default=512,
@@ -115,7 +111,7 @@ def parse_args(argv=None):
                              'round(y*32767 / y*255) on the card and store '
                              'the NIfTI scl_slope that decodes back to '
                              '[0,1]; float32 = exact.')
-    return with_family_defaults(parser.parse_args(argv), base_filters=32)
+    return fill(parser.parse_args(argv))
 
 
 def artifact_conflicts(args, art) -> tuple:

@@ -38,10 +38,9 @@ import signal
 import sys
 import threading
 
-from mri_superresolution_torch.config import MODEL_TYPES, with_family_defaults
-
 
 def parse_args(argv=None):
+    from mri_superresolution_torch.models.families import model_flags
     ap = argparse.ArgumentParser(
         description="Dynamic-batching HTTP inference server",
         formatter_class=argparse.RawDescriptionHelpFormatter,
@@ -56,9 +55,7 @@ def parse_args(argv=None):
     ap.add_argument("--artifact", default=None,
                     help="serve a portable artifact (cli.export_serving) "
                          "instead of a checkpoint")
-    ap.add_argument("--model_type", default="unet", choices=MODEL_TYPES)
-    ap.add_argument("--base_filters", type=int, default=None,
-                    help="default 32, swinir 180 (its embed_dim)")
+    fill = model_flags(ap, base_filters=32)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8476)
     ap.add_argument("--max_batch", type=int, default=64,
@@ -101,7 +98,7 @@ def parse_args(argv=None):
     ap.add_argument("--no_bf16", action="store_true")
     ap.add_argument("--cpu", action="store_true",
                     help="Run on the CPU instead of the GPU")
-    return with_family_defaults(ap.parse_args(argv), base_filters=32)
+    return fill(ap.parse_args(argv))
 
 
 def artifact_conflicts(args, art) -> list:

@@ -183,14 +183,14 @@ def create_summary_visualization(results, output_path, logger) -> bool:
 
 
 def parse_args(argv=None):
+    from mri_superresolution_torch.models.families import jax_families
     parser = argparse.ArgumentParser(
         description="Test MRI super-resolution model on new dataset")
     parser.add_argument('--test_dataset', type=str, default='./test_dataset')
     parser.add_argument('--output_dir', type=str, default='./test_results')
     parser.add_argument('--checkpoint_dir', type=str, default='./checkpoints')
     parser.add_argument('--checkpoint_path', type=str, default=None)
-    parser.add_argument('--model_type', type=str,
-                        choices=['unet', 'unet_tpu', 'edsr', 'simple'],
+    parser.add_argument('--model_type', type=str, choices=jax_families(),
                         default='unet')
     parser.add_argument('--base_filters', type=int, default=32)
     parser.add_argument('--n_slices', type=int, default=10)

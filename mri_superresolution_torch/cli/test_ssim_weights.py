@@ -97,14 +97,14 @@ def create_ssim_weight_collage(weight_dirs, output_path, epoch=-1) -> bool:
 
 
 def parse_args(argv=None):
+    from mri_superresolution_torch.models.families import jax_families
     parser = argparse.ArgumentParser(
         description="Test various SSIM weights for MRI Super-resolution")
     parser.add_argument('--full_res_dir', type=str, required=True)
     parser.add_argument('--low_res_dir', type=str, required=True)
     parser.add_argument('--ssim_weights', type=float, nargs='+',
                         default=[0.0, 0.3, 0.5, 0.7, 1.0])
-    parser.add_argument('--model_type', type=str,
-                        choices=['unet', 'unet_tpu', 'edsr', 'simple'],
+    parser.add_argument('--model_type', type=str, choices=jax_families(),
                         default='unet')
     parser.add_argument('--batch_size', type=int, default=8)
     parser.add_argument('--epochs', type=int, default=20)

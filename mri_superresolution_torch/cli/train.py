@@ -1,17 +1,17 @@
 """Train a model of the zoo on the GPU.
 
     python -m mri_superresolution_torch.cli.train --full_res_dir hr \
-        --low_res_dir lr [--model_type unet|unet_tpu|edsr|simple|swinir] \
+        --low_res_dir lr [--model_type TYPE] \
         [--perceptual_weight 0.1 [--vgg_weights vgg19.npz]] [--epochs 100] \
         [--batch_size 8] [--resume] ...
 
-Takes the flags of the JAX package's ``scripts/train.py`` (reference
-scripts/train.py:486-548), with the same defaults and meanings, and
-writes the same checkpoints and JSON-line protocol (``--qat``: with the
-int8 calibration sidecars). Runs on the card; ``--cpu`` runs on the CPU.
-``--remat`` recomputes the model's blocks in the backward (the same
-update, less memory); ``--profile_dir`` writes a ``torch.profiler``
-Chrome trace of one epoch.
+``TYPE`` is any family of ``models/families.py``. Takes the flags of the
+JAX package's ``scripts/train.py`` (reference scripts/train.py:486-548),
+with the same defaults and meanings, and writes the same checkpoints and
+JSON-line protocol (``--qat``: with the int8 calibration sidecars). Runs
+on the card; ``--cpu`` runs on the CPU. ``--remat`` recomputes the
+model's blocks in the backward (the same update, less memory);
+``--profile_dir`` writes a ``torch.profiler`` Chrome trace of one epoch.
 
 Data parallelism, one process a rank (``parallel/multihost.py``):
 
@@ -41,23 +41,16 @@ import argparse
 import random
 import sys
 
-from mri_superresolution_torch.config import MODEL_TYPES, with_family_defaults
-
 
 def parse_args(argv=None):
+    from mri_superresolution_torch.models.families import model_flags
     p = argparse.ArgumentParser(
         description="Train MRI quality enhancement model")
     p.add_argument('--full_res_dir', type=str, required=True,
                    help='Directory containing high-quality MRI slices')
     p.add_argument('--low_res_dir', type=str, required=True,
                    help='Directory containing low-quality MRI slices')
-    p.add_argument('--model_type', type=str, choices=MODEL_TYPES,
-                   default='unet')
-    p.add_argument('--base_filters', type=int, default=None,
-                   help='default 32, swinir 180 (its embed_dim)')
-    p.add_argument('--num_blocks', type=int, default=None,
-                   help='edsr: residual trunk depth (default 8); swinir: '
-                        'residual Swin groups (default 6)')
+    fill = model_flags(p, base_filters=32, num_blocks=8)
     p.add_argument('--batch_size', type=int, default=8)
     p.add_argument('--epochs', type=int, default=100)
     p.add_argument('--learning_rate', type=float, default=1e-4)
@@ -89,8 +82,8 @@ def parse_args(argv=None):
                         'more forward of those blocks; the same update')
     p.add_argument('--spatial_shards', type=int, default=1,
                    help='Row-shard every image over this many ranks (it '
-                        'must divide the ranks; LR H % (8 x this) == 0, '
-                        'W % 8 == 0): activations and their tape 1/S a '
+                        'must divide the ranks; LR H %% (8 x this) == 0, '
+                        'W %% 8 == 0): activations and their tape 1/S a '
                         'rank, halos and sums between the ranks')
     p.add_argument('--grad_accum', type=int, default=1,
                    help='Split each batch into this many sequential '
@@ -150,8 +143,7 @@ def parse_args(argv=None):
                         'epoch here')
     p.add_argument('--checkpoint_dir', type=str, default='./checkpoints')
     p.add_argument('--log_dir', type=str, default='./logs')
-    return with_family_defaults(p.parse_args(argv), base_filters=32,
-                                num_blocks=8)
+    return fill(p.parse_args(argv))
 
 
 def config_from_args(args):

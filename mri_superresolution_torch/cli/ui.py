@@ -23,6 +23,7 @@ import os
 import random
 import subprocess
 
+from mri_superresolution_torch.models.families import jax_families
 from mri_superresolution_torch.utils.subproc import child_env, cli_command
 
 # the port's CLI module of each menu
@@ -34,7 +35,7 @@ BOOLEAN_FLAGS = ("augmentation", "use_tensorboard", "cpu",
 DISCRETE = {
     "perceptual_loss_type": ["l1", "l2", "mse"],
     "vgg_layer_idx": [8, 17, 26, 35],  # relu2_2/3_4/4_4/5_4 in VGG19
-    "model_type": ["unet", "unet_tpu", "edsr", "simple"],
+    "model_type": jax_families(),
     "out_dtype": ["float32", "int16", "uint8"],
 }
 

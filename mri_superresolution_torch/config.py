@@ -35,24 +35,6 @@ class ModelConfig:
     num_feat: int = 64          # channels of the upsampling tail
 
 
-# the CLIs' --base_filters and --num_blocks where a family's published
-# widths differ from the U-Net's
-FAMILY_DEFAULTS = {"swinir": {"base_filters": 180, "num_blocks": 6}}
-# the model families, in the CLIs' order
-MODEL_TYPES = ("unet", "unet_tpu", "edsr", "simple", "swinir")
-
-
-def with_family_defaults(args, **defaults):
-    """A CLI's parsed ``args`` with each of ``defaults`` (``base_filters``,
-    ``num_blocks``) that was not given set: the ``--model_type`` family's
-    published width, else the value in ``defaults``."""
-    for name, default in defaults.items():
-        if getattr(args, name) is None:
-            setattr(args, name, FAMILY_DEFAULTS.get(args.model_type, {})
-                    .get(name, default))
-    return args
-
-
 @dataclass
 class LossConfig:
     """CombinedLoss weights (reference utils/losses.py:153-198).

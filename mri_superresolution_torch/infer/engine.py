@@ -7,11 +7,11 @@ Reference behaviour reproduced (scripts/infer.py): percentile-clip
 (:317-324), PNG and comparison/diff figure outputs (:173-228, 336-394).
 
 Each batch is uploaded as it is, zero-padded to the shape bucket on the
-card, run through the bf16 (or fp32) model of any family (``unet``,
-``unet_tpu``, ``edsr``, ``simple``, ``swinir``), clamped, cropped to exactly 2x
-the input and, for uint8/int16 ``out_dtype``, packed on the card before
-the fetch. The engine runs on the card unless ``device="cpu"`` is passed.
-The serving options are the JAX engine's (``infer/engine.py`` there):
+card, run through the bf16 (or fp32) model of any family
+(``models/families.py``), clamped, cropped to exactly 2x the input and,
+for uint8/int16 ``out_dtype``, packed on the card before the fetch. The
+engine runs on the card unless ``device="cpu"`` is passed. The serving
+options are the JAX engine's (``infer/engine.py`` there):
 
 - ``normalize_inputs``: raw uint8/uint16/int16/float batches are
   normalized per slice on the card (``ops/normalize.py``), before the
@@ -67,7 +67,6 @@ given, or loaded from it), and near-empty batches on the bf16 model.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import logging
 import os
 from collections import deque
@@ -83,6 +82,7 @@ from mri_superresolution_torch.infer.transfer import HostTransfers
 from mri_superresolution_torch.kernels import ssim_per_sample
 from mri_superresolution_torch.models import build_model
 from mri_superresolution_torch.models import quant_forward
+from mri_superresolution_torch.models.families import with_weight_widths
 from mri_superresolution_torch.ops.functional import pack_unit
 from mri_superresolution_torch.ops.metrics import mae, match_histograms_np, mse
 from mri_superresolution_torch.ops.normalize import normalize_slices
@@ -94,8 +94,6 @@ from mri_superresolution_torch.parallel.mesh import (device_pool,
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.utils.device import resolve_device
 from mri_superresolution_torch.utils.spans import span
-from mri_superresolution_torch.utils.weights import (edsr_num_blocks,
-                                                     swinir_widths)
 
 logger = logging.getLogger("mri_superresolution_torch.infer")
 
@@ -898,15 +896,11 @@ def load_engine(cfg: InferConfig, device=None, num_devices: int = 1,
         model_cfg = model_config_from_dict(mc)
         logger.info(f"Model hyperparams from checkpoint: "
                     f"base_filters={model_cfg.base_filters}")
-    if model_cfg.model_type == "edsr":
-        # a bare weight file carries its depth in its blocks
-        model_cfg = dataclasses.replace(
-            model_cfg, num_blocks=edsr_num_blocks(params))
-    elif model_cfg.model_type == "swinir":
-        # and a swinir file all its widths in its shapes
-        widths = swinir_widths(params)
-        model_cfg = dataclasses.replace(model_cfg, **widths)
-        logger.info(f"swinir widths from the weights: {widths}")
+    # even a bare weight file carries the widths its shapes fix
+    model_cfg, widths = with_weight_widths(model_cfg, params)
+    if widths:
+        logger.info(f"{model_cfg.model_type} widths from the weights: "
+                    f"{widths}")
     quant_calib_path = cfg.quant_calib_path
     if cfg.quant == "int8" and not quant_calib_path:
         # a QAT checkpoint carries its frozen scales beside it: serve with

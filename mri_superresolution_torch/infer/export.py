@@ -54,8 +54,6 @@ FORMAT = "mri-sr-torch-serving-artifact-v1"
 PLATFORMS = ("cuda", "cpu")
 _OUT_DTYPES = ("float32", "int16", "uint8")
 _RAW_DTYPES = ("uint8", "uint16", "int16", "float32")
-# the families whose forwards export (swinir's kernel has no operator)
-EXPORTABLE = ("edsr", "simple", "unet", "unet_tpu")
 # the batch programs are traced at: a batch of 1 would specialise it
 _TRACE_BATCH = 2
 
@@ -166,9 +164,11 @@ def export_artifact(path: str, state_dict: Dict[str, torch.Tensor],
     shape) and with ``out_dtype``; ``serve_raw`` is refused, as its
     normalize needs whole-slice statistics.
     """
-    if model_cfg.model_type not in EXPORTABLE:
+    from mri_superresolution_torch.models.families import FAMILIES
+    exportable = sorted(n for n, f in FAMILIES.items() if f.exports)
+    if model_cfg.model_type not in exportable:
         raise ValueError(
-            f"export supports the model types {list(EXPORTABLE)}, not "
+            f"export supports the model types {exportable}, not "
             f"{model_cfg.model_type!r}: its window-attention kernel has no "
             f"operator that torch.export can record")
     if mode not in ("plain", "tta", "int8"):

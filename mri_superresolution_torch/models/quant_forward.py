@@ -5,10 +5,14 @@ families (``unet``, ``unet_tpu``, ``edsr``, ``simple``). It takes the
 port's state_dict (fp32 tensors on the serving device) and runs every conv
 site in one of four modes that share one code path:
 
-- ``ref``       the bf16 forward, bit-identical to the module's forward
-                (the same functions and kernels in the same order;
-                tests/test_torch_quant.py and tests/test_torch_zoo.py
-                assert it);
+- ``ref``       the bf16 forward with the module's functions and kernels
+                in the same order. On the CPU it is bit-identical to the
+                module's forward (tests/test_torch_quant.py and
+                tests/test_torch_zoo.py assert it there). On the card it
+                is not for edsr: its served trunk runs the bias, ReLU,
+                res_scale and residual of a conv as one rounding in
+                kernel E (``kernels/bias_epilogue.py``), and ``ref``
+                keeps them as separate ops;
 - ``calib``     ``ref`` plus each conv input's per-channel max |x| (or its
                 ``percentile``), from which the static activation scales
                 come;
@@ -298,7 +302,8 @@ def supported_types():
 
 def reference_forward(params, x, model_type: str = "unet",
                       dtype=torch.bfloat16) -> torch.Tensor:
-    """The bf16 forward, bit-identical to the module's forward."""
+    """The bf16 forward: the module's on the CPU, bit for bit (see the
+    module docstring for the card)."""
     return _FORWARDS[model_type](_Ctx("ref"), params, x, dtype)
 
 

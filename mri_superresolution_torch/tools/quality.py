@@ -60,7 +60,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-FAMILIES = ("unet", "unet_tpu", "edsr", "simple")
+from mri_superresolution_torch.models import families, quant_forward
+
+# the families with an int8 forward, which every mode of the harness needs
+FAMILIES = tuple(n for n in families.FAMILIES if quant_forward.supported(n))
 MODES = ("bf16", "int8", "tta")
 METRICS = ("ssim", "psnr", "rmse", "mae")
 CALIB_SLICES = 8

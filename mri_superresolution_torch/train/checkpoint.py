@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from mri_superresolution_torch.models import KNOWN_MODEL_TYPES
+from mri_superresolution_torch.models.families import FAMILIES
 from mri_superresolution_torch.utils.weights import (
     jax_params_from_state_dict, state_dict_from_jax)
 
@@ -183,10 +183,6 @@ def load_checkpoint(path: str, return_extras: bool = False,
     return out
 
 
-# the buffers of a published SwinIR state_dict that the port derives
-SWINIR_BUFFERS = (".relative_position_index", ".attn_mask")
-
-
 def read_meta(path: str) -> Dict:
     """The JSON sidecar ``<base>.json`` of a checkpoint, or {}."""
     base = path[:-5] if path.endswith(".ckpt") else path
@@ -217,8 +213,7 @@ def find_best_checkpoint(checkpoint_dir: str, model_type: str) -> str:
                 return names[key] + ext
     # substring match like the reference, but never across model families:
     # a query for 'unet' must not pick up 'unet_tpu' checkpoints
-    longer = [m for m in KNOWN_MODEL_TYPES
-              if m != model_type and model_type in m]
+    longer = [m for m in FAMILIES if m != model_type and model_type in m]
     for file in sorted(os.listdir(checkpoint_dir)):
         if not (file.endswith(".ckpt") or file.endswith(".pth")):
             continue
@@ -260,9 +255,11 @@ def load_params_any(path: str, model_type: str = "unet"
             if key in ckpt:
                 sd = ckpt[key]
                 break
-        # a published SwinIR file keeps two derived buffers a block
+        # a published file may keep buffers that the port derives
+        derived = tuple(b for f in FAMILIES.values()
+                        for b in f.published_buffers)
         return ({k: v.float() for k, v in sd.items()
-                 if not k.endswith(SWINIR_BUFFERS)}, {"source": "torch"})
+                 if not k.endswith(derived)}, {"source": "torch"})
     base = path[:-5] if path.endswith(".ckpt") else path
     blob_path = path if path.endswith(".msgpack") else base + ".ckpt"
     with open(blob_path, "rb") as f:

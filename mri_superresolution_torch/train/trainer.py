@@ -9,18 +9,18 @@ split, the per-batch SSIM metric, the JSON-line protocol (``params``,
 ``batch_update``, ``epoch_summary``), best/final checkpoints, early
 stopping, optional TensorBoard and periodic sample grids.
 
-Every family of the JAX package trains (``unet``, ``unet_tpu``, ``edsr``,
-``simple``), with the full ``CombinedLoss``: L1, SSIM and the VGG19
-perceptual term (``--vgg_weights``, an ``.npz`` in the JAX package's
-format; without it seeded random VGG weights, with a warning, as the JAX
-trainer does). On the card every GroupNorm+LeakyReLU runs kernel B1
-forward and backward, the unet's two narrow 3x3 convs kernel B3, and the
-loss's SSIM kernel B2 (``kernels/``: each wrapper is an
-``autograd.Function`` where autograd needs it). Augmentation runs on the
-device from a ``torch.Generator`` seeded from (seed, epoch, batch), as the
-JAX trainer folds its key, so a resumed run replays the same draws.
-Checkpoints are the JAX package's format (``train/checkpoint.py``), the
-optimizer state included, so runs resume across packages.
+Every family of ``models/families.py`` trains, with the full
+``CombinedLoss``: L1, SSIM and the VGG19 perceptual term
+(``--vgg_weights``, an ``.npz`` in the JAX package's format; without it
+seeded random VGG weights, with a warning, as the JAX trainer does). On
+the card every GroupNorm+LeakyReLU runs kernel B1 forward and backward,
+the unet's two narrow 3x3 convs kernel B3, and the loss's SSIM kernel B2
+(``kernels/``: each wrapper is an ``autograd.Function`` where autograd
+needs it). Augmentation runs on the device from a ``torch.Generator``
+seeded from (seed, epoch, batch), as the JAX trainer folds its key, so a
+resumed run replays the same draws. Checkpoints are the JAX package's
+format (``train/checkpoint.py``), the optimizer state included, so runs
+resume across packages.
 
 ``--qat`` (quantization-aware training) trains through the int8 serving
 arithmetic simulated in float (``models/quant_forward.
@@ -103,6 +103,7 @@ from mri_superresolution_torch.losses.combined import _weighted_mean
 from mri_superresolution_torch.models import build_model
 from mri_superresolution_torch.models import quant_forward
 from mri_superresolution_torch.models import vgg as vgg_mod
+from mri_superresolution_torch.models.families import with_weight_widths
 from mri_superresolution_torch.ops.augment import augment_pair
 from mri_superresolution_torch.parallel import multihost
 from mri_superresolution_torch.parallel.mesh import rank_rows, zero1_layout
@@ -114,7 +115,6 @@ from mri_superresolution_torch.utils.device import resolve_device
 from mri_superresolution_torch.utils.logging import (log_message, set_quiet,
                                                    setup_logging)
 from mri_superresolution_torch.utils.spans import span
-from mri_superresolution_torch.utils.weights import swinir_widths
 
 
 @contextlib.contextmanager
@@ -899,10 +899,10 @@ def _train(cfg: TrainConfig, progress_cb=None, device=None) -> str:
         params_r, opt_r, meta, extras = ckpt.load_checkpoint(
             resume_base + ".ckpt", return_extras=True,
             model_type=cfg.model.model_type)
-        if cfg.model.model_type == "swinir":
-            # its sidecar keeps no Swin widths: the weights' shapes do
-            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-                cfg.model, **swinir_widths(params_r)))
+        # the widths the weights fix (edsr's depth, swinir's Swin widths,
+        # which no sidecar keeps) win over the flags
+        cfg = dataclasses.replace(
+            cfg, model=with_weight_widths(cfg.model, params_r)[0])
 
     # --- model / loss / optimizer ---
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32

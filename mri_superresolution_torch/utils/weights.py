@@ -21,7 +21,9 @@ permuted.
 - VGG19 (``vgg_state_dict_from_jax``): ``conv{i}`` <-> torchvision's
   ``features.{idx}`` at the i-th conv index.
 
-A tree whose top-level keys do not fit the family raises ValueError.
+A tree whose top-level keys do not fit the family raises ValueError. A
+family's pair of functions and its top-level keys are its record in
+``models/families``.
 """
 
 from __future__ import annotations
@@ -85,19 +87,10 @@ def _norm_inv(sd, prefix: str) -> dict:
             "bias": _np(sd[f"{prefix}.bias"])}
 
 
-_BACKBONE = ("inc", "down1", "down2", "down3", "up1", "up2", "up3")
-_UNET_HEAD = ("final_up_conv", "final_up_norm", "final_up_pixelshuffle",
-              "final_conv1", "final_norm", "final_conv2", "alpha")
-_UNET_TPU_HEAD = ("branch_a_conv", "branch_a_norm", "branch_b_conv",
-                  "branch_b_norm", "head_conv", "head_norm", "head_out",
-                  "alpha")
-_TOP_KEYS = {"unet": set(_BACKBONE + _UNET_HEAD),
-             "unet_tpu": set(_BACKBONE + _UNET_TPU_HEAD),
-             "edsr": {"head", "body_out", "tail"},
-             "simple": {"extract", "map", "reconstruct"},
-             "swinir": {"conv_first", "patch_embed", "layers", "norm",
-                        "conv_after_body", "conv_before_upsample",
-                        "upsample", "conv_last"}}
+BACKBONE = ("inc", "down1", "down2", "down3", "up1", "up2", "up3")
+UNET_TPU_HEAD = ("branch_a_conv", "branch_a_norm", "branch_b_conv",
+                 "branch_b_norm", "head_conv", "head_norm", "head_out")
+SIMPLE_LAYERS = ("extract", "map", "reconstruct")
 
 
 def edsr_num_blocks(tree) -> int:
@@ -132,12 +125,8 @@ def swinir_widths(sd) -> dict:
 def check_tree(params: dict, model_type: str) -> None:
     """Raise ValueError unless the param tree's top-level keys are those of
     ``model_type``."""
-    if model_type not in _TOP_KEYS:
-        raise ValueError(f"Unknown model type: {model_type} "
-                         f"(have {sorted(_TOP_KEYS)})")
-    want = set(_TOP_KEYS[model_type])
-    if model_type == "edsr":
-        want |= {f"block{i}" for i in range(edsr_num_blocks(params))}
+    from mri_superresolution_torch.models.families import family
+    want = family(model_type).jax_keys(params)
     got = set(params)
     if got != want:
         raise ValueError(
@@ -170,7 +159,7 @@ def _backbone_inv(sd, params: dict) -> None:
         }
 
 
-def _unet(params: dict, sd: Dict[str, torch.Tensor]) -> None:
+def unet_to_sd(params: dict, sd: Dict[str, torch.Tensor]) -> None:
     _backbone(params, sd)
     sd["alpha"] = _vec(params["alpha"]).reshape(1)
     sd["final_up_bilinear.1.weight"] = _oihw(params["final_up_conv"]["kernel"])
@@ -183,7 +172,7 @@ def _unet(params: dict, sd: Dict[str, torch.Tensor]) -> None:
     _conv(params["final_conv2"], "final_conv.3", sd)
 
 
-def _unet_inv(sd, params: dict) -> None:
+def unet_from_sd(sd, params: dict) -> None:
     _backbone_inv(sd, params)
     params.update({
         "alpha": _np(sd["alpha"]).reshape(()),
@@ -198,22 +187,22 @@ def _unet_inv(sd, params: dict) -> None:
     })
 
 
-def _unet_tpu(params: dict, sd: Dict[str, torch.Tensor]) -> None:
+def unet_tpu_to_sd(params: dict, sd: Dict[str, torch.Tensor]) -> None:
     _backbone(params, sd)
-    for name in _UNET_TPU_HEAD[:-1]:
+    for name in UNET_TPU_HEAD:
         (_norm if name.endswith("_norm") else _conv)(params[name], name, sd)
     sd["alpha"] = _vec(params["alpha"]).reshape(1)
 
 
-def _unet_tpu_inv(sd, params: dict) -> None:
+def unet_tpu_from_sd(sd, params: dict) -> None:
     _backbone_inv(sd, params)
-    for name in _UNET_TPU_HEAD[:-1]:
+    for name in UNET_TPU_HEAD:
         params[name] = (_norm_inv if name.endswith("_norm") else _conv_inv)(
             sd, name)
     params["alpha"] = _np(sd["alpha"]).reshape(())
 
 
-def _edsr(params: dict, sd: Dict[str, torch.Tensor]) -> None:
+def edsr_to_sd(params: dict, sd: Dict[str, torch.Tensor]) -> None:
     _conv(params["head"], "head", sd)
     for i in range(edsr_num_blocks(params)):
         block = params[f"block{i}"]
@@ -223,7 +212,7 @@ def _edsr(params: dict, sd: Dict[str, torch.Tensor]) -> None:
     _conv(params["tail"], "tail", sd)
 
 
-def _edsr_inv(sd, params: dict) -> None:
+def edsr_from_sd(sd, params: dict) -> None:
     params["head"] = _conv_inv(sd, "head")
     for i in range(edsr_num_blocks(sd)):
         params[f"block{i}"] = {"Conv_0": _conv_inv(sd, f"block{i}.conv0"),
@@ -232,26 +221,27 @@ def _edsr_inv(sd, params: dict) -> None:
     params["tail"] = _conv_inv(sd, "tail")
 
 
-def _simple(params: dict, sd: Dict[str, torch.Tensor]) -> None:
-    for name in ("extract", "map", "reconstruct"):
+def simple_to_sd(params: dict, sd: Dict[str, torch.Tensor]) -> None:
+    for name in SIMPLE_LAYERS:
         _conv(params[name], name, sd)
 
 
-def _simple_inv(sd, params: dict) -> None:
-    for name in ("extract", "map", "reconstruct"):
+def simple_from_sd(sd, params: dict) -> None:
+    for name in SIMPLE_LAYERS:
         params[name] = _conv_inv(sd, name)
 
 
-def _nested(params: dict, sd: Dict[str, torch.Tensor], prefix="") -> None:
+def nested_to_sd(params: dict, sd: Dict[str, torch.Tensor],
+                 prefix="") -> None:
     for k, v in params.items():
         if isinstance(v, dict):
-            _nested(v, sd, f"{prefix}{k}.")
+            nested_to_sd(v, sd, f"{prefix}{k}.")
         else:
             sd[prefix + k] = torch.from_numpy(np.array(v, np.float32,
                                                        copy=True))
 
 
-def _nested_inv(sd, params: dict) -> None:
+def nested_from_sd(sd, params: dict) -> None:
     for k, v in sd.items():
         *path, leaf = k.split(".")
         node = params
@@ -260,20 +250,15 @@ def _nested_inv(sd, params: dict) -> None:
         node[leaf] = _np(v)
 
 
-_TO_SD = {"unet": _unet, "unet_tpu": _unet_tpu, "edsr": _edsr,
-          "simple": _simple, "swinir": _nested}
-_FROM_SD = {"unet": _unet_inv, "unet_tpu": _unet_tpu_inv, "edsr": _edsr_inv,
-            "simple": _simple_inv, "swinir": _nested_inv}
-
-
 def state_dict_from_jax(params: dict, model_type: str = "unet"
                         ) -> Dict[str, torch.Tensor]:
     """The JAX package's param tree of ``model_type`` (nested numpy
     arrays) -> this port's state_dict (fp32 CPU tensors). Raises
     ValueError when the tree is not one of that family."""
+    from mri_superresolution_torch.models.families import family
     check_tree(params, model_type)
     sd: Dict[str, torch.Tensor] = {}
-    _TO_SD[model_type](params, sd)
+    family(model_type).to_sd(params, sd)
     return sd
 
 
@@ -290,11 +275,9 @@ def jax_params_from_state_dict(sd, model_type: str = "unet") -> dict:
     """Inverse of :func:`state_dict_from_jax`: a port state_dict of
     ``model_type`` (for the unet, a reference one too) -> the JAX
     package's param tree of numpy arrays."""
-    if model_type not in _FROM_SD:
-        raise ValueError(f"Unknown model type: {model_type} "
-                         f"(have {sorted(_FROM_SD)})")
+    from mri_superresolution_torch.models.families import family
     params: dict = {}
-    _FROM_SD[model_type](sd, params)
+    family(model_type).from_sd(sd, params)
     return params
 
 

@@ -18,7 +18,7 @@ from mri_superresolution_torch import config as cfg_mod
 from mri_superresolution_torch.config import LossConfig, ModelConfig
 from mri_superresolution_torch.infer import InferenceEngine, load_engine
 from mri_superresolution_torch.losses import CombinedLoss
-from mri_superresolution_torch.models import build_model
+from mri_superresolution_torch.models import FAMILIES, build_model
 from mri_superresolution_torch.train import checkpoint as ckpt
 from mri_superresolution_torch.utils.weights import swinir_widths
 
@@ -355,7 +355,7 @@ def test_defaults_are_the_benchmark_configs_widths():
             mc.num_feat) == (cfg["depth"], cfg["num_heads"],
                              cfg["window_size"], cfg["mlp_ratio"],
                              cfg["num_feat"])
-    assert cfg_mod.FAMILY_DEFAULTS["swinir"] == {
+    assert FAMILIES["swinir"].cli_widths == {
         "base_filters": cfg["base_filters"], "num_blocks": cfg["num_blocks"]}
     assert (cfg["base_filters"], cfg["num_blocks"]) == (180, 6)
     # no sidecar carries the Swin widths: the weights' shapes do

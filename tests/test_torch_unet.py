@@ -146,12 +146,11 @@ def test_icnr_init_repeats_subbands():
 def test_build_model_families():
     """The registry builds every family of the JAX package and swinir,
     with the config's widths; an unknown type raises."""
-    from mri_superresolution_torch.models import (EDSR, KNOWN_MODEL_TYPES,
-                                                  SimpleSR, SwinIR,
-                                                  UNetSuperResTPU)
+    from mri_superresolution_torch.models import (EDSR, FAMILIES, SimpleSR,
+                                                  SwinIR, UNetSuperResTPU)
     want = {"unet": UNetSuperRes, "unet_tpu": UNetSuperResTPU,
             "edsr": EDSR, "simple": SimpleSR, "swinir": SwinIR}
-    assert sorted(want) == sorted(KNOWN_MODEL_TYPES)
+    assert list(want) == list(FAMILIES)
     for t, cls in want.items():
         m = build_model(ModelConfig(model_type=t, base_filters=16,
                                     num_blocks=3))
