@@ -482,6 +482,8 @@ from mri_superresolution_torch.kernels.padded_layer_norm import (
 from mri_superresolution_torch.kernels.ssim import (
     flops_per_pixel as ssim_flops_per_pixel, ssim_per_sample,
     ssim_per_sample_plain)
+from mri_superresolution_torch.kernels.swin_mlp import (
+    bytes_moved as mlp_bytes, flops as mlp_flops, swin_mlp, swin_mlp_plain)
 from mri_superresolution_torch.kernels.window_attention import (
     bytes_moved as wattn_bytes, flops as wattn_flops, window_attention,
     window_attention_plain)
@@ -571,7 +573,8 @@ ZOO_BF16_LAUNCHES = {"unet_tpu": {"group_norm_leaky": 20},
                      "edsr": {"bias_epilogue": 2 * EDSR_BLOCKS + 2},
                      "simple": {},
                      "swinir": {"window_attention": SWIN_BLOCKS,
-                                "padded_layer_norm": 2 * SWIN_BLOCKS + 2}}
+                                "swin_mlp": SWIN_BLOCKS,
+                                "padded_layer_norm": SWIN_BLOCKS + 2}}
 ZOO_INT8_LAUNCHES = {
     "unet_tpu": {"group_norm_leaky": 13, "gn_quantize": 7,
                  "leaky_quantize": 13},
@@ -1414,20 +1417,123 @@ def check_padded_layer_norm(dev, gen) -> dict:
             "shape": [PLN_ROWS, PLN_CP], "c": PLN_C}
 
 
+# kernel M at SwinIR's served stream (64 slices of 256^2 tokens in rows of
+# 184, C 180, hidden 360); ragged row counts and the lightweight widths
+# checked too
+MLP_HIDDEN = 360
+MLP_CASES = ((PLN_ROWS, 180, 184, MLP_HIDDEN), (4099, 180, 184, MLP_HIDDEN),
+             (7, 180, 184, MLP_HIDDEN), (333, 180, 184, 100),
+             (1000, 180, 184, 384))
+
+
+def _mlp_block(c: int, hidden: int, dev, gen) -> tuple:
+    """norm2, fc1 and fc2 at the served model's scale (LN scale 1 +
+    N(0, 0.1), fc1 N(0, 1/c), fc2 at half the variance-keeping std, biases
+    N(0, 0.1))."""
+    norm = torch.nn.LayerNorm(c).to(dev)
+    fc1, fc2 = torch.nn.Linear(c, hidden).to(dev), \
+        torch.nn.Linear(hidden, c).to(dev)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen, device=dev))
+        norm.bias.copy_(0.1 * torch.randn(c, generator=gen, device=dev))
+        fc1.weight.copy_(torch.randn(hidden, c, generator=gen, device=dev)
+                         / c ** 0.5)
+        fc1.bias.copy_(0.1 * torch.randn(hidden, generator=gen, device=dev))
+        fc2.weight.copy_(0.5 * torch.randn(c, hidden, generator=gen,
+                                           device=dev) / hidden ** 0.5)
+        fc2.bias.copy_(0.1 * torch.randn(c, generator=gen, device=dev))
+    return norm, fc1, fc2
+
+
+def _mlp_unfused(x, norm, fc1, fc2):
+    """The served sequence kernel M replaced: the padded LayerNorm,
+    cuBLAS's fc1, PyTorch's GELU, cuBLAS's fc2 and the residual add."""
+    from mri_superresolution_torch.models import swinir as sw
+    h = F.gelu(sw._linear(sw._ln(x, norm, True), fc1, True))
+    return x + sw._linear(h, fc2, True)
+
+
+def check_swin_mlp(dev, gen) -> dict:
+    """Kernel M (``kernels/swin_mlp.py``): at each of MLP_CASES (rows whose
+    pad holds 7.0, which must reach nothing) within 2 bf16 ulps (2^-6) of
+    the largest output of its plain version, the pad written as zeros, the
+    same bits twice; then at SwinIR's served stream timed L2-cold beside
+    the plain version and the unfused served sequence it replaced
+    (``library_ms``: the padded LayerNorm, cuBLAS, GELU, cuBLAS, the add),
+    against its bound (4 C hidden operations a row at the bf16 peak; its
+    bytes bind less)."""
+    errs = []
+    for rows, c, cp, hidden in MLP_CASES:
+        norm, fc1, fc2 = _mlp_block(c, hidden, dev, gen)
+        x = (0.3 + torch.randn(rows, cp, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        x[:, c:] = 7.0
+        with torch.no_grad():
+            got = swin_mlp(x, norm, fc1, fc2, c)
+            same = torch.equal(got, swin_mlp(x, norm, fc1, fc2, c))
+            want = swin_mlp_plain(x, norm, fc1, fc2, c)
+        top = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        pad_zero = not bool(got[:, c:].any())
+        log("kernel_check", kernel="swin_mlp", rows=rows, c=c, width=cp,
+            hidden=hidden, max_abs_err=err, largest_output=top,
+            ulps=err / (BF16_RTOL * top),
+            bound=f"{2 * BF16_RTOL} of the largest output",
+            pad_zero=pad_zero, run_to_run_equal=same)
+        if not (err <= 2 * BF16_RTOL * top and same and pad_zero):
+            raise AssertionError(f"swin_mlp disagrees with its plain version "
+                                 f"at {rows} x {c}/{cp}, hidden {hidden}: "
+                                 f"{err} against {2 * BF16_RTOL * top} "
+                                 f"({same}, {pad_zero})")
+        errs.append(err)
+        del x, got, want
+    c, cp, hidden = PLN_C, PLN_CP, MLP_HIDDEN
+    norm, fc1, fc2 = _mlp_block(c, hidden, dev, gen)
+    x = torch.randn(PLN_ROWS, cp, generator=gen, device=dev).to(
+        torch.bfloat16)
+    x[:, c:] = 0
+    bnd, bound_by = bound_ms(mlp_bytes(PLN_ROWS, c),
+                             mlp_flops(PLN_ROWS, c, hidden), torch.bfloat16)
+    xs = l2_cold_copies(x)
+    with torch.no_grad():
+        k = cuda_ms_cold(lambda t: swin_mlp(t, norm, fc1, fc2, c), xs,
+                         iters=6)
+        p = cuda_ms(lambda: swin_mlp_plain(x, norm, fc1, fc2, c), iters=3,
+                    warmup=1)
+        lib = cuda_ms_cold(lambda t: _mlp_unfused(t, norm, fc1, fc2), xs,
+                           iters=6)
+    del xs, x
+    torch.cuda.empty_cache()
+    log("kernel_time", kernel="swin_mlp", rows=PLN_ROWS, c=c, width=cp,
+        hidden=hidden, kernel_ms=k, plain_ms=p, library_ms=lib, bound_ms=bnd,
+        bound_by=bound_by, bound_share=bnd / k,
+        launches_a_forward=SWIN_BLOCKS,
+        timing="kernel and library L2-cold, CUDA graph replays; plain CUDA "
+               "events",
+        library="the unfused served sequence: padded LayerNorm, cuBLAS "
+                "fc1, GELU, cuBLAS fc2, the add")
+    if min(k, p, lib) < bnd:
+        raise AssertionError(f"swin_mlp times below their {bnd} ms bound: "
+                             f"{k}, {p}, {lib}")
+    return {"ms": k, "plain_ms": p, "library_ms": lib,
+            "max_abs_err": max(errs), "bound_ms": bnd, "bound_by": bound_by,
+            "shape": [PLN_ROWS, cp], "c": c, "hidden": hidden}
+
+
 def check_swin_gemms(dev) -> dict:
-    """SwinIR's four token GEMMs (``F.linear`` with a bias) at the served
-    stream's 64 x 256^2 tokens, in rows of 180 (K and N as published) and
-    in the served forward's 16-byte rows (184; qkv's 540 outputs 544):
-    device ms by CUDA events, TFLOP/s of the rows' own work, and the
-    kernels cuBLAS took (a profiler over one call)."""
+    """SwinIR's token GEMMs on cuBLAS (``F.linear`` with a bias) at the
+    served stream's 64 x 256^2 tokens, in rows of 180 (K and N as
+    published) and in the served forward's 16-byte rows (184; qkv's 540
+    outputs 544): device ms by CUDA events, TFLOP/s of the rows' own work,
+    and the kernels cuBLAS took (a profiler over one call). qkv and proj:
+    fc1 and fc2 run inside kernel M on the served path."""
     from torch.profiler import ProfilerActivity, profile
     m = PLN_ROWS
-    hid = int(PLN_C * SWIN_CFG.mlp_ratio)
     out = {}
     for width in (PLN_C, PLN_CP):
         n3 = -(-3 * PLN_C // 8) * 8 if width != PLN_C else 3 * PLN_C
-        for name, (k, n) in (("qkv", (width, n3)), ("proj", (width, width)),
-                             ("fc1", (width, hid)), ("fc2", (hid, width))):
+        for name, (k, n) in (("qkv", (width, n3)),
+                             ("proj", (width, width))):
             a = torch.randn(m, k, device=dev, dtype=torch.bfloat16)
             wt = 0.05 * torch.randn(n, k, device=dev, dtype=torch.bfloat16)
             bias = torch.randn(n, device=dev, dtype=torch.bfloat16)
@@ -6498,8 +6604,11 @@ def main(argv=None) -> int:
             func = ln.split("Function properties for")[-1].strip()
         elif re.search(r"[1-9]\d* bytes spill stores", ln):
             spills.append(f"{func}: {ln.strip()}")
+    # each source's compile seconds (they count in a cold run's set-up)
+    by_source = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^== (\S+\.cu) \(rc \d+, ([\d.]+) s\)", "\n".join(lines), re.M)}
     log("build", seconds=time.perf_counter() - t0, library=str(lib),
-        ptxas=regs[:24], spills=spills)
+        ptxas=regs[:24], spills=spills, compile_seconds=by_source)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {"B1": check_b1(dev, gen), "B3": check_b3(dev, gen),
@@ -6509,7 +6618,8 @@ def main(argv=None) -> int:
                "B1 backward": check_b1_backward(dev, gen),
                "epilogue": check_epilogue(dev, gen),
                "window_attention": check_window_attention(dev, gen),
-               "padded_layer_norm": check_padded_layer_norm(dev, gen)}
+               "padded_layer_norm": check_padded_layer_norm(dev, gen),
+               "swin_mlp": check_swin_mlp(dev, gen)}
     check_swin_gemms(dev)
     # the remat leg's larger crop: B1's backward at its 20 sites
     check_b1_backward_sites(dev, gen, BATCH, LR, "remat leg's larger crop")
@@ -6680,6 +6790,19 @@ def main(argv=None) -> int:
                      "padded_layer_norm", 0) for col, phase in phases},
                  "phase_launches": dp["phase_launches"].get(
                      "padded_layer_norm", 0)})
+    r = results["swin_mlp"]
+    rows.append({"name": "swin_mlp", "route": "cuda",
+                 "source": torch_root + "swin_mlp.cu",
+                 "replaces": "none (the JAX package has no transformer)",
+                 "launches": sw["launches"]["swin_mlp"],
+                 "volume_launches": sw["volume"]["launches"].get(
+                     "swin_mlp", 0),
+                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "shape", "c", "hidden")},
+                 **{f"{col}_launches": phase["launches"].get(
+                     "swin_mlp", 0) for col, phase in phases},
+                 "phase_launches": dp["phase_launches"].get("swin_mlp", 0)})
     below = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
     if below:
         raise AssertionError(f"kernel times below their bound: {below}")

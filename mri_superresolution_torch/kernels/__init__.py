@@ -23,12 +23,14 @@ from mri_superresolution_torch.kernels.padded_layer_norm import (  # noqa: F401
 from mri_superresolution_torch.kernels.roll_probe import (  # noqa: F401
     roll32, roll_copy, taps3)
 from mri_superresolution_torch.kernels.ssim import ssim_per_sample  # noqa: F401
+from mri_superresolution_torch.kernels.swin_mlp import swin_mlp  # noqa: F401
 from mri_superresolution_torch.kernels.window_attention import (  # noqa: F401
     window_attention)
 
 WRAPPERS = (group_norm_leaky, group_norm_leaky_backward, conv3x3,
             ssim_per_sample, leaky_quantize, gn_quantize, roll_copy, roll32,
-            taps3, bias_epilogue, window_attention, padded_layer_norm)
+            taps3, bias_epilogue, window_attention, padded_layer_norm,
+            swin_mlp)
 
 
 def reset_launch_counts() -> None:

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -59,6 +60,7 @@ SIGNATURES = {
     "msr_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P],
     "msr_padded_layer_norm": [_P, _P, _P, _P, _LL, _I, _I, _F, _P],
+    "msr_swin_mlp": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
 }
 
 
@@ -92,8 +94,8 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile every source (in parallel) and link the library, unless a
     library of the same sources exists. Returns its path; the compiler's
-    output, ptxas's register and spill report included, is kept in
-    ``build.log`` beside it."""
+    output, ptxas's register and spill report and each source's compile
+    seconds included, is kept in ``build.log`` beside it."""
     lib = library_path()
     if lib.exists():
         return lib
@@ -104,27 +106,29 @@ def build() -> Path:
 
     def compile_one(src: Path):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        t0 = time.perf_counter()
         r = subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                            capture_output=True, text=True)
-        return src, obj, r
+        return src, obj, r, time.perf_counter() - t0
 
     with ThreadPoolExecutor(max_workers=len(cus)) as pool:
         results = list(pool.map(compile_one, cus))
     log = []
-    for src, _, r in results:
-        log.append(f"== {src.name} (rc {r.returncode})\n{r.stdout}{r.stderr}")
-    failed = [src.name for src, _, r in results if r.returncode != 0]
+    for src, _, r, sec in results:
+        log.append(f"== {src.name} (rc {r.returncode}, {sec:.1f} s)\n"
+                   f"{r.stdout}{r.stderr}")
+    failed = [src.name for src, _, r, _ in results if r.returncode != 0]
     if not failed:
         tmp = BUILD_DIR / f"{tag}.so"
         r = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-                            *[str(o) for _, o, _ in results]],
+                            *[str(o) for _, o, _, _ in results]],
                            capture_output=True, text=True)
         log.append(f"== link (rc {r.returncode})\n{r.stdout}{r.stderr}")
         if r.returncode != 0:
             failed.append("link")
         else:
             os.replace(tmp, lib)
-    for _, obj, _ in results:
+    for _, obj, _, _ in results:
         obj.unlink(missing_ok=True)
     text = "\n".join(log)
     (BUILD_DIR / "build.log").write_text(text)

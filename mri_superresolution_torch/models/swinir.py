@@ -33,10 +33,12 @@ channels are then 16-byte aligned, which cuBLAS's and cuDNN's Hopper
 kernels need (180-wide rows took sm80 ``align2`` GEMM tiles and cuDNN's
 padding pass on each conv). The weights are cast into zero-padded bf16
 copies on each forward, as the unpadded path casts them, and nothing is
-kept on the module. Each LayerNorm there is ``kernels.padded_layer_norm``
-(74 a forward published), which normalises the first C channels with the
-fp32 scale and shift as they are (no padded copy) and writes the pad as
-zeros; the residual adds, GELU and the RSTB skip keep zeros at zero, and
+kept on the module. The MLP half of each block there is one launch of
+``kernels.swin_mlp`` (LN2, fc1, GELU, fc2 and the residual add; 36 a
+forward published), every other LayerNorm ``kernels.padded_layer_norm``
+(38 a forward published): both normalise the first C channels with the
+fp32 scale and shift as they are (no padded copy) and write the pad as
+zeros; the residual adds and the RSTB skip keep zeros at zero, and
 ``conv_before_upsample`` takes the Cp channels with zero weights on the
 pad. Training, the CPU, fp32 and every grad-enabled call take the
 unpadded ops. The convs keep cuDNN's bias.
@@ -57,6 +59,8 @@ import torch.nn.functional as F
 from mri_superresolution_torch.kernels import _build
 from mri_superresolution_torch.kernels.padded_layer_norm import (
     padded_layer_norm)
+from mri_superresolution_torch.kernels.swin_mlp import (
+    serves as mlp_serves, swin_mlp)
 from mri_superresolution_torch.kernels.window_attention import (
     serves, window_attention)
 from mri_superresolution_torch.models.unet import CL, _conv, _conv3
@@ -158,11 +162,13 @@ class SwinBlock(nn.Module):
                                  a.heads, a.window, self.shift, c,
                                  x.shape[-1])
             x = x + _linear(y, a.proj, served)
+        m = self.mlp
         with span("swin.mlp", x.device):
-            h = F.gelu(_linear(_ln(x, self.norm2, served), self.mlp.fc1,
-                               served))
-            x = x + _linear(h, self.mlp.fc2, served)
-        return x
+            if served and mlp_serves(x.shape[-1], m.fc1.out_features,
+                                     x.dtype):
+                return swin_mlp(x, self.norm2, m.fc1, m.fc2, c)
+            h = F.gelu(_linear(_ln(x, self.norm2, served), m.fc1, served))
+            return x + _linear(h, m.fc2, served)
 
 
 class ResidualGroup(nn.Module):

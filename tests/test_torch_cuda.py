@@ -336,7 +336,7 @@ def test_unet_on_card_matches_cpu(dev):
         "conv3x3": 2, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
         "taps3": 0, "bias_epilogue": 0, "window_attention": 0,
-        "padded_layer_norm": 0}
+        "padded_layer_norm": 0, "swin_mlp": 0}
     np.testing.assert_allclose(got, cpu.upscale_batch(x), rtol=1e-4,
                                atol=1e-4)
     m = InferenceEngine.calculate_metrics(got[0], got[1], dev)
@@ -1514,17 +1514,98 @@ def test_padded_layer_norm_kernel_refuses(dev):
         padded_layer_norm(flat[1:].view(4, 184), w, b, 1e-5)
 
 
+def _mlp_block(c, hidden, dev, seed=0):
+    """norm2, fc1 and fc2 of a Swin block at C = c on the card, at the
+    served model's scale (LN scale 1 + N(0, 0.1), fc1 N(0, 1/c), fc2 at
+    half the variance-keeping std, biases N(0, 0.1))."""
+    gen = torch.Generator().manual_seed(seed)
+    norm, fc1, fc2 = torch.nn.LayerNorm(c), torch.nn.Linear(c, hidden), \
+        torch.nn.Linear(hidden, c)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen))
+        norm.bias.copy_(0.1 * torch.randn(c, generator=gen))
+        fc1.weight.copy_(torch.randn(hidden, c, generator=gen) / c ** 0.5)
+        fc1.bias.copy_(0.1 * torch.randn(hidden, generator=gen))
+        fc2.weight.copy_(0.5 * torch.randn(c, hidden, generator=gen) /
+                         hidden ** 0.5)
+        fc2.bias.copy_(0.1 * torch.randn(c, generator=gen))
+    return norm.to(dev), fc1.to(dev), fc2.to(dev)
+
+
+@pytest.mark.parametrize("lead,c,cp,hidden", [
+    ((4099,), 180, 184, 360),            # ragged: 32 tiles of 128 and 3
+    ((16, 256, 256), 180, 184, 360),     # the served stream, 16 slices
+    ((3, 11, 5), 180, 184, 100),         # a hidden of 2 chunks, ragged
+    ((1000,), 180, 184, 384)])           # the widest hidden, 6 chunks
+def test_swin_mlp_kernel(dev, lead, c, cp, hidden):
+    """Kernel M against its plain version, the same arithmetic in PyTorch
+    (LN, the hidden and the output rounded once each to bf16, fp32 sums in
+    another order): within 2 bf16 ulps of the largest output, since each
+    side rounds the output once and an LN output or hidden element that
+    rounds to its other neighbour moves an output by a small part of an
+    ulp. The pad written as zeros though the input's pad holds 7.0, the
+    same bits twice, one launch a call, a new tensor (x left as it was)."""
+    from mri_superresolution_torch.kernels.swin_mlp import (
+        swin_mlp, swin_mlp_plain)
+    norm, fc1, fc2 = _mlp_block(c, hidden, dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = (0.3 + torch.randn(*lead, cp, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    x[..., c:] = 7.0
+    kept = x.clone()
+    swin_mlp.launches = 0
+    with torch.no_grad():
+        got = swin_mlp(x, norm, fc1, fc2, c)
+        again = swin_mlp(x, norm, fc1, fc2, c)
+        want = swin_mlp_plain(x, norm, fc1, fc2, c)
+    torch.cuda.synchronize()
+    assert swin_mlp.launches == 2
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert got.data_ptr() != x.data_ptr() and torch.equal(x, kept)
+    assert torch.equal(got, again)
+    assert not got[..., c:].any()
+    top = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    print(f"swin_mlp {tuple(lead)} C {c}/{cp} hidden {hidden}: largest gap "
+          f"{err / (BF16_RTOL * top):.3f} bf16 ulps of the largest output "
+          f"{top:.3f}")
+    assert err <= 2 * BF16_RTOL * top
+
+
+def test_swin_mlp_kernel_refuses(dev):
+    """On a CUDA tensor the wrapper launches the kernel or raises: a width
+    it has no instance for, fp32, a misaligned start, a gradient."""
+    from mri_superresolution_torch.kernels.swin_mlp import swin_mlp
+    norm, fc1, fc2 = _mlp_block(180, 360, dev)
+    x = torch.randn(4, 184, device=dev).bfloat16()
+    swin_mlp.launches = 0
+    with torch.no_grad():
+        n96, f96, g96 = _mlp_block(90, 180, dev)
+        with pytest.raises(ValueError, match="rows of"):
+            swin_mlp(torch.randn(4, 96, device=dev).bfloat16(), n96, f96,
+                     g96, 90)
+        with pytest.raises(ValueError, match="bfloat16"):
+            swin_mlp(x.float(), norm, fc1, fc2, 180)
+        flat = torch.zeros(1 + 4 * 184, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            swin_mlp(flat[1:].view(4, 184), norm, fc1, fc2, 180)
+    with pytest.raises(RuntimeError, match="no backward"):
+        swin_mlp(x, norm, fc1, fc2, 180)
+    assert swin_mlp.launches == 0
+
+
 def test_swinir_served_forward_launches_the_kernel(dev):
-    """The published widths' bf16 forward with grad off: W 36 launches and
-    the padded LayerNorm 74 (2 a block, the patch norm, the final norm),
-    each a span that counts its slices or rows, no torch.roll, no softmax
-    (no materialized scores) and no PyTorch LayerNorm; the output within
-    bf16's reach of the fp32 forward on the CPU. With grad on, neither
-    kernel runs."""
+    """The published widths' bf16 forward with grad off: W 36 launches,
+    the fused MLP half 36 (one a block) and the padded LayerNorm 38 (LN1
+    of each block, the patch norm, the final norm), each a span that
+    counts its slices or rows, no torch.roll, no softmax (no materialized
+    scores), no PyTorch LayerNorm and no GELU; the output within bf16's
+    reach of the fp32 forward on the CPU. With grad on, no kernel runs."""
     import time
     from torch.profiler import ProfilerActivity, profile
     from mri_superresolution_torch.kernels.padded_layer_norm import (
         padded_layer_norm)
+    from mri_superresolution_torch.kernels.swin_mlp import swin_mlp
     from mri_superresolution_torch.kernels.window_attention import (
         window_attention)
     from mri_superresolution_torch.utils import spans
@@ -1536,26 +1617,31 @@ def test_swinir_served_forward_launches_the_kernel(dev):
     x = torch.rand(2, 36, 44, 1, generator=torch.Generator().manual_seed(1))
     window_attention.launches = 0
     padded_layer_norm.launches = 0
+    swin_mlp.launches = 0
     t0 = time.time_ns()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as p:
         got = model(x.to(dev))
     torch.cuda.synchronize()
     assert window_attention.launches == 36
-    assert padded_layer_norm.launches == 74
-    # each launch's span counts its slices (W) or rows (the LayerNorm) of
-    # the frame padded to the window, 40 x 48
+    assert swin_mlp.launches == 36
+    assert padded_layer_norm.launches == 38
+    # each launch's span counts its slices (W) or rows (the LayerNorm, the
+    # MLP half) of the frame padded to the window, 40 x 48
     recs = spans.records(t0, time.time_ns())
     assert [r.count for r in recs if r.name == "kernel.window_attention"] \
         == [2] * 36
     assert [r.count for r in recs if r.name == "kernel.swin_layer_norm"] \
-        == [2 * 40 * 48] * 74
+        == [2 * 40 * 48] * 38
+    assert [r.count for r in recs if r.name == "kernel.swin_mlp"] \
+        == [2 * 40 * 48] * 36
     ops = {e.key for e in p.key_averages()}
     assert not ops & {"aten::roll", "aten::softmax", "aten::_softmax",
-                      "aten::layer_norm", "aten::native_layer_norm"}, ops
+                      "aten::layer_norm", "aten::native_layer_norm",
+                      "aten::gelu"}, ops
     with torch.enable_grad():
         model(x.to(dev))
-    assert (window_attention.launches, padded_layer_norm.launches) == \
-        (36, 74)
+    assert (window_attention.launches, padded_layer_norm.launches,
+            swin_mlp.launches) == (36, 38, 36)
     ref = build_model(cfg)
     ref.load_state_dict(params)
     with torch.no_grad():
@@ -1594,8 +1680,8 @@ def test_swinir_padded_rows_match_the_unpadded_served_path(dev):
 def test_swinir_served_forward_takes_aligned_kernels_only(dev):
     """A served forward of 16 slices of 256^2 at the published widths:
     among its device kernels no sm80 ``align2`` GEMM (cuBLAS's choice for
-    180-wide rows), no PyTorch LayerNorm and no cuDNN channel padding;
-    the padded LayerNorm and W are there."""
+    180-wide rows), no PyTorch LayerNorm, no cuDNN channel padding and no
+    GELU pass; the padded LayerNorm, W and the fused MLP half are there."""
     from torch.profiler import ProfilerActivity, profile
     cfg = ModelConfig(model_type="swinir", base_filters=180, num_blocks=6)
     model = build_model(cfg, dtype=torch.bfloat16,
@@ -1612,7 +1698,9 @@ def test_swinir_served_forward_takes_aligned_kernels_only(dev):
     names = {e.key for e in p.key_averages()
              if e.device_type.name == "CUDA"}
     for bad in ("cutlass_80_tensorop_bf16_s16816gemm",
-                "vectorized_layer_norm_kernel", "nhwcAddPaddingKernel"):
+                "vectorized_layer_norm_kernel", "nhwcAddPaddingKernel",
+                "GeluCUDA"):
         assert not [n for n in names if bad in n], (bad, names)
     assert [n for n in names if "padded_ln_kernel" in n]
     assert [n for n in names if "window_attention_kernel" in n]
+    assert [n for n in names if "swin_mlp_kernel" in n]

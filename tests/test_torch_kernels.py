@@ -232,12 +232,15 @@ def test_cpu_calls_do_not_count_as_launches():
                              torch.randn(225, 2), 2, 8, 4)
     kernels.padded_layer_norm(torch.randn(2, 8).bfloat16(), torch.ones(6),
                               torch.zeros(6), 1e-5)
+    with torch.no_grad():
+        kernels.swin_mlp(torch.randn(2, 8).bfloat16(), torch.nn.LayerNorm(6),
+                         torch.nn.Linear(6, 12), torch.nn.Linear(12, 6), 6)
     assert kernels.launch_counts() == {
         "group_norm_leaky": 0, "group_norm_leaky_backward": 0,
         "conv3x3": 0, "ssim_per_sample": 0,
         "leaky_quantize": 0, "gn_quantize": 0, "roll_copy": 0, "roll32": 0,
         "taps3": 0, "bias_epilogue": 0, "window_attention": 0,
-        "padded_layer_norm": 0}
+        "padded_layer_norm": 0, "swin_mlp": 0}
 
 
 # ------------------------------------------- the served kernels as operators
